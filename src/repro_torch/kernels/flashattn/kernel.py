@@ -1,0 +1,86 @@
+"""CUDA wrapper of ``flash_attn_lib`` (``csrc/flashattn.cu``), the port of
+``repro/kernels/flashattn/kernel.py`` ``flash_attention_lib`` /
+``_flash_lib_kernel``.
+
+One block serves the g = H / KVH query heads of a KV head for ``tq`` query
+positions (g * tq <= 64 rows), so every K/V tile it streams is read once per
+group. Tensors are passed by strides: q and out in the caller's (B, S, H, D)
+layout, K/V as views of the (B, KVH, S, D) cache or of the prompt's
+(B, S, KVH, D) projections, without copies.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.interp.kernel import slot_args
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_ROWS = 64  # query rows per block
+MAX_ACC = 8192  # rows * Dv accumulators per block (32 per thread)
+
+
+def query_tile(sq: int, g: int, dv: int) -> int:
+    """Query positions per block: fill up to MAX_ROWS rows of g heads."""
+    if g > MAX_ROWS or g * dv > MAX_ACC:
+        raise ValueError(f"flash_attn_lib: kv group {g} x Dv {dv} exceeds "
+                         f"one block ({MAX_ROWS} rows, {MAX_ACC} accumulators)")
+    return max(1, min(sq, MAX_ROWS // g, MAX_ACC // (g * dv)))
+
+
+def flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: (B, Sq, H, D); k: (B, Sk, KVH, D); v: (B, Sk, KVH, Dv), any
+    strides with a contiguous last dim; q_pos (B, Sq), kv_pos (B, Sk) int32
+    (-1 = padded row / dead slot). Returns (B, Sq, H, Dv) in v's dtype."""
+    b, sq, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if h % kvh or k.shape[0] != b or v.shape[:3] != k.shape[:3] \
+            or k.shape[-1] != d:
+        raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attn_lib takes one dtype of float32 or "
+                        f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d > 256 or dv > 256:
+        raise ValueError(f"head dims {d}/{dv} exceed 256")
+    dev = q.device
+    epw = 2 if q.dtype == torch.bfloat16 else 1
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, q on {dev}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} needs a contiguous last dim")
+    for name, t in (("k", k), ("v", v)):  # K/V are read as 32-bit words
+        if t.shape[-1] % epw or any(s % epw for s in t.stride()[:3]) \
+                or t.data_ptr() % 4:
+            raise ValueError(f"{name} rows are not 4-byte aligned")
+    g = h // kvh
+    tq = query_tile(sq, g, dv)
+    q_pos = q_pos.to(device=dev, dtype=torch.int32).contiguous()
+    kv_pos = kv_pos.to(device=dev, dtype=torch.int32).contiguous()
+    if q_pos.shape != (b, sq) or kv_pos.shape != (b, sk):
+        raise ValueError(f"positions {tuple(q_pos.shape)} / "
+                         f"{tuple(kv_pos.shape)} for B={b} Sq={sq} Sk={sk}")
+    rom = library.coeffs
+    if rom.device != dev:
+        raise ValueError(f"library ROM on {rom.device}, q on {dev}")
+    out = torch.empty((b, sq, h, dv), dtype=v.dtype, device=dev)
+    strides = []
+    for t in (q, k, v, out):  # (batch, head, position) element strides
+        strides += [t.stride(0), t.stride(2), t.stride(1)]
+    scale = (d ** -0.5) if scale is None else scale
+    lib = build.load()
+    rc = lib.repro_flash_attn_lib(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_pos.data_ptr(), kv_pos.data_ptr(), rom.data_ptr(),
+        build.int_array(slot_args(library, "exp2neg")),
+        build.int_array(slot_args(library, "recip")),
+        build.int_array(strides, build.ctypes.c_int64),
+        build.int_array([b, h, kvh, sq, sk, d, dv, tq]), int(causal),
+        -1 if window is None else int(window), float(scale),
+        _DTYPES[q.dtype], dev.index or 0, build.stream_of(dev))
+    build.check("flash_attn_lib", rc)
+    build.LAUNCHES["flash_attn_lib"] += 1
+    return out

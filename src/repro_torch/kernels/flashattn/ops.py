@@ -1,0 +1,33 @@
+"""Library-bound fused attention (twin of ``repro/kernels/flashattn/ops.py``
+``attention_fused_library``): the CUDA kernel for CUDA tensors, the plain
+unchunked version for CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flashattn.kernel import flash_attn_lib_cuda
+from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
+
+
+def attention_fused_library(q, k, v, library, *, causal: bool = True,
+                            scale: float | None = None,
+                            window: int | None = None, q_pos=None,
+                            kv_pos=None) -> torch.Tensor:
+    """(B, Sq, H, D) attention with the library's exp2neg and recip tables
+    read in-kernel. ``q_pos`` / ``kv_pos``: (B, S*) absolute positions
+    (-1 = dead KV slot / padded query row); ``None`` = ``arange``. Grouped
+    K/V (B, Sk, KVH, D*) pass unexpanded."""
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} KV")
+    if not q.is_cuda:
+        return attention_fused_library_ref(q, k, v, library, causal=causal,
+                                           scale=scale, window=window,
+                                           q_pos=q_pos, kv_pos=kv_pos)
+    b, sq, _, _ = q.shape
+    sk = k.shape[1]
+    if q_pos is None:
+        q_pos = torch.arange(sq, dtype=torch.int32, device=q.device).expand(b, sq)
+    if kv_pos is None:
+        kv_pos = torch.arange(sk, dtype=torch.int32, device=q.device).expand(b, sk)
+    return flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, causal=causal,
+                               window=window, scale=scale)

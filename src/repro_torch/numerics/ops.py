@@ -1,0 +1,253 @@
+"""Numerics backends handed to the model stack (twin of
+``repro/numerics/ops.py``).
+
+The float glue (max-subtract, exponent split, power-of-two scaling) mirrors
+the reference's operation order; only the integer table reads carry
+approximation error. ``FusedInterpNumerics`` lowers rmsnorm, the attention
+inner loop and the activations to the library-bound kernels on a CUDA device
+(their plain versions on the CPU). ``PlainFusedNumerics`` runs the same
+fused datapath through the plain versions on any device: it is the oracle a
+card run holds the kernel path against.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.interp.ref import LOG2E, pow2
+
+_F32 = torch.float32
+
+
+def _quantize(v: torch.Tensor, bits: int) -> torch.Tensor:
+    """Map v in [0, 1) to an input code (round half to even, clamped)."""
+    q = torch.round(v * (1 << bits)).to(torch.int32)
+    return torch.clamp(q, 0, (1 << bits) - 1)
+
+
+# ---------------------------------------------------------------------------
+# float glue, parameterized over the integer table evaluator ``ev`` (int32
+# codes -> integer table output); one implementation of each.
+# ---------------------------------------------------------------------------
+
+def _exp_neg_glue(x, in_bits: int, out_bits: int, ev) -> torch.Tensor:
+    """exp(x) for x <= 0:  2^(x*log2e) = 2^(-n) * tab(-f)."""
+    t = torch.clamp(-x, min=0.0).to(_F32) * LOG2E
+    t = torch.clamp(t, max=126.0)
+    n = torch.floor(t)
+    f = t - n
+    codes = _quantize(f, in_bits)
+    frac = ev(codes).to(_F32) * (2.0 ** -out_bits)
+    return frac * pow2(-n)
+
+
+def _recip_pos_glue(x, in_bits: int, ev) -> torch.Tensor:
+    """1/(m * 2^e) = recip(m) * 2^-e,  m in [1, 2)."""
+    m, e = torch.frexp(x.to(_F32))  # m in [0.5, 1)
+    m2 = 2.0 * m
+    codes = _quantize(m2 - 1.0, in_bits)
+    val = ev(codes).to(_F32) * (2.0 ** -(in_bits + 1))
+    return val * pow2(1 - e)
+
+
+def _rsqrt_pos_glue(x, in_bits: int, out_bits: int, ev) -> torch.Tensor:
+    """x = v * 4^h, v in [1,4);  rsqrt = tab(v) * 2^-h."""
+    m, e = torch.frexp(x.to(_F32))
+    e = e.to(torch.int32)
+    odd = (e & 1) == 1
+    v = torch.where(odd, 2.0 * m, 4.0 * m)
+    h = torch.where(odd, torch.div(e - 1, 2, rounding_mode="floor"),
+                    torch.div(e - 2, 2, rounding_mode="floor"))
+    half = 1 << (in_bits - 1)
+    codes = torch.where(odd, _quantize(v - 1.0, in_bits - 1),
+                        half + _quantize((v - 2.0) * 0.5, in_bits - 1))
+    codes = torch.clamp(codes, 0, (1 << in_bits) - 1).to(torch.int32)
+    val = ev(codes).to(_F32) * (2.0 ** -out_bits)
+    return val * pow2(-h)
+
+
+def _range_glue(x, in_bits: int, out_bits: int, span: float, ev,
+                lo: float, hi: float) -> torch.Tensor:
+    """Direct table over [lo, hi): quantize the window, rescale the output."""
+    xc = torch.clamp(x.to(_F32), lo, hi - 1e-6)
+    codes = _quantize((xc - lo) / (hi - lo), in_bits)
+    return ev(codes).to(_F32) * (span / (1 << out_bits))
+
+
+def _act_tails(kind: str, x, y, lo: float, hi: float) -> torch.Tensor:
+    """Outside the table window the activations are linear (right tail) or
+    saturate; sigmoid saturates to 1/0, tanh to 1/-1, the rest to x/0."""
+    top = 1.0 if kind in ("sigmoid", "tanh") else x
+    bot = -1.0 if kind == "tanh" else 0.0
+    inner = torch.where(x <= lo, bot, y)
+    return torch.where(x >= hi, top, inner).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# backends
+# ---------------------------------------------------------------------------
+
+class ExactNumerics:
+    """Plain PyTorch transcendentals (the no-technique baseline). The dense
+    decoder's ops only; the other activations and softmax port with the
+    model families that use them."""
+
+    silu = staticmethod(F.silu)
+
+    @staticmethod
+    def exp_neg(x):
+        return torch.exp(x)
+
+    @staticmethod
+    def rmsnorm(x, gamma, eps=1e-6):
+        xf = x.to(_F32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True) + eps
+        return (xf * torch.rsqrt(var) * gamma).to(x.dtype)
+
+    @staticmethod
+    def recip_pos(x):
+        return 1.0 / x
+
+
+class InterpNumerics:
+    """The paper's technique as the model's numerics backend, bound to a
+    compiled :class:`repro_torch.api.InterpLibrary` (every table read goes
+    through the library ROM)."""
+
+    def __init__(self, library):
+        if library is None:
+            raise ValueError("interp numerics need an InterpLibrary "
+                             "(InterpLibrary.default_library(device))")
+        self.library = library
+
+    def _eval(self, kind: str):
+        """The integer evaluator of ``kind``: int32 codes -> table output."""
+        lib = self.library
+        return lambda c: lib.eval_int(c, kind)
+
+    def _ev(self, kind: str):
+        m = self.library.meta(kind)
+        return m.in_bits, m.out_bits, self._eval(kind)
+
+    def exp_neg(self, x):
+        ib, ob, ev = self._ev("exp2neg")
+        return _exp_neg_glue(x, ib, ob, ev)
+
+    def recip_pos(self, x):
+        ib, _, ev = self._ev("recip")
+        return _recip_pos_glue(x, ib, ev)
+
+    def rsqrt_pos(self, x):
+        ib, ob, ev = self._ev("rsqrt")
+        return _rsqrt_pos_glue(x, ib, ob, ev)
+
+    def _act(self, kind: str, x):
+        m = self.library.meta(kind)
+        y = _range_glue(x, m.in_bits, m.out_bits, m.act_span,
+                        self._eval(kind), m.act_lo, m.act_hi)
+        return _act_tails(kind, x, y, m.act_lo, m.act_hi)
+
+    def silu(self, x):
+        return self._act("silu", x)
+
+    def rmsnorm(self, x, gamma, eps: float = 1e-6):
+        xf = x.to(_F32)
+        var = torch.mean(xf * xf, dim=-1, keepdim=True) + eps
+        return (xf * self.rsqrt_pos(var) * gamma).to(x.dtype)
+
+
+class FusedInterpNumerics(InterpNumerics):
+    """Library-bound interp numerics lowered to the fused kernels: rmsnorm
+    (``rmsnorm_lib``), the attention inner loop (``flash_attn_lib``) and
+    the activations (``library_eval``) read the library ROM in-kernel.
+
+    As in the reference, the fused rsqrt / recip glue derives table codes by
+    IEEE-754 bit twiddles where the unfused glue uses ``frexp``; composite
+    outputs may differ from :class:`InterpNumerics` by one table ulp, so
+    fused runs are held against fused runs.
+    """
+
+    def rmsnorm(self, x, gamma, eps: float = 1e-6):
+        from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
+
+        return approx_rmsnorm_library(x, gamma, self.library, eps=eps
+                                      ).to(x.dtype)
+
+    def _attention(self, q, k, v, **kw):
+        from repro_torch.kernels.flashattn.ops import attention_fused_library
+
+        return attention_fused_library(q, k, v, self.library, **kw)
+
+    def fused_attention(self, q, k, v, q_pos, kv_pos, *, causal, window,
+                        scale):
+        """The ``attention_core`` fast path; None sends the caller to the
+        chunked glue path (the reference's routing: Sk > 4096 always, and
+        Sq * Sk > 2^22 where the plain version would form the whole score
+        block, which here means on the CPU)."""
+        h, kvh = q.shape[2], k.shape[2]
+        if h % kvh:
+            return None
+        if k.shape[1] > 4096:
+            return None
+        if q.shape[1] * k.shape[1] > (1 << 22) and not q.is_cuda:
+            return None
+        return self._attention(q, k, v, causal=causal, window=window,
+                               scale=scale, q_pos=q_pos, kv_pos=kv_pos)
+
+
+class PlainFusedNumerics(FusedInterpNumerics):
+    """The fused datapath through the kernels' plain versions on any device
+    (no kernel launches): the oracle that a card run compares the kernel
+    path with."""
+
+    def _eval(self, kind: str):
+        from repro_torch.kernels.interp.ref import library_eval_ref
+
+        lib = self.library
+        fid = lib.func_id(kind)
+
+        def ev(codes):
+            fids = torch.full_like(codes, fid, dtype=torch.int32)
+            return library_eval_ref(codes, fids, lib.coeffs, lib.meta_rows())
+        return ev
+
+    def rmsnorm(self, x, gamma, eps: float = 1e-6):
+        from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+
+        return approx_rmsnorm_library_ref(x, gamma, self.library, eps=eps
+                                          ).to(x.dtype)
+
+    def _attention(self, q, k, v, **kw):
+        from repro_torch.kernels.flashattn.ref import \
+            attention_fused_library_ref
+
+        return attention_fused_library_ref(q, k, v, self.library, **kw)
+
+
+def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
+    """A numerics backend instance for a model config (or backend name).
+    ``fused=True`` or the ``"interp-fused"`` name selects the fused-kernel
+    lowering. Per-layer plans are not ported: a config carrying one raises.
+    """
+    if getattr(cfg_or_name, "plan", None) is not None:
+        raise NotImplementedError("per-layer numerics plans are not ported")
+    name = getattr(cfg_or_name, "numerics", cfg_or_name)
+    if name == "exact":
+        return ExactNumerics()
+    if name == "interp-fused" or (name == "interp" and fused):
+        return FusedInterpNumerics(library)
+    if name == "interp":
+        return InterpNumerics(library)
+    raise KeyError(f"unknown numerics backend {name!r}")
+
+
+def softmax_ulp_bound(exp_meta, recip_meta) -> float:
+    """Certified relative error bound of table-softmax terms from the
+    tables' widths (``FuncMeta`` or ``TableDesign``): the twin of the
+    reference's bound, used to state attention tolerances."""
+    exp_rel = ((2.0 ** -exp_meta.out_bits) * 2
+               + math.log(2.0) * 2.0 ** -(exp_meta.in_bits + 1))
+    recip_rel = 2.0 ** -recip_meta.in_bits
+    return 2 * exp_rel + 2 * recip_rel

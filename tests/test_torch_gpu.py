@@ -1,0 +1,207 @@
+"""Card-only tests of the port: each CUDA kernel against its plain version
+at the main path's widths, and the smoke model and engine through the
+kernels. Marked ``gpu``; without a card they skip. Run on a machine with an
+H100 as ``pytest -m gpu tests/test_torch_gpu.py`` (this file imports neither
+jax nor repro, so it runs where only the port is installed).
+
+Tolerances:
+* library_eval: bit-exact (integer datapath).
+* rmsnorm_lib: the kernel reduces mean(x^2) in another order than torch, so
+  a code may move by one step: 2 rsqrt-table ulps (2 * 2^-(out_bits-1)
+  relative) plus one output rounding (2^-7 relative in bf16).
+* flash_attn_lib: the kernel is chunked (64-key tiles) and the plain
+  version is not; each running correction is a table read, so
+  |diff| <= (n_tiles + 2) * softmax_ulp_bound * max|v|, plus one bf16
+  rounding of p and of the output (2^-7 * (max|v| + |out|)) in bf16.
+  Against the tile-by-tile twin with the same 64-key tiles only float
+  reassociation remains: one table-code flip (softmax_ulp_bound * max|v|)
+  plus one output rounding (2^-8 * |out| in bf16).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api.library import InterpLibrary
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.kernels import build
+from repro_torch.kernels.flashattn.ops import attention_fused_library
+from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
+from repro_torch.kernels.interp.ops import library_eval
+from repro_torch.kernels.interp.ref import library_eval_ref
+from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
+from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+from repro_torch.models import transformer as tf
+from repro_torch.numerics.ops import (FusedInterpNumerics, PlainFusedNumerics,
+                                      softmax_ulp_bound)
+from repro_torch.serve.engine import Request, ServeEngine
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: pytest -m gpu tests/test_torch_gpu.py")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def lib(dev):
+    return InterpLibrary.default_library(dev)
+
+
+def test_all_codes_every_kind_bit_exact(lib, dev):
+    codes = torch.arange(4096, dtype=torch.int32, device=dev)
+    for kind in lib.kinds:
+        fid = lib.func_id(kind)
+        got = lib.eval_int(codes, kind)
+        want = library_eval_ref(codes, torch.full_like(codes, fid),
+                                lib.coeffs, lib.meta_rows())
+        assert torch.equal(got, want), kind
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 11008), (1, 512, 11008)])
+def test_library_eval_silu_shapes(shape, lib, dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    codes = torch.randint(0, 4096, shape, dtype=torch.int32, device=dev,
+                          generator=g)
+    fids = torch.randint(0, len(lib), shape, dtype=torch.int32, device=dev,
+                         generator=g)
+    n0 = build.LAUNCHES["library_eval"]
+    silu = lib.func_id("silu")
+    assert torch.equal(library_eval(codes, silu, lib.coeffs, lib.meta_rows()),
+                       library_eval_ref(codes, torch.full_like(codes, silu),
+                                        lib.coeffs, lib.meta_rows()))
+    assert torch.equal(library_eval(codes, fids, lib.coeffs, lib.meta_rows()),
+                       library_eval_ref(codes, fids, lib.coeffs,
+                                        lib.meta_rows()))
+    assert build.LAUNCHES["library_eval"] == n0 + 2
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(4, 4096, torch.bfloat16),
+                                          (512, 4096, torch.bfloat16),
+                                          (7, 1000, torch.float32)])
+def test_rmsnorm_kernel_matches_plain(rows, d, dtype, lib, dev):
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = (torch.randn(rows, d, device=dev, generator=g) *
+         torch.rand(rows, 1, device=dev, generator=g) * 10).to(dtype)
+    gamma = torch.rand(d, device=dev, generator=g) + 0.5
+    n0 = build.LAUNCHES["rmsnorm_lib"]
+    got = approx_rmsnorm_library(x, gamma, lib).float()
+    want = approx_rmsnorm_library_ref(x, gamma, lib).float()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm_lib"] == n0 + 1
+    tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1)
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7
+    assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
+
+
+def _flash_case(mode, dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(1)
+    kw = dict(device=dev, dtype=dtype)
+    if mode == "decode":  # Yi-6B decode: 4 slots, 1024-row cache, dead rows
+        b, sq, sk, h, kvh, d = 4, 1, 1024, 32, 4, 128
+        kc = torch.randn(b, kvh, sk, d, generator=g, **kw)
+        vc = torch.randn(b, kvh, sk, d, generator=g, **kw)
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)  # cache views
+        lens = torch.tensor([17, 300, 1000, 600], device=dev)
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk).clone()
+        kv_pos[kv_pos >= lens[:, None]] = -1
+        q_pos = (lens - 1)[:, None]
+        window = None
+    elif mode == "prefill":  # Yi-6B causal prefill, Sq = Sk = 512
+        b, sq, sk, h, kvh, d = 1, 512, 512, 32, 4, 128
+        k = torch.randn(b, sk, kvh, d, generator=g, **kw)
+        v = torch.randn(b, sk, kvh, d, generator=g, **kw)
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk)
+        q_pos = kv_pos
+        window = None
+    else:  # small GQA with a window, padded query rows, ragged last tile
+        b, sq, sk, h, kvh, d = 2, 37, 100, 6, 2, 16
+        k = torch.randn(b, sk, kvh, d, generator=g, **kw)
+        v = torch.randn(b, sk, kvh, d, generator=g, **kw)
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk).clone()
+        kv_pos[1, 80:] = -1
+        q_pos = torch.arange(63, 100, device=dev).expand(b, sq).clone()
+        q_pos[1, 30:] = -1
+        window = 50
+    q = torch.randn(b, sq, h, d, generator=g, **kw)
+    return q, k, v, q_pos.to(torch.int32), kv_pos.to(torch.int32), window
+
+
+@pytest.mark.parametrize("mode,dtype", [("decode", torch.bfloat16),
+                                        ("prefill", torch.bfloat16),
+                                        ("small", torch.float32),
+                                        ("small", torch.bfloat16)])
+def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
+    q, k, v, q_pos, kv_pos, window = _flash_case(mode, dev, dtype)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    n0 = build.LAUNCHES["flash_attn_lib"]
+    got = attention_fused_library(q, k, v, lib, **kw).float()
+    want = attention_fused_library_ref(q, k, v, lib, **kw).float()
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attn_lib"] == n0 + 1
+    live = q_pos >= 0
+    got, want = got[live], want[live]
+    bound = softmax_ulp_bound(lib.meta("exp2neg"), lib.meta("recip"))
+    vmax = v.float().abs().max()
+    tol = ((k.shape[1] + 63) // 64 + 2) * bound * vmax
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * (vmax + want.abs())
+    err = (got - want).abs()
+    assert torch.all(err <= tol), float(err.max())
+    twin = attention_fused_library_ref(q, k, v, lib, block_k=64, **kw
+                                       ).float()[live]
+    tight = bound * vmax
+    if dtype == torch.bfloat16:
+        tight = tight + 2.0 ** -8 * twin.abs()
+    err = (got - twin).abs()
+    assert torch.all(err <= tight), float(err.max())
+
+
+def _smoke(dev, dtype="float32"):
+    cfg = get_smoke_config("yi_6b").replace(numerics="interp-fused",
+                                            param_dtype=dtype)
+    return cfg, tf.init_params(cfg, seed=0, device=dev)
+
+
+def test_smoke_prefill_through_kernels_matches_plain(lib, dev):
+    cfg, params = _smoke(dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    build.reset_launches()
+    got, _ = tf.prefill(params, toks, cfg, FusedInterpNumerics(lib), 64)
+    assert build.LAUNCHES == {"library_eval": cfg.n_layers,
+                              "rmsnorm_lib": 2 * cfg.n_layers + 1,
+                              "flash_attn_lib": cfg.n_layers}
+    want, _ = tf.prefill(params, toks, cfg, PlainFusedNumerics(lib), 64)
+    tol = 4 * 2.0 ** -12 * want.abs().max()
+    assert torch.all((got - want).abs() <= tol)
+
+
+def test_engine_on_card_counts_and_batching(lib, dev):
+    cfg, params = _smoke(dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 11, 3)]
+
+    def serve(ps, rids):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=32, library=lib,
+                          horizon=4, device=dev)
+        for i, p in zip(rids, ps):
+            eng.submit(Request(i, p, max_new=5))
+        return eng, {r.rid: r.out for r in eng.run()}
+
+    eng, out = serve(prompts, range(3))
+    forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+    assert eng.stats["launches"] == {
+        "library_eval": cfg.n_layers * forwards,
+        "rmsnorm_lib": (2 * cfg.n_layers + 1) * forwards,
+        "flash_attn_lib": cfg.n_layers * forwards}
+    for i, p in enumerate(prompts):
+        assert serve([p], [i])[1][i] == out[i]

@@ -1,0 +1,125 @@
+"""Import hygiene and device discipline of the PyTorch port.
+
+``repro_torch`` must import neither ``jax`` nor anything of ``repro``, and
+every entry point asked for ``"cuda"`` where there is no card must raise
+rather than run on the CPU.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import InterpLibrary
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.device import resolve
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: 'cuda' is a valid device here")
+
+
+def test_import_hygiene_no_jax_no_repro():
+    """A fresh interpreter imports repro_torch and every submodule; neither
+    jax nor any repro module may be loaded afterwards."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _serve_cli():
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "yi_6b", "--smoke", "--requests", "1"])
+
+
+def _engine():
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_smoke_config("yi_6b")
+    ServeEngine(cfg, {}, slots=1, cache_len=8)
+
+
+def _init_params():
+    from repro_torch.models import transformer as tf
+
+    tf.init_params(get_smoke_config("yi_6b"))
+
+
+def _init_cache():
+    from repro_torch.models import transformer as tf
+
+    tf.init_cache(get_smoke_config("yi_6b"), 1, 8)
+
+
+def _convert():
+    from repro_torch.convert import params_from_jax
+
+    params_from_jax({}, get_smoke_config("yi_6b"))
+
+
+def _load(tmp_path):
+    lib = InterpLibrary.default_library("cpu")
+    InterpLibrary.load(lib.save(tmp_path / "lib"))
+
+
+def _from_designs():
+    from repro_torch.core.table import CoeffMeta, TableDesign
+
+    meta = CoeffMeta(8, 0, True)
+    d = TableDesign("t", 4, 4, 2, 0, 1, 0, 0, np.zeros(4, np.int64),
+                    np.zeros(4, np.int64), np.zeros(4, np.int64), meta, meta,
+                    meta)
+    InterpLibrary.from_designs([d], ["silu"])
+
+
+ENTRY_POINTS = {
+    "resolve": lambda tmp: resolve("cuda"),
+    "default_library": lambda tmp: InterpLibrary.default_library(),
+    "from_designs": lambda tmp: _from_designs(),
+    "load": _load,
+    "init_params": lambda tmp: _init_params(),
+    "init_cache": lambda tmp: _init_cache(),
+    "params_from_jax": lambda tmp: _convert(),
+    "serve_engine": lambda tmp: _engine(),
+    "serve_cli": lambda tmp: _serve_cli(),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_asked_for_cuda_raises(name, tmp_path, no_card):
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[name](tmp_path)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, no_card):
+    """A CUDA wrapper never degrades to its plain version: without the
+    toolkit the build itself raises."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(build, "BUILD_DIR", pathlib.Path("/nonexistent"))
+    if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("the CUDA toolkit is installed here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()

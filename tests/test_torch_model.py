@@ -1,0 +1,196 @@
+"""The dense decoder on the ``yi_6b`` smoke config (float32), reference
+parameters carried over by ``params_from_jax``: prefill and decode logits
+against ``repro.models.transformer`` under exact and interp-fused numerics.
+
+Tolerances: exact numerics differ by float32 reassociation (matmul and
+reduction order) through two layers: atol 2e-5 on logits of scale ~3.
+Interp-fused numerics may in addition move a table code across a boundary
+where a reassociated float lands next to it; one flip changes one rsqrt,
+recip or silu value by one table ulp (<= 2^-12 relative), so the stated
+bound is 4 * 2^-12 * max|logit|. Greedy tokens must match wherever the
+reference's top-2 logit gap exceeds that tolerance.
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import default_explorer
+from repro.configs.base import get_smoke_config as jax_smoke_config
+from repro.models import transformer as jtf
+from repro.numerics.ops import get_numerics as jax_get_numerics
+from repro_torch.api.library import InterpLibrary
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.models import transformer as tf
+from repro_torch.numerics.ops import get_numerics
+
+CACHE = 32
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny CPU tensors: waking the intra-op thread pool costs far more than
+    the work (and the suite runs several workers side by side)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_smoke_config("yi_6b")
+    cfg = get_smoke_config("yi_6b")
+    jparams = jtf.init_params(jax.random.key(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, params=params,
+                jlib=default_explorer().compile(),
+                lib=InterpLibrary.default_library("cpu"))
+
+
+def _numerics(s, name):
+    interp = name != "exact"
+    return (jax_get_numerics(name, s["jlib"] if interp else None),
+            get_numerics(name, s["lib"] if interp else None))
+
+
+def _tol(name, logits):
+    return 2e-5 if name == "exact" else 4 * 2.0 ** -12 * np.abs(logits).max()
+
+
+def _assert_greedy(ref_logits, got_logits, tol):
+    ref = ref_logits.reshape(-1, ref_logits.shape[-1])
+    got = got_logits.reshape(-1, got_logits.shape[-1])
+    top2 = np.sort(ref, -1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 2 * tol
+    assert clear.any()
+    np.testing.assert_array_equal(ref.argmax(-1)[clear], got.argmax(-1)[clear])
+
+
+def test_params_from_jax_layout(setup):
+    p, cfg = setup["params"], setup["cfg"]
+    layer = p["segments"]["seg0"]["0"]
+    assert tuple(layer["mixer"]["wq"].shape) == (
+        cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.head_size)
+    assert tuple(layer["ffn"]["wi"].shape) == (cfg.n_layers, cfg.d_model,
+                                               2 * cfg.d_ff)
+    np.testing.assert_array_equal(
+        p["embed"]["head"].numpy(), np.asarray(setup["jparams"]["embed"]["head"]))
+
+
+@pytest.mark.parametrize("name", ["exact", "interp-fused"])
+def test_prefill_and_decode_logits_match_reference(name, setup):
+    s = setup
+    jnum, tnum = _numerics(s, name)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, s["cfg"].vocab_size, (2, 13)).astype(np.int32)
+    jpre = jax.jit(functools.partial(jtf.prefill, cfg=s["jcfg"],
+                                     numerics=jnum, cache_len=CACHE))
+    jlog, jcache, _ = jpre(s["jparams"], jnp.asarray(toks))
+    tlog, tcache = tf.prefill(s["params"], torch.from_numpy(toks).long(),
+                              s["cfg"], tnum, CACHE)
+    jlog = np.asarray(jlog)
+    tol = _tol(name, jlog)
+    np.testing.assert_allclose(tlog.numpy(), jlog, rtol=0, atol=tol)
+    _assert_greedy(jlog, tlog.numpy(), tol)
+    jc = jcache["seg0"]["0"]
+    np.testing.assert_array_equal(tcache.pos.numpy(), np.asarray(jc.pos))
+    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jc.k), rtol=0,
+                               atol=10 * tol)
+
+    jdec = jax.jit(functools.partial(jtf.decode_step, cfg=s["jcfg"],
+                                     numerics=jnum))
+    pos = np.array([13, 13], np.int32)
+    tok = jlog[:, 0].argmax(-1)[:, None].astype(np.int32)
+    for _ in range(3):  # teacher-forced with the reference's tokens
+        jlog2, jcache = jdec(s["jparams"], jnp.asarray(tok), jnp.asarray(pos),
+                             jcache)
+        tlog2, tcache = tf.decode_step(s["params"],
+                                       torch.from_numpy(tok).long(),
+                                       torch.from_numpy(pos), tcache,
+                                       s["cfg"], tnum)
+        jlog2 = np.asarray(jlog2)
+        np.testing.assert_allclose(tlog2.numpy(), jlog2, rtol=0,
+                                   atol=_tol(name, jlog2))
+        tok = jlog2[:, 0].argmax(-1)[:, None].astype(np.int32)
+        pos = pos + 1
+    np.testing.assert_array_equal(tcache.pos.numpy(),
+                                  np.asarray(jcache["seg0"]["0"].pos))
+
+
+def test_mixed_length_pool_decode_matches_reference(setup):
+    """Two prompts of different lengths prefilled alone, spliced into a
+    3-slot pool, decoded together at per-slot positions."""
+    s = setup
+    jnum, tnum = _numerics(s, "interp-fused")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (5, 11)]
+    slots = (2, 0)
+    jpool = jtf.init_cache(s["jcfg"], 3, CACHE)
+    tpool = tf.init_cache(s["cfg"], 3, CACHE, device="cpu")
+    toks, pos = np.zeros((3, 1), np.int32), np.zeros(3, np.int32)
+    jpre = jax.jit(functools.partial(jtf.prefill, cfg=s["jcfg"],
+                                     numerics=jnum, cache_len=CACHE))
+    for prompt, slot in zip(prompts, slots):
+        jlog, jc1, _ = jpre(s["jparams"], jnp.asarray(prompt[None]))
+        _, tc1 = tf.prefill(s["params"], torch.from_numpy(prompt[None]).long(),
+                            s["cfg"], tnum, CACHE)
+        jpool = jtf.splice_cache(s["jcfg"], jpool, jc1, slot)
+        tf.splice_cache(s["cfg"], tpool, tc1, slot)
+        toks[slot, 0] = int(np.asarray(jlog)[0, -1].argmax())
+        pos[slot] = len(prompt)
+    jdec = jax.jit(functools.partial(jtf.decode_step, cfg=s["jcfg"],
+                                     numerics=jnum))
+    jlog, _ = jdec(s["jparams"], jnp.asarray(toks), jnp.asarray(pos), jpool)
+    tlog, _ = tf.decode_step(s["params"], torch.from_numpy(toks).long(),
+                             torch.from_numpy(pos), tpool, s["cfg"], tnum)
+    jlog = np.asarray(jlog)
+    tol = _tol("interp-fused", jlog[list(slots)])
+    np.testing.assert_allclose(tlog.numpy()[list(slots)], jlog[list(slots)],
+                               rtol=0, atol=tol)
+    _assert_greedy(jlog[list(slots)], tlog.numpy()[list(slots)], tol)
+
+
+def test_splice_cache_writes_the_slot_axis(setup):
+    """The one-request cache lands in batch slot 2 of a (L, B, ...) pool,
+    not in layer 2 (the layer-axis splice once corrupted row 0)."""
+    cfg = setup["cfg"]
+    pool = tf.init_cache(cfg, 3, 8, device="cpu")
+    one = tf.init_cache(cfg, 1, 8, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    for t in (one.k, one.v):
+        t.copy_(torch.randn(t.shape, generator=g))
+    one.pos.copy_(torch.arange(8, dtype=torch.int32))
+    tf.splice_cache(cfg, pool, one, 2)
+    for dst, src in zip(pool, one):
+        assert torch.equal(dst[:, 2], src[:, 0])
+    assert (pool.k[:, :2] == 0).all() and (pool.pos[:, :2] == -1).all()
+    # the reference's splice on the same data gives the same pool
+    jpool = jtf.init_cache(setup["jcfg"], 3, 8)
+    jone = {"seg0": {"0": type(jpool["seg0"]["0"])(
+        *(jnp.asarray(t.numpy()) for t in one))}}
+    jpool = jtf.splice_cache(setup["jcfg"], jpool, jone, 2)
+    for a, b in zip(pool, jpool["seg0"]["0"]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_init_params_shapes_and_rules(setup):
+    cfg = setup["cfg"]
+    p = tf.init_params(cfg, seed=3, device="cpu")
+    ref = jax.tree.map(lambda a: tuple(a.shape), setup["jparams"])
+    got = tf._map_tree(lambda _n, t: tuple(t.shape), p)
+    assert got == ref
+    layer = p["segments"]["seg0"]["0"]
+    assert torch.equal(layer["norm1"]["scale"], torch.ones(cfg.n_layers,
+                                                           cfg.d_model))
+    wq = layer["mixer"]["wq"]
+    assert wq.abs().max() <= 2.0 / cfg.d_model ** 0.5
+    assert abs(wq.std().item() * cfg.d_model ** 0.5 - 0.88) < 0.1
+    again = tf.init_params(cfg, seed=3, device="cpu")
+    assert torch.equal(again["embed"]["tok"], p["embed"]["tok"])
