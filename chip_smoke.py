@@ -7,10 +7,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
 
 1. prints the card's name and power limit and the torch / CUDA versions,
    and builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
-2. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (raising on a mismatch beyond the stated tolerance)
-   and times kernel, plain version and a yardstick PyTorch call with CUDA
-   events;
+2. holds each of the four kernels against its plain PyTorch version on the
+   card at the main paths' shapes (raising on a mismatch beyond the stated
+   tolerance) and times kernel, plain version and a yardstick PyTorch call
+   (device time from the profiler, call time from CUDA events);
 3. serves 6 requests on full-width Yi-6B (bf16, random weights from a
    seeded generator, the default interpolation library) through the
    continuous-batching engine with interp-fused numerics, asserts every
@@ -18,7 +18,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    kernel launched exactly its expected count per forward pass, and that
    each request's first token matches a plain-version prefill on the card
    (tie-aware);
-4. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
+4. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
+   64 routed experts top-6 + 2 shared, a dense layer 0; the router's
+   softmax through the ``softmax_lib`` kernel);
+5. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -26,6 +29,7 @@ Any failure raises (non-zero exit) before the last line. Details go to
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -63,25 +67,35 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
+EVENT_TIMED: list[str] = []  # measurements the profiler could not time
+
+
+def device_ms(fn, iters: int = 10, label: str = "") -> float:
     """Mean device milliseconds of the CUDA kernels one ``fn()`` launches,
     from torch.profiler (CUPTI): the kernels' own execution time, without
-    the host's launch gaps."""
+    the host's launch gaps. A trace with no device time is retried; if it
+    stays empty the call is timed with CUDA events instead (which include
+    the launch gaps), and ``label`` is listed in ``EVENT_TIMED``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(_dev_us(e) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    if total <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(_dev_us(e) for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+    print(f"  torch.profiler recorded no device time for {label or fn}: "
+          f"timed with CUDA events instead")
+    EVENT_TIMED.append(label or repr(fn))
+    return timed(fn, iters=iters)
 
 
 def _dev_us(e) -> float:
@@ -107,15 +121,24 @@ def kernel_phases(lib, dev, silu_codes):
     from repro_torch.kernels.interp.ref import library_eval_ref
     from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
     from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+    from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
+    from repro_torch.kernels.softmax.ops import (approx_softmax_library,
+                                                 lib_meta)
+    from repro_torch.kernels.softmax.ref import (approx_softmax_library_ref,
+                                                 softmax_exp)
     from repro_torch.numerics.ops import softmax_ulp_bound
 
     g = torch.Generator(device=dev).manual_seed(1234)
     rows, details = {}, []
 
     # -- library_eval: the SwiGLU silu codes -------------------------------
+    # Yi-6B decode / prefill, then DeepSeekMoE's routed experts at decode
+    # (4 slots x 64 experts x capacity 4 + scratch row) and at the 511-token
+    # prefill (capacity 59 + scratch row)
     silu = lib.func_id("silu")
     meta = lib.meta_rows()
-    for shape in ((4, 1, 11008), (1, 512, 11008)):
+    for shape in ((4, 1, 11008), (1, 512, 11008), (4, 64, 5, 1408),
+                  (1, 64, 60, 1408)):
         gate = (torch.randn(shape, device=dev, generator=g) * 3
                 ).to(torch.bfloat16)
         codes = silu_codes(gate)
@@ -134,44 +157,48 @@ def kernel_phases(lib, dev, silu_codes):
         row = dict(name="library_eval", shape=list(shape), max_abs_err=err,
                    tolerance=0,
                    ms=device_ms(lambda: library_eval(codes, silu, lib.coeffs,
-                                                     meta)),
+                                                     meta), label=f"{shape}"),
                    call_ms=timed(lambda: library_eval(codes, silu, lib.coeffs,
                                                       meta)),
                    plain_ms=device_ms(lambda: library_eval_ref(
-                       codes, fids, lib.coeffs, meta), iters=3),
-                   library_ms=device_ms(lambda: F.silu(gate)),
+                       codes, fids, lib.coeffs, meta), iters=3,
+                       label=f"plain {shape}"),
+                   library_ms=device_ms(lambda: F.silu(gate),
+                                        label=f"silu {shape}"),
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("library_eval", row)
 
     # -- rmsnorm_lib -------------------------------------------------------
     rs_tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1) + 2.0 ** -7
-    for n_rows in (4, 512):
-        x = (torch.randn(n_rows, 4096, device=dev, generator=g) * 2
+    for n_rows, d in ((4, 4096), (512, 4096), (4, 2048), (511, 2048)):
+        x = (torch.randn(n_rows, d, device=dev, generator=g) * 2
              ).to(torch.bfloat16)
-        gamma = torch.rand(4096, device=dev, generator=g) + 0.5
+        gamma = torch.rand(d, device=dev, generator=g) + 0.5
         got = approx_rmsnorm_library(x, gamma, lib).float()
         want = approx_rmsnorm_library_ref(x, gamma, lib).float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        print(f"rmsnorm_lib ({n_rows}, 4096) bf16: max_abs_err {err:.3e}, "
+        print(f"rmsnorm_lib ({n_rows}, {d}) bf16: max_abs_err {err:.3e}, "
               f"max rel {rel:.3e} (tolerance rel {rs_tol:.3e}: 2 rsqrt-table "
               f"ulps + 1 bf16 rounding)")
         if rel > rs_tol:
-            raise AssertionError(f"rmsnorm_lib ({n_rows}, 4096) differs")
-        b_ms, b_by = bound(2 * x.numel() * 2 + 4096 * 4, 4 * x.numel(),
+            raise AssertionError(f"rmsnorm_lib ({n_rows}, {d}) differs")
+        b_ms, b_by = bound(2 * x.numel() * 2 + d * 4, 4 * x.numel(),
                            F32_FLOPS)
         g16 = gamma.to(torch.bfloat16)
-        row = dict(name="rmsnorm_lib", shape=[n_rows, 4096], max_abs_err=err,
+        row = dict(name="rmsnorm_lib", shape=[n_rows, d], max_abs_err=err,
                    tolerance=rs_tol,
-                   ms=device_ms(lambda: approx_rmsnorm_library(x, gamma, lib)),
+                   ms=device_ms(lambda: approx_rmsnorm_library(x, gamma, lib),
+                                label=f"rmsnorm {x.shape}"),
                    call_ms=timed(lambda: approx_rmsnorm_library(x, gamma,
                                                                 lib)),
                    plain_ms=device_ms(lambda: approx_rmsnorm_library_ref(
-                       x, gamma, lib), iters=3),
-                   library_ms=device_ms(lambda: F.rms_norm(x, (4096,), g16,
-                                                           1e-6)),
+                       x, gamma, lib), iters=3, label=f"plain {x.shape}"),
+                   library_ms=device_ms(lambda: F.rms_norm(x, (d,), g16,
+                                                           1e-6),
+                                        label=f"F.rms_norm {x.shape}"),
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("rmsnorm_lib", row)
@@ -179,8 +206,10 @@ def kernel_phases(lib, dev, silu_codes):
     # -- flash_attn_lib ----------------------------------------------------
     sm_bound = softmax_ulp_bound(lib.meta("exp2neg"), lib.meta("recip"))
     bf = dict(device=dev, dtype=torch.bfloat16)
-    h, kvh, d = 32, 4, 128
-    for mode in ("decode", "prefill"):
+    d = 128
+    # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16 (g = 1)
+    for (h, kvh), mode in ((hk, m) for hk in ((32, 4), (16, 16))
+                           for m in ("decode", "prefill")):
         if mode == "decode":  # 4 slots against a 1024-row cache, dead rows
             b, sq, sk = 4, 1, 1024
             kc = torch.randn(b, kvh, sk, d, generator=g, **bf)
@@ -250,14 +279,61 @@ def kernel_phases(lib, dev, silu_codes):
         row = dict(name="flash_attn_lib", shape=[b, sq, h, kvh, d, sk],
                    mode=mode, max_abs_err=err, tolerance=tol_abs,
                    ms=device_ms(lambda: attention_fused_library(q, k, v, lib,
-                                                                **kw)),
+                                                                **kw),
+                                label=f"flash {mode} H={h}"),
                    call_ms=timed(lambda: attention_fused_library(q, k, v,
                                                                  lib, **kw)),
                    plain_ms=device_ms(lambda: attention_fused_library_ref(
-                       q, k, v, lib, **kw), iters=3),
-                   library_ms=device_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+                       q, k, v, lib, **kw), iters=3,
+                       label=f"plain flash {mode} H={h}"),
+                   library_ms=device_ms(sdpa, label=f"sdpa {mode} H={h}"),
+                   bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("flash_attn_lib", row)
+
+    # -- softmax_lib: DeepSeekMoE's router at decode (4 slots) and at the
+    # 511-token prefill, 64 experts in float32; and a wide bf16 row --------
+    rb = lib.meta("recip").in_bits
+    em = lib_meta(lib, "exp2neg")
+    for shape, dtype in (((4, 64), torch.float32),
+                         ((511, 64), torch.float32),
+                         ((8, 4096), torch.bfloat16)):
+        x = (torch.randn(shape, device=dev, generator=g) * 4).to(dtype)
+        got, e = softmax_lib_cuda(x, lib, return_e=True)
+        want = approx_softmax_library_ref(x, lib)
+        _, e_ref = softmax_exp(x, lib.coeffs, em)
+        torch.cuda.synchronize()
+        e_exact = torch.equal(e, e_ref)
+        gf, wf = got.float(), want.float()
+        err = float((gf - wf).abs().max())
+        rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)).max())
+        tol = 2.0 ** -(rb - 1) + (2.0 ** -7 if dtype == torch.bfloat16
+                                  else 0.0)
+        print(f"softmax_lib {shape} {str(dtype)[6:]}: e bit-exact "
+              f"{e_exact}, max_abs_err {err:.3e}, max rel {rel:.3e} "
+              f"(tolerance rel {tol:.3e}: one recip-table step 2^-{rb - 1}"
+              f"{' + 1 bf16 rounding' if dtype == torch.bfloat16 else ''})")
+        if not e_exact or rel > tol:
+            raise AssertionError(f"softmax_lib {shape} differs from plain")
+        n = x.numel()
+        # read x once, write out once, both table slots; ~24 float and
+        # integer operations per element (max, t, floor, code, Horner,
+        # scale, sum, final scale) at the float32 rate
+        b_ms, b_by = bound(2 * n * x.element_size() + 2 * lib.r_max * 12,
+                           24 * n, F32_FLOPS)
+        row = dict(name="softmax_lib", shape=list(shape),
+                   dtype=str(dtype)[6:], max_abs_err=err, tolerance=tol,
+                   e_bit_exact=e_exact,
+                   ms=device_ms(lambda: approx_softmax_library(x, lib),
+                                label=f"softmax {shape}"),
+                   call_ms=timed(lambda: approx_softmax_library(x, lib)),
+                   plain_ms=device_ms(lambda: approx_softmax_library_ref(
+                       x, lib), iters=3, label=f"plain softmax {shape}"),
+                   library_ms=device_ms(lambda: torch.softmax(x, -1),
+                                        label=f"torch.softmax {shape}"),
+                   bound_ms=b_ms, bound_by=b_by)
+        details.append(row)
+        rows.setdefault("softmax_lib", row)
     for r in details:
         print(f"  device time {r['name']} {r['shape']}: kernel {r['ms']:.5f} "
               f"ms, plain {r['plain_ms']:.5f} ms, library "
@@ -266,24 +342,45 @@ def kernel_phases(lib, dev, silu_codes):
     return rows, details
 
 
-def serve_phase(lib, dev):
-    """Full-width Yi-6B through the engine; returns results for the report."""
+def per_forward(cfg) -> dict:
+    """Kernel launches of one forward pass of ``cfg`` on the main path: an
+    rmsnorm before attention and before the FFN of every layer plus the
+    final one; one attention per layer; one silu per dense MLP and per
+    expert group of an MoE layer (routed, shared); one router softmax per
+    MoE layer."""
+    from repro_torch.models import transformer as tf
+
+    n_moe = sum(slot[-1].ffn == "moe" for slot in tf.layer_slots(cfg))
+    shared = int(bool(cfg.moe and cfg.moe.n_shared))
+    return {"library_eval": cfg.n_layers + n_moe * shared,
+            "rmsnorm_lib": 2 * cfg.n_layers + 1,
+            "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
+
+
+def serve_phase(lib, dev, config):
+    """``config`` at full width through the engine; returns results for the
+    report. Its parameters are freed when this returns."""
     import numpy as np
     import torch
 
-    from repro_torch.configs.yi_6b import CONFIG
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
     from repro_torch.numerics.ops import PlainFusedNumerics
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = CONFIG.replace(numerics="interp-fused")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 float32 matmuls would move the routing")
+    cfg = config.replace(numerics="interp-fused")
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = tf.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"yi_6b params: {n_params / 1e9:.3f} B ({cfg.param_dtype}), "
-          f"random init {time.perf_counter() - t0:.1f} s")
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"{cfg.name} params: {n_params / 1e9:.3f} B ({n_bytes / 1e9:.2f} "
+          f"GB, {cfg.param_dtype}), random init "
+          f"{time.perf_counter() - t0:.1f} s; peak memory during init "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
                       library=lib, horizon=HORIZON, device=dev)
     rng = np.random.default_rng(0)
@@ -307,13 +404,11 @@ def serve_phase(lib, dev):
                                             for t in r.out):
             raise AssertionError(f"request {r.rid}: bad stream {r.out}")
     forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
-    per_forward = {"library_eval": cfg.n_layers,
-                   "rmsnorm_lib": 2 * cfg.n_layers + 1,
-                   "flash_attn_lib": cfg.n_layers}
-    expected = {k: n * forwards for k, n in per_forward.items()}
-    print(f"main path: {eng.stats['prefills']} prefills + "
-          f"{eng.stats['decode_steps']} decode steps = {forwards} forwards; "
-          f"launches {launches}, expected {expected}")
+    expected = {k: n * forwards for k, n in per_forward(cfg).items()}
+    print(f"{cfg.name} main path: {eng.stats['prefills']} prefills + "
+          f"{eng.stats['decode_steps']} decode steps = {forwards} forwards "
+          f"x {per_forward(cfg)} per forward; launches {launches}, expected "
+          f"{expected}")
     if launches != expected or eng.stats["launches"] != expected:
         raise AssertionError("kernel launch counts differ from the path")
     n_tok = sum(len(r.out) for r in done)
@@ -327,9 +422,10 @@ def serve_phase(lib, dev):
     with torch.inference_mode():
         step_ms = timed(lambda: tf.decode_step(params, tok, pos, eng.caches,
                                                cfg, num), iters=10)
+    weight_ms = n_bytes / HBM_BPS * 1e3
     print(f"decode step (4 slots, positions 300-600, cache {CACHE_LEN}): "
-          f"{step_ms:.3f} ms; weight-streaming bound "
-          f"{2 * n_params / HBM_BPS * 1e3:.3f} ms")
+          f"{step_ms:.3f} ms; weight-streaming bound {weight_ms:.3f} ms "
+          f"({n_bytes / 1e9:.2f} GB / {HBM_BPS / 1e12:.2f} TB/s)")
     with torch.inference_mode():
         prof = profile_steps(lambda: tf.decode_step(params, tok, pos,
                                                     eng.caches, cfg, num))
@@ -367,18 +463,23 @@ def serve_phase(lib, dev):
     print(f"first tokens vs plain prefill: {len(done) - ties} equal, {ties} "
           f"inside the tie band (2^-5 max|logit|); max |dlogit| "
           f"{max_dlogit:.4f}")
-    return dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
-                decode_step_ms=step_ms, decode_profile=prof,
-                prefill_profile=prof_pre,
-                launches=launches, forwards=forwards,
-                stats=eng.stats, n_params=n_params, max_dlogit=max_dlogit,
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"{cfg.name} peak device memory {peak / 1e9:.2f} GB")
+    return dict(model=cfg.name, wall_s=wall, tokens=n_tok,
+                tokens_per_s=n_tok / wall, decode_step_ms=step_ms,
+                weight_bound_ms=weight_ms, decode_profile=prof,
+                prefill_profile=prof_pre, launches=launches,
+                per_forward=per_forward(cfg), forwards=forwards,
+                stats=eng.stats, n_params=n_params, n_bytes=n_bytes,
+                peak_bytes=peak, max_dlogit=max_dlogit,
                 first_token_ties=ties,
                 streams={r.rid: r.out for r in done})
 
 
 KERNEL_SYMBOLS = {"library_eval": "library_eval_kernel",
                   "rmsnorm_lib": "rmsnorm_lib_kernel",
-                  "flash_attn_lib": "flash_attn_lib_kernel"}
+                  "flash_attn_lib": "flash_attn_lib_kernel",
+                  "softmax_lib": "softmax_lib_"}
 
 
 def profile_steps(step, n: int = 3) -> dict:
@@ -455,6 +556,8 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must not run in TF32")
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -476,7 +579,20 @@ def main() -> int:
         return _quantize((xc - m.act_lo) / (m.act_hi - m.act_lo), m.in_bits)
 
     rows, details = kernel_phases(lib, dev, silu_codes)
-    serve = serve_phase(lib, dev)
+    from repro_torch.configs import deepseek_moe_16b, yi_6b
+
+    serves = [serve_phase(lib, dev, yi_6b.CONFIG)]
+    gc.collect()  # the Yi-6B weights and cache go before DeepSeekMoE's init
+    torch.cuda.empty_cache()
+    print(f"after freeing yi_6b: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+          f"GB allocated, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    serves.append(serve_phase(lib, dev, deepseek_moe_16b.CONFIG))
+    launches = {name: sum(sv["launches"][name] for sv in serves)
+                for name in build.LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel never launched on the paths: "
+                             f"{launches}")
 
     kernels = []
     replaces = {
@@ -486,19 +602,25 @@ def main() -> int:
                         "src/repro/kernels/rmsnorm/kernel.py:62"),
         "flash_attn_lib": ("src/repro_torch/csrc/flashattn.cu",
                            "src/repro/kernels/flashattn/kernel.py:220"),
+        "softmax_lib": ("src/repro_torch/csrc/softmax.cu",
+                        "src/repro/kernels/softmax/kernel.py:90"),
     }
     for name, (source, rep) in replaces.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": rep,
-                        "launches": serve["launches"][name],
+                        "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     report = {"device": smi[0], "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
-              "kernel_phases": details, "serve": serve}
+              "kernel_phases": details, "serve": serves,
+              "event_timed": EVENT_TIMED}
+    if EVENT_TIMED:
+        print(f"timed with CUDA events (no profiler device time): "
+              f"{EVENT_TIMED}")
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                     default=str))
     print(json.dumps({"kernels": kernels}))

@@ -2,8 +2,10 @@
 
 ``params_from_jax`` takes the reference's parameter tree as numpy arrays,
 i.e. ``jax.tree.map(np.asarray, repro.models.transformer.init_params(key,
-cfg))`` (layers stacked under ``segments/seg0/0/...``), and returns the
-port's parameter dict, so that both packages compute the same function.
+cfg))`` (``segments/seg<i>/0/...``: stacked over layers where a segment
+repeats, unstacked for a one-layer segment), and returns the port's
+parameter dict, so that both packages compute the same function. Every
+leaf must have the port's shape and dtype for ``cfg``; nothing is cast.
 """
 from __future__ import annotations
 
@@ -28,17 +30,19 @@ def params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"
 
     def walk(shapes: dict, src: dict, path: str) -> dict:
         out = {}
-        for name, shape in shapes.items():
+        for name, sp in shapes.items():
             if name not in src:
                 raise KeyError(f"reference tree has no {path}{name}")
-            if isinstance(shape, dict):
-                out[name] = walk(shape, src[name], f"{path}{name}/")
+            if isinstance(sp, dict):
+                out[name] = walk(sp, src[name], f"{path}{name}/")
                 continue
             t = _tensor(np.asarray(src[name]))
-            if tuple(t.shape) != shape and t.dim() + 1 == len(shape):
-                t = t[None]  # an unstacked one-layer segment
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{path}{name}: {tuple(t.shape)} != {shape}")
+            if tuple(t.shape) != sp.shape:
+                raise ValueError(f"{path}{name}: shape {tuple(t.shape)} != "
+                                 f"{sp.shape}")
+            if t.dtype != sp.dtype:
+                raise TypeError(f"{path}{name}: dtype {t.dtype} != "
+                                f"{sp.dtype}")
             out[name] = t.to(dev)
         return out
 

@@ -1,0 +1,228 @@
+// softmax_lib: row softmax with the table-backed exp and reciprocal.
+//
+// Replaces repro/kernels/softmax/kernel.py `fused_softmax_lib` /
+// `_softmax_lib_kernel` over `_softmax_body`: per row, m = max(x),
+// t = min((m - x) * log2e, 126), e = tab_exp(round(frac(t) * 2^eb)) *
+// 2^-out_bits * 2^-floor(t), s = sum(e), 1/s from the IEEE-754 split of s
+// into the reciprocal table, out = e * (1/s) in x's dtype. Both table reads
+// are the shared datapath of datapath.cuh (`table_exp_neg`, `table_recip`).
+//
+// Bound on an H100: bytes (read x once, write out once, ~20 operations per
+// element). Design: the two ROM slots (768 bytes each for the default
+// library) are staged in shared memory once per block. Rows of D <= 1024 take
+// one warp each (8 rows per block of 256 threads): a lane keeps its
+// ceil(D / 32) elements in registers, and the row max and row sum are warp
+// shuffles. Longer rows take one block of 256 threads each: the max and the
+// sum are reduced through shared memory, and e is recomputed (the same
+// arithmetic, so the same bits) for the output pass instead of being stored.
+// Any D and any number of rows; the strided loops mask the tails.
+//
+// `e` depends only on the row max and one element, so it is bit-identical to
+// the plain version's; only the order of the row sum differs, which can move
+// the reciprocal's table code by one. An optional float32 `e_out` (null on
+// the serving path) exposes e so a test can hold it bit-exact.
+#include <cmath>
+
+#include <cuda_bf16.h>
+
+#include "datapath.cuh"
+
+using namespace repro;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
+    __nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Copy the live rows of both slots into shared memory and return their
+// TableArgs re-based at the staged copies (row0 = 0).
+__device__ __forceinline__ void stage_slots(const int32_t* rom, TableArgs& te,
+                                            TableArgs& tr, int32_t* s_exp,
+                                            int32_t* s_rec) {
+  for (int i = threadIdx.x; i < 3 * te.rows; i += blockDim.x)
+    s_exp[i] = rom[3 * te.row0 + i];
+  for (int i = threadIdx.x; i < 3 * tr.rows; i += blockDim.x)
+    s_rec[i] = rom[3 * tr.row0 + i];
+  te.row0 = 0;
+  tr.row0 = 0;
+  __syncthreads();
+}
+
+__device__ __forceinline__ float exp_term(float m, float x,
+                                          const int32_t* s_exp,
+                                          const TableArgs& te) {
+  const float t = fminf(__fmul_rn(__fsub_rn(m, x), kLog2e), 126.0f);
+  return table_exp_neg(t, s_exp, te);
+}
+
+// One warp per row; K = elements per lane (a power of two, 32 * K >= D).
+template <typename T, int K>
+__global__ void softmax_lib_warp_kernel(const T* __restrict__ x,
+                                        T* __restrict__ out,
+                                        float* __restrict__ e_out,
+                                        int64_t rows, int d,
+                                        const int32_t* __restrict__ rom,
+                                        TableArgs te, TableArgs tr) {
+  extern __shared__ int32_t smem[];
+  int32_t* s_exp = smem;
+  int32_t* s_rec = smem + 3 * te.rows;
+  stage_slots(rom, te, tr, s_exp, s_rec);
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const T* xr = x + row * d;
+  float v[K];
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int i = lane + 32 * j;
+    v[j] = i < d ? to_f(xr[i]) : -INFINITY;
+    m = fmaxf(m, v[j]);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int i = lane + 32 * j;
+    if (i < d) {
+      v[j] = exp_term(m, v[j], s_exp, te);
+      s = __fadd_rn(s, v[j]);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+  const float r = table_recip(s, s_rec, tr);
+  T* orow = out + row * d;
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int i = lane + 32 * j;
+    if (i < d) {
+      orow[i] = from_f<T>(__fmul_rn(v[j], r));
+      if (e_out) e_out[row * d + i] = v[j];
+    }
+  }
+}
+
+// Block reduction of one value per thread (op: 0 = max, 1 = sum), result
+// broadcast to every thread.
+__device__ __forceinline__ float block_reduce(float a, int op, float* s_part) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float b = __shfl_xor_sync(0xffffffffu, a, o);
+    a = op ? __fadd_rn(a, b) : fmaxf(a, b);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // s_part may still be read by a previous reduction
+  if (lane == 0) s_part[warp] = a;
+  __syncthreads();
+  const int nw = blockDim.x >> 5;
+  a = lane < nw ? s_part[lane] : (op ? 0.0f : -INFINITY);
+  for (int o = 16; o > 0; o >>= 1) {
+    const float b = __shfl_xor_sync(0xffffffffu, a, o);
+    a = op ? __fadd_rn(a, b) : fmaxf(a, b);
+  }
+  return a;
+}
+
+// One block per row, for D > 1024.
+template <typename T>
+__global__ void softmax_lib_block_kernel(const T* __restrict__ x,
+                                         T* __restrict__ out,
+                                         float* __restrict__ e_out, int d,
+                                         const int32_t* __restrict__ rom,
+                                         TableArgs te, TableArgs tr) {
+  extern __shared__ int32_t smem[];
+  __shared__ float s_part[32];
+  int32_t* s_exp = smem;
+  int32_t* s_rec = smem + 3 * te.rows;
+  stage_slots(rom, te, tr, s_exp, s_rec);
+  const int64_t row = blockIdx.x;
+  const T* xr = x + row * d;
+  float m = -INFINITY;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) m = fmaxf(m, to_f(xr[i]));
+  m = block_reduce(m, 0, s_part);
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < d; i += blockDim.x)
+    s = __fadd_rn(s, exp_term(m, to_f(xr[i]), s_exp, te));
+  s = block_reduce(s, 1, s_part);
+  const float r = table_recip(s, s_rec, tr);
+  T* orow = out + row * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    const float e = exp_term(m, to_f(xr[i]), s_exp, te);
+    orow[i] = from_f<T>(__fmul_rn(e, r));
+    if (e_out) e_out[row * d + i] = e;
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, void* out, float* e_out, int64_t rows,
+                   int d, const int32_t* rom, const TableArgs& te,
+                   const TableArgs& tr, cudaStream_t s) {
+  const size_t smem = (size_t)3 * (te.rows + tr.rows) * sizeof(int32_t);
+  const T* xi = (const T*)x;
+  T* o = (T*)out;
+  if (d > 1024) {
+    if (rows > INT32_MAX) return cudaErrorInvalidValue;
+    softmax_lib_block_kernel<T><<<(unsigned)rows, kThreads, smem, s>>>(
+        xi, o, e_out, d, rom, te, tr);
+    return cudaGetLastError();
+  }
+  const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  if (blocks > INT32_MAX) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  if (d <= 64)
+    softmax_lib_warp_kernel<T, 2><<<grid, kThreads, smem, s>>>(
+        xi, o, e_out, rows, d, rom, te, tr);
+  else if (d <= 128)
+    softmax_lib_warp_kernel<T, 4><<<grid, kThreads, smem, s>>>(
+        xi, o, e_out, rows, d, rom, te, tr);
+  else if (d <= 256)
+    softmax_lib_warp_kernel<T, 8><<<grid, kThreads, smem, s>>>(
+        xi, o, e_out, rows, d, rom, te, tr);
+  else if (d <= 512)
+    softmax_lib_warp_kernel<T, 16><<<grid, kThreads, smem, s>>>(
+        xi, o, e_out, rows, d, rom, te, tr);
+  else
+    softmax_lib_warp_kernel<T, 32><<<grid, kThreads, smem, s>>>(
+        xi, o, e_out, rows, d, rom, te, tr);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, out: (rows, d) contiguous, dtype 0 = float32, 1 = bfloat16; e_out:
+// (rows, d) float32 or null. exp9 / recip9: the two slots' rows, see
+// datapath.cuh `table_args`.
+extern "C" int repro_softmax_lib(const void* x, void* out, float* e_out,
+                                 int64_t rows, int d, int dtype,
+                                 const int32_t* rom, const int32_t* exp9,
+                                 const int32_t* recip9, int device,
+                                 void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows == 0 || d == 0) return 0;
+  const TableArgs te = table_args(exp9), tr = table_args(recip9);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    err = launch<float>(x, out, e_out, rows, d, rom, te, tr, s);
+  else if (dtype == 1)
+    err = launch<__nv_bfloat16>(x, out, e_out, rows, d, rom, te, tr, s);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}

@@ -24,13 +24,13 @@ import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("interp.cu", "rmsnorm.cu", "flashattn.cu")
+SOURCES = ("interp.cu", "rmsnorm.cu", "flashattn.cu", "softmax.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {"library_eval": 0, "rmsnorm_lib": 0,
-                            "flash_attn_lib": 0}
+                            "flash_attn_lib": 0, "softmax_lib": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -38,6 +38,7 @@ _SIGNATURES = {
     "repro_rmsnorm_lib": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P),
     "repro_flash_attn_lib": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _F, _I, _I, _P),
+    "repro_softmax_lib": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,58 @@
+"""Plain PyTorch version of the library-bound fused softmax (twin of
+``repro/kernels/softmax/ref.py`` ``fused_softmax_lib_ref`` /
+``fused_softmax_ref``), on the port's library ROM.
+
+Only uniform (ROM v1) slots: a segmented slot's table read ports with the
+``library_walk`` slice, and the port's :class:`InterpLibrary` holds none.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.interp.ref import (LOG2E, lut_rom_ref, pow2,
+                                            table_recip)
+
+
+def _check_uniform(meta: dict) -> None:
+    if meta["eval"].get("seg") is not None:
+        raise NotImplementedError(
+            "segmented (ROM v2) library slot: its table read ports with the "
+            "library_walk slice")
+
+
+def softmax_exp(x: torch.Tensor, coeffs: torch.Tensor, exp_meta: dict):
+    """The exp half of the fused softmax over the last axis: returns the
+    exp2neg table codes (int32) and the terms e (float32), with
+    t = min((max - x) * log2e, 126) and e = tab(code(frac t)) *
+    2^-out_bits * 2^-floor(t) in the reference's operation order."""
+    _check_uniform(exp_meta)
+    xf = x.to(torch.float32)
+    m = torch.amax(xf, dim=-1, keepdim=True)
+    t = torch.clamp((m - xf) * LOG2E, max=126.0)
+    n = torch.floor(t)
+    eb = exp_meta["in_bits"]
+    codes = torch.clamp(torch.round((t - n) * (1 << eb)).to(torch.int32), 0,
+                        (1 << eb) - 1)
+    tab = lut_rom_ref(codes, coeffs, exp_meta).to(torch.float32)
+    return codes, tab * (2.0 ** -exp_meta["out_bits"]) * pow2(-n)
+
+
+def fused_softmax_lib_ref(x: torch.Tensor, coeffs: torch.Tensor,
+                          exp_meta: dict, recip_meta: dict) -> torch.Tensor:
+    """x: (rows, D) (or any leading shape); both tables read at their static
+    func ids in the padded (F, R_max, 3) ROM; the row sum's reciprocal from
+    its IEEE-754 split. Output in x's dtype."""
+    _check_uniform(recip_meta)
+    _, e = softmax_exp(x, coeffs, exp_meta)
+    s = torch.sum(e, dim=-1, keepdim=True)
+    return (e * table_recip(s, coeffs, recip_meta)).to(x.dtype)
+
+
+def approx_softmax_library_ref(x: torch.Tensor, library) -> torch.Tensor:
+    """The plain version at the wrapper's signature: softmax over the last
+    axis of any leading shape."""
+    from repro_torch.kernels.interp.ops import lib_meta
+
+    return fused_softmax_lib_ref(x, library.coeffs,
+                                 lib_meta(library, "exp2neg"),
+                                 lib_meta(library, "recip"))

@@ -3,9 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
         --requests 6 --slots 4 --prompt-len 64 --max-new 16
 
-runs the full-width model on the CUDA card with interp numerics through the
-library-bound kernels; ``--smoke --device cpu`` runs the reduced config on
-the CPU through the kernels' plain versions.
+runs the full-width model (``--arch yi_6b`` or ``deepseek_moe_16b``) on the
+CUDA card with interp numerics through the library-bound kernels;
+``--smoke --device cpu`` runs the reduced config on the CPU through the
+kernels' plain versions.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import apply_rope, rope_angles
+from repro_torch.models.layers import apply_rope, pdtype, rope_angles, spec
 
 NEG = -1e30
 M_FLOOR = -1e20  # running-max clamp: exp(NEG - M_FLOOR) == 0
@@ -128,6 +128,14 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
                     q_pos[:, i * q_chunk:(i + 1) * q_chunk])
             for i in range(nq)]
     return torch.cat(outs, dim=1)
+
+
+def gqa_shapes(cfg) -> dict:
+    d, hd, dt = cfg.d_model, cfg.head_size, pdtype(cfg)
+    return {"wq": spec((d, cfg.n_heads * hd), dt),
+            "wk": spec((d, cfg.n_kv_heads * hd), dt),
+            "wv": spec((d, cfg.n_kv_heads * hd), dt),
+            "wo": spec((cfg.n_heads * hd, d), dt)}
 
 
 def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg):

@@ -1,12 +1,16 @@
-"""Shared model layers (twin of ``repro/models/layers.py``, the dense
-decoder's subset): rmsnorm, RoPE, the SwiGLU MLP, embeddings, LM head.
+"""Shared model layers (twin of ``repro/models/layers.py``, the subset the
+dense and MoE decoders use): shape specs, rmsnorm, RoPE, the SwiGLU MLP,
+embeddings, LM head.
 
 Parameters are plain nested dicts of tensors in the reference's layout:
-weights are (in, out) and apply as ``x @ W``.
+weights are (in, out) and apply as ``x @ W``. A shape tree is a nested dict
+of :class:`Spec` leaves, each with its own dtype, as the reference's
+``jax.ShapeDtypeStruct`` leaves.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -15,6 +19,46 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def pdtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
+
+
+class Spec(NamedTuple):
+    """One parameter leaf's shape and dtype."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+def spec(shape, dtype: torch.dtype) -> Spec:
+    return Spec(tuple(int(s) for s in shape), dtype)
+
+
+def map_tree(fn, tree: dict, path: tuple = ()) -> dict:
+    """Apply ``fn(path_string, leaf)`` to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn("/".join(path), tree)
+
+
+def stack_specs(tree: dict, n: int) -> dict:
+    """Prepend a layer dimension to every leaf (stacked layer segments)."""
+    return map_tree(lambda _n, s: spec((n, *s.shape), s.dtype), tree)
+
+
+def norm_shapes(cfg) -> dict:
+    return {"scale": spec((cfg.d_model,), pdtype(cfg))}
+
+
+def mlp_shapes(cfg, d_ff: int | None = None) -> dict:
+    """SwiGLU gate + up, then down; ``d_ff`` overrides ``cfg.d_ff`` (the
+    dense layer 0 of DeepSeekMoE takes ``first_dense_ff``)."""
+    d, dt, f = cfg.d_model, pdtype(cfg), d_ff or cfg.d_ff
+    return {"wi": spec((d, 2 * f), dt), "wo": spec((f, d), dt)}
+
+
+def embed_shapes(cfg) -> dict:
+    dt = pdtype(cfg)
+    return {"tok": spec((cfg.vocab_size, cfg.d_model), dt),
+            "head": spec((cfg.d_model, cfg.vocab_size), dt)}
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:

@@ -4,7 +4,8 @@
 The float glue (max-subtract, exponent split, power-of-two scaling) mirrors
 the reference's operation order; only the integer table reads carry
 approximation error. ``FusedInterpNumerics`` lowers rmsnorm, the attention
-inner loop and the activations to the library-bound kernels on a CUDA device
+inner loop, the activations and the softmax to the library-bound kernels on
+a CUDA device
 (their plain versions on the CPU). ``PlainFusedNumerics`` runs the same
 fused datapath through the plain versions on any device: it is the oracle a
 card run holds the kernel path against.
@@ -90,11 +91,15 @@ def _act_tails(kind: str, x, y, lo: float, hi: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class ExactNumerics:
-    """Plain PyTorch transcendentals (the no-technique baseline). The dense
-    decoder's ops only; the other activations and softmax port with the
+    """Plain PyTorch transcendentals (the no-technique baseline). The ops of
+    the dense and MoE decoders only; the other activations port with the
     model families that use them."""
 
     silu = staticmethod(F.silu)
+
+    @staticmethod
+    def softmax(x, axis: int = -1):
+        return torch.softmax(x, dim=axis)  # keeps x's dtype, as jax.nn.softmax
 
     @staticmethod
     def exp_neg(x):
@@ -152,6 +157,13 @@ class InterpNumerics:
     def silu(self, x):
         return self._act("silu", x)
 
+    def softmax(self, x, axis: int = -1):
+        xf = x.to(_F32)
+        m = torch.amax(xf, dim=axis, keepdim=True)
+        e = self.exp_neg(xf - m)
+        s = torch.sum(e, dim=axis, keepdim=True)
+        return (e * self.recip_pos(s)).to(x.dtype)
+
     def rmsnorm(self, x, gamma, eps: float = 1e-6):
         xf = x.to(_F32)
         var = torch.mean(xf * xf, dim=-1, keepdim=True) + eps
@@ -160,14 +172,25 @@ class InterpNumerics:
 
 class FusedInterpNumerics(InterpNumerics):
     """Library-bound interp numerics lowered to the fused kernels: rmsnorm
-    (``rmsnorm_lib``), the attention inner loop (``flash_attn_lib``) and
-    the activations (``library_eval``) read the library ROM in-kernel.
+    (``rmsnorm_lib``), the attention inner loop (``flash_attn_lib``), the
+    last-axis softmax (``softmax_lib``) and the activations
+    (``library_eval``) read the library ROM in-kernel.
 
     As in the reference, the fused rsqrt / recip glue derives table codes by
     IEEE-754 bit twiddles where the unfused glue uses ``frexp``; composite
     outputs may differ from :class:`InterpNumerics` by one table ulp, so
     fused runs are held against fused runs.
     """
+
+    def softmax(self, x, axis: int = -1):
+        if axis not in (-1, x.dim() - 1):
+            return super().softmax(x, axis=axis)
+        return self._softmax(x).to(x.dtype)
+
+    def _softmax(self, x):
+        from repro_torch.kernels.softmax.ops import approx_softmax_library
+
+        return approx_softmax_library(x, self.library)
 
     def rmsnorm(self, x, gamma, eps: float = 1e-6):
         from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
@@ -212,6 +235,11 @@ class PlainFusedNumerics(FusedInterpNumerics):
             fids = torch.full_like(codes, fid, dtype=torch.int32)
             return library_eval_ref(codes, fids, lib.coeffs, lib.meta_rows())
         return ev
+
+    def _softmax(self, x):
+        from repro_torch.kernels.softmax.ref import approx_softmax_library_ref
+
+        return approx_softmax_library_ref(x, self.library)
 
     def rmsnorm(self, x, gamma, eps: float = 1e-6):
         from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref

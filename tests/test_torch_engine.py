@@ -1,4 +1,5 @@
-"""The port's continuous-batching engine on the ``yi_6b`` smoke config.
+"""The port's continuous-batching engine on the ``yi_6b`` (dense) and
+``deepseek_moe_16b`` (MoE) smoke configs.
 
 * Against the reference ``ServeEngine(fused=True)`` with interp numerics on
   the same parameters and library: token streams match, tie-aware. At the
@@ -47,10 +48,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_smoke_config("yi_6b").replace(numerics="interp")
-    cfg = get_smoke_config("yi_6b").replace(numerics="interp-fused")
+@pytest.fixture(scope="module", params=["yi_6b", "deepseek_moe_16b"])
+def setup(request):
+    jcfg = jax_smoke_config(request.param).replace(numerics="interp")
+    cfg = get_smoke_config(request.param).replace(numerics="interp-fused")
     jparams = jtf.init_params(jax.random.key(0), jcfg)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     rng = np.random.default_rng(7)

@@ -16,6 +16,14 @@ Tolerances:
   Against the tile-by-tile twin with the same 64-key tiles only float
   reassociation remains: one table-code flip (softmax_ulp_bound * max|v|)
   plus one output rounding (2^-8 * |out| in bf16).
+* softmax_lib: the exp terms e come from the row max and one element, so
+  they are bit-exact; only the row sum's order differs, which can move the
+  reciprocal's code by one step: relative 2^-(recip in_bits - 1), plus one
+  output rounding (2^-7 relative) in bf16.
+* The smoke models through the kernels against the plain versions:
+  4 * 2^-12 * max|logit| (a few table-code flips). The MoE routing is the
+  same on both paths: a recip flip scales a whole row of router
+  probabilities, so the top-k order does not change.
 """
 from __future__ import annotations
 
@@ -24,7 +32,7 @@ import pytest
 import torch
 
 from repro_torch.api.library import InterpLibrary
-from repro_torch.configs.base import get_smoke_config
+from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.kernels import build
 from repro_torch.kernels.flashattn.ops import attention_fused_library
 from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
@@ -32,6 +40,11 @@ from repro_torch.kernels.interp.ops import library_eval
 from repro_torch.kernels.interp.ref import library_eval_ref
 from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
 from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
+from repro_torch.kernels.softmax.ops import approx_softmax_library, lib_meta
+from repro_torch.kernels.softmax.ref import (approx_softmax_library_ref,
+                                             softmax_exp)
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.numerics.ops import (FusedInterpNumerics, PlainFusedNumerics,
                                       softmax_ulp_bound)
@@ -101,11 +114,46 @@ def test_rmsnorm_kernel_matches_plain(rows, d, dtype, lib, dev):
     assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
 
 
+@pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
+                                          (511, 64, torch.float32),
+                                          (8, 4096, torch.bfloat16),
+                                          (7, 1000, torch.float32),
+                                          (3, 1500, torch.bfloat16),
+                                          (5, 33, torch.bfloat16)])
+def test_softmax_kernel_matches_plain(rows, d, dtype, lib, dev):
+    """The DeepSeekMoE router at decode and prefill (D = 64, float32), a
+    wide bf16 row, and ragged rows on the warp-per-row (D <= 1024) and
+    block-per-row paths; rows 0-1 hold equal values and a spread past the
+    t = 126 clamp."""
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    x = torch.randn(rows, d, device=dev, generator=g) * 4
+    x[0] = 1.5
+    x[1, ::2] = -1000.0
+    x = x.to(dtype)
+    n0 = build.LAUNCHES["softmax_lib"]
+    got, e = softmax_lib_cuda(x, lib, return_e=True)
+    assert torch.equal(approx_softmax_library(x, lib), got)
+    want = approx_softmax_library_ref(x, lib)
+    _, e_ref = softmax_exp(x, lib.coeffs, lib_meta(lib, "exp2neg"))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["softmax_lib"] == n0 + 2
+    assert got.dtype == dtype and torch.equal(e, e_ref)
+    tol = 2.0 ** -(lib.meta("recip").in_bits - 1)
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** -7
+    got, want = got.float(), want.float()
+    assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
+    assert torch.allclose(got[0], torch.full_like(got[0], got[0, 0]))
+
+
 def _flash_case(mode, dev, dtype):
     g = torch.Generator(device=dev).manual_seed(1)
     kw = dict(device=dev, dtype=dtype)
-    if mode == "decode":  # Yi-6B decode: 4 slots, 1024-row cache, dead rows
+    if mode in ("decode", "decode_g1"):  # 4 slots, 1024-row cache, dead rows
+        # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16
         b, sq, sk, h, kvh, d = 4, 1, 1024, 32, 4, 128
+        if mode == "decode_g1":
+            h = kvh = 16
         kc = torch.randn(b, kvh, sk, d, generator=g, **kw)
         vc = torch.randn(b, kvh, sk, d, generator=g, **kw)
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)  # cache views
@@ -114,8 +162,10 @@ def _flash_case(mode, dev, dtype):
         kv_pos[kv_pos >= lens[:, None]] = -1
         q_pos = (lens - 1)[:, None]
         window = None
-    elif mode == "prefill":  # Yi-6B causal prefill, Sq = Sk = 512
+    elif mode in ("prefill", "prefill_g1"):  # causal prefill, Sq = Sk = 512
         b, sq, sk, h, kvh, d = 1, 512, 512, 32, 4, 128
+        if mode == "prefill_g1":
+            h = kvh = 16
         k = torch.randn(b, sk, kvh, d, generator=g, **kw)
         v = torch.randn(b, sk, kvh, d, generator=g, **kw)
         kv_pos = torch.arange(sk, device=dev).expand(b, sk)
@@ -135,7 +185,9 @@ def _flash_case(mode, dev, dtype):
 
 
 @pytest.mark.parametrize("mode,dtype", [("decode", torch.bfloat16),
+                                        ("decode_g1", torch.bfloat16),
                                         ("prefill", torch.bfloat16),
+                                        ("prefill_g1", torch.bfloat16),
                                         ("small", torch.float32),
                                         ("small", torch.bfloat16)])
 def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
@@ -164,28 +216,57 @@ def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
     assert torch.all(err <= tight), float(err.max())
 
 
-def _smoke(dev, dtype="float32"):
-    cfg = get_smoke_config("yi_6b").replace(numerics="interp-fused",
-                                            param_dtype=dtype)
+def _smoke(dev, arch, dtype="float32"):
+    cfg = get_smoke_config(arch).replace(numerics="interp-fused",
+                                         param_dtype=dtype)
     return cfg, tf.init_params(cfg, seed=0, device=dev)
 
 
-def test_smoke_prefill_through_kernels_matches_plain(lib, dev):
-    cfg, params = _smoke(dev)
+def _per_forward(cfg) -> dict:
+    """Kernel launches of one forward pass: an rmsnorm before attention and
+    before the FFN of every layer plus the final one; one attention per
+    layer; one silu per dense MLP and per expert group (routed, shared);
+    one router softmax per MoE layer."""
+    kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
+    n_moe = sum(k.ffn == "moe" for k in kinds)
+    shared = int(bool(cfg.moe and cfg.moe.n_shared))
+    return {"library_eval": cfg.n_layers + n_moe * shared,
+            "rmsnorm_lib": 2 * cfg.n_layers + 1,
+            "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_smoke_prefill_through_kernels_matches_plain(arch, lib, dev):
+    cfg, params = _smoke(dev, arch)
     toks = torch.randint(0, cfg.vocab_size, (2, 33), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(0))
     build.reset_launches()
     got, _ = tf.prefill(params, toks, cfg, FusedInterpNumerics(lib), 64)
-    assert build.LAUNCHES == {"library_eval": cfg.n_layers,
-                              "rmsnorm_lib": 2 * cfg.n_layers + 1,
-                              "flash_attn_lib": cfg.n_layers}
+    assert build.LAUNCHES == _per_forward(cfg)
     want, _ = tf.prefill(params, toks, cfg, PlainFusedNumerics(lib), 64)
     tol = 4 * 2.0 ** -12 * want.abs().max()
     assert torch.all((got - want).abs() <= tol)
 
 
-def test_engine_on_card_counts_and_batching(lib, dev):
-    cfg, params = _smoke(dev)
+def test_router_kernel_routes_as_plain(lib, dev):
+    """DeepSeekMoE's router at full width (d = 2048, 64 experts, top-6) on
+    511 prompt tokens: the kernel's probabilities give the plain version's
+    expert ids, and gates within one recip step."""
+    cfg = get_config("deepseek_moe_16b")
+    g = torch.Generator(device=dev).manual_seed(2)
+    p = {"router": torch.randn(cfg.d_model, cfg.moe.n_experts, device=dev,
+                               generator=g) / cfg.d_model ** 0.5}
+    x = torch.randn(1, 511, cfg.d_model, device=dev, generator=g
+                    ).to(torch.bfloat16)
+    _, idx, gate = moe.route(p, x, cfg, FusedInterpNumerics(lib))
+    _, idx_p, gate_p = moe.route(p, x, cfg, PlainFusedNumerics(lib))
+    assert torch.equal(idx, idx_p)
+    assert torch.allclose(gate, gate_p, rtol=2.0 ** -10, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_engine_on_card_counts_and_batching(arch, lib, dev):
+    cfg, params = _smoke(dev, arch)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 11, 3)]
@@ -200,8 +281,6 @@ def test_engine_on_card_counts_and_batching(lib, dev):
     eng, out = serve(prompts, range(3))
     forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
     assert eng.stats["launches"] == {
-        "library_eval": cfg.n_layers * forwards,
-        "rmsnorm_lib": (2 * cfg.n_layers + 1) * forwards,
-        "flash_attn_lib": cfg.n_layers * forwards}
+        k: n * forwards for k, n in _per_forward(cfg).items()}
     for i, p in enumerate(prompts):
         assert serve([p], [i])[1][i] == out[i]

@@ -20,6 +20,11 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.device import resolve
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+# modules the hygiene walk must reach (the MoE slice's among them)
+REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
+            "repro_torch.kernels.softmax.kernel",
+            "repro_torch.kernels.softmax.ops",
+            "repro_torch.kernels.softmax.ref", "repro_torch.serve.engine")
 
 
 @pytest.fixture
@@ -39,18 +44,19 @@ def test_import_hygiene_no_jax_no_repro():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n")
+        f"missing = sorted(set({REQUIRED!r}) - set(names))\n"
+        "print(len(names), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(names) < 20 else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def _serve_cli():
+def _serve_cli(arch="yi_6b"):
     from repro_torch.launch.serve import main
 
-    main(["--arch", "yi_6b", "--smoke", "--requests", "1"])
+    main(["--arch", arch, "--smoke", "--requests", "1"])
 
 
 def _engine():
@@ -103,6 +109,7 @@ ENTRY_POINTS = {
     "params_from_jax": lambda tmp: _convert(),
     "serve_engine": lambda tmp: _engine(),
     "serve_cli": lambda tmp: _serve_cli(),
+    "serve_cli_moe": lambda tmp: _serve_cli("deepseek_moe_16b"),
 }
 
 
@@ -123,3 +130,23 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, no_card):
         pytest.skip("the CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_serve_cli_smoke_on_cpu(arch, capsys):
+    """``--smoke --device cpu`` serves the reduced config through the plain
+    versions: every request completes and no kernel launches."""
+    import json
+
+    from repro_torch.launch.serve import main
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        main(["--arch", arch, "--smoke", "--device", "cpu", "--requests",
+              "3", "--max-new", "4"])
+    finally:
+        torch.set_num_threads(n)
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["device"] == "cpu" and report["tokens"] == 12
+    assert set(report["stats"]["launches"].values()) == {0}

@@ -1,6 +1,9 @@
-"""The dense decoder on the ``yi_6b`` smoke config (float32), reference
-parameters carried over by ``params_from_jax``: prefill and decode logits
-against ``repro.models.transformer`` under exact and interp-fused numerics.
+"""The decoder on the ``yi_6b`` (dense) and ``deepseek_moe_16b`` (a dense
+layer 0, then MoE layers) smoke configs (float32), reference parameters
+carried over by ``params_from_jax``: prefill and decode logits against
+``repro.models.transformer`` under exact and interp-fused numerics. The
+reference keeps one KV cache per segment; the port one stacked cache over
+all layers, compared by concatenating the reference's along the layer axis.
 
 Tolerances: exact numerics differ by float32 reassociation (matmul and
 reduction order) through two layers: atol 2e-5 on logits of scale ~3.
@@ -8,11 +11,16 @@ Interp-fused numerics may in addition move a table code across a boundary
 where a reassociated float lands next to it; one flip changes one rsqrt,
 recip or silu value by one table ulp (<= 2^-12 relative), so the stated
 bound is 4 * 2^-12 * max|logit|. Greedy tokens must match wherever the
-reference's top-2 logit gap exceeds that tolerance.
+reference's top-2 logit gap exceeds that tolerance. For the MoE config the
+same tolerances hold as long as every token routes to the same experts in
+both packages (the router's top-k gaps on these inputs are far wider than
+the probabilities' differences; ``test_torch_moe.py`` holds routing
+tie-aware).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +33,15 @@ from repro.configs.base import get_smoke_config as jax_smoke_config
 from repro.models import transformer as jtf
 from repro.numerics.ops import get_numerics as jax_get_numerics
 from repro_torch.api.library import InterpLibrary
-from repro_torch.configs.base import get_smoke_config
+from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import KVCache
+from repro_torch.models.layers import map_tree
 from repro_torch.numerics.ops import get_numerics
 
 CACHE = 32
+ARCHS = ["yi_6b", "deepseek_moe_16b"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,10 +54,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jax_smoke_config("yi_6b")
-    cfg = get_smoke_config("yi_6b")
+@pytest.fixture(scope="module", params=ARCHS)
+def setup(request):
+    jcfg = jax_smoke_config(request.param)
+    cfg = get_smoke_config(request.param)
     jparams = jtf.init_params(jax.random.key(0), jcfg)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, "cpu")
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, params=params,
@@ -73,15 +84,67 @@ def _assert_greedy(ref_logits, got_logits, tol):
     np.testing.assert_array_equal(ref.argmax(-1)[clear], got.argmax(-1)[clear])
 
 
+def _stacked_cache(jcache, jcfg) -> list[np.ndarray]:
+    """The reference's per-segment caches as the port's one (k, v, pos)
+    stack: unstacked one-layer segments get a layer axis, then all are
+    concatenated along it."""
+    parts = []
+    for i, seg in enumerate(jtf.layer_plan(jcfg)):
+        c = jcache[f"seg{i}"]["0"]
+        parts.append([np.asarray(t) if seg.repeat > 1 else np.asarray(t)[None]
+                      for t in c])
+    return [np.concatenate(ts) for ts in zip(*parts)]
+
+
+def _segment_cache(cache: KVCache, jcfg, like) -> dict:
+    """The port's stacked cache cut into the reference's per-segment
+    layout (``like``: a reference cache tree of that layout)."""
+    out, at = {}, 0
+    for i, seg in enumerate(jtf.layer_plan(jcfg)):
+        ts = [jnp.asarray(t.numpy()[at:at + seg.repeat]) for t in cache]
+        if seg.repeat == 1:
+            ts = [t[0] for t in ts]
+        out[f"seg{i}"] = {"0": type(like[f"seg{i}"]["0"])(*ts)}
+        at += seg.repeat
+    return out
+
+
 def test_params_from_jax_layout(setup):
-    p, cfg = setup["params"], setup["cfg"]
-    layer = p["segments"]["seg0"]["0"]
-    assert tuple(layer["mixer"]["wq"].shape) == (
-        cfg.n_layers, cfg.d_model, cfg.n_heads * cfg.head_size)
-    assert tuple(layer["ffn"]["wi"].shape) == (cfg.n_layers, cfg.d_model,
-                                               2 * cfg.d_ff)
+    p, cfg, jp = setup["params"], setup["cfg"], setup["jparams"]
+    plan = tf.layer_plan(cfg)
+    assert len(plan) == len(jtf.layer_plan(setup["jcfg"]))
+    for i, seg in enumerate(plan):
+        layer = p["segments"][f"seg{i}"]["0"]
+        lead = (seg.repeat,) if seg.repeat > 1 else ()
+        assert tuple(layer["mixer"]["wq"].shape) == lead + (
+            cfg.d_model, cfg.n_heads * cfg.head_size)
+        ffn = layer["ffn"]
+        if seg.pattern[0].ffn == "moe":
+            m = cfg.moe
+            assert tuple(ffn["wi"].shape) == lead + (
+                m.n_experts, cfg.d_model, 2 * m.d_expert)
+            assert ffn["router"].dtype == torch.float32
+        else:
+            assert tuple(ffn["wi"].shape) == lead + (
+                cfg.d_model, 2 * seg.pattern[0].mlp_ff)
     np.testing.assert_array_equal(
-        p["embed"]["head"].numpy(), np.asarray(setup["jparams"]["embed"]["head"]))
+        p["embed"]["head"].numpy(), np.asarray(jp["embed"]["head"]))
+    # every leaf keeps the reference's dtype; a cast leaf is refused
+    if cfg.family == "moe":
+        bf = cfg.replace(param_dtype="bfloat16")
+        jbf = jtf.init_params(jax.random.key(1),
+                              setup["jcfg"].replace(param_dtype="bfloat16"))
+        tree = jax.tree.map(np.asarray, jbf)
+        got = params_from_jax(tree, bf, "cpu")
+        assert got["segments"]["seg1"]["0"]["ffn"]["router"].dtype == \
+            torch.float32
+        assert got["segments"]["seg1"]["0"]["ffn"]["wi"].dtype == \
+            torch.bfloat16
+        router = tree["segments"]["seg1"]["0"]["ffn"]
+        router["router"] = np.asarray(jnp.asarray(router["router"]).astype(
+            jnp.bfloat16))
+        with pytest.raises(TypeError, match="router"):
+            params_from_jax(tree, bf, "cpu")
 
 
 @pytest.mark.parametrize("name", ["exact", "interp-fused"])
@@ -99,10 +162,9 @@ def test_prefill_and_decode_logits_match_reference(name, setup):
     tol = _tol(name, jlog)
     np.testing.assert_allclose(tlog.numpy(), jlog, rtol=0, atol=tol)
     _assert_greedy(jlog, tlog.numpy(), tol)
-    jc = jcache["seg0"]["0"]
-    np.testing.assert_array_equal(tcache.pos.numpy(), np.asarray(jc.pos))
-    np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jc.k), rtol=0,
-                               atol=10 * tol)
+    jk, _, jpos = _stacked_cache(jcache, s["jcfg"])
+    np.testing.assert_array_equal(tcache.pos.numpy(), jpos)
+    np.testing.assert_allclose(tcache.k.numpy(), jk, rtol=0, atol=10 * tol)
 
     jdec = jax.jit(functools.partial(jtf.decode_step, cfg=s["jcfg"],
                                      numerics=jnum))
@@ -121,7 +183,7 @@ def test_prefill_and_decode_logits_match_reference(name, setup):
         tok = jlog2[:, 0].argmax(-1)[:, None].astype(np.int32)
         pos = pos + 1
     np.testing.assert_array_equal(tcache.pos.numpy(),
-                                  np.asarray(jcache["seg0"]["0"].pos))
+                                  _stacked_cache(jcache, s["jcfg"])[2])
 
 
 def test_mixed_length_pool_decode_matches_reference(setup):
@@ -173,23 +235,51 @@ def test_splice_cache_writes_the_slot_axis(setup):
     assert (pool.k[:, :2] == 0).all() and (pool.pos[:, :2] == -1).all()
     # the reference's splice on the same data gives the same pool
     jpool = jtf.init_cache(setup["jcfg"], 3, 8)
-    jone = {"seg0": {"0": type(jpool["seg0"]["0"])(
-        *(jnp.asarray(t.numpy()) for t in one))}}
+    jone = _segment_cache(one, setup["jcfg"], jpool)
     jpool = jtf.splice_cache(setup["jcfg"], jpool, jone, 2)
-    for a, b in zip(pool, jpool["seg0"]["0"]):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for a, b in zip(pool, _stacked_cache(jpool, setup["jcfg"])):
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
-def test_init_params_shapes_and_rules(setup):
+def test_init_params_shapes_and_rules(setup, monkeypatch):
+    """Shapes and dtypes of the reference's tree; unit norm scales;
+    truncated-normal fan-in init; seeded; and every leaf of rank >= 3
+    (stacked layers, the MoE expert stacks) drawn one leading-axis slice
+    at a time, which at full width keeps each float32 draw within one
+    layer (<= 1.5 GB)."""
     cfg = setup["cfg"]
+    draws = []
+    real = torch.nn.init.trunc_normal_
+
+    def spy(t, *a, **kw):
+        draws.append(tuple(t.shape))
+        return real(t, *a, **kw)
+
+    monkeypatch.setattr(torch.nn.init, "trunc_normal_", spy)
     p = tf.init_params(cfg, seed=3, device="cpu")
-    ref = jax.tree.map(lambda a: tuple(a.shape), setup["jparams"])
-    got = tf._map_tree(lambda _n, t: tuple(t.shape), p)
+    ref = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)),
+                       setup["jparams"])
+    got = map_tree(lambda _n, t: (tuple(t.shape), str(t.dtype).split(".")[1]),
+                   p)
     assert got == ref
-    layer = p["segments"]["seg0"]["0"]
-    assert torch.equal(layer["norm1"]["scale"], torch.ones(cfg.n_layers,
-                                                           cfg.d_model))
-    wq = layer["mixer"]["wq"]
+    shapes = tf.param_shapes(cfg)
+    want_draws = []
+    map_tree(lambda n, sp: None if n.endswith("scale") else want_draws.extend(
+        [sp.shape[1:]] * sp.shape[0] if len(sp.shape) >= 3 else [sp.shape]),
+             shapes)
+    assert draws == want_draws
+    if cfg.family == "moe":
+        assert (cfg.moe.n_experts, cfg.d_model, 2 * cfg.moe.d_expert) in draws
+    full = tf.param_shapes(get_config(cfg.name))
+    peak = []
+    map_tree(lambda n, sp: peak.append(4 * math.prod(
+        sp.shape[1:] if len(sp.shape) >= 3 else sp.shape)), full)
+    assert max(peak) <= 1.5e9
+    for i in range(cfg.n_layers):
+        _, lp = tf.layer_params(p, cfg, i)
+        assert torch.equal(lp["norm1"]["scale"], torch.ones(cfg.d_model))
+    wq = torch.cat([tf.layer_params(p, cfg, i)[1]["mixer"]["wq"].flatten()
+                    for i in range(cfg.n_layers)])
     assert wq.abs().max() <= 2.0 / cfg.d_model ** 0.5
     assert abs(wq.std().item() * cfg.d_model ** 0.5 - 0.88) < 0.1
     again = tf.init_params(cfg, seed=3, device="cpu")
