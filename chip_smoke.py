@@ -7,21 +7,36 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
 
 1. prints the card's name and power limit and the torch / CUDA versions,
    and builds the CUDA kernels from ``src/repro_torch/csrc`` with nvcc;
-2. holds each of the four kernels against its plain PyTorch version on the
-   card at the main paths' shapes (raising on a mismatch beyond the stated
+2. holds the design-space generator's envelope kernels
+   (``envelopes_parity``, ``envelopes_parity_batched``,
+   ``envelopes_parity_fleet``) and the a-interval kernel ``dd_max_rows``
+   against their plain versions on the card, bitwise, at the shapes the
+   generator gives them, and times them;
+3. runs the generator through its entry points: Table I's 16-bit
+   reciprocal under ``engine="pallas"`` on the card against the exact numpy
+   engine (same minimum region count, a design that verifies over all
+   65536 codes and evaluates on the card bit-exact), then compiles the
+   default 12-bit library twice on the card (the fleet device path,
+   ``mesh=2``, and ``engine="pallas"``), each to the vendored library's
+   ``rom_sha``, and evaluates every generated table through the
+   ``interp_eval`` kernel against ``TableDesign.eval_int``; then the 16-bit
+   log2 and exp2 rows under both engines;
+4. holds ``interp_eval`` and the four serving kernels against their plain
+   versions on the card (raising on a mismatch beyond the stated
    tolerance) and times kernel, plain version and a yardstick PyTorch call
-   (device time from the profiler, call time from CUDA events);
-3. serves 6 requests on full-width Yi-6B (bf16, random weights from a
+   (device time from the profiler, call time from CUDA events), on the
+   library compiled in step 3;
+5. serves 6 requests on full-width Yi-6B (bf16, random weights from a
    seeded generator, the default interpolation library) through the
    continuous-batching engine with interp-fused numerics, asserts every
    request completes with in-vocabulary tokens and finite logits, that each
    kernel launched exactly its expected count per forward pass, and that
    each request's first token matches a plain-version prefill on the card
    (tie-aware);
-4. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
+6. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
    64 routed experts top-6 + 2 shared, a dense layer 0; the router's
    softmax through the ``softmax_lib`` kernel);
-5. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
+7. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -34,7 +49,10 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
@@ -46,6 +64,14 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 SERVE_LENGTHS = (17, 64, 200, 511, 33, 128)
+# the default library's checksum (the vendored tables; the reference's
+# float32 device paths give it too)
+DEFAULT_ROM_SHA = "12aa483ae8456c2f"
+# Table I's published 16-bit rows (benchmarks/table1.py)
+TABLE1_16 = (("recip", {}), ("log2", {"out_bits": 17}),
+             ("exp2", {"out_bits": 16}))
+ENVELOPE_KERNELS = ("envelopes_parity", "envelopes_parity_batched",
+                    "envelopes_parity_fleet", "dd_max_rows")
 MAX_NEW = 16
 SLOTS, CACHE_LEN, HORIZON = 4, 1024, 8
 
@@ -107,6 +133,301 @@ def bound(nbytes: float, flops: float, rate: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BPS, flops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def envelope_work(n: int) -> tuple[int, int]:
+    """(even, odd) (center, offset) pairs of one envelope row of width n:
+    the pairs this row's data needs (the kernel stops at the row's ends)."""
+    j = np.arange(n)
+    even = np.minimum(j, n - 1 - j).sum()
+    odd = np.maximum(np.minimum(j, n - 2 - j) + 1, 0).sum()
+    return int(even), int(odd)
+
+
+def dspace_kernel_phase(dev):
+    """The envelope kernels and dd_max_rows against their plain versions,
+    bitwise, at the generator's shapes; returns rows for the kernels line
+    and details."""
+    import torch
+
+    from repro_torch.api import spec_for
+    from repro_torch.api.library import DEFAULT_LIBRARY_KINDS
+    from repro_torch.core.funcspec import get_spec
+    from repro_torch.kernels.dspace import kernel as dk
+    from repro_torch.kernels.dspace import ops, ref
+    from repro_torch.kernels.dspace.ops import _interleave
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    trio = [get_spec(k, 16, **kw) for k, kw in TABLE1_16]
+    recip = trio[0]
+    cases = []  # (kernel, label, L, U)
+    for r in (5, 8):
+        L, U = recip.region_bounds(r)
+        cases.append(("envelopes_parity_batched", f"recip16 R={r}",
+                      f32(L), f32(U)))
+    L, U = recip.region_bounds(5)
+    cases.append(("envelopes_parity", "recip16 R=5 region 0", f32(L[0]),
+                  f32(U[0])))
+    stack = [s.region_bounds(5) for s in trio]
+    cases.append(("envelopes_parity_fleet", "Table I 16-bit trio R=5",
+                  f32([b[0] for b in stack]), f32([b[1] for b in stack])))
+    man = [spec_for(k).region_bounds(6) for k in DEFAULT_LIBRARY_KINDS]
+    cases.append(("envelopes_parity_fleet", "12-bit manifest R=6",
+                  f32([b[0] for b in man]), f32([b[1] for b in man])))
+    cuda = {"envelopes_parity": dk.envelopes_parity_cuda,
+            "envelopes_parity_batched": dk.envelopes_parity_batched_cuda,
+            "envelopes_parity_fleet": dk.envelopes_parity_fleet_cuda}
+    rows, details = {}, []
+    dd_inputs = []
+    for name, label, L, U in cases:
+        n = L.shape[-1]
+        n_rows = L.numel() // n
+        got = cuda[name](L, U)
+        want = ref.envelopes_parity_ref(L.reshape(n_rows, n),
+                                        U.reshape(n_rows, n))
+        torch.cuda.synchronize()
+        err = max(float((g.reshape(n_rows, n) - w).abs().max())
+                  for g, w in zip(got, want))
+        same = all(torch.equal(g.reshape(n_rows, n), w)
+                   for g, w in zip(got, want))
+        print(f"{name} {label} {tuple(L.shape)}: bitwise equal {same}, "
+              f"max_abs_err {err} (tolerance 0, bitwise)")
+        if not same:
+            raise AssertionError(f"{name} {label} differs from plain")
+        even, odd = envelope_work(n)
+        # each pair: two divided differences of one add/sub pair, one
+        # divide and one min/max each = 8 operations
+        b_ms, b_by = bound(6 * 4 * n_rows * n, 8 * n_rows * (even + odd),
+                           F32_FLOPS)
+        row = dict(name=name, shape=list(L.shape), case=label,
+                   max_abs_err=err, tolerance=0,
+                   ms=device_ms(lambda: cuda[name](L, U), label=label),
+                   call_ms=timed(lambda: cuda[name](L, U)),
+                   plain_ms=device_ms(lambda: ref.envelopes_parity_ref(
+                       L.reshape(n_rows, n), U.reshape(n_rows, n)), iters=2,
+                       label=f"plain {label}"),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   pairs=n_rows * (even + odd))
+        details.append(row)
+        rows.setdefault(name, row)
+        if name != "envelopes_parity":
+            big, m = _interleave(*(g.reshape(n_rows, n) for g in got))
+            dd_inputs.append((label, big[:, 1:].contiguous(),
+                              m[:, 1:].contiguous()))
+    for label, mt, st in dd_inputs:
+        for side, (g, h) in (("a_lo", (mt, st)), ("a_hi", (-st, -mt))):
+            got = dk.dd_max_rows_cuda(g, h)
+            want = ref.dd_max_rows_ref(g, h)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            same = torch.equal(got, want)
+            n_rows, t = g.shape
+            print(f"dd_max_rows {label} {side} ({n_rows}, {t}): bitwise "
+                  f"equal {same}, max_abs_err {err} (tolerance 0, bitwise)")
+            if not same:
+                raise AssertionError(f"dd_max_rows {label} differs from plain")
+            pairs = n_rows * t * (t - 1) // 2
+            b_ms, b_by = bound(4 * (2 * n_rows * t + n_rows), 3 * pairs,
+                               F32_FLOPS)
+            row = dict(name="dd_max_rows", shape=[n_rows, t],
+                       case=f"{label} {side}", max_abs_err=err, tolerance=0,
+                       ms=device_ms(lambda: dk.dd_max_rows_cuda(g, h),
+                                    label=f"dd {label} {side}"),
+                       call_ms=timed(lambda: dk.dd_max_rows_cuda(g, h)),
+                       plain_ms=device_ms(lambda: ref.dd_max_rows_ref(g, h),
+                                          iters=2,
+                                          label=f"plain dd {label} {side}"),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       pairs=pairs)
+            details.append(row)
+            rows.setdefault("dd_max_rows", row)
+    # the one-row kernel through its public drop-in, against the plain one
+    L, U = recip.region_bounds(5)
+    got = ops.envelopes_pallas(L[0], U[0], device=dev)
+    want = ops.envelopes_pallas(L[0], U[0], device="cpu")
+    if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("envelopes_pallas on the card differs from the "
+                             "CPU plain version")
+    print("envelopes_pallas recip16 R=5 region 0: card == CPU plain version, "
+          "bitwise")
+    return rows, details
+
+
+def generator_phase(dev) -> dict:
+    """The generator through its entry points on the card (the main path
+    of this slice); launch counts are read right after it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.api import Explorer, ExploreConfig, get_spec
+    from repro_torch.api.library import DEFAULT_LIBRARY_KINDS
+    from repro_torch.core import designspace
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dspace.ops import envelopes_pallas
+    from repro_torch.kernels.interp.ops import table_eval
+
+    out = {"table1": []}
+    libs = {}
+
+    def explore(spec, **kw):
+        with tempfile.TemporaryDirectory() as d:
+            ex = Explorer(ExploreConfig(cache_dir=d, device=str(dev), **kw))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ex.explore(spec)
+            torch.cuda.synchronize()
+            return res, time.perf_counter() - t0
+
+    build.reset_launches()
+    t_phase = time.perf_counter()
+    for kind, kw in TABLE1_16:
+        spec = get_spec(kind, 16, **kw)
+        exact, t_exact = explore(spec)
+        dev_res, t_dev = explore(spec, engine="pallas")
+        best, best_x = dev_res.best.design, exact.best.design
+        ok, worst = best.verify(spec)
+        codes = torch.arange(1 << spec.in_bits, dtype=torch.int32,
+                             device=dev)
+        on_card = table_eval(codes, best).cpu().numpy().astype(np.int64)
+        eval_ok = bool(np.array_equal(
+            on_card, best.eval_int(np.arange(1 << spec.in_bits))))
+        same = best.to_dict() == best_x.to_dict()
+        diff = None
+        if not same:  # which R and verdict moved
+            diff = {"exact": [(e.design.lookup_bits, e.design.k)
+                              for e in exact.entries],
+                    "pallas": [(e.design.lookup_bits, e.design.k)
+                               for e in dev_res.entries]}
+        rec = dict(spec=spec.name, min_regions_exact=exact.min_regions_r,
+                   min_regions_pallas=dev_res.min_regions_r,
+                   wall_s_exact=t_exact, wall_s_pallas=t_dev,
+                   best=best.name, lookup_bits=best.lookup_bits,
+                   degree=best.degree, k=best.k, fits_int32=best.fits_int32,
+                   verify=ok, worst=worst, table_eval_bit_exact=eval_ok,
+                   identical_to_exact=same, difference=diff)
+        print(f"{spec.name}: min_regions pallas {dev_res.min_regions_r} / "
+              f"exact {exact.min_regions_r}; best {best.name} (R "
+              f"{best.lookup_bits}, degree {best.degree}, k {best.k}, "
+              f"fits_int32 {best.fits_int32}); verify over {1 << 16} codes "
+              f"{ok}; table_eval on the card == eval_int {eval_ok}; "
+              f"identical to the exact engine's design {same}; wall "
+              f"{t_dev:.2f} s pallas engine / {t_exact:.2f} s exact engine")
+        if (dev_res.min_regions_r != exact.min_regions_r or not ok
+                or not eval_ok):
+            raise AssertionError(f"{spec.name}: the pallas engine on the "
+                                 f"card disagrees: {rec}")
+        out["table1"].append(rec)
+        if kind == "recip":
+            # the one-row drop-in for core.designspace.envelopes, on each
+            # region at the minimum R: same Eqn 9 verdicts as the exact
+            # numpy envelopes
+            L, U = spec.region_bounds(dev_res.min_regions_r)
+            for r in range(L.shape[0]):
+                big, m = envelopes_pallas(L[r], U[r], device=dev)
+                big_x, m_x = designspace.envelopes(L[r], U[r])
+                if not np.array_equal(big[1:] < m[1:], big_x[1:] < m_x[1:]):
+                    raise AssertionError(f"envelopes_pallas region {r}: "
+                                         f"Eqn 9 verdicts differ")
+            print(f"envelopes_pallas on recip16's {L.shape[0]} regions at R "
+                  f"{dev_res.min_regions_r}: Eqn 9 verdicts equal the exact "
+                  f"numpy envelopes'")
+    for label, kw in (("fleet device path, mesh=2", {"mesh": 2}),
+                      ("engine=pallas", {"engine": "pallas"})):
+        with tempfile.TemporaryDirectory() as d:
+            ex = Explorer(ExploreConfig(cache_dir=d, device=str(dev), **kw))
+            t0 = time.perf_counter()
+            lib = ex.compile()
+            torch.cuda.synchronize()
+            t_c = time.perf_counter() - t0
+            sha = lib.rom_sha()
+            codes = torch.arange(4096, dtype=torch.int32, device=dev)
+            evals, designs = {}, {}
+            for kind in DEFAULT_LIBRARY_KINDS:
+                design = designs[kind] = ex.get_table(kind)
+                got = table_eval(codes, design).cpu().numpy()
+                evals[kind] = bool(np.array_equal(
+                    got.astype(np.int64), design.eval_int(np.arange(4096))))
+        print(f"compile() on the card, {label}: rom_sha {sha} (expected "
+              f"{DEFAULT_ROM_SHA}) in {t_c:.2f} s; interp_eval over 4096 "
+              f"codes == eval_int for {sum(evals.values())}/{len(evals)} "
+              f"tables")
+        if sha != DEFAULT_ROM_SHA or not all(evals.values()):
+            raise AssertionError(f"compile() {label}: sha {sha}, {evals}")
+        libs[label] = lib, designs
+        out[f"compile {label}"] = dict(rom_sha=sha, wall_s=t_c,
+                                       interp_eval_equal=evals)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t_phase
+    out["launches"] = {k: build.LAUNCHES[k]
+                       for k in ("interp_eval", *ENVELOPE_KERNELS)}
+    print(f"generator phase: {out['wall_s']:.1f} s; launches "
+          f"{out['launches']}")
+
+    # where the pallas engine's time goes: a profiled rerun of recip16
+    spec = get_spec("recip", 16)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t_prof = explore(spec, engine="pallas")
+    kern, total = 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            total += _dev_us(e)
+            if "envelopes_parity_kernel" in e.key or "dd_max_rows" in e.key:
+                kern += _dev_us(e)
+    out["recip16_pallas_split"] = dict(
+        profiled_wall_s=t_prof, envelope_kernels_device_s=kern / 1e6,
+        all_device_s=total / 1e6)
+    print(f"recip16 pallas engine, profiled rerun: {t_prof:.2f} s wall, "
+          f"{kern / 1e6:.4f} s device time in the envelope kernels, "
+          f"{total / 1e6:.4f} s device time in all; the rest is the host "
+          f"(bounds, the §III decision procedure in numpy, transfers)")
+    out["library"], out["designs"] = libs["engine=pallas"]
+    return out
+
+
+def interp_eval_phase(lib_designs, dev):
+    """interp_eval against its plain version on every table of the
+    generated library, all 4096 codes."""
+    import torch
+
+    from repro_torch.kernels.interp.kernel import interp_eval_cuda
+    from repro_torch.kernels.interp.ref import interp_eval_ref
+
+    details = []
+    for kind, design in lib_designs.items():
+        codes = torch.arange(1 << design.in_bits, dtype=torch.int32,
+                             device=dev)
+        coeffs = design.device_coeffs(dev)
+        dp = dict(eval_bits=design.eval_bits, k=design.k,
+                  sq_trunc=design.sq_trunc, lin_trunc=design.lin_trunc,
+                  degree=design.degree)
+        got = interp_eval_cuda(codes, coeffs, **dp)
+        want = interp_eval_ref(codes, coeffs, **dp)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if err:
+            raise AssertionError(f"interp_eval {kind} differs from plain")
+        n = codes.numel()
+        x = 1.0 + codes.float() / n  # the decoded input of the recip table
+        b_ms, b_by = bound(8 * n + coeffs.numel() * 4, 12 * n, F32_FLOPS)
+        details.append(dict(
+            name="interp_eval", shape=[n], case=kind, max_abs_err=err,
+            tolerance=0,
+            ms=device_ms(lambda: interp_eval_cuda(codes, coeffs, **dp),
+                         label=f"interp_eval {kind}"),
+            call_ms=timed(lambda: interp_eval_cuda(codes, coeffs, **dp)),
+            plain_ms=device_ms(lambda: interp_eval_ref(codes, coeffs, **dp),
+                               iters=3, label=f"plain interp_eval {kind}"),
+            library_ms=device_ms(lambda: torch.reciprocal(x),
+                                 label=f"reciprocal {kind}"),
+            bound_ms=b_ms, bound_by=b_by))
+    print(f"interp_eval on all 4096 codes of {len(details)} generated "
+          f"tables: max_abs_err 0 against the plain version (tolerance 0)")
+    rec = next(r for r in details if r["case"] == "recip")
+    return rec, details
 
 
 def kernel_phases(lib, dev, silu_codes):
@@ -352,7 +673,10 @@ def per_forward(cfg) -> dict:
 
     n_moe = sum(slot[-1].ffn == "moe" for slot in tf.layer_slots(cfg))
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
-    return {"library_eval": cfg.n_layers + n_moe * shared,
+    from repro_torch.kernels import build
+
+    return {**dict.fromkeys(build.LAUNCHES, 0),
+            "library_eval": cfg.n_layers + n_moe * shared,
             "rmsnorm_lib": 2 * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
@@ -544,7 +868,6 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.api.library import InterpLibrary
     from repro_torch.kernels import build
     from repro_torch.numerics.ops import _quantize
 
@@ -570,8 +893,12 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    lib = InterpLibrary.default_library(dev)
-    print(f"library {lib.rom_sha()} {tuple(lib.coeffs.shape)}")
+    dspace_rows, dspace_details = dspace_kernel_phase(dev)
+    gen = generator_phase(dev)
+    lib = gen.pop("library")  # compiled on the card in this run
+    print(f"library {lib.rom_sha()} {tuple(lib.coeffs.shape)} (compiled on "
+          f"the card)")
+    ie_row, ie_details = interp_eval_phase(gen.pop("designs"), dev)
     m = lib.meta("silu")
 
     def silu_codes(gate):
@@ -590,6 +917,7 @@ def main() -> int:
     serves.append(serve_phase(lib, dev, deepseek_moe_16b.CONFIG))
     launches = {name: sum(sv["launches"][name] for sv in serves)
                 for name in build.LAUNCHES}
+    launches.update(gen["launches"])
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the paths: "
                              f"{launches}")
@@ -604,7 +932,19 @@ def main() -> int:
                            "src/repro/kernels/flashattn/kernel.py:220"),
         "softmax_lib": ("src/repro_torch/csrc/softmax.cu",
                         "src/repro/kernels/softmax/kernel.py:90"),
+        "interp_eval": ("src/repro_torch/csrc/interp.cu",
+                        "src/repro/kernels/interp/kernel.py:366"),
+        "envelopes_parity": ("src/repro_torch/csrc/dspace.cu",
+                             "src/repro/kernels/dspace/kernel.py:99"),
+        "envelopes_parity_batched": ("src/repro_torch/csrc/dspace.cu",
+                                     "src/repro/kernels/dspace/kernel.py:150"),
+        "envelopes_parity_fleet": ("src/repro_torch/csrc/dspace.cu",
+                                   "src/repro/kernels/dspace/kernel.py:123"),
+        # glue, no TPU kernel: the jnp reduction inside the same program
+        "dd_max_rows": ("src/repro_torch/csrc/dspace.cu",
+                        "src/repro/kernels/dspace/ops.py:76"),
     }
+    rows = {**rows, **dspace_rows, "interp_eval": ie_row}
     for name, (source, rep) in replaces.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -616,7 +956,8 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     report = {"device": smi[0], "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
-              "kernel_phases": details, "serve": serves,
+              "kernel_phases": dspace_details + ie_details + details,
+              "generator": gen, "serve": serves,
               "event_timed": EVENT_TIMED}
     if EVENT_TIMED:
         print(f"timed with CUDA events (no profiler device time): "

@@ -115,10 +115,13 @@ class InterpLibrary:
     @classmethod
     def from_designs(cls, designs: Sequence[TableDesign],
                      kinds: Sequence[str],
+                     act_windows: dict | None = None,
                      device: str | torch.device = "cuda") -> "InterpLibrary":
-        """Pack verified designs into one padded ROM + static metadata
-        (activation tables over the default input window; a library saved
-        with another window keeps it through :meth:`load`)."""
+        """Pack verified designs into one padded ROM + static metadata.
+
+        ``act_windows``: optional ``{kind: (lo, hi)}`` for activation tables
+        generated over a non-default input window — recorded in the
+        metadata and honored by the library-bound float glue."""
         dev = resolve(device)
         if len(designs) != len(kinds) or not designs:
             raise ValueError("need one design per kind, at least one")
@@ -134,7 +137,7 @@ class InterpLibrary:
                 raise ValueError(
                     f"{d.name}: degree-{d.degree} design with nonzero a")
             act = kind in ACT_KINDS
-            lo, hi = ACT_LO, ACT_HI
+            lo, hi = (act_windows or {}).get(kind, (ACT_LO, ACT_HI))
             metas.append(FuncMeta(
                 kind=kind, name=d.name, in_bits=d.in_bits,
                 out_bits=d.out_bits, lookup_bits=d.lookup_bits, k=d.k,
@@ -288,3 +291,9 @@ class InterpLibrary:
             raise ValueError(f"corrupt library ROM {base}.npz")
         metas = tuple(_meta_from_dict(f) for f in man["funcs"])
         return cls(torch.from_numpy(coeffs).to(dev), metas).seal(sha)
+
+
+def load_library(path: str | pathlib.Path,
+                 device: str | torch.device = "cuda") -> InterpLibrary:
+    """Module-level convenience: :meth:`InterpLibrary.load`."""
+    return InterpLibrary.load(path, device=device)

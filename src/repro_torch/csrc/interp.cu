@@ -71,6 +71,61 @@ extern "C" int repro_library_eval(const int32_t* codes, const int32_t* fids,
   return (int)cudaGetLastError();
 }
 
+// interp_eval: one design's Figure-1 evaluation.
+//
+// Replaces repro/kernels/interp/kernel.py `interp_eval_2d` / `_interp_kernel`
+// (l.366): out[i] = ((a*xs^2 + b*xl + c) >> k) on the design's (2^R, 3)
+// int32 coefficients, region = code >> eval_bits. Bound on an H100: bytes
+// (a 4-byte code in, a 4-byte result out, a handful of integer operations).
+// Design: the coefficients are staged in shared memory while they fit
+// (2^R * 12 bytes; read through the cache beyond), a grid-stride loop takes
+// any code count; the reference's (rows % 8, 128) tiling is TPU layout.
+__global__ void interp_eval_kernel(const int32_t* __restrict__ codes,
+                                   const int32_t* __restrict__ coeffs,
+                                   TableArgs t, int staged,
+                                   int32_t* __restrict__ out, int64_t n) {
+  extern __shared__ int32_t smem[];
+  const int32_t* rom = coeffs;
+  if (staged) {
+    for (int i = threadIdx.x; i < t.rows * 3; i += blockDim.x)
+      smem[i] = coeffs[i];
+    __syncthreads();
+    rom = smem;
+  }
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step)
+    out[i] = lut_rom(rom, t, codes[i]);
+}
+
+extern "C" int repro_interp_eval(const int32_t* codes, const int32_t* coeffs,
+                                 int rows, int eval_bits, int k, int sq_trunc,
+                                 int lin_trunc, int degree, int32_t* out,
+                                 int64_t n, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n == 0) return 0;
+  size_t smem = (size_t)rows * 3 * 4;
+  if (smem > 96 * 1024) {
+    smem = 0;  // too large to stage: read the coefficients from global
+  } else if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(interp_eval_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > (int64_t)sms * 8) blocks = (int64_t)sms * 8;
+  const TableArgs t{0, rows, eval_bits, k, sq_trunc, lin_trunc, degree, 0, 0};
+  interp_eval_kernel<<<(int)blocks, threads, smem, (cudaStream_t)stream>>>(
+      codes, coeffs, t, smem > 0, out, n);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }

@@ -24,13 +24,17 @@ import tempfile
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("interp.cu", "rmsnorm.cu", "flashattn.cu", "softmax.cu")
+SOURCES = ("interp.cu", "rmsnorm.cu", "flashattn.cu", "softmax.cu",
+           "dspace.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {"library_eval": 0, "rmsnorm_lib": 0,
-                            "flash_attn_lib": 0, "softmax_lib": 0}
+LAUNCHES: dict[str, int] = {
+    "library_eval": 0, "rmsnorm_lib": 0, "flash_attn_lib": 0,
+    "softmax_lib": 0, "interp_eval": 0, "envelopes_parity": 0,
+    "envelopes_parity_batched": 0, "envelopes_parity_fleet": 0,
+    "dd_max_rows": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -39,6 +43,9 @@ _SIGNATURES = {
     "repro_flash_attn_lib": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                              _I, _F, _I, _I, _P),
     "repro_softmax_lib": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _I, _P),
+    "repro_interp_eval": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _I, _P),
+    "repro_envelopes_parity": (_P, _P, _L, _I, _P, _P, _P, _P, _I, _P),
+    "repro_dd_max_rows": (_P, _P, _L, _I, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

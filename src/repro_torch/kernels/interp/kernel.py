@@ -1,5 +1,7 @@
-"""CUDA wrapper of ``library_eval`` (``csrc/interp.cu``), the port of
-``repro/kernels/interp/kernel.py`` ``library_eval_2d`` / ``_library_kernel``.
+"""CUDA wrappers of ``library_eval`` and ``interp_eval``
+(``csrc/interp.cu``), the ports of ``repro/kernels/interp/kernel.py``
+``library_eval_2d`` / ``_library_kernel`` and ``interp_eval_2d`` /
+``_interp_kernel``.
 
 The reference tiles codes as (rows, 128) lanes with rows % 8 and reads the
 ROM by one-hot MXU contractions; on Hopper the kernel takes any shape
@@ -50,6 +52,36 @@ def library_eval_cuda(codes: torch.Tensor, fids: torch.Tensor | int,
         build.stream_of(dev))
     build.check("library_eval", rc)
     build.LAUNCHES["library_eval"] += 1
+    return out
+
+
+def interp_eval_cuda(codes: torch.Tensor, coeffs: torch.Tensor, *,
+                     eval_bits: int, k: int, sq_trunc: int, lin_trunc: int,
+                     degree: int) -> torch.Tensor:
+    """The port of ``interp_eval_2d`` / ``_interp_kernel``: one design's
+    (2^R, 3) int32 coefficients on int32 codes of any shape (the reference
+    needs (rows % 8, 128) tiles)."""
+    if codes.dtype != torch.int32 or coeffs.dtype != torch.int32:
+        raise TypeError(f"codes and coeffs must be int32, got {codes.dtype}"
+                        f" and {coeffs.dtype}")
+    if coeffs.dim() != 2 or coeffs.shape[1] != 3:
+        raise ValueError(f"coeffs must be (2^R, 3), got "
+                         f"{tuple(coeffs.shape)}")
+    if coeffs.device != codes.device:
+        raise ValueError(f"operands on {coeffs.device} and {codes.device}")
+    if not all(0 <= v < 32 for v in (eval_bits, k, sq_trunc, lin_trunc)):
+        raise ValueError("datapath shifts must lie in [0, 32)")
+    dev = codes.device
+    codes, coeffs = codes.contiguous(), coeffs.contiguous()
+    out = torch.empty_like(codes)
+    if codes.numel() == 0:
+        return out
+    rc = build.load().repro_interp_eval(
+        codes.data_ptr(), coeffs.data_ptr(), coeffs.shape[0], eval_bits, k,
+        sq_trunc, lin_trunc, degree, out.data_ptr(), codes.numel(),
+        dev.index or 0, build.stream_of(dev))
+    build.check("interp_eval", rc)
+    build.LAUNCHES["interp_eval"] += 1
     return out
 
 

@@ -6,8 +6,32 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.interp.kernel import library_eval_cuda
-from repro_torch.kernels.interp.ref import library_eval_ref
+from repro_torch.core.table import TableDesign
+from repro_torch.kernels.interp.kernel import (interp_eval_cuda,
+                                               library_eval_cuda)
+from repro_torch.kernels.interp.ref import (interp_eval_ref, interp_eval_wide,
+                                            library_eval_ref)
+
+
+def table_eval(codes: torch.Tensor, design: TableDesign) -> torch.Tensor:
+    """Evaluate ``design`` on int32 codes (any shape) on the codes' device.
+
+    Designs whose coefficients exceed int32 (wide-output reciprocals, the
+    16-bit Table I designs) take the int64 wide path, plain torch on the
+    codes' device (in the reference that path is jnp code, not a Pallas
+    kernel); any other design takes the ``interp_eval`` kernel on CUDA and
+    its plain version on the CPU."""
+    codes = codes.to(torch.int32)
+    dp = dict(eval_bits=design.eval_bits, k=design.k,
+              sq_trunc=design.sq_trunc, lin_trunc=design.lin_trunc,
+              degree=design.degree)
+    if not design.fits_int32:
+        return interp_eval_wide(codes, design.device_coeffs_wide(codes.device),
+                                **dp)
+    coeffs = design.device_coeffs(codes.device)
+    if codes.is_cuda:
+        return interp_eval_cuda(codes, coeffs, **dp)
+    return interp_eval_ref(codes, coeffs, **dp)
 
 
 def library_eval(codes: torch.Tensor, fids, coeffs: torch.Tensor,

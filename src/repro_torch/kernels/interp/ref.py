@@ -57,19 +57,50 @@ def library_eval_ref(codes: torch.Tensor, fids: torch.Tensor,
                      deg)
 
 
+def interp_eval_ref(codes: torch.Tensor, coeffs: torch.Tensor, *,
+                    eval_bits: int, k: int, sq_trunc: int, lin_trunc: int,
+                    degree: int) -> torch.Tensor:
+    """One design's Figure-1 evaluation on its (2^R, 3) int32 coefficients
+    (twin of the reference's ``interp_eval_ref``): region = code >>
+    eval_bits (clamped, as the reference's gather), then the int32 tail."""
+    u = codes.to(torch.int64) & _U32
+    r = (u >> eval_bits).clamp(max=coeffs.shape[0] - 1)
+    x = u & ((1 << eval_bits) - 1)
+    sel = coeffs.to(torch.int64)[r]
+    return poly_tail(sel[..., 0], sel[..., 1], sel[..., 2], x, k, sq_trunc,
+                     lin_trunc, degree)
+
+
+def interp_eval_wide(codes: torch.Tensor, coeffs_wide: torch.Tensor, *,
+                     eval_bits: int, k: int, sq_trunc: int, lin_trunc: int,
+                     degree: int) -> torch.Tensor:
+    """Exact evaluation of a design whose coefficients exceed int32, in
+    native int64 on the codes' device (the reference emulates int64 with
+    word pairs because its jax runs with x64 off): ``coeffs_wide`` is the
+    (2^R, 3) int64 ``TableDesign.device_coeffs_wide``. Bit-identical to
+    ``TableDesign.eval_int`` for any design whose accumulator fits int64;
+    the result is the low 32 bits, as the reference's."""
+    u = codes.to(torch.int64) & _U32
+    r = (u >> eval_bits).clamp(max=coeffs_wide.shape[0] - 1)
+    x = u & ((1 << eval_bits) - 1)
+    xs = (x >> sq_trunc) << sq_trunc
+    xl = (x >> lin_trunc) << lin_trunc
+    sel = coeffs_wide[r]
+    acc = sel[..., 1] * xl + sel[..., 2]
+    if degree == 2:
+        acc = acc + sel[..., 0] * xs * xs
+    return (acc >> k).to(torch.int32)
+
+
 def lut_rom_ref(codes: torch.Tensor, coeffs: torch.Tensor,
                 meta: dict) -> torch.Tensor:
     """One function's table read from the padded ROM (static func id in
     ``meta``): the twin of ``interp_eval_ref`` on the slot's 2^R rows."""
     ev = meta["eval"]
     rows = coeffs[meta["fid"], : 1 << (meta["in_bits"] - ev["eval_bits"])]
-    rows = rows.to(torch.int64)
-    u = codes.to(torch.int64) & _U32
-    r = (u >> ev["eval_bits"]).clamp(max=rows.shape[0] - 1)
-    x = u & ((1 << ev["eval_bits"]) - 1)
-    sel = rows[r]
-    return poly_tail(sel[..., 0], sel[..., 1], sel[..., 2], x, ev["k"],
-                     ev["sq_trunc"], ev["lin_trunc"], ev["degree"])
+    return interp_eval_ref(codes, rows, eval_bits=ev["eval_bits"], k=ev["k"],
+                           sq_trunc=ev["sq_trunc"], lin_trunc=ev["lin_trunc"],
+                           degree=ev["degree"])
 
 
 def table_exp_neg(t: torch.Tensor, coeffs, meta: dict) -> torch.Tensor:

@@ -20,6 +20,9 @@ Tolerances:
   they are bit-exact; only the row sum's order differs, which can move the
   reciprocal's code by one step: relative 2^-(recip in_bits - 1), plus one
   output rounding (2^-7 relative) in bf16.
+* interp_eval, the envelope kernels and dd_max_rows: bitwise. The
+  envelope arithmetic is IEEE float32 add, subtract and divide of small
+  integers in the reference's order, and min / max do not depend on order.
 * The smoke models through the kernels against the plain versions:
   4 * 2^-12 * max|logit| (a few table-code flips). The MoE routing is the
   same on both paths: a recip flip scales a whole row of router
@@ -27,17 +30,27 @@ Tolerances:
 """
 from __future__ import annotations
 
+import json
+import tempfile
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.api import Explorer, ExploreConfig
 from repro_torch.api.library import InterpLibrary
 from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.core.funcspec import get_spec
+from repro_torch.core.table import CoeffMeta, TableDesign
 from repro_torch.kernels import build
+from repro_torch.kernels.dspace import kernel as dk
+from repro_torch.kernels.dspace import ops as dops
+from repro_torch.kernels.dspace import ref as dref
 from repro_torch.kernels.flashattn.ops import attention_fused_library
 from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
-from repro_torch.kernels.interp.ops import library_eval
-from repro_torch.kernels.interp.ref import library_eval_ref
+from repro_torch.kernels.interp.kernel import interp_eval_cuda
+from repro_torch.kernels.interp.ops import library_eval, table_eval
+from repro_torch.kernels.interp.ref import interp_eval_ref, library_eval_ref
 from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
 from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
 from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
@@ -230,7 +243,8 @@ def _per_forward(cfg) -> dict:
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
-    return {"library_eval": cfg.n_layers + n_moe * shared,
+    return {**dict.fromkeys(build.LAUNCHES, 0),
+            "library_eval": cfg.n_layers + n_moe * shared,
             "rmsnorm_lib": 2 * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
@@ -284,3 +298,126 @@ def test_engine_on_card_counts_and_batching(arch, lib, dev):
         k: n * forwards for k, n in _per_forward(cfg).items()}
     for i, p in enumerate(prompts):
         assert serve([p], [i])[1][i] == out[i]
+
+
+# ---------------------------------------------------------------- generator
+
+def _bounds_f32(dev, rows, n, seed):
+    rng = np.random.default_rng(seed)
+    L = np.cumsum(rng.integers(0, 3, (rows, n)), axis=1)
+    U = L + rng.integers(0, 4, (rows, n))
+    return (torch.as_tensor(L, dtype=torch.float32, device=dev),
+            torch.as_tensor(U, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("rows,n", [(32, 2048), (256, 256), (3, 200),
+                                    (5, 3), (2, 9000), (1, 24000)])
+def test_envelope_kernels_bitwise(rows, n, dev):
+    """The three envelope entry points against the plain stencil, bitwise:
+    the generator's widths, a width off any tile, the narrowest row the
+    kernel takes, one staged above 48 KiB of shared memory and one too wide
+    to stage at all."""
+    L, U = _bounds_f32(dev, rows, n, rows + n)
+    want = dref.envelopes_parity_ref(L, U)
+    n0 = dict(build.LAUNCHES)
+    got_b = dk.envelopes_parity_batched_cuda(L, U)
+    got_f = dk.envelopes_parity_fleet_cuda(L[None], U[None])
+    got_1 = dk.envelopes_parity_cuda(L[0], U[0])
+    torch.cuda.synchronize()
+    for gb, gf, g1, w in zip(got_b, got_f, got_1, want):
+        assert torch.equal(gb, w) and torch.equal(gf[0], w)
+        assert torch.equal(g1, w[0])
+    for name in ("envelopes_parity", "envelopes_parity_batched",
+                 "envelopes_parity_fleet"):
+        assert build.LAUNCHES[name] == n0[name] + 1
+
+
+@pytest.mark.parametrize("rows,t", [(32, 4093), (512, 125), (3, 2),
+                                    (2, 30001)])
+def test_dd_max_rows_bitwise(rows, t, dev):
+    g = torch.Generator(device=dev).manual_seed(t)
+    a = torch.randn(rows, t, device=dev, generator=g) * 1000
+    b = a - torch.rand(rows, t, device=dev, generator=g) * 50
+    n0 = build.LAUNCHES["dd_max_rows"]
+    got = dk.dd_max_rows_cuda(a, b)
+    assert torch.equal(got, dref.dd_max_rows_ref(a, b))
+    assert build.LAUNCHES["dd_max_rows"] == n0 + 1
+
+
+def test_region_envelopes_device_card_equals_cpu(dev):
+    """recip-16 at R = 5 and the steep regression table of the reference's
+    fleet tests: the card's front half equals the CPU plain versions'."""
+    L, U = get_spec("recip", 16).region_bounds(5)
+    x = np.arange(16, dtype=np.int64)
+    steep = (-(1 << 24) * x).reshape(1, 16)
+    for Lr, Ur in ((L, U), (steep, steep + 8)):
+        got = dops.region_envelopes_device(Lr, Ur, device=dev)
+        want = dops.region_envelopes_device(Lr, Ur, device="cpu")
+        for g_, w in zip(got, want):
+            np.testing.assert_array_equal(g_, w)
+        got = dops.fleet_region_envelopes_device(Lr[None], Ur[None],
+                                                 device=dev)
+        for g_, w in zip(got, want):
+            np.testing.assert_array_equal(g_, w)
+
+
+def test_interp_eval_kernel_every_table(lib, dev):
+    """interp_eval on all 4096 codes of each default table, and on ragged
+    shapes, against the plain version and TableDesign.eval_int."""
+    from repro_torch.api.library import DEFAULT_TABLE_KEY, TABLES_DIR
+
+    codes = torch.arange(4096, dtype=torch.int32, device=dev)
+    for kind in lib.kinds:
+        d = TableDesign.from_dict(json.loads(
+            (TABLES_DIR / f"{kind}_{DEFAULT_TABLE_KEY}.json").read_text()))
+        n0 = build.LAUNCHES["interp_eval"]
+        got = table_eval(codes, d)
+        assert build.LAUNCHES["interp_eval"] == n0 + 1
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64),
+                                      d.eval_int(np.arange(4096)))
+        dp = dict(eval_bits=d.eval_bits, k=d.k, sq_trunc=d.sq_trunc,
+                  lin_trunc=d.lin_trunc, degree=d.degree)
+        ragged = codes[:1001].reshape(7, 11, 13).flip(0)
+        assert torch.equal(interp_eval_cuda(ragged, d.device_coeffs(dev), **dp),
+                           interp_eval_ref(ragged, d.device_coeffs(dev), **dp))
+
+
+def test_table_eval_wide_design_on_card(dev):
+    """A design whose coefficients exceed int32 takes the int64 path on the
+    card and equals eval_int (low 32 bits)."""
+    rng = np.random.default_rng(3)
+    r = 4
+    meta = CoeffMeta(40, 0, True)
+    d = TableDesign("wide", 12, 20, r, 30, 2, 1, 0,
+                    rng.integers(-2**20, 2**20, 1 << r),
+                    rng.integers(-2**36, 2**36, 1 << r),
+                    rng.integers(2**45, 2**46, 1 << r), meta, meta, meta)
+    assert not d.fits_int32
+    codes = torch.arange(4096, dtype=torch.int32, device=dev)
+    n0 = build.LAUNCHES["interp_eval"]
+    got = table_eval(codes, d).cpu().numpy()
+    assert build.LAUNCHES["interp_eval"] == n0
+    want = d.eval_int(np.arange(4096)).astype(np.int64)
+    np.testing.assert_array_equal(got, ((want + 2**31) % 2**32 - 2**31))
+
+
+def test_pallas_engine_on_card_matches_exact(dev):
+    """recip-12 under engine="pallas" on the card: the exact engine's
+    minimum R and design; compile() on the card under both device paths
+    gives the vendored library's checksum."""
+    spec = get_spec("recip", 12)
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        exact = Explorer(ExploreConfig(cache_dir=d1)).explore(spec)
+        n0 = dict(build.LAUNCHES)
+        card = Explorer(ExploreConfig(engine="pallas", device="cuda",
+                                      cache_dir=d2)).explore(spec)
+        assert build.LAUNCHES["envelopes_parity_batched"] > \
+            n0["envelopes_parity_batched"]
+    assert card.min_regions_r == exact.min_regions_r
+    assert card.best.design.to_dict() == exact.best.design.to_dict()
+    for kw in ({"engine": "pallas"}, {"mesh": 2}):
+        with tempfile.TemporaryDirectory() as d:
+            lib = Explorer(ExploreConfig(cache_dir=d, device="cuda",
+                                         **kw)).compile()
+        assert lib.rom_sha() == "12aa483ae8456c2f" and lib.coeffs.is_cuda

@@ -24,7 +24,12 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.kernels.softmax.kernel",
             "repro_torch.kernels.softmax.ops",
-            "repro_torch.kernels.softmax.ref", "repro_torch.serve.engine")
+            "repro_torch.kernels.softmax.ref", "repro_torch.serve.engine",
+            # the generator slice's
+            "repro_torch.api.explorer", "repro_torch.core.fleet",
+            "repro_torch.core.batched", "repro_torch.kernels.dspace.kernel",
+            "repro_torch.kernels.dspace.ops",
+            "repro_torch.kernels.dspace.ref")
 
 
 @pytest.fixture
@@ -99,7 +104,40 @@ def _from_designs():
     InterpLibrary.from_designs([d], ["silu"])
 
 
+def _explore_pallas(tmp):
+    from repro_torch.api import Explorer, ExploreConfig, get_spec
+
+    Explorer(ExploreConfig(engine="pallas", cache_dir=str(tmp))).explore(
+        get_spec("recip", 8))
+
+
+def _compile_mesh(tmp):
+    from repro_torch.api import Explorer, ExploreConfig
+
+    Explorer(ExploreConfig(mesh=2, cache_dir=str(tmp))).compile(["recip"])
+
+
+def _region_envelopes():
+    from repro_torch.core.funcspec import get_spec
+    from repro_torch.kernels.dspace.ops import region_envelopes_device
+
+    region_envelopes_device(*get_spec("recip", 8).region_bounds(3))
+
+
+def _device_coeffs():
+    from repro_torch.core.table import CoeffMeta, TableDesign
+
+    meta = CoeffMeta(8, 0, True)
+    TableDesign("t", 4, 4, 2, 0, 1, 0, 0, np.zeros(4, np.int64),
+                np.zeros(4, np.int64), np.zeros(4, np.int64), meta, meta,
+                meta).device_coeffs()
+
+
 ENTRY_POINTS = {
+    "explore_pallas": _explore_pallas,
+    "compile_mesh": _compile_mesh,
+    "region_envelopes_device": lambda tmp: _region_envelopes(),
+    "device_coeffs": lambda tmp: _device_coeffs(),
     "resolve": lambda tmp: resolve("cuda"),
     "default_library": lambda tmp: InterpLibrary.default_library(),
     "from_designs": lambda tmp: _from_designs(),

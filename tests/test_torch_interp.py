@@ -1,6 +1,7 @@
-"""The Figure-1 datapath: the port's plain ``library_eval`` and
-``InterpLibrary.eval_int`` are bit-exact against the reference's integer
-oracles over every input code of every default kind."""
+"""The Figure-1 datapath: the port's plain ``library_eval``,
+``InterpLibrary.eval_int`` and ``table_eval`` (int32 and int64 wide paths)
+are bit-exact against the reference's integer oracles over every input code
+of every default kind."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -9,11 +10,14 @@ import pytest
 import torch
 
 from repro.api import DEFAULT_LIBRARY_KINDS, default_explorer
-from repro.kernels.interp.kernel import library_eval_2d
+from repro.core.table import TableDesign as JaxTableDesign
+from repro.kernels.interp.kernel import interp_eval_2d, library_eval_2d
+from repro.kernels.interp.ops import table_eval as jax_table_eval
 from repro.kernels.interp.ref import library_eval_ref as jax_library_eval_ref
-from repro_torch.api.library import InterpLibrary
-from repro_torch.kernels.interp.ops import library_eval
-from repro_torch.kernels.interp.ref import library_eval_ref
+from repro_torch.api.library import DEFAULT_TABLE_KEY, TABLES_DIR, InterpLibrary
+from repro_torch.core.table import CoeffMeta, TableDesign
+from repro_torch.kernels.interp.ops import library_eval, table_eval
+from repro_torch.kernels.interp.ref import interp_eval_ref, library_eval_ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -94,3 +98,72 @@ def test_broadcast_fid_equals_elementwise_fids(libs):
     b = library_eval(codes, torch.full_like(codes, fid), lib.coeffs,
                      lib.meta_rows())
     assert a.shape == codes.shape and torch.equal(a, b)
+
+
+def _vendored(kind: str) -> TableDesign:
+    import json
+
+    return TableDesign.from_dict(json.loads(
+        (TABLES_DIR / f"{kind}_{DEFAULT_TABLE_KEY}.json").read_text()))
+
+
+@pytest.mark.parametrize("kind", DEFAULT_LIBRARY_KINDS)
+def test_table_eval_int32_path_all_codes(kind):
+    """``table_eval`` of one 12-bit design (the int32 path: the
+    ``interp_eval`` kernel's plain version on the CPU) == eval_int == the
+    reference's ``table_eval`` through its interpret-mode kernel."""
+    d = _vendored(kind)
+    assert d.fits_int32
+    codes = np.arange(1 << d.in_bits, dtype=np.int32)
+    got = table_eval(torch.from_numpy(codes), d)
+    assert got.dtype == torch.int32
+    want = d.eval_int(codes)
+    np.testing.assert_array_equal(got.numpy().astype(np.int64), want)
+    jd = JaxTableDesign.from_dict(d.to_dict())
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_table_eval(jnp.asarray(codes), jd,
+                                               interpret=True)))
+
+
+def test_interp_eval_ref_matches_reference_interpret_kernel():
+    """One (8, 128) tile of random codes: the plain ``interp_eval`` ==
+    the reference's ``interp_eval_2d`` in interpret mode, bitwise."""
+    d = _vendored("recip")
+    codes = np.random.default_rng(2).integers(0, 4096, (8, 128)
+                                              ).astype(np.int32)
+    dp = dict(eval_bits=d.eval_bits, k=d.k, sq_trunc=d.sq_trunc,
+              lin_trunc=d.lin_trunc, degree=d.degree)
+    got = interp_eval_ref(torch.from_numpy(codes),
+                          torch.from_numpy(d.packed_coeffs()), **dp)
+    want = interp_eval_2d(jnp.asarray(codes), jnp.asarray(d.packed_coeffs()),
+                          interpret=True, **dp)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _wide_design(degree: int) -> TableDesign:
+    rng = np.random.default_rng(3 + degree)
+    r = 4
+    meta = CoeffMeta(47, 0, True)
+    a = (rng.integers(-2**20, 2**20, 1 << r) if degree == 2
+         else np.zeros(1 << r, np.int64))
+    return TableDesign("wide", 12, 20, r, 30, degree, 1, 0, a,
+                       rng.integers(-2**36, 2**36, 1 << r),
+                       rng.integers(2**45, 2**46, 1 << r), meta, meta, meta)
+
+
+@pytest.mark.parametrize("degree", [1, 2])
+def test_table_eval_wide_path_all_codes(degree):
+    """A design whose coefficients exceed int32 takes the int64 wide path:
+    equal to eval_int and to the reference's two-word emulation."""
+    d = _wide_design(degree)
+    assert not d.fits_int32
+    codes = np.arange(1 << d.in_bits, dtype=np.int32)
+    got = table_eval(torch.from_numpy(codes), d).numpy()
+    want = d.eval_int(codes)
+    np.testing.assert_array_equal(got.astype(np.int64), want)
+    jd = JaxTableDesign.from_dict(d.to_dict())
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_table_eval(jnp.asarray(codes), jd)))
+    assert d.device_coeffs_wide("cpu").dtype == torch.int64
+    with pytest.raises(ValueError, match="exceed int32"):
+        d.device_coeffs("cpu")
