@@ -21,22 +21,34 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    ``rom_sha``, and evaluates every generated table through the
    ``interp_eval`` kernel against ``TableDesign.eval_int``; then the 16-bit
    log2 and exp2 rows under both engines;
-4. holds ``interp_eval`` and the four serving kernels against their plain
-   versions on the card (raising on a mismatch beyond the stated
-   tolerance) and times kernel, plain version and a yardstick PyTorch call
-   (device time from the profiler, call time from CUDA events), on the
-   library compiled in step 3;
-5. serves 6 requests on full-width Yi-6B (bf16, random weights from a
-   seeded generator, the default interpolation library) through the
-   continuous-batching engine with interp-fused numerics, asserts every
-   request completes with in-vocabulary tokens and finite logits, that each
-   kernel launched exactly its expected count per forward pass, and that
-   each request's first token matches a plain-version prefill on the card
-   (tie-aware);
-6. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
+4. segments the default manifest on the card: ``compile_segmented()``
+   under ``engine="pallas"`` (fresh table cache) to the ROM-v2 library
+   ``f775a828748d4ea9`` (8, 42, 3), 153 rows, beside the same call under the
+   exact engine; every slot evaluates through the ``rom_eval`` kernel (the
+   in-kernel read every fused kernel inlines) equal to its design's int64
+   ``eval_int``; the v2 artifact is saved and loaded back unchanged;
+5. holds ``interp_eval``, ``library_walk``, ``rom_eval`` and the four
+   serving kernels against their plain versions on the card (raising on a
+   mismatch beyond the stated tolerance; the activation kernel at every
+   shape the served models hand it) and times kernel, plain version and a
+   yardstick PyTorch call (device time from the profiler, read only from
+   traces that hold every launch of the kernel; call time from CUDA
+   events), on the uniform library compiled in step 3 and, for the walk,
+   ``rom_eval`` and the fused kernels, on the segmented one of step 4;
+6. serves 6 requests on full-width Yi-6B (bf16, random weights from a
+   seeded generator, the uniform library) through the continuous-batching
+   engine with interp-fused numerics, asserts every request completes with
+   in-vocabulary tokens and finite logits, that each kernel launched
+   exactly its expected count per forward pass, and that each request's
+   first token matches a plain-version prefill on the card (tie-aware);
+7. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
    64 routed experts top-6 + 2 shared, a dense layer 0; the router's
-   softmax through the ``softmax_lib`` kernel);
-7. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
+   softmax through the ``softmax_lib`` kernel), first on the uniform
+   library, then on the same weights on the segmented library, where the
+   activations go through ``library_walk`` and every table read of the
+   fused kernels through the segment decode: the same launches per forward
+   with ``library_walk`` in place of ``library_eval``;
+8. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -67,6 +79,10 @@ SERVE_LENGTHS = (17, 64, 200, 511, 33, 128)
 # the default library's checksum (the vendored tables; the reference's
 # float32 device paths give it too)
 DEFAULT_ROM_SHA = "12aa483ae8456c2f"
+# the default manifest segmented (ROM v2): checksum, shape and rows used
+SEG_ROM_SHA = "f775a828748d4ea9"
+SEG_ROM_SHAPE = (8, 42, 3)
+SEG_ROWS = 153
 # Table I's published 16-bit rows (benchmarks/table1.py)
 TABLE1_16 = (("recip", {}), ("log2", {"out_bits": 17}),
              ("exp2", {"out_bits": 16}))
@@ -94,34 +110,102 @@ def timed(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 EVENT_TIMED: list[str] = []  # measurements the profiler could not time
+SHORT_TRACES: list[str] = []  # kernel times read from a trace that lost some
+
+# each hand-written kernel's symbol, as the profiler names its launches
+KERNEL_SYMBOLS = {"library_eval": "library_eval_kernel",
+                  "library_walk": "library_walk_kernel",
+                  "rmsnorm_lib": "rmsnorm_lib_kernel",
+                  "flash_attn_lib": "flash_attn_lib_kernel",
+                  "softmax_lib": "softmax_lib_",
+                  "rom_eval": "rom_eval_kernel",
+                  "interp_eval": "interp_eval_kernel",
+                  "envelopes_parity": "envelopes_parity_kernel",
+                  "envelopes_parity_batched": "envelopes_parity_kernel",
+                  "envelopes_parity_fleet": "envelopes_parity_kernel",
+                  "dd_max_rows": "dd_max_rows_kernel"}
+SERVE_KERNELS = ("library_eval", "library_walk", "rmsnorm_lib",
+                 "flash_attn_lib", "softmax_lib")
 
 
-def device_ms(fn, iters: int = 10, label: str = "") -> float:
+def device_ms(fn, iters: int = 10, label: str = "",
+              kernel: str | None = None) -> float:
     """Mean device milliseconds of the CUDA kernels one ``fn()`` launches,
     from torch.profiler (CUPTI): the kernels' own execution time, without
-    the host's launch gaps. A trace with no device time is retried; if it
-    stays empty the call is timed with CUDA events instead (which include
-    the launch gaps), and ``label`` is listed in ``EVENT_TIMED``."""
+    the host's launch gaps. The profiler on this card loses events from a
+    varying share of traces. With ``kernel`` (a hand-written kernel's name)
+    that kernel's time per launch is read from its own events, found by
+    its symbol and divided by their count, times the launches one ``fn()``
+    adds to its count; a trace that lost some of them is retried and the
+    fullest is kept (listed in ``SHORT_TRACES``). The plain versions (no
+    ``kernel``) take any trace with device time. A trace that stays empty
+    sends the call to ``backlog_ms``, and ``label`` is listed in
+    ``EVENT_TIMED``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import build
+
+    before = build.LAUNCHES[kernel] if kernel else 0
     fn()
     torch.cuda.synchronize()
+    per_call = build.LAUNCHES[kernel] - before if kernel else 0
+    if kernel and not per_call:
+        raise AssertionError(f"{label}: fn() does not launch {kernel}")
+    best = None  # (launches seen, their device us, other device us)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(_dev_us(e) for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        if total > 0:
-            return total / iters / 1e3
-    print(f"  torch.profiler recorded no device time for {label or fn}: "
-          f"timed with CUDA events instead")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        total = sum(_dev_us(e) for e in events)
+        if not kernel:
+            if total > 0:
+                return total / iters / 1e3
+            continue
+        mine = [e for e in events if KERNEL_SYMBOLS[kernel] in e.key]
+        seen = sum(int(e.count) for e in mine)
+        if seen and (best is None or seen > best[0]):
+            own = sum(_dev_us(e) for e in mine)
+            best = (seen, own, total - own)
+        if seen == per_call * iters:
+            break
+    if best:
+        seen, own, rest = best
+        if seen < per_call * iters:
+            SHORT_TRACES.append(f"{label}: {seen} of {per_call * iters} "
+                                f"{kernel} launches")
+        return (own / seen * per_call + rest / iters) / 1e3
+    print(f"  torch.profiler recorded no device time for "
+          f"{kernel or ''} {label or fn}: timed with CUDA events on a "
+          f"backlogged stream instead")
     EVENT_TIMED.append(label or repr(fn))
-    return timed(fn, iters=iters)
+    return backlog_ms(fn, iters=iters)
+
+
+def backlog_ms(fn, iters: int = 10) -> float:
+    """Median device milliseconds of one ``fn()`` from a CUDA event pair
+    around each call, enqueued behind a spin kernel (``torch.cuda._sleep``,
+    about 1 ms per call) so that the stream holds a backlog and the host's
+    launch gaps do not enter. A call that waits for the device from the
+    host (a pageable copy) still lets them in."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(2_000_000 * iters)
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
 def _dev_us(e) -> float:
@@ -142,6 +226,24 @@ def envelope_work(n: int) -> tuple[int, int]:
     even = np.minimum(j, n - 1 - j).sum()
     odd = np.maximum(np.minimum(j, n - 2 - j) + 1, 0).sum()
     return int(even), int(odd)
+
+
+def act_shapes() -> tuple[tuple[int, ...], ...]:
+    """The silu code shapes the served models hand the activation kernel,
+    one function id for every element: Yi-6B's SwiGLU at decode (4 slots)
+    and in a 512-token prefill; DeepSeekMoE's routed-expert groups (slots,
+    experts, capacity + the scratch row, d_expert), its shared experts and
+    its dense layer 0, at decode and in the longest served prefill."""
+    from repro_torch.configs import deepseek_moe_16b, yi_6b
+    from repro_torch.models.moe import _capacity
+
+    yi, moe = yi_6b.CONFIG, deepseek_moe_16b.CONFIG
+    m = moe.moe
+    out = [(SLOTS, 1, yi.d_ff), (1, 512, yi.d_ff)]
+    for b, s in ((SLOTS, 1), (1, max(SERVE_LENGTHS))):
+        out += [(b, m.n_experts, _capacity(s, moe) + 1, m.d_expert),
+                (b, s, m.n_shared * m.d_expert), (b, s, moe.first_dense_ff)]
+    return tuple(out)
 
 
 def dspace_kernel_phase(dev):
@@ -203,7 +305,8 @@ def dspace_kernel_phase(dev):
                            F32_FLOPS)
         row = dict(name=name, shape=list(L.shape), case=label,
                    max_abs_err=err, tolerance=0,
-                   ms=device_ms(lambda: cuda[name](L, U), label=label),
+                   ms=device_ms(lambda: cuda[name](L, U), label=label,
+                                 kernel=name),
                    call_ms=timed(lambda: cuda[name](L, U)),
                    plain_ms=device_ms(lambda: ref.envelopes_parity_ref(
                        L.reshape(n_rows, n), U.reshape(n_rows, n)), iters=2,
@@ -234,7 +337,8 @@ def dspace_kernel_phase(dev):
             row = dict(name="dd_max_rows", shape=[n_rows, t],
                        case=f"{label} {side}", max_abs_err=err, tolerance=0,
                        ms=device_ms(lambda: dk.dd_max_rows_cuda(g, h),
-                                    label=f"dd {label} {side}"),
+                                    label=f"dd {label} {side}",
+                                    kernel="dd_max_rows"),
                        call_ms=timed(lambda: dk.dd_max_rows_cuda(g, h)),
                        plain_ms=device_ms(lambda: ref.dd_max_rows_ref(g, h),
                                           iters=2,
@@ -388,6 +492,244 @@ def generator_phase(dev) -> dict:
     return out
 
 
+def segmented_generator_phase(dev) -> dict:
+    """compile_segmented() of the default manifest on the card (the main
+    path of this slice); launch counts are read right after it. Returns the
+    segmented library and each kind's design (the int64 oracle)."""
+    import torch
+
+    from repro_torch.api import Explorer, ExploreConfig, spec_for
+    from repro_torch.api.library import DEFAULT_LIBRARY_KINDS, InterpLibrary
+    from repro_torch.kernels import build
+    from repro_torch.kernels.interp.ops import rom_eval
+    from repro_torch.segment import explore_segmented
+
+    def compile_seg(**kw):
+        with tempfile.TemporaryDirectory() as d:
+            ex = Explorer(ExploreConfig(cache_dir=d, device=str(dev), **kw))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lib = ex.compile_segmented()
+            torch.cuda.synchronize()
+            return lib, time.perf_counter() - t0, ex
+
+    build.reset_launches()
+    t_phase = time.perf_counter()
+    lib, t_pallas, _ = compile_seg(engine="pallas")
+    sha = lib.rom_sha()
+    rows = sum(m.rows_used for m in lib.metas)
+    shapes = {m.kind: (m.seg_depth, len(m.seg_meta), m.rows_used)
+              for m in lib.metas}
+    print(f"compile_segmented() on the card, engine=pallas: rom_sha {sha} "
+          f"(expected {SEG_ROM_SHA}), {tuple(lib.coeffs.shape)}, {rows} rows "
+          f"used, manifest v{lib.manifest()['version']}, in {t_pallas:.2f} s;"
+          f" (depth, leaves, rows) per kind {shapes}")
+    if (sha != SEG_ROM_SHA or tuple(lib.coeffs.shape) != SEG_ROM_SHAPE
+            or rows != SEG_ROWS or lib.manifest()["version"] != 2):
+        raise AssertionError(f"compile_segmented under engine=pallas: {sha}")
+    # the same call under the exact engine on the same host
+    lib_x, t_exact, ex = compile_seg()
+    same = {}
+    for m, mx in zip(lib.metas, lib_x.metas):
+        f = lib.func_id(m.kind)
+        same[m.kind] = bool(m == mx and torch.equal(lib.coeffs[f],
+                                                    lib_x.coeffs[f]))
+    print(f"compile_segmented() under the exact engine on the same host: "
+          f"rom_sha {lib_x.rom_sha()} in {t_exact:.2f} s; the pallas "
+          f"engine's slot equals the exact engine's for "
+          f"{sum(same.values())}/{len(same)} kinds")
+    if lib_x.rom_sha() != SEG_ROM_SHA:
+        raise AssertionError(f"exact engine: {lib_x.rom_sha()}")
+    # each kind's design from the exact engine's segmenter, and every slot
+    # of the card's library through the in-kernel read against its eval_int
+    designs, rom_equal = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        ex = Explorer(ExploreConfig(cache_dir=d, device=str(dev)))
+        for kind in DEFAULT_LIBRARY_KINDS:
+            designs[kind] = explore_segmented(
+                spec_for(kind), max_depth=ex.get_table(kind).lookup_bits,
+                engine="batched", device=dev)
+    for kind, design in designs.items():
+        codes = torch.arange(1 << design.in_bits, dtype=torch.int32,
+                             device=dev)
+        got = rom_eval(codes, lib, kind).cpu().numpy().astype(np.int64)
+        rom_equal[kind] = bool(np.array_equal(
+            got, design.eval_int(np.arange(1 << design.in_bits))))
+    print(f"rom_eval on every slot of the card's segmented library == the "
+          f"design's eval_int for {sum(rom_equal.values())}/"
+          f"{len(rom_equal)} kinds (4096 codes each)")
+    if not all(rom_equal.values()):
+        raise AssertionError(f"rom_eval differs from eval_int: {rom_equal}")
+    # the v2 artifact survives save and load
+    with tempfile.TemporaryDirectory() as d:
+        back = InterpLibrary.load(lib.save(pathlib.Path(d) / "seg"),
+                                  device=dev)
+    if back.rom_sha() != sha or back.metas != lib.metas:
+        raise AssertionError("the saved v2 library did not load back")
+    print(f"saved and loaded the v2 library: rom_sha {back.rom_sha()}")
+    torch.cuda.synchronize()
+    out = dict(rom_sha=sha, shape=list(lib.coeffs.shape), rows_used=rows,
+               per_kind=shapes, wall_s_pallas=t_pallas, wall_s_exact=t_exact,
+               pallas_equals_exact=same, rom_eval_equals_eval_int=rom_equal,
+               wall_s=time.perf_counter() - t_phase,
+               launches={k: build.LAUNCHES[k]
+                         for k in ("rom_eval", *ENVELOPE_KERNELS)})
+    print(f"segmented generator phase: {out['wall_s']:.1f} s; launches "
+          f"{out['launches']}")
+    return out, lib, designs
+
+
+def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
+    """library_walk and rom_eval against their plain versions and the
+    designs' eval_int on both libraries, bitwise, and timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.interp.ops import (library_eval, library_walk,
+                                                rom_eval)
+    from repro_torch.kernels.interp.ref import library_walk_ref, rom_eval_ref
+
+    rows, details = {}, []
+    for label, lib, designs in (("segmented", seg_lib, seg_designs),
+                                ("uniform", uni_lib, uni_designs)):
+        walk, dp = lib.walk_rows()
+        codes = torch.arange(4096, dtype=torch.int32, device=dev).repeat(
+            len(lib))
+        fids = torch.arange(len(lib), dtype=torch.int32,
+                            device=dev).repeat_interleave(4096)
+        got = library_walk(codes, fids, lib.coeffs, walk, dp)
+        plain = library_walk_ref(codes, fids, lib.coeffs, walk, dp)
+        oracle = np.concatenate([designs[k].eval_int(np.arange(4096))
+                                 for k in lib.kinds])
+        torch.cuda.synchronize()
+        ok = (torch.equal(got, plain) and np.array_equal(
+            got.cpu().numpy().astype(np.int64), oracle))
+        if label == "uniform":
+            ok = ok and torch.equal(got, library_eval(codes, fids, lib.coeffs,
+                                                      lib.meta_rows()))
+        roms = []
+        for kind in lib.kinds:
+            c = codes[:4096]
+            m = lib.meta(kind)
+            r = rom_eval(c, lib, kind)
+            r_plain = rom_eval_ref(c, lib.coeffs.reshape(-1, 3),
+                                   fid=lib.func_id(kind), r_max=lib.r_max,
+                                   eval_bits=m.eval_bits, k=m.k,
+                                   sq_trunc=m.sq_trunc, lin_trunc=m.lin_trunc,
+                                   degree=m.degree, seg=m.seg_spec())
+            roms.append(torch.equal(r, r_plain) and np.array_equal(
+                r.cpu().numpy().astype(np.int64),
+                designs[kind].eval_int(np.arange(4096))))
+        print(f"library_walk over every code of every kind of the {label} "
+              f"library ({len(lib)} x 4096): == plain version and eval_int "
+              f"{ok}{' and == library_eval' if label == 'uniform' else ''}; "
+              f"rom_eval == plain version and eval_int for {sum(roms)}/"
+              f"{len(roms)} slots (tolerance 0, bitwise)")
+        if not ok or not all(roms):
+            raise AssertionError(f"library_walk / rom_eval on the {label} "
+                                 f"library differ")
+
+    # the segmented library at every shape the served models hand the
+    # walk, one id as the engine calls it
+    lib = seg_lib
+    walk, dp = lib.walk_rows()
+    g = torch.Generator(device=dev).manual_seed(4321)
+    silu = lib.func_id("silu")
+    for shape in act_shapes():
+        gate = (torch.randn(shape, device=dev, generator=g) * 3
+                ).to(torch.bfloat16)
+        codes = silu_codes(gate)
+        got = library_walk(codes, silu, lib.coeffs, walk, dp)
+        want = library_walk_ref(codes, torch.full_like(codes, silu),
+                                lib.coeffs, walk, dp)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"library_walk {shape} silu, segmented library: bitwise equal "
+              f"to the plain version {same} (tolerance 0)")
+        if not same:
+            raise AssertionError(f"library_walk {shape} differs from plain")
+
+    # timing on the segmented library: Yi-6B's silu codes (one id) and a
+    # large mixed shape (one id per element)
+    table_bytes = 4 * (lib.coeffs.numel() + walk.numel() + dp.numel())
+    for shape, mixed in (((4, 1, 11008), False), ((1, 512, 11008), True)):
+        gate = (torch.randn(shape, device=dev, generator=g) * 3
+                ).to(torch.bfloat16)
+        codes = silu_codes(gate)
+        fids = (torch.randint(0, len(lib), shape, dtype=torch.int32,
+                              device=dev, generator=g) if mixed
+                else torch.full_like(codes, silu))
+        if mixed:  # in-range codes for every function of the mix
+            codes = codes & 4095
+        arg = fids if mixed else silu
+        got = library_walk(codes, arg, lib.coeffs, walk, dp)
+        want = library_walk_ref(codes, fids, lib.coeffs, walk, dp)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        print(f"library_walk {shape} {'per-element ids' if mixed else 'silu'}"
+              f": max_abs_err {err} (tolerance 0, bit-exact)")
+        if err:
+            raise AssertionError(f"library_walk {shape} differs from plain")
+        n = codes.numel()
+        b_ms, b_by = bound((12 if mixed else 8) * n + table_bytes, 14 * n,
+                           F32_FLOPS)
+        row = dict(name="library_walk", shape=list(shape), library="segmented",
+                   ids="per element" if mixed else "one", max_abs_err=err,
+                   tolerance=0,
+                   ms=device_ms(lambda: library_walk(codes, arg, lib.coeffs,
+                                                     walk, dp),
+                                label=f"walk {shape}",
+                                kernel="library_walk"),
+                   call_ms=timed(lambda: library_walk(codes, arg, lib.coeffs,
+                                                      walk, dp)),
+                   plain_ms=device_ms(lambda: library_walk_ref(
+                       codes, fids, lib.coeffs, walk, dp), iters=3,
+                       label=f"plain walk {shape}"),
+                   library_ms=device_ms(lambda: F.silu(gate),
+                                        label=f"silu {shape}"),
+                   bound_ms=b_ms, bound_by=b_by)
+        details.append(row)
+        rows.setdefault("library_walk", row)
+    # rom_eval: the silu slot at the same two shapes
+    m = lib.meta("silu")
+    rom_args = dict(fid=silu, r_max=lib.r_max, eval_bits=m.eval_bits, k=m.k,
+                    sq_trunc=m.sq_trunc, lin_trunc=m.lin_trunc,
+                    degree=m.degree, seg=m.seg_spec())
+    flat = lib.coeffs.reshape(-1, 3)
+    for shape in ((4, 1, 11008), (1, 512, 11008)):
+        gate = (torch.randn(shape, device=dev, generator=g) * 3
+                ).to(torch.bfloat16)
+        codes = silu_codes(gate)
+        got = rom_eval(codes, lib, "silu")
+        err = int((got - rom_eval_ref(codes, flat, **rom_args)).abs().max())
+        if err:
+            raise AssertionError(f"rom_eval {shape} differs from plain")
+        n = codes.numel()
+        b_ms, b_by = bound(8 * n + 12 * lib.r_max + 20 * len(m.seg_meta),
+                           14 * n, F32_FLOPS)
+        row = dict(name="rom_eval", shape=list(shape), library="segmented",
+                   case="silu", max_abs_err=err, tolerance=0,
+                   ms=device_ms(lambda: rom_eval(codes, lib, "silu"),
+                                label=f"rom_eval {shape}",
+                                kernel="rom_eval"),
+                   call_ms=timed(lambda: rom_eval(codes, lib, "silu")),
+                   plain_ms=device_ms(lambda: rom_eval_ref(codes, flat,
+                                                           **rom_args),
+                                      iters=3,
+                                      label=f"plain rom_eval {shape}"),
+                   library_ms=device_ms(lambda: F.silu(gate),
+                                        label=f"silu {shape}"),
+                   bound_ms=b_ms, bound_by=b_by)
+        details.append(row)
+        rows.setdefault("rom_eval", row)
+    for r in details:
+        print(f"  device time {r['name']} {r['shape']}: kernel {r['ms']:.5f} "
+              f"ms, plain {r['plain_ms']:.5f} ms, library "
+              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms")
+    return rows, details
+
+
 def interp_eval_phase(lib_designs, dev):
     """interp_eval against its plain version on every table of the
     generated library, all 4096 codes."""
@@ -417,7 +759,8 @@ def interp_eval_phase(lib_designs, dev):
             name="interp_eval", shape=[n], case=kind, max_abs_err=err,
             tolerance=0,
             ms=device_ms(lambda: interp_eval_cuda(codes, coeffs, **dp),
-                         label=f"interp_eval {kind}"),
+                         label=f"interp_eval {kind}",
+                         kernel="interp_eval"),
             call_ms=timed(lambda: interp_eval_cuda(codes, coeffs, **dp)),
             plain_ms=device_ms(lambda: interp_eval_ref(codes, coeffs, **dp),
                                iters=3, label=f"plain interp_eval {kind}"),
@@ -430,12 +773,15 @@ def interp_eval_phase(lib_designs, dev):
     return rec, details
 
 
-def kernel_phases(lib, dev, silu_codes):
-    """Each kernel against its plain version, timed; returns rows for the
-    kernels line and details."""
+def kernel_phases(lib, dev, silu_codes, label="uniform"):
+    """Each kernel against its plain version on ``lib``, timed; returns rows
+    for the kernels line and details. On a segmented library the
+    activations take ``library_walk`` (``walk_phase``), so ``library_eval``
+    runs on the uniform one only."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flashattn.kernel import query_tile
     from repro_torch.kernels.flashattn.ops import attention_fused_library
     from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
     from repro_torch.kernels.interp.ops import library_eval
@@ -452,14 +798,10 @@ def kernel_phases(lib, dev, silu_codes):
     g = torch.Generator(device=dev).manual_seed(1234)
     rows, details = {}, []
 
-    # -- library_eval: the SwiGLU silu codes -------------------------------
-    # Yi-6B decode / prefill, then DeepSeekMoE's routed experts at decode
-    # (4 slots x 64 experts x capacity 4 + scratch row) and at the 511-token
-    # prefill (capacity 59 + scratch row)
+    # -- library_eval: the SwiGLU silu codes at the served shapes ----------
     silu = lib.func_id("silu")
     meta = lib.meta_rows()
-    for shape in ((4, 1, 11008), (1, 512, 11008), (4, 64, 5, 1408),
-                  (1, 64, 60, 1408)):
+    for shape in act_shapes() if not lib.segmented_kinds else ():
         gate = (torch.randn(shape, device=dev, generator=g) * 3
                 ).to(torch.bfloat16)
         codes = silu_codes(gate)
@@ -478,14 +820,16 @@ def kernel_phases(lib, dev, silu_codes):
         row = dict(name="library_eval", shape=list(shape), max_abs_err=err,
                    tolerance=0,
                    ms=device_ms(lambda: library_eval(codes, silu, lib.coeffs,
-                                                     meta), label=f"{shape}"),
+                                                     meta),
+                                label=f"{label} {shape}",
+                                kernel="library_eval"),
                    call_ms=timed(lambda: library_eval(codes, silu, lib.coeffs,
                                                       meta)),
                    plain_ms=device_ms(lambda: library_eval_ref(
                        codes, fids, lib.coeffs, meta), iters=3,
-                       label=f"plain {shape}"),
+                       label=f"{label} plain {shape}"),
                    library_ms=device_ms(lambda: F.silu(gate),
-                                        label=f"silu {shape}"),
+                                        label=f"{label} silu {shape}"),
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("library_eval", row)
@@ -512,14 +856,16 @@ def kernel_phases(lib, dev, silu_codes):
         row = dict(name="rmsnorm_lib", shape=[n_rows, d], max_abs_err=err,
                    tolerance=rs_tol,
                    ms=device_ms(lambda: approx_rmsnorm_library(x, gamma, lib),
-                                label=f"rmsnorm {x.shape}"),
+                                label=f"{label} rmsnorm {x.shape}",
+                                kernel="rmsnorm_lib"),
                    call_ms=timed(lambda: approx_rmsnorm_library(x, gamma,
                                                                 lib)),
                    plain_ms=device_ms(lambda: approx_rmsnorm_library_ref(
-                       x, gamma, lib), iters=3, label=f"plain {x.shape}"),
+                       x, gamma, lib), iters=3,
+                       label=f"{label} plain {x.shape}"),
                    library_ms=device_ms(lambda: F.rms_norm(x, (d,), g16,
                                                            1e-6),
-                                        label=f"F.rms_norm {x.shape}"),
+                                        label=f"{label} F.rms_norm {x.shape}"),
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("rmsnorm_lib", row)
@@ -564,12 +910,14 @@ def kernel_phases(lib, dev, silu_codes):
               f"max|v|, + 2^-7 (max|v| + |out|) bf16 roundings)")
         if excess > 0:
             raise AssertionError(f"flash_attn_lib {mode} differs from plain")
-        twin = attention_fused_library_ref(q, k, v, lib, block_k=64, **kw
-                                           ).float()
+        tq = query_tile(sq, h // kvh, d)
+        twin = attention_fused_library_ref(q, k, v, lib, block_k=64,
+                                           block_q=tq, **kw).float()
         terr = (got - twin).abs()
         t_excess = float((terr - sm_bound * vmax - 2.0 ** -8 * twin.abs()
                           ).max())
-        print(f"  against the tile-by-tile twin (64-key tiles): max_abs_err "
+        print(f"  against the tile-by-tile twin (64-key tiles, {tq}-query "
+              f"tiles): max_abs_err "
               f"{float(terr.max()):.3e}, mean {float(terr.mean()):.3e} "
               f"(tolerance {sm_bound * vmax:.3e} = one table-code flip, + "
               f"2^-8 |out| one bf16 rounding)")
@@ -601,13 +949,15 @@ def kernel_phases(lib, dev, silu_codes):
                    mode=mode, max_abs_err=err, tolerance=tol_abs,
                    ms=device_ms(lambda: attention_fused_library(q, k, v, lib,
                                                                 **kw),
-                                label=f"flash {mode} H={h}"),
+                                label=f"{label} flash {mode} H={h}",
+                                kernel="flash_attn_lib"),
                    call_ms=timed(lambda: attention_fused_library(q, k, v,
                                                                  lib, **kw)),
                    plain_ms=device_ms(lambda: attention_fused_library_ref(
                        q, k, v, lib, **kw), iters=3,
-                       label=f"plain flash {mode} H={h}"),
-                   library_ms=device_ms(sdpa, label=f"sdpa {mode} H={h}"),
+                       label=f"{label} plain flash {mode} H={h}"),
+                   library_ms=device_ms(sdpa,
+                                        label=f"{label} sdpa {mode} H={h}"),
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("flash_attn_lib", row)
@@ -646,51 +996,54 @@ def kernel_phases(lib, dev, silu_codes):
                    dtype=str(dtype)[6:], max_abs_err=err, tolerance=tol,
                    e_bit_exact=e_exact,
                    ms=device_ms(lambda: approx_softmax_library(x, lib),
-                                label=f"softmax {shape}"),
+                                label=f"{label} softmax {shape}",
+                                kernel="softmax_lib"),
                    call_ms=timed(lambda: approx_softmax_library(x, lib)),
                    plain_ms=device_ms(lambda: approx_softmax_library_ref(
-                       x, lib), iters=3, label=f"plain softmax {shape}"),
+                       x, lib), iters=3,
+                       label=f"{label} plain softmax {shape}"),
                    library_ms=device_ms(lambda: torch.softmax(x, -1),
-                                        label=f"torch.softmax {shape}"),
+                                        label=f"{label} torch.softmax "
+                                              f"{shape}"),
                    bound_ms=b_ms, bound_by=b_by)
         details.append(row)
         rows.setdefault("softmax_lib", row)
     for r in details:
-        print(f"  device time {r['name']} {r['shape']}: kernel {r['ms']:.5f} "
-              f"ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms")
+        r["library"] = label
+        print(f"  device time {r['name']} {r['shape']} ({label} library): "
+              f"kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+              f"library {r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} "
+              f"ms ({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms")
     return rows, details
 
 
-def per_forward(cfg) -> dict:
+def per_forward(cfg, segmented: bool = False) -> dict:
     """Kernel launches of one forward pass of ``cfg`` on the main path: an
     rmsnorm before attention and before the FFN of every layer plus the
     final one; one attention per layer; one silu per dense MLP and per
     expert group of an MoE layer (routed, shared); one router softmax per
-    MoE layer."""
+    MoE layer. A segmented library's activations launch ``library_walk``
+    in place of ``library_eval``, and nothing else changes."""
     from repro_torch.models import transformer as tf
 
     n_moe = sum(slot[-1].ffn == "moe" for slot in tf.layer_slots(cfg))
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
     from repro_torch.kernels import build
 
+    act = "library_walk" if segmented else "library_eval"
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            "library_eval": cfg.n_layers + n_moe * shared,
+            act: cfg.n_layers + n_moe * shared,
             "rmsnorm_lib": 2 * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
 
-def serve_phase(lib, dev, config):
-    """``config`` at full width through the engine; returns results for the
-    report. Its parameters are freed when this returns."""
-    import numpy as np
+def serve_phase(libs, dev, config) -> list[dict]:
+    """``config`` at full width through the engine, once per ``(label,
+    library)`` of ``libs`` on the same weights; returns one result per
+    library for the report. The parameters are freed when this returns."""
     import torch
 
-    from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
-    from repro_torch.numerics.ops import PlainFusedNumerics
-    from repro_torch.serve.engine import Request, ServeEngine
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 float32 matmuls would move the routing")
@@ -705,6 +1058,44 @@ def serve_phase(lib, dev, config):
           f"GB, {cfg.param_dtype}), random init "
           f"{time.perf_counter() - t0:.1f} s; peak memory during init "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    out = []
+    for label, lib in libs:
+        res = serve_one(params, cfg, lib, label, dev)
+        res.update(n_params=n_params, n_bytes=n_bytes)
+        out.append(res)
+        gc.collect()  # this engine's cache goes before the next one's
+        torch.cuda.empty_cache()
+    if len(out) > 1:  # the same per-forward launches, walk for eval
+        uni = out[0]["per_forward"]
+        for res in out[1:]:
+            renamed = dict(res["per_forward"])
+            renamed["library_eval"] = renamed.pop("library_walk")
+            renamed["library_walk"] = 0
+            if renamed != uni:
+                raise AssertionError(f"{res['library']} library: launches "
+                                     f"per forward {res['per_forward']} "
+                                     f"differ from the uniform run's {uni}")
+            print(f"{cfg.name} on the {res['library']} library: "
+                  f"{res['per_forward']} per forward, the uniform run's "
+                  f"with library_walk in place of library_eval")
+    return out
+
+
+def serve_one(params, cfg, lib, label, dev) -> dict:
+    """6 requests through the engine on ``lib``: completion, launch counts,
+    tokens/s, the decode step's time and profile, and first tokens against
+    a plain-version prefill on the same library."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import PlainFusedNumerics
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    print(f"-- {cfg.name} on the {label} library {lib.rom_sha()} "
+          f"{tuple(lib.coeffs.shape)}")
+    segmented = bool(lib.segmented_kinds)
     eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
                       library=lib, horizon=HORIZON, device=dev)
     rng = np.random.default_rng(0)
@@ -728,11 +1119,11 @@ def serve_phase(lib, dev, config):
                                             for t in r.out):
             raise AssertionError(f"request {r.rid}: bad stream {r.out}")
     forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
-    expected = {k: n * forwards for k, n in per_forward(cfg).items()}
+    per = per_forward(cfg, segmented)
+    expected = {k: n * forwards for k, n in per.items()}
     print(f"{cfg.name} main path: {eng.stats['prefills']} prefills + "
           f"{eng.stats['decode_steps']} decode steps = {forwards} forwards "
-          f"x {per_forward(cfg)} per forward; launches {launches}, expected "
-          f"{expected}")
+          f"x {per} per forward; launches {launches}, expected {expected}")
     if launches != expected or eng.stats["launches"] != expected:
         raise AssertionError("kernel launch counts differ from the path")
     n_tok = sum(len(r.out) for r in done)
@@ -741,6 +1132,7 @@ def serve_phase(lib, dev, config):
 
     # decode step time at 4 live slots on the filled cache
     num = eng.numerics
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     tok = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
     pos = torch.tensor([300, 400, 500, 600], dtype=torch.int32, device=dev)
     with torch.inference_mode():
@@ -753,9 +1145,10 @@ def serve_phase(lib, dev, config):
     with torch.inference_mode():
         prof = profile_steps(lambda: tf.decode_step(params, tok, pos,
                                                     eng.caches, cfg, num))
-        long_prompt = torch.as_tensor(prompts[SERVE_LENGTHS.index(511)],
-                                      dtype=torch.int64, device=dev)[None]
-        print("prefill of the 511-token prompt:")
+        longest = int(np.argmax(SERVE_LENGTHS))
+        long_prompt = torch.as_tensor(prompts[longest], dtype=torch.int64,
+                                      device=dev)[None]
+        print(f"prefill of the {SERVE_LENGTHS[longest]}-token prompt:")
         prof_pre = profile_steps(lambda: tf.prefill(params, long_prompt, cfg,
                                                     num, CACHE_LEN), n=1)
 
@@ -789,21 +1182,14 @@ def serve_phase(lib, dev, config):
           f"{max_dlogit:.4f}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"{cfg.name} peak device memory {peak / 1e9:.2f} GB")
-    return dict(model=cfg.name, wall_s=wall, tokens=n_tok,
-                tokens_per_s=n_tok / wall, decode_step_ms=step_ms,
-                weight_bound_ms=weight_ms, decode_profile=prof,
-                prefill_profile=prof_pre, launches=launches,
-                per_forward=per_forward(cfg), forwards=forwards,
-                stats=eng.stats, n_params=n_params, n_bytes=n_bytes,
-                peak_bytes=peak, max_dlogit=max_dlogit,
+    return dict(model=cfg.name, library=label, rom_sha=lib.rom_sha(),
+                wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                decode_step_ms=step_ms, weight_bound_ms=weight_ms,
+                decode_profile=prof, prefill_profile=prof_pre,
+                launches=launches, per_forward=per, forwards=forwards,
+                stats=eng.stats, peak_bytes=peak, max_dlogit=max_dlogit,
                 first_token_ties=ties,
                 streams={r.rid: r.out for r in done})
-
-
-KERNEL_SYMBOLS = {"library_eval": "library_eval_kernel",
-                  "rmsnorm_lib": "rmsnorm_lib_kernel",
-                  "flash_attn_lib": "flash_attn_lib_kernel",
-                  "softmax_lib": "softmax_lib_"}
 
 
 def profile_steps(step, n: int = 3) -> dict:
@@ -831,8 +1217,8 @@ def profile_steps(step, n: int = 3) -> dict:
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     kernels = {}
-    for name, sym in KERNEL_SYMBOLS.items():
-        hit = [r for r in rows if sym in r[0]]
+    for name in SERVE_KERNELS:
+        hit = [r for r in rows if KERNEL_SYMBOLS[name] in r[0]]
         n_launch = sum(r[2] for r in hit)
         kernels[name] = (sum(r[1] for r in hit) / n_launch / 1e3
                          if n_launch else None)
@@ -898,26 +1284,36 @@ def main() -> int:
     lib = gen.pop("library")  # compiled on the card in this run
     print(f"library {lib.rom_sha()} {tuple(lib.coeffs.shape)} (compiled on "
           f"the card)")
-    ie_row, ie_details = interp_eval_phase(gen.pop("designs"), dev)
+    designs = gen.pop("designs")
+    seg_gen, seg_lib, seg_designs = segmented_generator_phase(dev)
+    gen["segmented"] = seg_gen
+    ie_row, ie_details = interp_eval_phase(designs, dev)
     m = lib.meta("silu")
 
     def silu_codes(gate):
         xc = torch.clamp(gate.float(), m.act_lo, m.act_hi - 1e-6)
         return _quantize((xc - m.act_lo) / (m.act_hi - m.act_lo), m.in_bits)
 
+    walk_rows, walk_details = walk_phase(seg_lib, seg_designs, lib, designs,
+                                         dev, silu_codes)
     rows, details = kernel_phases(lib, dev, silu_codes)
+    _, seg_details = kernel_phases(seg_lib, dev, silu_codes, "segmented")
     from repro_torch.configs import deepseek_moe_16b, yi_6b
 
-    serves = [serve_phase(lib, dev, yi_6b.CONFIG)]
+    serves = serve_phase([("uniform", lib)], dev, yi_6b.CONFIG)
     gc.collect()  # the Yi-6B weights and cache go before DeepSeekMoE's init
     torch.cuda.empty_cache()
     print(f"after freeing yi_6b: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
           f"GB allocated, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    serves.append(serve_phase(lib, dev, deepseek_moe_16b.CONFIG))
+    serves += serve_phase([("uniform", lib), ("segmented", seg_lib)], dev,
+                          deepseek_moe_16b.CONFIG)
     launches = {name: sum(sv["launches"][name] for sv in serves)
                 for name in build.LAUNCHES}
     launches.update(gen["launches"])
+    launches["rom_eval"] = seg_gen["launches"]["rom_eval"]
+    for name in ENVELOPE_KERNELS:
+        launches[name] += seg_gen["launches"][name]
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the paths: "
                              f"{launches}")
@@ -934,6 +1330,10 @@ def main() -> int:
                         "src/repro/kernels/softmax/kernel.py:90"),
         "interp_eval": ("src/repro_torch/csrc/interp.cu",
                         "src/repro/kernels/interp/kernel.py:366"),
+        "library_walk": ("src/repro_torch/csrc/interp.cu",
+                         "src/repro/kernels/interp/kernel.py:336"),
+        "rom_eval": ("src/repro_torch/csrc/interp.cu",
+                     "src/repro/kernels/interp/kernel.py:175"),
         "envelopes_parity": ("src/repro_torch/csrc/dspace.cu",
                              "src/repro/kernels/dspace/kernel.py:99"),
         "envelopes_parity_batched": ("src/repro_torch/csrc/dspace.cu",
@@ -944,7 +1344,7 @@ def main() -> int:
         "dd_max_rows": ("src/repro_torch/csrc/dspace.cu",
                         "src/repro/kernels/dspace/ops.py:76"),
     }
-    rows = {**rows, **dspace_rows, "interp_eval": ie_row}
+    rows = {**rows, **dspace_rows, **walk_rows, "interp_eval": ie_row}
     for name, (source, rep) in replaces.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -956,12 +1356,16 @@ def main() -> int:
                         "library_ms": r["library_ms"]})
     report = {"device": smi[0], "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
-              "kernel_phases": dspace_details + ie_details + details,
+              "kernel_phases": (dspace_details + ie_details + walk_details
+                                + details + seg_details),
               "generator": gen, "serve": serves,
-              "event_timed": EVENT_TIMED}
+              "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES}
     if EVENT_TIMED:
         print(f"timed with CUDA events (no profiler device time): "
               f"{EVENT_TIMED}")
+    if SHORT_TRACES:
+        print(f"kernel times per launch from traces that lost launches: "
+              f"{SHORT_TRACES}")
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                     default=str))
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@
                         (spec, R) -> RegionSpace envelope cache and the
                         table persistence layer
     DesignSpaceResult   full per-R frontier + Pareto / best / min-regions
-    InterpLibrary       the compiled ROM the serving stack reads
+    InterpLibrary       the compiled ROM the serving stack reads (v1
+                        uniform slots, v2 segmented slots from
+                        ``Explorer.compile_segmented``)
 """
 from repro_torch.api.config import DEFAULTS, ExploreConfig, spec_for
 from repro_torch.api.explorer import (Explorer, default_explorer, explore,

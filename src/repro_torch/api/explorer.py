@@ -31,7 +31,8 @@ See DESIGN.md §6 for the architecture.
 Twin of ``repro/api/explorer.py``. The port's device paths
 (``engine="pallas"``, and the fleet when ``config.mesh > 1``) run the CUDA
 envelope kernels on ``config.device``; ``compile()`` packs its library on
-that device too. ``compile_segmented`` waits for the segmentation slice.
+that device too, and so does ``compile_segmented``, whose segmenter runs
+the same engines on the same device.
 """
 from __future__ import annotations
 
@@ -640,6 +641,54 @@ class Explorer:
         # non-default activation windows (lo/hi spec kwargs) must reach the
         # metadata, or the library-bound glue would quantize over the wrong
         # input range
+        windows = {kind: (kw.get("lo", ACT_LO), kw.get("hi", ACT_HI))
+                   for kind, kw in items if "lo" in kw or "hi" in kw}
+        return InterpLibrary.from_designs(designs, [k for k, _ in items],
+                                          act_windows=windows,
+                                          device=self.config.device)
+
+    def compile_segmented(self, kinds=None, *, segment=None,
+                          target: str | Target | None = None,
+                          **table_kw) -> InterpLibrary:
+        """:meth:`compile`, with non-uniform (ROM v2) slots where they pay.
+
+        ``segment`` names the kinds to try the greedy dyadic segmenter on
+        (``None`` = every compiled kind). Each candidate kind is segmented
+        with its uniform design's R as the depth cap (under the session's
+        engine, on ``config.device``) and swapped in only when it stores
+        strictly fewer ROM rows (per-leaf coefficients + packed segment
+        table) than the uniform 2^R; accuracy is the same certificate,
+        since both verify against the same bounds. The library is packed
+        on ``config.device``.
+        """
+        from repro_torch.segment import explore_segmented
+
+        items: list[tuple[str, dict]] = []
+        for it in (DEFAULT_LIBRARY_KINDS if kinds is None else kinds):
+            if isinstance(it, str):
+                items.append((it, dict(table_kw)))
+            else:
+                kind, kw = it
+                items.append((kind, {**table_kw, **dict(kw)}))
+        seg_set = set(segment if segment is not None
+                      else [k for k, _ in items])
+        designs: list = []
+        for kind, kw in items:
+            kw = dict(kw)
+            uni = self.get_table(kind, target=target, **kw)
+            if kind in seg_set:
+                bits = kw.pop("bits", None)
+                kw.pop("lookup_bits", None)
+                degree = kw.pop("degree", None)
+                spec = spec_for(kind, bits, **kw)
+                sd = explore_segmented(spec, max_depth=uni.lookup_bits,
+                                       degree=degree,
+                                       engine=self.config.engine,
+                                       device=self.config.device)
+                if sd is not None and sd.rows_used < (1 << uni.lookup_bits):
+                    designs.append(sd)
+                    continue
+            designs.append(uni)
         windows = {kind: (kw.get("lo", ACT_LO), kw.get("hi", ACT_HI))
                    for kind, kw in items if "lo" in kw or "hi" in kw}
         return InterpLibrary.from_designs(designs, [k for k, _ in items],

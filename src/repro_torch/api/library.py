@@ -10,8 +10,14 @@ function id.
 library saved by either package loads in the other. The default library is
 built from the vendored tables under ``api/tables/`` (byte copies of what
 the reference generator writes), so serving needs no generator and no
-download. Segmented (ROM v2) slots are refused: their datapath ports with
-the segmentation slice.
+download.
+
+Manifest version 1 is the uniform layout (rows [0, 2^R) of a slot hold the
+packed coefficients). Version 2 adds non-uniform segmentation: a segmented
+slot stores S per-leaf coefficient rows followed by the segment-index table
+packed 3 int32 entries per row, and the per-leaf datapath lives in
+``FuncMeta.seg_meta``. A library with no segmented slot still saves as
+version 1, byte for byte as before.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ TABLES_DIR = pathlib.Path(__file__).resolve().parent / "tables"
 DEFAULT_TABLE_KEY = "12b_R6_d0"
 
 _FORMAT_VERSION = 1
+_FORMAT_VERSION_SEG = 2
 
 
 class LibraryIntegrityError(RuntimeError):
@@ -57,14 +64,37 @@ class FuncMeta:
     act_lo: float = 0.0  # input window (direct activation tables only)
     act_hi: float = 0.0
     act_span: float = 0.0  # output span S: value = int * S / 2^out_bits
+    # non-uniform segmentation (ROM v2; 0/() = uniform): seg_depth is the
+    # segment-index table depth D, seg_meta one (eval_bits, k, sq_trunc,
+    # lin_trunc, degree) row per leaf. For a segmented slot the scalar
+    # k/degree/truncation fields record leaf 0's values and lookup_bits
+    # records D, so a consumer that ignores seg_meta computes wrong numbers.
+    seg_depth: int = 0
+    seg_meta: tuple = ()
 
     @property
     def eval_bits(self) -> int:
         return self.in_bits - self.lookup_bits
 
     @property
+    def segmented(self) -> bool:
+        return self.seg_depth > 0
+
+    @property
     def rows_used(self) -> int:
-        return 1 << self.lookup_bits
+        """Slot rows this function occupies: 2^R uniform, else the per-leaf
+        coefficient rows plus the packed segment-index table rows."""
+        if not self.seg_depth:
+            return 1 << self.lookup_bits
+        return len(self.seg_meta) + ((1 << self.seg_depth) + 2) // 3
+
+    def seg_spec(self) -> tuple | None:
+        """The segment-datapath tuple (in_bits, depth, n_leaves, leaf_meta)
+        of a segmented slot, None for a uniform one."""
+        if not self.seg_depth:
+            return None
+        return (self.in_bits, self.seg_depth, len(self.seg_meta),
+                self.seg_meta)
 
     def datapath_row(self) -> tuple[int, int, int, int, int]:
         """The (eval_bits, k, sq_trunc, lin_trunc, degree) kernel row."""
@@ -72,22 +102,35 @@ class FuncMeta:
                 self.degree)
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        if not self.seg_depth:  # keep uniform manifests byte-stable with v1
+            d.pop("seg_depth")
+            d.pop("seg_meta")
+        else:
+            d["seg_meta"] = [list(row) for row in self.seg_meta]
+        return d
 
 
 def _meta_from_dict(d: dict) -> FuncMeta:
-    if d.get("seg_depth") or d.get("seg_meta"):
-        raise NotImplementedError(
-            f"{d.get('kind')!r}: segmented (ROM v2) slots are not ported yet")
-    return FuncMeta(**{k: v for k, v in d.items()
-                       if k not in ("seg_depth", "seg_meta")})
+    """A FuncMeta from a manifest entry (v1 entries carry no seg fields; v2
+    seg_meta arrives as JSON lists and re-freezes to tuples, so the record
+    stays hashable)."""
+    d = dict(d)
+    if "seg_meta" in d:
+        d["seg_meta"] = tuple(tuple(int(v) for v in row)
+                              for row in d["seg_meta"])
+    return FuncMeta(**d)
 
 
 def _check_datapath(m: FuncMeta) -> None:
     """The kernels shift by these amounts in 32-bit registers."""
-    if not all(0 <= v < 32 for v in m.datapath_row()[:4]):
-        raise ValueError(f"{m.name}: datapath row {m.datapath_row()} has a "
-                         f"shift outside [0, 32)")
+    for row in (m.datapath_row(), *m.seg_meta):
+        if not all(0 <= v < 32 for v in row[:4]):
+            raise ValueError(f"{m.name}: datapath row {tuple(row)} has a "
+                             f"shift outside [0, 32)")
+    if m.seg_depth and not 0 < m.seg_depth < min(m.in_bits + 1, 32):
+        raise ValueError(f"{m.name}: seg depth {m.seg_depth} outside "
+                         f"[1, in_bits]")
 
 
 def _sha(coeffs: np.ndarray) -> str:
@@ -107,13 +150,15 @@ class InterpLibrary:
         self.metas = tuple(metas)
         self._index = {m.kind: i for i, m in enumerate(self.metas)}
         self._meta_rows = None  # lazy (F, 5) int32 device tensor
+        self._walk_table = None  # lazy ((F, 5), (L, 5)) host rows
+        self._walk_rows = None  # ... and as int32 device tensors
         self._sealed_sha = None
         for m in self.metas:
             _check_datapath(m)
 
     # -- construction ------------------------------------------------------
     @classmethod
-    def from_designs(cls, designs: Sequence[TableDesign],
+    def from_designs(cls, designs: Sequence,
                      kinds: Sequence[str],
                      act_windows: dict | None = None,
                      device: str | torch.device = "cuda") -> "InterpLibrary":
@@ -121,7 +166,9 @@ class InterpLibrary:
 
         ``act_windows``: optional ``{kind: (lo, hi)}`` for activation tables
         generated over a non-default input window — recorded in the
-        metadata and honored by the library-bound float glue."""
+        metadata and honored by the library-bound float glue. A
+        :class:`repro_torch.segment.SegmentedDesign` fills a ROM-v2 slot
+        (its ``packed_coeffs``: per-leaf rows, then the segment table)."""
         dev = resolve(device)
         if len(designs) != len(kinds) or not designs:
             raise ValueError("need one design per kind, at least one")
@@ -130,10 +177,8 @@ class InterpLibrary:
             raise ValueError(f"duplicate kinds in library: {sorted(dupes)}")
         metas = []
         for kind, d in zip(kinds, designs):
-            if getattr(d, "seg_depth", 0):
-                raise NotImplementedError(
-                    f"{d.name}: segmented (ROM v2) slots are not ported yet")
-            if d.degree != 2 and np.any(d.a != 0):
+            seg_depth = getattr(d, "seg_depth", 0)
+            if not seg_depth and d.degree != 2 and np.any(d.a != 0):
                 raise ValueError(
                     f"{d.name}: degree-{d.degree} design with nonzero a")
             act = kind in ACT_KINDS
@@ -143,7 +188,9 @@ class InterpLibrary:
                 out_bits=d.out_bits, lookup_bits=d.lookup_bits, k=d.k,
                 degree=d.degree, sq_trunc=d.sq_trunc, lin_trunc=d.lin_trunc,
                 act_lo=lo if act else 0.0, act_hi=hi if act else 0.0,
-                act_span=act_out_span(kind, lo, hi) if act else 0.0))
+                act_span=act_out_span(kind, lo, hi) if act else 0.0,
+                seg_depth=seg_depth,
+                seg_meta=tuple(getattr(d, "leaf_meta", ()))))
         r_max = max(m.rows_used for m in metas)
         packed = np.zeros((len(designs), r_max, 3), np.int32)
         for i, (m, d) in enumerate(zip(metas, designs)):
@@ -174,6 +221,10 @@ class InterpLibrary:
     def device(self) -> torch.device:
         return self.coeffs.device
 
+    @property
+    def segmented_kinds(self) -> tuple[str, ...]:
+        return tuple(m.kind for m in self.metas if m.seg_depth)
+
     def __len__(self) -> int:
         return len(self.metas)
 
@@ -198,6 +249,38 @@ class InterpLibrary:
                 [m.datapath_row() for m in self.metas], dtype=torch.int32,
                 device=self.device)
         return self._meta_rows
+
+    def walk_table(self) -> tuple[tuple[tuple[int, ...], ...],
+                                  tuple[tuple[int, ...], ...]]:
+        """The walk and leaf datapath rows of :meth:`walk_rows` on the host:
+        the one place that lays out the leaf table (the kernels' slot rows
+        read ``leaf_base`` and ``n_leaves`` from here)."""
+        if self._walk_table is None:
+            walk, dp = [], []
+            for m in self.metas:
+                base = len(dp)
+                if m.seg_depth:
+                    walk.append((m.in_bits, m.seg_depth, 1, base,
+                                 len(m.seg_meta)))
+                    dp.extend(m.seg_meta)
+                else:
+                    walk.append((m.in_bits, m.lookup_bits, 0, base, 1))
+                    dp.append(m.datapath_row())
+            self._walk_table = (tuple(walk), tuple(dp))
+        return self._walk_table
+
+    def walk_rows(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Operands of the mixed uniform/segmented ROM walk, on the ROM's
+        device: an ``(F, 5)`` int32 walk table of ``(in_bits, depth,
+        seg_flag, leaf_base, n_leaves)`` rows (depth is R for a uniform
+        slot, D for a segmented one) and an ``(L, 5)`` datapath table with
+        one ``(eval_bits, k, sq_trunc, lin_trunc, degree)`` row per uniform
+        function and one per segmented leaf (``leaf_base`` indexes it)."""
+        if self._walk_rows is None:
+            self._walk_rows = tuple(
+                torch.tensor(rows, dtype=torch.int32, device=self.device)
+                for rows in self.walk_table())
+        return self._walk_rows
 
     # -- integrity ---------------------------------------------------------
     def rom_sha(self) -> str:
@@ -225,20 +308,39 @@ class InterpLibrary:
 
     def manifest(self) -> dict:
         f, r_max, _ = self.coeffs.shape
-        return {"version": _FORMAT_VERSION, "kinds": list(self.kinds),
+        version = (_FORMAT_VERSION_SEG if self.segmented_kinds
+                   else _FORMAT_VERSION)
+        return {"version": version, "kinds": list(self.kinds),
                 "n_funcs": int(f), "r_max": int(r_max),
                 "funcs": [m.to_dict() for m in self.metas]}
 
     # -- evaluation --------------------------------------------------------
     def eval_int(self, codes: torch.Tensor, kind: str) -> torch.Tensor:
-        """Exact integer evaluation of one function on int32 codes: the
-        ``library_eval`` kernel for CUDA tensors, its plain version for CPU
-        tensors; both are bit-identical to ``TableDesign.eval_int``."""
-        return self.eval_fused(codes, self.func_id(kind))
+        """Exact integer evaluation of one function on int32 codes, bit-
+        identical to the design's ``eval_int``. CUDA tensors take
+        :meth:`eval_fused`'s kernel; on the CPU a segmented slot takes the
+        segment-index plain version ``interp_eval_seg_ref``, a uniform one
+        ``library_eval``'s."""
+        fid = self.func_id(kind)
+        m = self.metas[fid]
+        if m.seg_depth and not codes.is_cuda:
+            from repro_torch.kernels.interp.ref import interp_eval_seg_ref
+
+            return interp_eval_seg_ref(codes, self.coeffs[fid],
+                                       seg=m.seg_spec())
+        return self.eval_fused(codes, fid)
 
     def eval_fused(self, codes: torch.Tensor, fids) -> torch.Tensor:
         """Fused multi-function evaluation: element i reads table fids[i]
-        (``fids`` may be one int for the whole tensor)."""
+        (``fids`` may be one int for the whole tensor). An all-uniform
+        library takes ``library_eval`` on its (F, 5) meta rows; any
+        segmented slot switches the call to ``library_walk`` on the walk
+        and per-leaf datapath rows, as the reference does."""
+        if self.segmented_kinds:
+            from repro_torch.kernels.interp.ops import library_walk
+
+            walk, dp = self.walk_rows()
+            return library_walk(codes, fids, self.coeffs, walk, dp)
         from repro_torch.kernels.interp.ops import library_eval
 
         return library_eval(codes, fids, self.coeffs, self.meta_rows())
@@ -280,10 +382,9 @@ class InterpLibrary:
         if base.suffix in (".json", ".npz"):
             base = base.with_suffix("")
         man = json.loads(base.with_suffix(".json").read_text())
-        if man.get("version") != _FORMAT_VERSION:
-            raise NotImplementedError(
-                f"library manifest version {man.get('version')}: only v1 "
-                f"(uniform slots) is ported")
+        if man.get("version") not in (_FORMAT_VERSION, _FORMAT_VERSION_SEG):
+            raise ValueError(
+                f"unsupported library version {man.get('version')}")
         with np.load(base.parent / man["coeffs_file"]) as z:
             coeffs = z["coeffs"].astype(np.int32)
         sha = _sha(coeffs)

@@ -1,7 +1,7 @@
 // The paper's Figure-1 datapath as CUDA device functions, shared by every
 // kernel of the port (twin of repro/kernels/interp/kernel.py `poly_tail`,
-// `_lut_rom` and repro/kernels/flashattn/kernel.py `_table_exp_neg`,
-// `_table_recip`).
+// `_lut_rom`, `_lut` / `_lut_seg` and repro/kernels/flashattn/kernel.py
+// `_table_exp_neg`, `_table_recip`).
 //
 // Integer semantics follow the reference's int32 datapath: the Horner step
 // wraps modulo 2^32 (done in uint32_t, then reinterpreted; signed overflow is
@@ -19,13 +19,19 @@
 namespace repro {
 
 // One library slot's static datapath: where its rows start in the ROM the
-// kernel reads, the (eval_bits, k, sq_trunc, lin_trunc, degree) row, and the
-// glue widths.
+// kernel reads, the (eval_bits, k, sq_trunc, lin_trunc, degree) row, the
+// glue widths and, for a segmented (ROM v2) slot, the segment-index depth D,
+// the leaf count and the leaves' (eval_bits, k, sq_trunc, lin_trunc, degree)
+// rows. A segmented slot holds n_leaves coefficient rows, then the 2^D-entry
+// segment-index table packed 3 entries per row, all inside its `rows`.
 struct TableArgs {
   int row0;   // first ROM row of the slot (fid * r_max, or 0 for a slot view)
   int rows;   // rows the slot holds (r_max)
   int eval_bits, k, sq_trunc, lin_trunc, degree;
   int in_bits, out_bits;
+  int seg_depth;           // 0: uniform slot
+  int n_leaves;
+  const int32_t* leaf_dp;  // n_leaves x 5 rows (segmented slots only)
 };
 
 // Truncated square and linear terms, int32 Horner accumulate, arithmetic
@@ -40,12 +46,31 @@ __device__ __forceinline__ int32_t poly_tail(int32_t a, int32_t b, int32_t c,
   return ((int32_t)acc) >> k;
 }
 
-// Table read against a ROM of int32 (a, b, c) rows: region = top bits of the
-// code, x = its low eval_bits bits. A region past the slot reads a zero row,
-// as the reference's one-hot ROM read does.
+// Segmented slot read (`_lut_seg`): cell = top D bits of the code, leaf =
+// entry (n_leaves * 3 + cell) of the slot (the packed table's entries are
+// row-major, so no division by 3), then the leaf's coefficient row and its
+// own datapath row, with per-element shift amounts. A cell past the table or
+// a leaf past the slot reads a zero row, as the reference's one-hot reads.
+__device__ __forceinline__ int32_t lut_seg(const int32_t* rom,
+                                           const TableArgs& t, uint32_t u) {
+  const uint32_t cell = u >> (t.in_bits - t.seg_depth);
+  if (cell >= (1u << t.seg_depth)) return 0;
+  const int leaf = rom[3 * (t.row0 + t.n_leaves) + (int)cell];
+  if ((unsigned)leaf >= (unsigned)t.n_leaves) return 0;
+  const int32_t* m = t.leaf_dp + 5 * leaf;
+  const int32_t* row = rom + 3 * (t.row0 + leaf);
+  const uint32_t x = u & ((1u << m[0]) - 1u);
+  return poly_tail(row[0], row[1], row[2], x, m[1], m[2], m[3], m[4]);
+}
+
+// Table read against a ROM of int32 (a, b, c) rows. Uniform slot: region =
+// top bits of the code, x = its low eval_bits bits; a region past the slot
+// reads a zero row, as the reference's one-hot ROM read does. Segmented
+// slot: `lut_seg`.
 __device__ __forceinline__ int32_t lut_rom(const int32_t* rom,
                                            const TableArgs& t, int32_t code) {
   uint32_t u = (uint32_t)code;
+  if (t.seg_depth) return lut_seg(rom, t, u);
   uint32_t r = u >> t.eval_bits;
   uint32_t x = u & ((1u << t.eval_bits) - 1u);
   int32_t a = 0, b = 0, c = 0;
@@ -88,10 +113,45 @@ __device__ __forceinline__ float table_recip(float s, const int32_t* rom,
   return __fmul_rn(__fmul_rn(rtab, pow2i(-(rb + 1))), pow2i(-expo));
 }
 
-// Host side: the TableArgs of a slot from the wrapper's 9-int row
-// (row0, rows, eval_bits, k, sq_trunc, lin_trunc, degree, in_bits, out_bits).
-inline TableArgs table_args(const int32_t* m) {
-  return TableArgs{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], m[8]};
+// The int32 words a slot takes in shared memory: its rows, and a segmented
+// slot's leaf rows after them.
+__host__ __device__ __forceinline__ int slot_words(const TableArgs& t) {
+  return 3 * t.rows + (t.seg_depth ? 5 * t.n_leaves : 0);
+}
+
+// Copy one slot (`slot_words` of it) to shared memory at `s` and re-base `t`
+// on the copy; returns the words used. The caller synchronizes before
+// reading.
+__device__ __forceinline__ int stage_slot(const int32_t* rom, TableArgs& t,
+                                          int32_t* s) {
+  for (int i = threadIdx.x; i < 3 * t.rows; i += blockDim.x)
+    s[i] = rom[3 * t.row0 + i];
+  if (t.seg_depth) {
+    for (int i = threadIdx.x; i < 5 * t.n_leaves; i += blockDim.x)
+      s[3 * t.rows + i] = t.leaf_dp[i];
+    t.leaf_dp = s + 3 * t.rows;
+  }
+  t.row0 = 0;
+  return slot_words(t);
+}
+
+// Host side: the TableArgs of a slot from the wrapper's 12-int row (row0,
+// rows, eval_bits, k, sq_trunc, lin_trunc, degree, in_bits, out_bits,
+// seg_depth, n_leaves, leaf_base) and the library's (L, 5) leaf datapath
+// rows `dp` (walk_rows()[1]; read only for a segmented slot).
+inline TableArgs table_args(const int32_t* m, const int32_t* dp) {
+  return TableArgs{m[0], m[1], m[2],  m[3],  m[4],
+                   m[5], m[6], m[7],  m[8],  m[9],
+                   m[10], dp ? dp + 5 * m[11] : nullptr};
+}
+
+// A segmented slot needs its leaf rows, a depth the 32-bit shifts take and a
+// segment-index table that fits inside its rows.
+__host__ __device__ inline bool table_args_ok(const TableArgs& t) {
+  if (!t.seg_depth) return true;
+  return t.leaf_dp != nullptr && t.seg_depth > 0 && t.seg_depth < 32 &&
+         t.seg_depth <= t.in_bits && t.n_leaves > 0 &&
+         t.n_leaves + ((1 << t.seg_depth) + 2) / 3 <= t.rows;
 }
 
 // The runtime's current device is per runtime instance: set it to the one

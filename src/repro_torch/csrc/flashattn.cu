@@ -20,7 +20,8 @@
 // b*H + h -> KV stripe b*KVH + h / g). K/V stream through shared memory in
 // 64-key tiles (the reference kept the whole stripe resident in VMEM); the
 // score product and P.V are f32 FMAs on CUDA cores; the two table slots
-// (3 KiB at most) are staged in shared memory and read with indexed loads.
+// (with a segmented slot's packed segment table and leaf datapath rows) are
+// staged in shared memory and read with indexed loads.
 // Tensors are read and written in place through their strides, so the
 // caller's (B, S, H, D) layout and the cache's (B, KVH, S, D) layout need no
 // copies.
@@ -118,17 +119,14 @@ flash_attn_lib_kernel(const FlashParams p) {
   float* s_corr = s_l + M;
   int* s_qp = reinterpret_cast<int*>(s_corr + M);
   int* s_kp = s_qp + M;
-  int32_t* s_rom = s_kp + kBK;
-  int* s_flag = s_rom + 3 * (p.te.rows + p.tr.rows);
+  int32_t* s_exp = s_kp + kBK;
+  int32_t* s_rec = s_exp + slot_words(p.te);
+  int* s_flag = s_rec + slot_words(p.tr);
 
   // stage the exp2neg and recip slots; address them from shared memory
   TableArgs te = p.te, tr = p.tr;
-  for (int i = tid; i < 3 * te.rows; i += kThreads)
-    s_rom[i] = p.rom[3 * te.row0 + i];
-  for (int i = tid; i < 3 * tr.rows; i += kThreads)
-    s_rom[3 * te.rows + i] = p.rom[3 * tr.row0 + i];
-  tr.row0 = te.rows;
-  te.row0 = 0;
+  stage_slot(p.rom, te, s_exp);
+  stage_slot(p.rom, tr, s_rec);
 
   // row r serves query head kvh * g + r / tq at position qt * tq + r % tq
   const T* qbase = static_cast<const T*>(p.q) + (int64_t)b * p.q_sb;
@@ -261,7 +259,7 @@ flash_attn_lib_kernel(const FlashParams p) {
         float pj = 0.0f;
         if (j < jn) {
           pj = table_exp_neg(__fmul_rn(__fsub_rn(m_new, srow[j]), kLog2e),
-                             s_rom, te);
+                             s_exp, te);
           psum = __fadd_rn(psum, pj);
         }
         srow[j] = E::round(pj);  // P.V takes p in V's dtype
@@ -270,7 +268,7 @@ flash_attn_lib_kernel(const FlashParams p) {
         psum = __fadd_rn(psum, __shfl_xor_sync(~0u, psum, o));
       if (lane == 0) {
         const float corr = table_exp_neg(
-            __fmul_rn(__fsub_rn(m_new, m_old), kLog2e), s_rom, te);
+            __fmul_rn(__fsub_rn(m_new, m_old), kLog2e), s_exp, te);
         s_l[r] = __fadd_rn(__fmul_rn(s_l[r], corr), psum);
         s_m[r] = m_new;
         s_corr[r] = corr;
@@ -297,7 +295,7 @@ flash_attn_lib_kernel(const FlashParams p) {
 
   // epilogue: out = acc * recip(max(l, 1e-30))
   for (int r = tid; r < M; r += kThreads)
-    s_corr[r] = table_recip(fmaxf(s_l[r], 1e-30f), s_rom, tr);
+    s_corr[r] = table_recip(fmaxf(s_l[r], 1e-30f), s_rec, tr);
   __syncthreads();
   T* obase = static_cast<T*>(p.out) + (int64_t)b * p.o_sb;
 #pragma unroll
@@ -321,8 +319,8 @@ size_t smem_bytes(const FlashParams& p) {
   const int M = p.g * p.tq, wq = p.D / epw, ks = wq + ((wq & 1) ? 0 : 1);
   const size_t words = (size_t)M * p.D + (size_t)kBK * ks +
                        (size_t)kBK * (p.Dv / epw) + (size_t)M * (kBK + 1) +
-                       4 * (size_t)M + kBK + 3 * (size_t)(p.te.rows + p.tr.rows) +
-                       4;
+                       4 * (size_t)M + kBK + (size_t)slot_words(p.te) +
+                       (size_t)slot_words(p.tr) + 4;
   return words * 4;
 }
 
@@ -341,14 +339,15 @@ int launch(const FlashParams& p, int n_qt, cudaStream_t stream) {
 }  // namespace
 
 // strides12: (b, h, s) element strides of q, k, v, out; dims8: B, H, KVH,
-// Sq, Sk, D, Dv, tq; exp9 / rec9: see datapath.cuh `table_args`;
+// Sq, Sk, D, Dv, tq; exp12 / rec12, dp: see datapath.cuh `table_args`;
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 extern "C" int repro_flash_attn_lib(const void* q, const void* k,
                                     const void* v, void* out,
                                     const int32_t* q_pos,
                                     const int32_t* kv_pos,
-                                    const int32_t* rom, const int32_t* exp9,
-                                    const int32_t* rec9,
+                                    const int32_t* rom, const int32_t* dp,
+                                    const int32_t* exp12,
+                                    const int32_t* rec12,
                                     const int64_t* strides12,
                                     const int32_t* dims8, int causal,
                                     int window, float scale, int dtype,
@@ -366,8 +365,10 @@ extern "C" int repro_flash_attn_lib(const void* q, const void* k,
   p.Sk = dims8[4]; p.D = dims8[5]; p.Dv = dims8[6]; p.tq = dims8[7];
   p.g = p.H / p.KVH;
   p.causal = causal; p.window = window; p.scale = scale;
-  p.te = table_args(exp9);
-  p.tr = table_args(rec9);
+  p.te = table_args(exp12, dp);
+  p.tr = table_args(rec12, dp);
+  if (!table_args_ok(p.te) || !table_args_ok(p.tr))
+    return (int)cudaErrorInvalidValue;
   if (p.B == 0 || p.Sq == 0) return 0;
   const int n_qt = (p.Sq + p.tq - 1) / p.tq;
   if (dtype == 0) return launch<float>(p, n_qt, (cudaStream_t)stream);

@@ -10,7 +10,8 @@
 // then one value per warp through shared memory), the code, the single
 // table read and the scale are computed in registers, and a second pass over
 // the row (an L1/L2 hit at these row sizes) writes the output. Any D works;
-// the strided loops mask the tail.
+// the strided loops mask the tail. The one table read per row goes through
+// the cache to the ROM (and, for a segmented slot, to its leaf rows).
 #include <cuda_bf16.h>
 
 #include "datapath.cuh"
@@ -87,15 +88,18 @@ __global__ void rmsnorm_lib_kernel(const T* __restrict__ x,
     orow[i] = from_f<T>(__fmul_rn(__fmul_rn(to_f(xr[i]), rs), gamma[i]));
 }
 
-// dtype: 0 = float32, 1 = bfloat16. meta9: see datapath.cuh `table_args`.
+// dtype: 0 = float32, 1 = bfloat16. meta12, dp: see datapath.cuh
+// `table_args`.
 extern "C" int repro_rmsnorm_lib(const void* x, const float* gamma, void* out,
                                  int rows, int d, int dtype, float eps,
-                                 const int32_t* rom, const int32_t* meta9,
-                                 int device, void* stream) {
+                                 const int32_t* rom, const int32_t* dp,
+                                 const int32_t* meta12, int device,
+                                 void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
+  const TableArgs tb = table_args(meta12, dp);
+  if (!table_args_ok(tb)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;
-  const TableArgs tb = table_args(meta9);
   const int threads = d >= 1024 ? 256 : 128;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) {

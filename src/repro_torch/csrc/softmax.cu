@@ -9,7 +9,8 @@
 //
 // Bound on an H100: bytes (read x once, write out once, ~20 operations per
 // element). Design: the two ROM slots (768 bytes each for the default
-// library) are staged in shared memory once per block. Rows of D <= 1024 take
+// library; a segmented slot with its packed segment table and its leaf
+// datapath rows) are staged in shared memory once per block. Rows of D <= 1024 take
 // one warp each (8 rows per block of 256 threads): a lane keeps its
 // ceil(D / 32) elements in registers, and the row max and row sum are warp
 // shuffles. Longer rows take one block of 256 threads each: the max and the
@@ -49,17 +50,14 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
-// Copy the live rows of both slots into shared memory and return their
-// TableArgs re-based at the staged copies (row0 = 0).
+// Copy both slots (a segmented slot's packed table and leaf rows with it)
+// into shared memory at s_exp and s_rec and re-base their TableArgs on the
+// copies.
 __device__ __forceinline__ void stage_slots(const int32_t* rom, TableArgs& te,
                                             TableArgs& tr, int32_t* s_exp,
                                             int32_t* s_rec) {
-  for (int i = threadIdx.x; i < 3 * te.rows; i += blockDim.x)
-    s_exp[i] = rom[3 * te.row0 + i];
-  for (int i = threadIdx.x; i < 3 * tr.rows; i += blockDim.x)
-    s_rec[i] = rom[3 * tr.row0 + i];
-  te.row0 = 0;
-  tr.row0 = 0;
+  stage_slot(rom, te, s_exp);
+  stage_slot(rom, tr, s_rec);
   __syncthreads();
 }
 
@@ -80,7 +78,7 @@ __global__ void softmax_lib_warp_kernel(const T* __restrict__ x,
                                         TableArgs te, TableArgs tr) {
   extern __shared__ int32_t smem[];
   int32_t* s_exp = smem;
-  int32_t* s_rec = smem + 3 * te.rows;
+  int32_t* s_rec = smem + slot_words(te);
   stage_slots(rom, te, tr, s_exp, s_rec);
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
@@ -149,7 +147,7 @@ __global__ void softmax_lib_block_kernel(const T* __restrict__ x,
   extern __shared__ int32_t smem[];
   __shared__ float s_part[32];
   int32_t* s_exp = smem;
-  int32_t* s_rec = smem + 3 * te.rows;
+  int32_t* s_rec = smem + slot_words(te);
   stage_slots(rom, te, tr, s_exp, s_rec);
   const int64_t row = blockIdx.x;
   const T* xr = x + row * d;
@@ -173,7 +171,8 @@ template <typename T>
 cudaError_t launch(const void* x, void* out, float* e_out, int64_t rows,
                    int d, const int32_t* rom, const TableArgs& te,
                    const TableArgs& tr, cudaStream_t s) {
-  const size_t smem = (size_t)3 * (te.rows + tr.rows) * sizeof(int32_t);
+  const size_t smem = (size_t)(slot_words(te) + slot_words(tr)) *
+                      sizeof(int32_t);
   const T* xi = (const T*)x;
   T* o = (T*)out;
   if (d > 1024) {
@@ -206,17 +205,20 @@ cudaError_t launch(const void* x, void* out, float* e_out, int64_t rows,
 }  // namespace
 
 // x, out: (rows, d) contiguous, dtype 0 = float32, 1 = bfloat16; e_out:
-// (rows, d) float32 or null. exp9 / recip9: the two slots' rows, see
-// datapath.cuh `table_args`.
+// (rows, d) float32 or null. exp12 / recip12: the two slots' rows and dp the
+// library's leaf rows, see datapath.cuh `table_args`.
 extern "C" int repro_softmax_lib(const void* x, void* out, float* e_out,
                                  int64_t rows, int d, int dtype,
-                                 const int32_t* rom, const int32_t* exp9,
-                                 const int32_t* recip9, int device,
+                                 const int32_t* rom, const int32_t* dp,
+                                 const int32_t* exp12,
+                                 const int32_t* recip12, int device,
                                  void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
+  const TableArgs te = table_args(exp12, dp), tr = table_args(recip12, dp);
+  if (!table_args_ok(te) || !table_args_ok(tr))
+    return (int)cudaErrorInvalidValue;
   if (rows == 0 || d == 0) return 0;
-  const TableArgs te = table_args(exp9), tr = table_args(recip9);
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     err = launch<float>(x, out, e_out, rows, d, rom, te, tr, s);

@@ -75,6 +75,7 @@ def flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, *,
     rc = lib.repro_flash_attn_lib(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_pos.data_ptr(), kv_pos.data_ptr(), rom.data_ptr(),
+        library.walk_rows()[1].data_ptr(),
         build.int_array(slot_args(library, "exp2neg")),
         build.int_array(slot_args(library, "recip")),
         build.int_array(strides, build.ctypes.c_int64),

@@ -7,9 +7,14 @@ key) block are formed at once, so the online-softmax correction never runs.
 A chunked kernel differs from it by table ulps (each correction is itself a
 table read), not by float eps; ``repro_torch.numerics.ops.softmax_ulp_bound``
 states the scale. ``flash_attention_lib_chunked_ref`` is the twin of the
-reference kernel's ``_flash_loop`` itself, tile by tile: against a kernel
-with the same key tiles it differs only where float reassociation flips a
-table code.
+reference kernel's ``_flash_loop`` itself, tile by tile, with its
+``chunk_live`` skip per query tile when ``block_q`` is given: against a
+kernel with the same key and query tiles it differs only where float
+reassociation flips a table code. The skip matters once the exp2neg table's
+tab(0) is not exactly 2^out_bits (the segmented default gives 8191 at 13
+bits): a tile that leaves the running max unchanged still scales l and the
+accumulator by tab(0) * 2^-out_bits, so a skipped tile and a processed one
+differ by up to one reciprocal-table step.
 """
 from __future__ import annotations
 
@@ -51,17 +56,46 @@ def _mask(q_pos, kv_pos, causal, window):
     return ok
 
 
+def _chunk_live(q_pos, kv_pos, causal, window, block_q):
+    """(N, Sq, 1) bool: the reference's ``chunk_live`` of one key tile
+    (``kv_pos`` (N, BK)) for each query tile of ``block_q`` rows: some key
+    slot is live, and, if causal, the earliest live key is not past the
+    tile's last query position; with a window, the latest key is inside
+    the window of the tile's earliest live query."""
+    n, sq = q_pos.shape
+    imax = 2**31 - 1
+    n_tiles = -(-sq // block_q)
+    qp = torch.full((n, n_tiles * block_q), -1, dtype=torch.int64,
+                    device=q_pos.device)
+    qp[:, :sq] = q_pos
+    qp = qp.reshape(n, n_tiles, block_q)
+    kp = kv_pos.to(torch.int64)
+    need = (kp >= 0).any(-1, keepdim=True)
+    if causal:
+        kmin = torch.where(kp < 0, imax, kp).amin(-1, keepdim=True)
+        need = need & (kmin <= qp.amax(-1))
+    if window is not None:
+        qmin = torch.where(qp < 0, imax, qp).amin(-1)
+        need = need & (kp.amax(-1, keepdim=True) > qmin - window)
+    return need.repeat_interleave(block_q, dim=1)[:, :sq, None]
+
+
 def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
                                     exp_meta: dict, recip_meta: dict, *,
                                     causal: bool = True,
                                     window: int | None = None,
                                     scale: float | None = None,
-                                    block_k: int = 64) -> torch.Tensor:
+                                    block_k: int = 64,
+                                    block_q: int | None = None
+                                    ) -> torch.Tensor:
     """Twin of the reference's ``_flash_loop`` over ``block_k``-key tiles
     (same operands as :func:`flash_attention_lib_ref`): q scaled before the
     product, the running max floored at M_FLOOR, p and the correction from
     the exp2neg table, p cast to V's dtype for P.V, 1/max(l, 1e-30) from the
-    recip table. Keys past Sk do not exist (no padded tail)."""
+    recip table. Keys past Sk do not exist (no padded tail). ``block_q``:
+    skip a key tile for a tile of that many query positions where it is
+    dead (``_chunk_live``), as the reference's kernel and the port's do;
+    None runs every tile for every row."""
     n, sq, d = q.shape
     scale = (d ** -0.5) if scale is None else scale
     qf = q.to(torch.float32) * scale
@@ -78,11 +112,17 @@ def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
                             min=M_FLOOR)
         p = table_exp_neg((m_new - s) * LOG2E, coeffs, exp_meta)
         corr = table_exp_neg((m_new - m) * LOG2E, coeffs, exp_meta)
-        l = l * corr + p.sum(-1, keepdim=True)
         pv = torch.einsum("nqk,nkd->nqd", p.to(v.dtype).to(torch.float32),
                           v[:, sl].to(torch.float32))
-        acc = acc * corr + pv
-        m = m_new
+        acc_new = acc * corr + pv
+        l_new = l * corr + p.sum(-1, keepdim=True)
+        if block_q is None:
+            m, l, acc = m_new, l_new, acc_new
+        else:
+            live = _chunk_live(q_pos, kv_pos[:, sl], causal, window, block_q)
+            m = torch.where(live, m_new, m)
+            l = torch.where(live, l_new, l)
+            acc = torch.where(live, acc_new, acc)
     recip = table_recip(torch.clamp(l, min=1e-30), coeffs, recip_meta)
     return (acc * recip).to(v.dtype)
 
@@ -91,12 +131,13 @@ def attention_fused_library_ref(q, k, v, library, *, causal: bool = True,
                                 scale: float | None = None,
                                 window: int | None = None, q_pos=None,
                                 kv_pos=None,
-                                block_k: int | None = None) -> torch.Tensor:
+                                block_k: int | None = None,
+                                block_q: int | None = None) -> torch.Tensor:
     """The plain version at the wrapper's signature: q (B, Sq, H, D), k / v
     (B, Sk, KVH, D*), positions (B, S*); grouped KV heads are expanded to
     one stripe per query head (query head h reads KV head h // g).
     ``block_k`` selects the tile-by-tile twin instead of the unchunked
-    oracle."""
+    oracle, and ``block_q`` its per-query-tile skip of dead key tiles."""
     from repro_torch.kernels.interp.ops import lib_meta
 
     b, sq, h, d = q.shape
@@ -116,5 +157,6 @@ def attention_fused_library_ref(q, k, v, library, *, causal: bool = True,
             lib_meta(library, "recip"))
     kw = dict(causal=causal, window=window, scale=scale)
     o = (flash_attention_lib_ref(*args, **kw) if block_k is None else
-         flash_attention_lib_chunked_ref(*args, block_k=block_k, **kw))
+         flash_attention_lib_chunked_ref(*args, block_k=block_k,
+                                         block_q=block_q, **kw))
     return o.reshape(b, h, sq, dv).transpose(1, 2)

@@ -1,6 +1,8 @@
-"""CUDA wrappers of ``library_eval`` and ``interp_eval``
-(``csrc/interp.cu``), the ports of ``repro/kernels/interp/kernel.py``
-``library_eval_2d`` / ``_library_kernel`` and ``interp_eval_2d`` /
+"""CUDA wrappers of ``library_eval``, ``library_walk``, ``rom_eval`` and
+``interp_eval`` (``csrc/interp.cu``), the ports of
+``repro/kernels/interp/kernel.py`` ``library_eval_2d`` /
+``_library_kernel``, ``library_walk_2d`` / ``_library_walk_kernel``,
+``rom_eval_2d`` / ``_rom_kernel`` and ``interp_eval_2d`` /
 ``_interp_kernel``.
 
 The reference tiles codes as (rows, 128) lanes with rows % 8 and reads the
@@ -14,35 +16,47 @@ import torch
 from repro_torch.kernels import build
 
 
+def _fid_operand(fids, codes: torch.Tensor, n_funcs: int):
+    """(pointer, fid0, tensor) of the function-id operand: (None, id, None)
+    for one id for every element, else the per-element int32 tensor's
+    pointer, 0 and the tensor itself (the caller keeps it alive across the
+    launch)."""
+    if isinstance(fids, int) or fids.numel() == 1:
+        fid0 = int(fids)
+        if not 0 <= fid0 < n_funcs:
+            raise ValueError(f"function id {fid0} outside [0, {n_funcs})")
+        return None, fid0, None
+    if fids.shape != codes.shape or fids.dtype != torch.int32:
+        raise ValueError("fids must be int32 of the codes' shape")
+    if fids.device != codes.device:
+        raise ValueError(f"operands on {fids.device} and {codes.device}")
+    fids = fids.contiguous()
+    return fids.data_ptr(), 0, fids
+
+
+def _check_operands(codes: torch.Tensor, *tables: torch.Tensor) -> None:
+    if codes.dtype != torch.int32:
+        raise TypeError(f"codes must be int32, got {codes.dtype}")
+    for t in tables:
+        if t.dtype != torch.int32:
+            raise TypeError(f"ROM operands must be int32, got {t.dtype}")
+        if t.device != codes.device:
+            raise ValueError(f"operands on {t.device} and {codes.device}")
+
+
 def library_eval_cuda(codes: torch.Tensor, fids: torch.Tensor | int,
                       coeffs: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
     """codes: int32 CUDA tensor, any shape; fids: one function id for every
     element (int or one-element tensor) or an int32 tensor of the codes'
     shape; coeffs: (F, R_max, 3) int32; meta: (F, 5) int32."""
     dev = codes.device
-    if codes.dtype != torch.int32:
-        raise TypeError(f"codes must be int32, got {codes.dtype}")
-    if coeffs.dtype != torch.int32 or meta.dtype != torch.int32:
-        raise TypeError("coeffs and meta must be int32")
+    _check_operands(codes, coeffs, meta)
     f, r_max, three = coeffs.shape
     if three != 3 or tuple(meta.shape) != (f, 5):
         raise ValueError(f"bad ROM {tuple(coeffs.shape)} / meta "
                          f"{tuple(meta.shape)}")
     codes = codes.contiguous()
-    operands = [coeffs, meta]
-    if isinstance(fids, int) or fids.numel() == 1:
-        fid_ptr, fid0 = None, int(fids)
-        if not 0 <= fid0 < f:
-            raise ValueError(f"function id {fid0} outside [0, {f})")
-    else:
-        if fids.shape != codes.shape or fids.dtype != torch.int32:
-            raise ValueError("fids must be int32 of the codes' shape")
-        fids = fids.contiguous()
-        operands.append(fids)
-        fid_ptr, fid0 = fids.data_ptr(), 0
-    for t in operands:
-        if t.device != dev:
-            raise ValueError(f"operands on {t.device} and {dev}")
+    fid_ptr, fid0, _keep = _fid_operand(fids, codes, f)
     coeffs, meta = coeffs.contiguous(), meta.contiguous()
     out = torch.empty_like(codes)
     lib = build.load()
@@ -52,6 +66,52 @@ def library_eval_cuda(codes: torch.Tensor, fids: torch.Tensor | int,
         build.stream_of(dev))
     build.check("library_eval", rc)
     build.LAUNCHES["library_eval"] += 1
+    return out
+
+
+def library_walk_cuda(codes: torch.Tensor, fids: torch.Tensor | int,
+                      coeffs: torch.Tensor, walk: torch.Tensor,
+                      dp: torch.Tensor) -> torch.Tensor:
+    """The port of ``library_walk_2d``: codes int32, any shape; fids as in
+    :func:`library_eval_cuda`; coeffs: (F, R_max, 3) int32; walk: (F, 5)
+    int32 (in_bits, depth, seg_flag, leaf_base, n_leaves) rows; dp: (L, 5)
+    int32 datapath rows (``InterpLibrary.walk_rows()``)."""
+    dev = codes.device
+    _check_operands(codes, coeffs, walk, dp)
+    f, r_max, three = coeffs.shape
+    if three != 3 or tuple(walk.shape) != (f, 5) or dp.dim() != 2 \
+            or dp.shape[1] != 5:
+        raise ValueError(f"bad ROM {tuple(coeffs.shape)} / walk "
+                         f"{tuple(walk.shape)} / dp {tuple(dp.shape)}")
+    codes = codes.contiguous()
+    fid_ptr, fid0, _keep = _fid_operand(fids, codes, f)
+    coeffs, walk, dp = coeffs.contiguous(), walk.contiguous(), dp.contiguous()
+    out = torch.empty_like(codes)
+    rc = build.load().repro_library_walk(
+        codes.data_ptr(), fid_ptr, fid0, coeffs.data_ptr(), walk.data_ptr(),
+        dp.data_ptr(), f, r_max, dp.shape[0], out.data_ptr(), codes.numel(),
+        dev.index or 0, build.stream_of(dev))
+    build.check("library_walk", rc)
+    build.LAUNCHES["library_walk"] += 1
+    return out
+
+
+def rom_eval_cuda(codes: torch.Tensor, library, kind: str) -> torch.Tensor:
+    """The port of ``rom_eval_2d``: ``kind``'s slot of ``library``'s ROM on
+    int32 codes of any shape, through the ``lut_rom`` read the fused kernels
+    inline (the segmented branch for a v2 slot)."""
+    dev = codes.device
+    rom = library.coeffs
+    _check_operands(codes, rom)
+    dp = library.walk_rows()[1]
+    codes = codes.contiguous()
+    out = torch.empty_like(codes)
+    rc = build.load().repro_rom_eval(
+        codes.data_ptr(), rom.data_ptr(),
+        build.int_array(slot_args(library, kind)), dp.data_ptr(),
+        out.data_ptr(), codes.numel(), dev.index or 0, build.stream_of(dev))
+    build.check("rom_eval", rc)
+    build.LAUNCHES["rom_eval"] += 1
     return out
 
 
@@ -86,9 +146,14 @@ def interp_eval_cuda(codes: torch.Tensor, coeffs: torch.Tensor, *,
 
 
 def slot_args(library, kind: str) -> list[int]:
-    """The 9-int table row the fused kernels take for one library slot:
+    """The 12-int table row the fused kernels take for one library slot:
     (first ROM row, slot rows, eval_bits, k, sq_trunc, lin_trunc, degree,
-    in_bits, out_bits)."""
-    m = library.meta(kind)
-    return [library.func_id(kind) * library.r_max, library.r_max,
-            *m.datapath_row(), m.in_bits, m.out_bits]
+    in_bits, out_bits, seg_depth, n_leaves, leaf_base); the last three
+    address a segmented slot's leaf rows in ``walk_rows()[1]`` (the
+    reference's ``lib_meta`` carries them as ``eval["seg"]``), as the
+    library's ``walk_table()`` lays them out."""
+    fid = library.func_id(kind)
+    m = library.metas[fid]
+    *_, leaf_base, n_leaves = library.walk_table()[0][fid]
+    return [fid * library.r_max, library.r_max, *m.datapath_row(), m.in_bits,
+            m.out_bits, m.seg_depth, n_leaves, leaf_base]

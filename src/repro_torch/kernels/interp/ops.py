@@ -8,9 +8,12 @@ import torch
 
 from repro_torch.core.table import TableDesign
 from repro_torch.kernels.interp.kernel import (interp_eval_cuda,
-                                               library_eval_cuda)
+                                               library_eval_cuda,
+                                               library_walk_cuda,
+                                               rom_eval_cuda)
 from repro_torch.kernels.interp.ref import (interp_eval_ref, interp_eval_wide,
-                                            library_eval_ref)
+                                            library_eval_ref,
+                                            library_walk_ref, rom_eval_ref)
 
 
 def table_eval(codes: torch.Tensor, design: TableDesign) -> torch.Tensor:
@@ -48,14 +51,49 @@ def library_eval(codes: torch.Tensor, fids, coeffs: torch.Tensor,
     return library_eval_ref(codes, fids, coeffs, meta)
 
 
+def library_walk(codes: torch.Tensor, fids, coeffs: torch.Tensor,
+                 walk: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+    """Fused evaluation over a mixed uniform/segmented library: element i
+    walks function ``fids[i]``'s slot whatever its layout (``fids`` may be
+    one id for every element).
+
+    codes: int32, any shape; coeffs: (F, R_max, 3) int32 padded ROM; walk:
+    (F, 5) int32; dp: (L, 5) int32 (``InterpLibrary.walk_rows()``)."""
+    codes = codes.to(torch.int32)
+    if codes.is_cuda:
+        return library_walk_cuda(codes, fids, coeffs, walk, dp)
+    fids = torch.as_tensor(fids, dtype=torch.int32).expand(codes.shape)
+    return library_walk_ref(codes, fids, coeffs, walk, dp)
+
+
+def rom_eval(codes: torch.Tensor, library, kind: str) -> torch.Tensor:
+    """``kind``'s slot of ``library``'s flat ROM through the in-kernel
+    table read (the ``rom_eval_2d`` golden harness): the ``rom_eval``
+    kernel for CUDA codes, ``rom_eval_ref`` for CPU codes."""
+    codes = codes.to(torch.int32)
+    if codes.is_cuda:
+        return rom_eval_cuda(codes, library, kind)
+    m = library.meta(kind)
+    return rom_eval_ref(codes, library.coeffs.reshape(-1, 3),
+                        fid=library.func_id(kind), r_max=library.r_max,
+                        eval_bits=m.eval_bits, k=m.k, sq_trunc=m.sq_trunc,
+                        lin_trunc=m.lin_trunc, degree=m.degree,
+                        seg=m.seg_spec())
+
+
 def lib_meta(library, kind: str) -> dict:
     """The reference's per-slot meta dict (``repro.kernels.softmax.ops.
-    lib_meta``): widths, static func id and the datapath row."""
+    lib_meta``): widths, static func id and the datapath row; a segmented
+    slot also carries its ``seg_spec()`` under ``eval["seg"]``, which
+    routes the plain versions through the segment-index datapath."""
     m = library.meta(kind)
+    ev = {"eval_bits": m.eval_bits, "k": m.k, "sq_trunc": m.sq_trunc,
+          "lin_trunc": m.lin_trunc, "degree": m.degree}
+    if m.segmented:
+        ev["seg"] = m.seg_spec()
     return {
         "in_bits": m.in_bits,
         "out_bits": m.out_bits,
         "fid": library.func_id(kind),
-        "eval": {"eval_bits": m.eval_bits, "k": m.k, "sq_trunc": m.sq_trunc,
-                 "lin_trunc": m.lin_trunc, "degree": m.degree},
+        "eval": ev,
     }

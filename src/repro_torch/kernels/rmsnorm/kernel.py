@@ -34,6 +34,7 @@ def rmsnorm_lib_cuda(x: torch.Tensor, gamma: torch.Tensor, library,
     rc = lib.repro_rmsnorm_lib(
         x.data_ptr(), gamma.data_ptr(), out.data_ptr(), rows, d,
         _DTYPES[x.dtype], float(eps), rom.data_ptr(),
+        library.walk_rows()[1].data_ptr(),
         build.int_array(slot_args(library, "rsqrt")), dev.index or 0,
         build.stream_of(dev))
     build.check("rmsnorm_lib", rc)

@@ -35,6 +35,7 @@ def softmax_lib_cuda(x: torch.Tensor, library, return_e: bool = False):
     rc = lib.repro_softmax_lib(
         x.data_ptr(), out.data_ptr(), None if e is None else e.data_ptr(),
         rows, d, _DTYPES[x.dtype], rom.data_ptr(),
+        library.walk_rows()[1].data_ptr(),
         build.int_array(slot_args(library, "exp2neg")),
         build.int_array(slot_args(library, "recip")), dev.index or 0,
         build.stream_of(dev))

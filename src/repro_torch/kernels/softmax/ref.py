@@ -1,9 +1,8 @@
 """Plain PyTorch version of the library-bound fused softmax (twin of
 ``repro/kernels/softmax/ref.py`` ``fused_softmax_lib_ref`` /
-``fused_softmax_ref``), on the port's library ROM.
-
-Only uniform (ROM v1) slots: a segmented slot's table read ports with the
-``library_walk`` slice, and the port's :class:`InterpLibrary` holds none.
+``fused_softmax_ref``), on the port's library ROM. A segmented (ROM v2)
+slot decodes through ``interp_eval_seg_ref`` (``lut_rom_ref`` routes on the
+meta's ``eval["seg"]``), as the reference's ``lut`` does.
 """
 from __future__ import annotations
 
@@ -13,19 +12,11 @@ from repro_torch.kernels.interp.ref import (LOG2E, lut_rom_ref, pow2,
                                             table_recip)
 
 
-def _check_uniform(meta: dict) -> None:
-    if meta["eval"].get("seg") is not None:
-        raise NotImplementedError(
-            "segmented (ROM v2) library slot: its table read ports with the "
-            "library_walk slice")
-
-
 def softmax_exp(x: torch.Tensor, coeffs: torch.Tensor, exp_meta: dict):
     """The exp half of the fused softmax over the last axis: returns the
     exp2neg table codes (int32) and the terms e (float32), with
     t = min((max - x) * log2e, 126) and e = tab(code(frac t)) *
     2^-out_bits * 2^-floor(t) in the reference's operation order."""
-    _check_uniform(exp_meta)
     xf = x.to(torch.float32)
     m = torch.amax(xf, dim=-1, keepdim=True)
     t = torch.clamp((m - xf) * LOG2E, max=126.0)
@@ -42,7 +33,6 @@ def fused_softmax_lib_ref(x: torch.Tensor, coeffs: torch.Tensor,
     """x: (rows, D) (or any leading shape); both tables read at their static
     func ids in the padded (F, R_max, 3) ROM; the row sum's reciprocal from
     its IEEE-754 split. Output in x's dtype."""
-    _check_uniform(recip_meta)
     _, e = softmax_exp(x, coeffs, exp_meta)
     s = torch.sum(e, dim=-1, keepdim=True)
     return (e * table_recip(s, coeffs, recip_meta)).to(x.dtype)

@@ -6,7 +6,10 @@
 runs the full-width model (``--arch yi_6b`` or ``deepseek_moe_16b``) on the
 CUDA card with interp numerics through the library-bound kernels;
 ``--smoke --device cpu`` runs the reduced config on the CPU through the
-kernels' plain versions.
+kernels' plain versions. ``--library PATH`` serves a saved
+:class:`InterpLibrary` (v1 or v2, e.g. one from
+``Explorer.compile_segmented()``) instead of the default one;
+``--save-library PATH`` writes the library the engine serves.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.api.library import InterpLibrary
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve
 from repro_torch.models import transformer as tf
@@ -36,15 +40,25 @@ def main(argv=None) -> None:
     ap.add_argument("--horizon", type=int, default=8)
     ap.add_argument("--numerics", choices=["exact", "interp-fused"],
                     default="interp-fused")
+    ap.add_argument("--library", default=None,
+                    help="serve from this saved InterpLibrary (json/npz base)")
+    ap.add_argument("--save-library", default=None,
+                    help="write the library the engine serves here")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if (args.library or args.save_library) and args.numerics == "exact":
+        ap.error("--library/--save-library require interp numerics")
 
     dev = resolve(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = cfg.replace(numerics=args.numerics)
+    library = (InterpLibrary.load(args.library, device=dev) if args.library
+               else None)
     params = tf.init_params(cfg, seed=args.seed, device=dev)
     eng = ServeEngine(cfg, params, slots=args.slots, cache_len=args.cache_len,
-                      horizon=args.horizon, device=dev)
+                      horizon=args.horizon, library=library, device=dev)
+    if args.save_library:
+        print(f"saved library -> {eng.library.save(args.save_library)}")
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         n = max(1, args.prompt_len - i % 4)
@@ -59,6 +73,7 @@ def main(argv=None) -> None:
         print(f"request {r.rid}: {len(r.prompt)} prompt -> {r.out}")
     n_tok = sum(len(r.out) for r in done)
     print(json.dumps({"device": str(dev), "tokens": n_tok, "seconds": dt,
+                      "rom_sha": eng.library and eng.library.rom_sha(),
                       "stats": eng.stats}))
 
 

@@ -174,7 +174,8 @@ class FusedInterpNumerics(InterpNumerics):
     """Library-bound interp numerics lowered to the fused kernels: rmsnorm
     (``rmsnorm_lib``), the attention inner loop (``flash_attn_lib``), the
     last-axis softmax (``softmax_lib``) and the activations
-    (``library_eval``) read the library ROM in-kernel.
+    (``library_eval``, or ``library_walk`` once a slot is segmented) read
+    the library ROM in-kernel.
 
     As in the reference, the fused rsqrt / recip glue derives table codes by
     IEEE-754 bit twiddles where the unfused glue uses ``frexp``; composite
@@ -226,13 +227,21 @@ class PlainFusedNumerics(FusedInterpNumerics):
     path with."""
 
     def _eval(self, kind: str):
-        from repro_torch.kernels.interp.ref import library_eval_ref
+        """The plain version of the kernel ``eval_int`` launches: the walk
+        (``library_walk_ref``) once any slot is segmented, as
+        ``InterpLibrary.eval_fused`` routes; ``library_eval_ref`` would read
+        leaf 0's datapath row for every element of a segmented slot."""
+        from repro_torch.kernels.interp.ref import (library_eval_ref,
+                                                    library_walk_ref)
 
         lib = self.library
         fid = lib.func_id(kind)
 
         def ev(codes):
             fids = torch.full_like(codes, fid, dtype=torch.int32)
+            if lib.segmented_kinds:
+                return library_walk_ref(codes, fids, lib.coeffs,
+                                        *lib.walk_rows())
             return library_eval_ref(codes, fids, lib.coeffs, lib.meta_rows())
         return ev
 
@@ -273,8 +282,11 @@ def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
 
 def softmax_ulp_bound(exp_meta, recip_meta) -> float:
     """Certified relative error bound of table-softmax terms from the
-    tables' widths (``FuncMeta`` or ``TableDesign``): the twin of the
-    reference's bound, used to state attention tolerances."""
+    tables' widths (``FuncMeta``, ``TableDesign`` or ``SegmentedDesign``):
+    the twin of the reference's bound, used to state attention tolerances.
+    It reads only in_bits and out_bits, so it holds for segmented exp2neg /
+    recip slots too: a segmented design meets the same faithful-rounding
+    certificate at every code."""
     exp_rel = ((2.0 ** -exp_meta.out_bits) * 2
                + math.log(2.0) * 2.0 ** -(exp_meta.in_bits + 1))
     recip_rel = 2.0 ** -recip_meta.in_bits

@@ -13,13 +13,17 @@ Tolerances:
   version is not; each running correction is a table read, so
   |diff| <= (n_tiles + 2) * softmax_ulp_bound * max|v|, plus one bf16
   rounding of p and of the output (2^-7 * (max|v| + |out|)) in bf16.
-  Against the tile-by-tile twin with the same 64-key tiles only float
+  Against the tile-by-tile twin with the same 64-key tiles and the
+  kernel's query tiles (so the same dead tiles are skipped) only float
   reassociation remains: one table-code flip (softmax_ulp_bound * max|v|)
   plus one output rounding (2^-8 * |out| in bf16).
 * softmax_lib: the exp terms e come from the row max and one element, so
   they are bit-exact; only the row sum's order differs, which can move the
   reciprocal's code by one step: relative 2^-(recip in_bits - 1), plus one
   output rounding (2^-7 relative) in bf16.
+* library_walk and rom_eval: bit-exact, on the uniform and the segmented
+  (ROM v2) default library; the fused kernels on the segmented library at
+  the tolerances above.
 * interp_eval, the envelope kernels and dd_max_rows: bitwise. The
   envelope arithmetic is IEEE float32 add, subtract and divide of small
   integers in the reference's order, and min / max do not depend on order.
@@ -46,11 +50,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dspace import kernel as dk
 from repro_torch.kernels.dspace import ops as dops
 from repro_torch.kernels.dspace import ref as dref
+from repro_torch.kernels.flashattn.kernel import query_tile
 from repro_torch.kernels.flashattn.ops import attention_fused_library
 from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
-from repro_torch.kernels.interp.kernel import interp_eval_cuda
-from repro_torch.kernels.interp.ops import library_eval, table_eval
-from repro_torch.kernels.interp.ref import interp_eval_ref, library_eval_ref
+from repro_torch.kernels.interp.kernel import interp_eval_cuda, rom_eval_cuda
+from repro_torch.kernels.interp.ops import (library_eval, library_walk,
+                                            rom_eval, table_eval)
+from repro_torch.kernels.interp.ref import (interp_eval_ref,
+                                            library_eval_ref,
+                                            library_walk_ref)
 from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
 from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
 from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
@@ -112,6 +120,10 @@ def test_library_eval_silu_shapes(shape, lib, dev):
                                           (512, 4096, torch.bfloat16),
                                           (7, 1000, torch.float32)])
 def test_rmsnorm_kernel_matches_plain(rows, d, dtype, lib, dev):
+    _check_rmsnorm(rows, d, dtype, lib, dev)
+
+
+def _check_rmsnorm(rows, d, dtype, lib, dev):
     g = torch.Generator(device=dev).manual_seed(rows)
     x = (torch.randn(rows, d, device=dev, generator=g) *
          torch.rand(rows, 1, device=dev, generator=g) * 10).to(dtype)
@@ -138,6 +150,10 @@ def test_softmax_kernel_matches_plain(rows, d, dtype, lib, dev):
     wide bf16 row, and ragged rows on the warp-per-row (D <= 1024) and
     block-per-row paths; rows 0-1 hold equal values and a spread past the
     t = 126 clamp."""
+    _check_softmax(rows, d, dtype, lib, dev)
+
+
+def _check_softmax(rows, d, dtype, lib, dev):
     g = torch.Generator(device=dev).manual_seed(rows + d)
     x = torch.randn(rows, d, device=dev, generator=g) * 4
     x[0] = 1.5
@@ -204,6 +220,10 @@ def _flash_case(mode, dev, dtype):
                                         ("small", torch.float32),
                                         ("small", torch.bfloat16)])
 def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
+    _check_flash(mode, dtype, lib, dev)
+
+
+def _check_flash(mode, dtype, lib, dev):
     q, k, v, q_pos, kv_pos, window = _flash_case(mode, dev, dtype)
     kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
     n0 = build.LAUNCHES["flash_attn_lib"]
@@ -220,8 +240,9 @@ def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
         tol = tol + 2.0 ** -7 * (vmax + want.abs())
     err = (got - want).abs()
     assert torch.all(err <= tol), float(err.max())
-    twin = attention_fused_library_ref(q, k, v, lib, block_k=64, **kw
-                                       ).float()[live]
+    tq = query_tile(q.shape[1], q.shape[2] // k.shape[2], v.shape[-1])
+    twin = attention_fused_library_ref(q, k, v, lib, block_k=64, block_q=tq,
+                                       **kw).float()[live]
     tight = bound * vmax
     if dtype == torch.bfloat16:
         tight = tight + 2.0 ** -8 * twin.abs()
@@ -421,3 +442,149 @@ def test_pallas_engine_on_card_matches_exact(dev):
             lib = Explorer(ExploreConfig(cache_dir=d, device="cuda",
                                          **kw)).compile()
         assert lib.rom_sha() == "12aa483ae8456c2f" and lib.coeffs.is_cuda
+
+
+# ------------------------------------------------------- segmented (ROM v2)
+
+@pytest.fixture(scope="module")
+def _seg_cpu():
+    """The default manifest through compile_segmented on the CPU (every
+    slot segmented, f775a828748d4ea9)."""
+    with tempfile.TemporaryDirectory() as d:
+        lib = Explorer(ExploreConfig(device="cpu", cache_dir=d)
+                       ).compile_segmented()
+    assert lib.rom_sha() == "f775a828748d4ea9"
+    return lib
+
+
+@pytest.fixture
+def seg_lib(dev, _seg_cpu):
+    return InterpLibrary(_seg_cpu.coeffs.to(dev), _seg_cpu.metas).seal()
+
+
+def test_walk_and_rom_eval_every_code_both_libraries(lib, seg_lib, _seg_cpu,
+                                                     dev):
+    """library_walk (one id, and per-element ids) and rom_eval on all 4096
+    codes of every slot of the uniform and the segmented library equal the
+    walk's plain version and eval_int's CPU plain version."""
+    cpu_libs = (InterpLibrary.default_library("cpu"), _seg_cpu)
+    codes = torch.arange(4096, dtype=torch.int32, device=dev)
+    for card, host in zip((lib, seg_lib), cpu_libs):
+        walk, dp = card.walk_rows()
+        for kind in card.kinds:
+            fid = card.func_id(kind)
+            want = host.eval_int(codes.cpu(), kind)
+            n0 = dict(build.LAUNCHES)
+            one = library_walk(codes, fid, card.coeffs, walk, dp)
+            each = library_walk(codes, torch.full_like(codes, fid),
+                                card.coeffs, walk, dp)
+            rom = rom_eval(codes, card, kind)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["library_walk"] == n0["library_walk"] + 2
+            assert build.LAUNCHES["rom_eval"] == n0["rom_eval"] + 1
+            plain = library_walk_ref(codes, torch.full_like(codes, fid),
+                                     card.coeffs, walk, dp)
+            for got in (one, each, rom, plain):
+                assert torch.equal(got.cpu(), want), kind
+        if card is seg_lib:
+            assert torch.equal(card.eval_int(codes, "tanh").cpu(),
+                               host.eval_int(codes.cpu(), "tanh"))
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 11008), (1, 512, 11008)])
+def test_library_walk_mixed_ids_at_silu_shapes(shape, lib, seg_lib, dev):
+    """Random codes and per-element ids at Yi-6B's silu shapes: the walk
+    equals its plain version on both libraries, and library_eval on the
+    uniform one."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    codes = torch.randint(0, 4096, shape, dtype=torch.int32, device=dev,
+                          generator=g)
+    fids = torch.randint(0, len(lib), shape, dtype=torch.int32, device=dev,
+                         generator=g)
+    for card in (lib, seg_lib):
+        walk, dp = card.walk_rows()
+        got = library_walk(codes, fids, card.coeffs, walk, dp)
+        assert torch.equal(got, library_walk_ref(codes, fids, card.coeffs,
+                                                 walk, dp))
+    assert torch.equal(library_walk(codes, fids, lib.coeffs,
+                                    *lib.walk_rows()),
+                       library_eval(codes, fids, lib.coeffs,
+                                    lib.meta_rows()))
+
+
+def test_rom_eval_refuses_a_malformed_slot(seg_lib, dev):
+    """A segment spec whose table does not fit the slot is refused by the
+    C entry point (no launch)."""
+    from repro_torch.kernels.interp import kernel as ik
+
+    bad = list(ik.slot_args(seg_lib, "tanh"))
+    bad[9] = 12  # a 4096-cell table in a 42-row slot
+    codes = torch.zeros(8, dtype=torch.int32, device=dev)
+    real = ik.slot_args
+    try:
+        ik.slot_args = lambda library, kind: bad
+        with pytest.raises(RuntimeError, match="rom_eval"):
+            rom_eval_cuda(codes, seg_lib, "tanh")
+    finally:
+        ik.slot_args = real
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(4, 4096, torch.bfloat16),
+                                          (4, 2048, torch.float32)])
+def test_rmsnorm_kernel_on_segmented_library(rows, d, dtype, seg_lib, dev):
+    _check_rmsnorm(rows, d, dtype, seg_lib, dev)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
+                                          (511, 64, torch.float32),
+                                          (3, 1500, torch.bfloat16)])
+def test_softmax_kernel_on_segmented_library(rows, d, dtype, seg_lib, dev):
+    _check_softmax(rows, d, dtype, seg_lib, dev)
+
+
+@pytest.mark.parametrize("mode,dtype", [("decode", torch.bfloat16),
+                                        ("prefill_g1", torch.bfloat16),
+                                        ("small", torch.float32)])
+def test_flash_kernel_on_segmented_library(mode, dtype, seg_lib, dev):
+    _check_flash(mode, dtype, seg_lib, dev)
+
+
+def _seg_per_forward(cfg) -> dict:
+    """The uniform library's launches per forward, with library_walk in
+    place of library_eval (no extra launch for the segment decode)."""
+    per = _per_forward(cfg)
+    per["library_walk"], per["library_eval"] = per["library_eval"], 0
+    return per
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_fused_and_plain_numerics_agree_on_segmented_library(arch, seg_lib,
+                                                             dev):
+    cfg, params = _smoke(dev, arch)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    build.reset_launches()
+    got, _ = tf.prefill(params, toks, cfg, FusedInterpNumerics(seg_lib), 64)
+    assert build.LAUNCHES == _seg_per_forward(cfg)
+    want, _ = tf.prefill(params, toks, cfg, PlainFusedNumerics(seg_lib), 64)
+    assert build.LAUNCHES == _seg_per_forward(cfg)  # plain: no launches
+    tol = 4 * 2.0 ** -12 * want.abs().max()
+    assert torch.all((got - want).abs() <= tol)
+    codes = torch.arange(4096, dtype=torch.int32, device=dev)
+    for kind in seg_lib.kinds:
+        assert torch.equal(FusedInterpNumerics(seg_lib)._eval(kind)(codes),
+                           PlainFusedNumerics(seg_lib)._eval(kind)(codes))
+
+
+def test_engine_on_segmented_library_counts(seg_lib, dev):
+    cfg, params = _smoke(dev, "deepseek_moe_16b")
+    eng = ServeEngine(cfg, params, slots=2, cache_len=32, library=seg_lib,
+                      horizon=4, device=dev)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate((5, 11, 3)):
+        eng.submit(Request(i, rng.integers(0, cfg.vocab_size, n
+                                           ).astype(np.int32), max_new=5))
+    assert len(eng.run()) == 3
+    forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+    assert eng.stats["launches"] == {
+        k: n * forwards for k, n in _seg_per_forward(cfg).items()}

@@ -29,7 +29,11 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.api.explorer", "repro_torch.core.fleet",
             "repro_torch.core.batched", "repro_torch.kernels.dspace.kernel",
             "repro_torch.kernels.dspace.ops",
-            "repro_torch.kernels.dspace.ref")
+            "repro_torch.kernels.dspace.ref",
+            # the segmentation slice's
+            "repro_torch.segment", "repro_torch.segment.tree",
+            "repro_torch.segment.design", "repro_torch.segment.decide",
+            "repro_torch.segment.segmenter", "repro_torch.segment.cost")
 
 
 @pytest.fixture
@@ -133,9 +137,24 @@ def _device_coeffs():
                 meta).device_coeffs()
 
 
+def _compile_segmented(tmp):
+    from repro_torch.api import Explorer, ExploreConfig
+
+    Explorer(ExploreConfig(cache_dir=str(tmp))).compile_segmented(["recip"])
+
+
+def _explore_segmented_pallas():
+    from repro_torch.core.funcspec import get_spec
+    from repro_torch.segment import explore_segmented
+
+    explore_segmented(get_spec("recip", 8), engine="pallas")
+
+
 ENTRY_POINTS = {
     "explore_pallas": _explore_pallas,
     "compile_mesh": _compile_mesh,
+    "compile_segmented": _compile_segmented,
+    "explore_segmented_pallas": lambda tmp: _explore_segmented_pallas(),
     "region_envelopes_device": lambda tmp: _region_envelopes(),
     "device_coeffs": lambda tmp: _device_coeffs(),
     "resolve": lambda tmp: resolve("cuda"),

@@ -81,13 +81,20 @@ def test_port_saved_library_loads_in_reference(jax_lib, tmp_path):
 
 
 def test_segmented_manifest_refused(tmp_path):
+    """Manifests of version 1 and 2 (segmented slots) load; any other
+    version is refused, as the reference refuses it."""
     lib = InterpLibrary.default_library("cpu")
     man = lib.save(tmp_path / "lib")
     doc = json.loads(man.read_text())
     doc["version"] = 2
     man.write_text(json.dumps(doc))
-    with pytest.raises(NotImplementedError, match="v1"):
+    assert InterpLibrary.load(man, device="cpu").rom_sha() == ROM_SHA
+    doc["version"] = 3
+    man.write_text(json.dumps(doc))
+    with pytest.raises(ValueError, match="unsupported library version 3"):
         InterpLibrary.load(man, device="cpu")
+    with pytest.raises(ValueError, match="unsupported library version 3"):
+        JaxLibrary.load(man)
 
 
 def test_corrupt_rom_refused_on_load(tmp_path):

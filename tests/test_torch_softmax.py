@@ -134,10 +134,17 @@ def test_plain_twin_matches_reference_oracle(shape, dtype, libs):
 
 
 def test_segmented_slot_raises(libs):
+    """A segmented slot decodes through the segment-index datapath; a
+    segment spec that does not fit its slot (more leaf and table rows than
+    the ROM's r_max, or a leaf count its rows do not match) raises."""
     lib, _ = libs
     em = lib_meta(lib, "exp2neg")
-    em["eval"]["seg"] = (0, 2, 3, 0)
-    with pytest.raises(NotImplementedError, match="library_walk"):
+    em["eval"]["seg"] = (12, 8, 3, ((4, 0, 0, 0, 1),) * 3)
+    with pytest.raises(ValueError, match="does not fit"):
+        fused_softmax_lib_ref(torch.zeros(2, 8), lib.coeffs, em,
+                              lib_meta(lib, "recip"))
+    em["eval"]["seg"] = (12, 2, 3, ((10, 0, 0, 0, 1),) * 2)
+    with pytest.raises(ValueError, match="does not fit"):
         fused_softmax_lib_ref(torch.zeros(2, 8), lib.coeffs, em,
                               lib_meta(lib, "recip"))
 
