@@ -35,20 +35,28 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    traces that hold every launch of the kernel; call time from CUDA
    events), on the uniform library compiled in step 3 and, for the walk,
    ``rom_eval`` and the fused kernels, on the segmented one of step 4;
-6. serves 6 requests on full-width Yi-6B (bf16, random weights from a
+6. runs the per-table path at full Yi-6B width: 10-bit exp2neg, recip and
+   rsqrt designs generated on the card into a fresh cache, the vendored
+   12-bit R5 designs and the default R6 ones, each set through
+   ``approx_rmsnorm_fused``, ``approx_softmax_fused`` and
+   ``attention_fused`` (the ``rmsnorm_tab``, ``softmax_tab`` and
+   ``flash_attn_tab`` kernels, launch counts read right after), each kernel
+   held against its plain version and, on R6, bitwise against its library
+   twin on the uniform library of step 3, and timed;
+7. serves 6 requests on full-width Yi-6B (bf16, random weights from a
    seeded generator, the uniform library) through the continuous-batching
    engine with interp-fused numerics, asserts every request completes with
    in-vocabulary tokens and finite logits, that each kernel launched
    exactly its expected count per forward pass, and that each request's
    first token matches a plain-version prefill on the card (tie-aware);
-7. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
+8. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
    64 routed experts top-6 + 2 shared, a dense layer 0; the router's
    softmax through the ``softmax_lib`` kernel), first on the uniform
    library, then on the same weights on the segmented library, where the
    activations go through ``library_walk`` and every table read of the
    fused kernels through the segment decode: the same launches per forward
    with ``library_walk`` in place of ``library_eval``;
-8. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
+9. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -56,6 +64,7 @@ Any failure raises (non-zero exit) before the last line. Details go to
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import pathlib
@@ -115,9 +124,13 @@ SHORT_TRACES: list[str] = []  # kernel times read from a trace that lost some
 # each hand-written kernel's symbol, as the profiler names its launches
 KERNEL_SYMBOLS = {"library_eval": "library_eval_kernel",
                   "library_walk": "library_walk_kernel",
-                  "rmsnorm_lib": "rmsnorm_lib_kernel",
-                  "flash_attn_lib": "flash_attn_lib_kernel",
-                  "softmax_lib": "softmax_lib_",
+                  "rmsnorm_lib": "rmsnorm_kernel",
+                  "flash_attn_lib": "flash_attn_kernel",
+                  "softmax_lib": "softmax_",
+                  # the per-table entry points run the same bodies
+                  "rmsnorm_tab": "rmsnorm_kernel",
+                  "flash_attn_tab": "flash_attn_kernel",
+                  "softmax_tab": "softmax_",
                   "rom_eval": "rom_eval_kernel",
                   "interp_eval": "interp_eval_kernel",
                   "envelopes_parity": "envelopes_parity_kernel",
@@ -1017,6 +1030,271 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     return rows, details
 
 
+TAB_KERNELS = ("softmax_tab", "rmsnorm_tab", "flash_attn_tab")
+# the per-table phase's shapes: Yi-6B's width (d_model, query heads, KV
+# heads, head dim), its hidden rows at decode (4 slots) and in a prefill,
+# softmax rows and dtype (DeepSeekMoE's router, the scores of a 512-token
+# prefill over 32 heads, a D that is no multiple of 128 for the tails) and
+# attention (B, Sq, Sk, causal)
+PERTABLE = dict(width=(4096, 32, 4, 128), rms_rows=(4, 512),
+                softmax=(((4, 64), "float32"), ((32 * 512, 512), "float32"),
+                         ((37, 1000), "bfloat16")),
+                attention=((4, 1, 1024, False), (1, 512, 512, True)))
+
+
+def pertable_phase(lib, dev):
+    """The per-table path at full Yi-6B width (d = 4096, 32 query heads over
+    4 KV heads, D = 128, bf16): three design sets through
+    ``approx_rmsnorm_fused``, ``approx_softmax_fused`` and
+    ``attention_fused``. Launch counts are read right after that run; then
+    each kernel is held against its plain version (exp codes bitwise, rsqrt
+    codes bitwise on rows whose mean(x^2) is exact in any order, outputs at
+    the card tests' tolerances) and, with the default R6 designs, bitwise
+    against its library twin on ``lib``; then timed (every set's kernel
+    time; plain versions and yardsticks on R6). Returns the kernels-line rows
+    (R6), the details and the launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.api import Explorer, ExploreConfig
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flashattn.kernel import query_tile
+    from repro_torch.kernels.flashattn.ops import (attention_fused,
+                                                   attention_fused_library)
+    from repro_torch.kernels.flashattn.ref import attention_fused_ref
+    from repro_torch.kernels.rmsnorm.ops import (approx_rmsnorm_fused,
+                                                 approx_rmsnorm_library)
+    from repro_torch.kernels.rmsnorm.ref import fused_rmsnorm_ref
+    from repro_torch.kernels.softmax.kernel import softmax_tab_cuda
+    from repro_torch.kernels.softmax.ops import (_meta, approx_softmax_fused,
+                                                 approx_softmax_library)
+    from repro_torch.kernels.softmax.ref import fused_softmax_ref, softmax_exp
+    from repro_torch.numerics.ops import softmax_ulp_bound
+
+    # the three design sets through get_table, generated on the card's host
+    # into a fresh cache directory: 10-bit, 12-bit R5 and the default 12-bit
+    # R6 ones (those ``lib`` packs, checked below)
+    kinds = ("exp2neg", "recip", "rsqrt")
+    kw = {"10b": {"bits": 10}, "R5": {"lookup_bits": 5}, "R6": {}}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        gen = Explorer(ExploreConfig(device=str(dev), cache_dir=d))
+        sets = {name: {k: gen.get_table(k, **kw[name]) for k in kinds}
+                for name in kw}
+    gen_s = time.perf_counter() - t0
+    for k, dz in sets["R6"].items():
+        if not torch.equal(dz.device_coeffs(dev),
+                           lib.coeffs[lib.func_id(k), :len(dz.a)]):
+            raise AssertionError(f"R6 {k} is not the library's table")
+    info = {}
+    for name, ds in sets.items():
+        for k, dz in ds.items():
+            tab0 = int(dz.eval_int(np.array([0]))[0])
+            info[f"{name} {k}"] = dict(in_bits=dz.in_bits,
+                                       out_bits=dz.out_bits,
+                                       rows=len(dz.a), tab0=tab0)
+            print(f"design {name} {k}: in_bits {dz.in_bits}, out_bits "
+                  f"{dz.out_bits}, rows {len(dz.a)}, tab(0) {tab0}")
+    print(f"design sets generated in {gen_s:.3f} s")
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    d_model, h, kvh, hd = PERTABLE["width"]
+    pow2 = torch.tensor([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0], device=dev)
+    rms_in = []
+    for rows in PERTABLE["rms_rows"]:
+        x = (torch.randn(rows, d_model, device=dev, generator=g)
+             * (torch.rand(rows, 1, device=dev, generator=g) * 4 + 0.1))
+        # rows of +-0.5, 1, 2: mean(x^2) exact in any order (same code)
+        x[:2] = pow2[torch.randint(0, 6, (2, d_model), device=dev,
+                                   generator=g)]
+        rms_in.append((x.to(torch.bfloat16),
+                       torch.rand(d_model, device=dev, generator=g) + 0.5))
+    sm_in = [(torch.randn(shape, device=dev, generator=g) * 4).to(
+        getattr(torch, dtype)) for shape, dtype in PERTABLE["softmax"]]
+    att_in = []  # K/V expanded from kvh to h heads by the caller
+    for b, sq, sk, causal in PERTABLE["attention"]:
+        q = torch.randn(b, sq, h, hd, generator=g, **bf)
+        k, v = (torch.randn(b, sk, kvh, hd, generator=g, **bf
+                            ).repeat_interleave(h // kvh, dim=2)
+                for _ in range(2))
+        att_in.append((q, k, v, causal))
+
+    # -- the main path: every count 0 just before, read just after --------
+    build.reset_launches()
+    outs = {}
+    for name, ds in sets.items():
+        ed, rd, sd = ds["exp2neg"], ds["recip"], ds["rsqrt"]
+        outs[name] = (
+            [approx_rmsnorm_fused(x, gm, sd) for x, gm in rms_in],
+            [approx_softmax_fused(x, ed, rd) for x in sm_in],
+            [attention_fused(q, k, v, causal=c, exp_design=ed,
+                             recip_design=rd) for q, k, v, c in att_in])
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    want = {**dict.fromkeys(build.LAUNCHES, 0),
+            "rmsnorm_tab": len(sets) * len(rms_in),
+            "softmax_tab": len(sets) * len(sm_in),
+            "flash_attn_tab": len(sets) * len(att_in)}
+    print(f"per-table path launches: "
+          f"{ {k: launches[k] for k in TAB_KERNELS} }")
+    if launches != want:
+        raise AssertionError(f"per-table path launches {launches}, want "
+                             f"{want}")
+
+    # -- checks against the plain versions and the library twins ----------
+    details = []
+    for name, ds in sets.items():
+        ed, rd, sd = ds["exp2neg"], ds["recip"], ds["rsqrt"]
+        ec, rc, sc = (dz.device_coeffs(dev) for dz in (ed, rd, sd))
+        rms_out, sm_out, att_out = outs[name]
+        rs_tol = 2 * 2.0 ** -(sd.out_bits - 1) + 2.0 ** -7
+        for (x, gm), got in zip(rms_in, rms_out):
+            want_r = fused_rmsnorm_ref(x, gm, sc, _meta(sd))
+            codes_same = torch.equal(got[:2], want_r[:2])
+            gf, wf = got.float(), want_r.float()
+            err = float((gf - wf).abs().max())
+            rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)).max())
+            print(f"rmsnorm_tab {name} {tuple(x.shape)} bf16: exact-ms rows "
+                  f"bitwise {codes_same}, max_abs_err {err:.3e}, max rel "
+                  f"{rel:.3e} (tolerance rel {rs_tol:.3e}: 2 rsqrt-table "
+                  f"ulps + 1 bf16 rounding)")
+            if not codes_same or rel > rs_tol:
+                raise AssertionError(f"rmsnorm_tab {name} {tuple(x.shape)} "
+                                     f"differs from plain")
+            details.append(dict(name="rmsnorm_tab", designs=name,
+                                shape=list(x.shape), max_abs_err=err,
+                                tolerance=rs_tol, x=x, gamma=gm))
+        for x, got in zip(sm_in, sm_out):
+            again, e = softmax_tab_cuda(x, ed, rd, return_e=True)
+            _, e_ref = softmax_exp(x, ec, _meta(ed))
+            want_s = fused_softmax_ref(x, ec, rc, _meta(ed), _meta(rd))
+            e_exact = torch.equal(e, e_ref) and torch.equal(again, got)
+            gf, wf = got.float(), want_s.float()
+            err = float((gf - wf).abs().max())
+            rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)).max())
+            tol = 2.0 ** -(rd.in_bits - 1) + (
+                2.0 ** -7 if x.dtype == torch.bfloat16 else 0.0)
+            print(f"softmax_tab {name} {tuple(x.shape)} {str(x.dtype)[6:]}: "
+                  f"exp codes bitwise {e_exact}, max_abs_err {err:.3e}, max "
+                  f"rel {rel:.3e} (tolerance rel {tol:.3e}: one recip-table "
+                  f"step 2^-{rd.in_bits - 1}"
+                  f"{' + 1 bf16 rounding' if x.dtype == torch.bfloat16 else ''})")
+            if not e_exact or rel > tol:
+                raise AssertionError(f"softmax_tab {name} {tuple(x.shape)} "
+                                     f"differs from plain")
+            details.append(dict(name="softmax_tab", designs=name,
+                                shape=list(x.shape), dtype=str(x.dtype)[6:],
+                                max_abs_err=err, tolerance=tol, x=x))
+        sm_bound = softmax_ulp_bound(ed, rd)
+        for (q, k, v, causal), got in zip(att_in, att_out):
+            gf = got.float()
+            vmax = float(v.float().abs().max())
+            tq = query_tile(q.shape[1], 1, q.shape[-1])
+            twin = attention_fused_ref(q, k, v, ed, rd, causal=causal,
+                                       block_k=64, block_q=tq).float()
+            terr = (gf - twin).abs()
+            t_excess = float((terr - sm_bound * vmax
+                              - 2.0 ** -8 * twin.abs()).max())
+            oracle = attention_fused_ref(q, k, v, ed, rd,
+                                         causal=causal).float()
+            n_tiles = (k.shape[1] + 63) // 64
+            tol_abs = (n_tiles + 2) * sm_bound * vmax
+            err = float((gf - oracle).abs().max())
+            excess = float(((gf - oracle).abs() - tol_abs
+                            - 2.0 ** -7 * (vmax + oracle.abs())).max())
+            mode = "prefill" if causal else "decode"
+            print(f"flash_attn_tab {name} {mode} q{tuple(q.shape)} "
+                  f"Sk={k.shape[1]}: against the tile-by-tile twin "
+                  f"({tq}-query tiles) max_abs_err {float(terr.max()):.3e}, "
+                  f"mean {float(terr.mean()):.3e} (tolerance "
+                  f"{sm_bound * vmax:.3e}, one table-code flip, + 2^-8 |out|)"
+                  f"; against the unchunked oracle {err:.3e} (tolerance "
+                  f"{tol_abs:.3e} = ({n_tiles} tiles + 2) x softmax_ulp_bound"
+                  f" x max|v|, + 2^-7 (max|v| + |out|))")
+            if t_excess > 0 or excess > 0:
+                raise AssertionError(f"flash_attn_tab {name} {mode} differs "
+                                     f"from plain")
+            details.append(dict(name="flash_attn_tab", designs=name,
+                                mode=mode, shape=list(q.shape) + [k.shape[1]],
+                                max_abs_err=float(terr.max()),
+                                tolerance=sm_bound * vmax, oracle_err=err,
+                                oracle_tolerance=tol_abs, qkv=(q, k, v, causal)))
+        if name == "R6":  # the reference's invariant: per-table == library
+            same = {
+                "rmsnorm_tab": all(torch.equal(o, approx_rmsnorm_library(
+                    x, gm, lib)) for (x, gm), o in zip(rms_in, rms_out)),
+                "softmax_tab": all(torch.equal(o, approx_softmax_library(
+                    x, lib)) for x, o in zip(sm_in, sm_out)),
+                "flash_attn_tab": all(torch.equal(o, attention_fused_library(
+                    q, k, v, lib, causal=c)) for (q, k, v, c), o in
+                    zip(att_in, att_out))}
+            print(f"R6 per-table kernels bitwise equal to their library twins"
+                  f" (library {lib.rom_sha()}): {same}")
+            if not all(same.values()):
+                raise AssertionError(f"a per-table kernel differs from its "
+                                     f"library twin on R6: {same}")
+    torch.cuda.synchronize()
+
+    # -- times --------------------------------------------------------------
+    rows = {}
+    for r in details:
+        name, dset = r["name"], r["designs"]
+        ds = sets[dset]
+        ed, rd, sd = ds["exp2neg"], ds["recip"], ds["rsqrt"]
+        label = f"{dset} {name} {r['shape']}"
+        if name == "rmsnorm_tab":
+            x, gm = r.pop("x"), r.pop("gamma")
+            fn = functools.partial(approx_rmsnorm_fused, x, gm, sd)
+            coeffs = sd.device_coeffs(dev)
+            plain = functools.partial(fused_rmsnorm_ref, x, gm, coeffs,
+                                      _meta(sd))
+            g16 = gm.to(torch.bfloat16)
+            yard = functools.partial(F.rms_norm, x, (x.shape[1],), g16, 1e-6)
+            nbytes = 2 * x.numel() * 2 + x.shape[1] * 4 + len(sd.a) * 12
+            b_ms, b_by = bound(nbytes, 4 * x.numel(), F32_FLOPS)
+        elif name == "softmax_tab":
+            x = r.pop("x")
+            fn = functools.partial(approx_softmax_fused, x, ed, rd)
+            plain = functools.partial(
+                fused_softmax_ref, x, ed.device_coeffs(dev),
+                rd.device_coeffs(dev), _meta(ed), _meta(rd))
+            yard = functools.partial(torch.softmax, x, -1)
+            n = x.numel()
+            b_ms, b_by = bound(2 * n * x.element_size()
+                               + 12 * (len(ed.a) + len(rd.a)), 24 * n,
+                               F32_FLOPS)
+        else:
+            q, k, v, causal = r.pop("qkv")
+            fn = functools.partial(attention_fused, q, k, v, causal=causal,
+                                   exp_design=ed, recip_design=rd)
+            plain = functools.partial(attention_fused_ref, q, k, v, ed, rd,
+                                      causal=causal)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            yard = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                     vt, is_causal=causal)
+            b, sq, h, d = q.shape
+            sk = k.shape[1]
+            # live (query, key) pairs per head: the causal half, or all
+            pairs = b * (sq * (sq + 1) // 2 if causal else sq * sk)
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+            b_ms, b_by = bound(nbytes, 4 * d * h * pairs, BF16_FLOPS)
+        r.update(ms=device_ms(fn, label=label, kernel=name),
+                 call_ms=timed(fn), bound_ms=b_ms, bound_by=b_by)
+        if dset == "R6":
+            r.update(plain_ms=device_ms(plain, iters=3,
+                                        label=f"plain {label}"),
+                     library_ms=device_ms(yard, label=f"yardstick {label}"))
+            rows.setdefault(name, r)
+        print(f"  device time {name} {r['shape']} ({dset} designs): kernel "
+              f"{r['ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})"
+              + (f", plain {r['plain_ms']:.5f} ms, library "
+                 f"{r['library_ms']:.5f} ms" if dset == "R6" else "")
+              + f"; back-to-back call {r['call_ms']:.5f} ms")
+    return rows, dict(designs=info, generate_s=gen_s, checks=details,
+                      launches={k: launches[k] for k in TAB_KERNELS})
+
+
 def per_forward(cfg, segmented: bool = False) -> dict:
     """Kernel launches of one forward pass of ``cfg`` on the main path: an
     rmsnorm before attention and before the FFN of every layer plus the
@@ -1298,6 +1576,7 @@ def main() -> int:
                                          dev, silu_codes)
     rows, details = kernel_phases(lib, dev, silu_codes)
     _, seg_details = kernel_phases(seg_lib, dev, silu_codes, "segmented")
+    tab_rows, pertable = pertable_phase(lib, dev)
     from repro_torch.configs import deepseek_moe_16b, yi_6b
 
     serves = serve_phase([("uniform", lib)], dev, yi_6b.CONFIG)
@@ -1314,6 +1593,7 @@ def main() -> int:
     launches["rom_eval"] = seg_gen["launches"]["rom_eval"]
     for name in ENVELOPE_KERNELS:
         launches[name] += seg_gen["launches"][name]
+    launches.update(pertable["launches"])
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the paths: "
                              f"{launches}")
@@ -1334,6 +1614,12 @@ def main() -> int:
                          "src/repro/kernels/interp/kernel.py:336"),
         "rom_eval": ("src/repro_torch/csrc/interp.cu",
                      "src/repro/kernels/interp/kernel.py:175"),
+        "softmax_tab": ("src/repro_torch/csrc/softmax.cu",
+                        "src/repro/kernels/softmax/kernel.py:113"),
+        "rmsnorm_tab": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm/kernel.py:86"),
+        "flash_attn_tab": ("src/repro_torch/csrc/flashattn.cu",
+                           "src/repro/kernels/flashattn/kernel.py:188"),
         "envelopes_parity": ("src/repro_torch/csrc/dspace.cu",
                              "src/repro/kernels/dspace/kernel.py:99"),
         "envelopes_parity_batched": ("src/repro_torch/csrc/dspace.cu",
@@ -1342,9 +1628,10 @@ def main() -> int:
                                    "src/repro/kernels/dspace/kernel.py:123"),
         # glue, no TPU kernel: the jnp reduction inside the same program
         "dd_max_rows": ("src/repro_torch/csrc/dspace.cu",
-                        "src/repro/kernels/dspace/ops.py:76"),
+                        "src/repro/kernels/dspace/ops.py:79"),
     }
-    rows = {**rows, **dspace_rows, **walk_rows, "interp_eval": ie_row}
+    rows = {**rows, **dspace_rows, **walk_rows, **tab_rows,
+            "interp_eval": ie_row}
     for name, (source, rep) in replaces.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
@@ -1358,7 +1645,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
               "kernel_phases": (dspace_details + ie_details + walk_details
                                 + details + seg_details),
-              "generator": gen, "serve": serves,
+              "generator": gen, "pertable": pertable, "serve": serves,
               "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES}
     if EVENT_TIMED:
         print(f"timed with CUDA events (no profiler device time): "

@@ -25,8 +25,9 @@ namespace repro {
 // rows. A segmented slot holds n_leaves coefficient rows, then the 2^D-entry
 // segment-index table packed 3 entries per row, all inside its `rows`.
 struct TableArgs {
-  int row0;   // first ROM row of the slot (fid * r_max, or 0 for a slot view)
-  int rows;   // rows the slot holds (r_max)
+  int row0;   // first ROM row of the slot (fid * r_max; 0 for a slot view
+              // or one design's own rows)
+  int rows;   // rows the slot holds (r_max; 2^R for one design's rows)
   int eval_bits, k, sq_trunc, lin_trunc, degree;
   int in_bits, out_bits;
   int seg_depth;           // 0: uniform slot

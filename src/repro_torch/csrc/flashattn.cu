@@ -1,9 +1,17 @@
-// flash_attn_lib: online-softmax attention with the table-backed exp and
-// reciprocal, absolute-position masks and grouped KV heads.
+// flash_attn_lib and flash_attn_tab: online-softmax attention with the
+// table-backed exp and reciprocal.
 //
 // Replaces repro/kernels/flashattn/kernel.py `flash_attention_lib` /
-// `_flash_lib_kernel` over `_flash_loop`, `_table_exp_neg`, `_table_recip`.
-// It reproduces `_flash_loop`: q in f32 times scale; scores masked to
+// `_flash_lib_kernel` (absolute-position masks, grouped KV heads, both
+// tables in one library ROM) and `flash_attention` / `_flash_kernel`
+// (positions by index, one KV head per query head, each table from its own
+// design's (2^R, 3) rows), both over `_flash_loop`, `_table_exp_neg`,
+// `_table_recip`. One body serves both: null position pointers mean
+// positions = index (so causal is top-left aligned when Sq != Sk, and the
+// per-block tile liveness skips exactly the key tiles strictly above the
+// block's diagonal, the reference's B1), and each table is a (rom,
+// TableArgs) pair (the library entry passes its ROM twice). It reproduces
+// `_flash_loop`: q in f32 times scale; scores masked to
 // NEG = -1e30 where kv_pos < 0, where causal and q_pos < kv_pos, or outside
 // the sliding window; m = max(m, max(s), M_FLOOR = -1e20); p and the running
 // correction from the exp2neg table (t clamped at 126); l = l * corr +
@@ -76,9 +84,10 @@ struct FlashParams {
   const void* k;
   const void* v;
   void* out;
-  const int32_t* q_pos;   // (B, Sq), -1 = padded query row
-  const int32_t* kv_pos;  // (B, Sk), -1 = dead cache slot
-  const int32_t* rom;     // the library ROM, (F * r_max, 3) int32
+  const int32_t* q_pos;   // (B, Sq), -1 = padded query row; null: index
+  const int32_t* kv_pos;  // (B, Sk), -1 = dead cache slot; null: index
+  const int32_t* rom_e;   // the exp2neg table's rows (library ROM or design)
+  const int32_t* rom_r;   // the recip table's rows
   // element strides of (batch, head, position); the last dim is contiguous
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int64_t o_sb, o_sh, o_ss;
@@ -99,7 +108,7 @@ __device__ __forceinline__ int warp_min_i(int v) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_lib_kernel(const FlashParams p) {
+flash_attn_kernel(const FlashParams p) {
   using E = Elem<T>;
   constexpr int EPW = E::epw;
   extern __shared__ uint32_t smem[];
@@ -125,8 +134,8 @@ flash_attn_lib_kernel(const FlashParams p) {
 
   // stage the exp2neg and recip slots; address them from shared memory
   TableArgs te = p.te, tr = p.tr;
-  stage_slot(p.rom, te, s_exp);
-  stage_slot(p.rom, tr, s_rec);
+  stage_slot(p.rom_e, te, s_exp);
+  stage_slot(p.rom_r, tr, s_rec);
 
   // row r serves query head kvh * g + r / tq at position qt * tq + r % tq
   const T* qbase = static_cast<const T*>(p.q) + (int64_t)b * p.q_sb;
@@ -143,7 +152,8 @@ flash_attn_lib_kernel(const FlashParams p) {
   }
   for (int r = tid; r < M; r += kThreads) {
     const int qi = qt * p.tq + r % p.tq;
-    s_qp[r] = qi < p.Sq ? p.q_pos[(int64_t)b * p.Sq + qi] : -1;
+    s_qp[r] = qi >= p.Sq ? -1
+              : p.q_pos ? p.q_pos[(int64_t)b * p.Sq + qi] : qi;
     s_m[r] = kMFloor;
     s_l[r] = 0.0f;
   }
@@ -177,7 +187,8 @@ flash_attn_lib_kernel(const FlashParams p) {
     const int k0 = kt * kBK;
     const int jn = min(kBK, p.Sk - k0);  // keys of this tile
     for (int j = tid; j < kBK; j += kThreads)
-      s_kp[j] = j < jn ? p.kv_pos[(int64_t)b * p.Sk + k0 + j] : -1;
+      s_kp[j] = j >= jn ? -1
+                : p.kv_pos ? p.kv_pos[(int64_t)b * p.Sk + k0 + j] : k0 + j;
     __syncthreads();
     if (warp == 0) {  // tile liveness, as the reference's chunk_live
       int any = 0, kmin = INT_MAX, kmax = INT_MIN;
@@ -328,12 +339,34 @@ template <typename T>
 int launch(const FlashParams& p, int n_qt, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(p);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_lib_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_qt, p.KVH, p.B);
-  flash_attn_lib_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  flash_attn_kernel<T><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Fill the shape and stride fields, check the tables, launch on the dtype
+// (0 = float32, 1 = bfloat16; q, k, v and out share it).
+int run(FlashParams& p, const int64_t* strides12, const int32_t* dims8,
+        int dtype, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  p.q_sb = strides12[0]; p.q_sh = strides12[1]; p.q_ss = strides12[2];
+  p.k_sb = strides12[3]; p.k_sh = strides12[4]; p.k_ss = strides12[5];
+  p.v_sb = strides12[6]; p.v_sh = strides12[7]; p.v_ss = strides12[8];
+  p.o_sb = strides12[9]; p.o_sh = strides12[10]; p.o_ss = strides12[11];
+  p.B = dims8[0]; p.H = dims8[1]; p.KVH = dims8[2]; p.Sq = dims8[3];
+  p.Sk = dims8[4]; p.D = dims8[5]; p.Dv = dims8[6]; p.tq = dims8[7];
+  p.g = p.H / p.KVH;
+  if (!table_args_ok(p.te) || !table_args_ok(p.tr))
+    return (int)cudaErrorInvalidValue;
+  if (p.B == 0 || p.Sq == 0) return 0;
+  const int n_qt = (p.Sq + p.tq - 1) / p.tq;
+  if (dtype == 0) return launch<float>(p, n_qt, (cudaStream_t)stream);
+  if (dtype == 1) return launch<__nv_bfloat16>(p, n_qt, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -352,26 +385,35 @@ extern "C" int repro_flash_attn_lib(const void* q, const void* k,
                                     const int32_t* dims8, int causal,
                                     int window, float scale, int dtype,
                                     int device, void* stream) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
   FlashParams p;
   p.q = q; p.k = k; p.v = v; p.out = out;
-  p.q_pos = q_pos; p.kv_pos = kv_pos; p.rom = rom;
-  p.q_sb = strides12[0]; p.q_sh = strides12[1]; p.q_ss = strides12[2];
-  p.k_sb = strides12[3]; p.k_sh = strides12[4]; p.k_ss = strides12[5];
-  p.v_sb = strides12[6]; p.v_sh = strides12[7]; p.v_ss = strides12[8];
-  p.o_sb = strides12[9]; p.o_sh = strides12[10]; p.o_ss = strides12[11];
-  p.B = dims8[0]; p.H = dims8[1]; p.KVH = dims8[2]; p.Sq = dims8[3];
-  p.Sk = dims8[4]; p.D = dims8[5]; p.Dv = dims8[6]; p.tq = dims8[7];
-  p.g = p.H / p.KVH;
+  p.q_pos = q_pos; p.kv_pos = kv_pos; p.rom_e = rom; p.rom_r = rom;
   p.causal = causal; p.window = window; p.scale = scale;
   p.te = table_args(exp12, dp);
   p.tr = table_args(rec12, dp);
-  if (!table_args_ok(p.te) || !table_args_ok(p.tr))
-    return (int)cudaErrorInvalidValue;
-  if (p.B == 0 || p.Sq == 0) return 0;
-  const int n_qt = (p.Sq + p.tq - 1) / p.tq;
-  if (dtype == 0) return launch<float>(p, n_qt, (cudaStream_t)stream);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, n_qt, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return run(p, strides12, dims8, dtype, device, stream);
+}
+
+// The per-table entry: positions by index (causal: query row i sees keys
+// j <= i), no window, H == KVH and D == Dv in dims8; exp_coeffs and
+// rec_coeffs are two designs' own (2^R, 3) int32 rows, exp12 / rec12 their
+// rows (row0 0, rows 2^R, no segment table).
+extern "C" int repro_flash_attn_tab(const void* q, const void* k,
+                                    const void* v, void* out,
+                                    const int32_t* exp_coeffs,
+                                    const int32_t* exp12,
+                                    const int32_t* rec_coeffs,
+                                    const int32_t* rec12,
+                                    const int64_t* strides12,
+                                    const int32_t* dims8, int causal,
+                                    float scale, int dtype, int device,
+                                    void* stream) {
+  FlashParams p;
+  p.q = q; p.k = k; p.v = v; p.out = out;
+  p.q_pos = nullptr; p.kv_pos = nullptr;
+  p.rom_e = exp_coeffs; p.rom_r = rec_coeffs;
+  p.causal = causal; p.window = -1; p.scale = scale;
+  p.te = table_args(exp12, nullptr);
+  p.tr = table_args(rec12, nullptr);
+  return run(p, strides12, dims8, dtype, device, stream);
 }

@@ -1,17 +1,24 @@
-// softmax_lib: row softmax with the table-backed exp and reciprocal.
+// softmax_lib and softmax_tab: row softmax with the table-backed exp and
+// reciprocal.
 //
 // Replaces repro/kernels/softmax/kernel.py `fused_softmax_lib` /
-// `_softmax_lib_kernel` over `_softmax_body`: per row, m = max(x),
+// `_softmax_lib_kernel` (both tables in one library ROM) and `fused_softmax`
+// / `_softmax_kernel` (each table from its own design's (2^R, 3) rows), both
+// over `_softmax_body`: per row, m = max(x),
 // t = min((m - x) * log2e, 126), e = tab_exp(round(frac(t) * 2^eb)) *
 // 2^-out_bits * 2^-floor(t), s = sum(e), 1/s from the IEEE-754 split of s
 // into the reciprocal table, out = e * (1/s) in x's dtype. Both table reads
 // are the shared datapath of datapath.cuh (`table_exp_neg`, `table_recip`).
 //
 // Bound on an H100: bytes (read x once, write out once, ~20 operations per
-// element). Design: the two ROM slots (768 bytes each for the default
-// library; a segmented slot with its packed segment table and its leaf
-// datapath rows) are staged in shared memory once per block. Rows of D <= 1024 take
-// one warp each (8 rows per block of 256 threads): a lane keeps its
+// element). Design: one body for both entry points; it takes a (rom,
+// TableArgs) pair per table, and the library entry passes its ROM twice. The
+// two tables (768 bytes each for the default library; a segmented slot with
+// its packed segment table and its leaf datapath rows; a per-table design's
+// 2^R rows, whatever its R and widths) are staged in shared memory once per
+// block, each from its own pointer; tables that do not fit one block's
+// shared memory are refused, not read from global memory. Rows of D <= 1024
+// take one warp each (8 rows per block of 256 threads): a lane keeps its
 // ceil(D / 32) elements in registers, and the row max and row sum are warp
 // shuffles. Longer rows take one block of 256 threads each: the max and the
 // sum are reduced through shared memory, and e is recomputed (the same
@@ -50,14 +57,16 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
-// Copy both slots (a segmented slot's packed table and leaf rows with it)
+// Copy both tables (a segmented slot's packed table and leaf rows with it)
 // into shared memory at s_exp and s_rec and re-base their TableArgs on the
 // copies.
-__device__ __forceinline__ void stage_slots(const int32_t* rom, TableArgs& te,
+__device__ __forceinline__ void stage_slots(const int32_t* rom_e,
+                                            TableArgs& te,
+                                            const int32_t* rom_r,
                                             TableArgs& tr, int32_t* s_exp,
                                             int32_t* s_rec) {
-  stage_slot(rom, te, s_exp);
-  stage_slot(rom, tr, s_rec);
+  stage_slot(rom_e, te, s_exp);
+  stage_slot(rom_r, tr, s_rec);
   __syncthreads();
 }
 
@@ -70,16 +79,17 @@ __device__ __forceinline__ float exp_term(float m, float x,
 
 // One warp per row; K = elements per lane (a power of two, 32 * K >= D).
 template <typename T, int K>
-__global__ void softmax_lib_warp_kernel(const T* __restrict__ x,
-                                        T* __restrict__ out,
-                                        float* __restrict__ e_out,
-                                        int64_t rows, int d,
-                                        const int32_t* __restrict__ rom,
-                                        TableArgs te, TableArgs tr) {
+__global__ void softmax_warp_kernel(const T* __restrict__ x,
+                                    T* __restrict__ out,
+                                    float* __restrict__ e_out, int64_t rows,
+                                    int d, const int32_t* __restrict__ rom_e,
+                                    TableArgs te,
+                                    const int32_t* __restrict__ rom_r,
+                                    TableArgs tr) {
   extern __shared__ int32_t smem[];
   int32_t* s_exp = smem;
   int32_t* s_rec = smem + slot_words(te);
-  stage_slots(rom, te, tr, s_exp, s_rec);
+  stage_slots(rom_e, te, rom_r, tr, s_exp, s_rec);
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (row >= rows) return;
@@ -139,16 +149,18 @@ __device__ __forceinline__ float block_reduce(float a, int op, float* s_part) {
 
 // One block per row, for D > 1024.
 template <typename T>
-__global__ void softmax_lib_block_kernel(const T* __restrict__ x,
-                                         T* __restrict__ out,
-                                         float* __restrict__ e_out, int d,
-                                         const int32_t* __restrict__ rom,
-                                         TableArgs te, TableArgs tr) {
+__global__ void softmax_block_kernel(const T* __restrict__ x,
+                                     T* __restrict__ out,
+                                     float* __restrict__ e_out, int d,
+                                     const int32_t* __restrict__ rom_e,
+                                     TableArgs te,
+                                     const int32_t* __restrict__ rom_r,
+                                     TableArgs tr) {
   extern __shared__ int32_t smem[];
   __shared__ float s_part[32];
   int32_t* s_exp = smem;
   int32_t* s_rec = smem + slot_words(te);
-  stage_slots(rom, te, tr, s_exp, s_rec);
+  stage_slots(rom_e, te, rom_r, tr, s_exp, s_rec);
   const int64_t row = blockIdx.x;
   const T* xr = x + row * d;
   float m = -INFINITY;
@@ -167,39 +179,79 @@ __global__ void softmax_lib_block_kernel(const T* __restrict__ x,
   }
 }
 
+// Launch one instantiation with `smem` bytes of dynamic shared memory,
+// raising the kernel's limit above the default 48 KB where needed.
+template <typename... P, typename... A>
+cudaError_t launch_one(void (*kern)(P...), dim3 grid, size_t smem,
+                       cudaStream_t s, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<grid, kThreads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* x, void* out, float* e_out, int64_t rows,
-                   int d, const int32_t* rom, const TableArgs& te,
-                   const TableArgs& tr, cudaStream_t s) {
+                   int d, const int32_t* rom_e, const TableArgs& te,
+                   const int32_t* rom_r, const TableArgs& tr,
+                   cudaStream_t s) {
   const size_t smem = (size_t)(slot_words(te) + slot_words(tr)) *
                       sizeof(int32_t);
   const T* xi = (const T*)x;
   T* o = (T*)out;
   if (d > 1024) {
     if (rows > INT32_MAX) return cudaErrorInvalidValue;
-    softmax_lib_block_kernel<T><<<(unsigned)rows, kThreads, smem, s>>>(
-        xi, o, e_out, d, rom, te, tr);
-    return cudaGetLastError();
+    return launch_one(softmax_block_kernel<T>, dim3((unsigned)rows), smem, s,
+                      xi, o, e_out, d, rom_e, te, rom_r, tr);
   }
   const int64_t blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > INT32_MAX) return cudaErrorInvalidValue;
   const dim3 grid((unsigned)blocks);
   if (d <= 64)
-    softmax_lib_warp_kernel<T, 2><<<grid, kThreads, smem, s>>>(
-        xi, o, e_out, rows, d, rom, te, tr);
-  else if (d <= 128)
-    softmax_lib_warp_kernel<T, 4><<<grid, kThreads, smem, s>>>(
-        xi, o, e_out, rows, d, rom, te, tr);
-  else if (d <= 256)
-    softmax_lib_warp_kernel<T, 8><<<grid, kThreads, smem, s>>>(
-        xi, o, e_out, rows, d, rom, te, tr);
-  else if (d <= 512)
-    softmax_lib_warp_kernel<T, 16><<<grid, kThreads, smem, s>>>(
-        xi, o, e_out, rows, d, rom, te, tr);
-  else
-    softmax_lib_warp_kernel<T, 32><<<grid, kThreads, smem, s>>>(
-        xi, o, e_out, rows, d, rom, te, tr);
-  return cudaGetLastError();
+    return launch_one(softmax_warp_kernel<T, 2>, grid, smem, s, xi, o, e_out,
+                      rows, d, rom_e, te, rom_r, tr);
+  if (d <= 128)
+    return launch_one(softmax_warp_kernel<T, 4>, grid, smem, s, xi, o, e_out,
+                      rows, d, rom_e, te, rom_r, tr);
+  if (d <= 256)
+    return launch_one(softmax_warp_kernel<T, 8>, grid, smem, s, xi, o, e_out,
+                      rows, d, rom_e, te, rom_r, tr);
+  if (d <= 512)
+    return launch_one(softmax_warp_kernel<T, 16>, grid, smem, s, xi, o,
+                      e_out, rows, d, rom_e, te, rom_r, tr);
+  return launch_one(softmax_warp_kernel<T, 32>, grid, smem, s, xi, o, e_out,
+                    rows, d, rom_e, te, rom_r, tr);
+}
+
+// Both entry points: check the tables, then launch on x's dtype (0 =
+// float32, 1 = bfloat16). Tables whose staged words do not fit one block's
+// shared memory are refused.
+int run(const void* x, void* out, float* e_out, int64_t rows, int d,
+        int dtype, const int32_t* rom_e, const TableArgs& te,
+        const int32_t* rom_r, const TableArgs& tr, int device,
+        void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  if (!table_args_ok(te) || !table_args_ok(tr))
+    return (int)cudaErrorInvalidValue;
+  int limit = 0;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return (int)err;
+  if ((int64_t)(slot_words(te) + slot_words(tr)) * 4 + 32 * 4 > limit)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || d == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)launch<float>(x, out, e_out, rows, d, rom_e, te, rom_r, tr,
+                              s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(x, out, e_out, rows, d, rom_e, te,
+                                      rom_r, tr, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -213,18 +265,21 @@ extern "C" int repro_softmax_lib(const void* x, void* out, float* e_out,
                                  const int32_t* exp12,
                                  const int32_t* recip12, int device,
                                  void* stream) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  const TableArgs te = table_args(exp12, dp), tr = table_args(recip12, dp);
-  if (!table_args_ok(te) || !table_args_ok(tr))
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0 || d == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    err = launch<float>(x, out, e_out, rows, d, rom, te, tr, s);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(x, out, e_out, rows, d, rom, te, tr, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return run(x, out, e_out, rows, d, dtype, rom, table_args(exp12, dp), rom,
+             table_args(recip12, dp), device, stream);
+}
+
+// The per-table entry: exp_coeffs and recip_coeffs are two designs' own
+// (2^R, 3) int32 rows, exp12 / recip12 their rows (row0 0, rows 2^R, no
+// segment table), see datapath.cuh `table_args`.
+extern "C" int repro_softmax_tab(const void* x, void* out, float* e_out,
+                                 int64_t rows, int d, int dtype,
+                                 const int32_t* exp_coeffs,
+                                 const int32_t* exp12,
+                                 const int32_t* recip_coeffs,
+                                 const int32_t* recip12, int device,
+                                 void* stream) {
+  return run(x, out, e_out, rows, d, dtype, exp_coeffs,
+             table_args(exp12, nullptr), recip_coeffs,
+             table_args(recip12, nullptr), device, stream);
 }

@@ -34,7 +34,8 @@ LAUNCHES: dict[str, int] = {
     "library_eval": 0, "rmsnorm_lib": 0, "flash_attn_lib": 0,
     "softmax_lib": 0, "interp_eval": 0, "envelopes_parity": 0,
     "envelopes_parity_batched": 0, "envelopes_parity_fleet": 0,
-    "dd_max_rows": 0, "library_walk": 0, "rom_eval": 0}
+    "dd_max_rows": 0, "library_walk": 0, "rom_eval": 0, "softmax_tab": 0,
+    "rmsnorm_tab": 0, "flash_attn_tab": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -46,6 +47,10 @@ _SIGNATURES = {
     "repro_flash_attn_lib": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _F, _I, _I, _P),
     "repro_softmax_lib": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _P),
+    "repro_softmax_tab": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _P),
+    "repro_rmsnorm_tab": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _I, _P),
+    "repro_flash_attn_tab": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F,
+                             _I, _I, _P),
     "repro_interp_eval": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _I, _P),
     "repro_envelopes_parity": (_P, _P, _L, _I, _P, _P, _P, _P, _I, _P),
     "repro_dd_max_rows": (_P, _P, _L, _I, _P, _I, _P),

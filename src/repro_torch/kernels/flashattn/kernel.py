@@ -1,6 +1,8 @@
-"""CUDA wrapper of ``flash_attn_lib`` (``csrc/flashattn.cu``), the port of
-``repro/kernels/flashattn/kernel.py`` ``flash_attention_lib`` /
-``_flash_lib_kernel``.
+"""CUDA wrappers of ``flash_attn_lib`` and ``flash_attn_tab``
+(``csrc/flashattn.cu``), the ports of ``repro/kernels/flashattn/kernel.py``
+``flash_attention_lib`` / ``_flash_lib_kernel`` and ``flash_attention`` /
+``_flash_kernel`` (positions ``arange``, one KV head per query head, each
+table from its own design).
 
 One block serves the g = H / KVH query heads of a KV head for ``tq`` query
 positions (g * tq <= 64 rows), so every K/V tile it streams is read once per
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.interp.kernel import slot_args
+from repro_torch.kernels.interp.kernel import design_args, slot_args
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 64  # query rows per block
@@ -28,6 +30,33 @@ def query_tile(sq: int, g: int, dv: int) -> int:
     return max(1, min(sq, MAX_ROWS // g, MAX_ACC // (g * dv)))
 
 
+def _check(name: str, q, k, v) -> None:
+    """Types, devices and the 4-byte rows the kernel reads K/V by."""
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes one dtype of float32 or bfloat16, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.shape[-1] > 256 or v.shape[-1] > 256:
+        raise ValueError(f"head dims {q.shape[-1]}/{v.shape[-1]} exceed 256")
+    epw = 2 if q.dtype == torch.bfloat16 else 1
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{n} on {t.device}, q on {q.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{n} needs a contiguous last dim")
+    for n, t in (("k", k), ("v", v)):  # K/V are read as 32-bit words
+        if t.shape[-1] % epw or any(s % epw for s in t.stride()[:3]) \
+                or t.data_ptr() % 4:
+            raise ValueError(f"{n} rows are not 4-byte aligned")
+
+
+def _strides(*tensors) -> list[int]:
+    """(batch, head, position) element strides of (B, S, H, D) tensors."""
+    out = []
+    for t in tensors:
+        out += [t.stride(0), t.stride(2), t.stride(1)]
+    return out
+
+
 def flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, *,
                         causal: bool = True, window: int | None = None,
                         scale: float | None = None) -> torch.Tensor:
@@ -40,22 +69,8 @@ def flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, *,
             or k.shape[-1] != d:
         raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attn_lib takes one dtype of float32 or "
-                        f"bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d > 256 or dv > 256:
-        raise ValueError(f"head dims {d}/{dv} exceed 256")
+    _check("flash_attn_lib", q, k, v)
     dev = q.device
-    epw = 2 if q.dtype == torch.bfloat16 else 1
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, q on {dev}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} needs a contiguous last dim")
-    for name, t in (("k", k), ("v", v)):  # K/V are read as 32-bit words
-        if t.shape[-1] % epw or any(s % epw for s in t.stride()[:3]) \
-                or t.data_ptr() % 4:
-            raise ValueError(f"{name} rows are not 4-byte aligned")
     g = h // kvh
     tq = query_tile(sq, g, dv)
     q_pos = q_pos.to(device=dev, dtype=torch.int32).contiguous()
@@ -67,21 +82,52 @@ def flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, *,
     if rom.device != dev:
         raise ValueError(f"library ROM on {rom.device}, q on {dev}")
     out = torch.empty((b, sq, h, dv), dtype=v.dtype, device=dev)
-    strides = []
-    for t in (q, k, v, out):  # (batch, head, position) element strides
-        strides += [t.stride(0), t.stride(2), t.stride(1)]
     scale = (d ** -0.5) if scale is None else scale
-    lib = build.load()
-    rc = lib.repro_flash_attn_lib(
+    rc = build.load().repro_flash_attn_lib(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_pos.data_ptr(), kv_pos.data_ptr(), rom.data_ptr(),
         library.walk_rows()[1].data_ptr(),
         build.int_array(slot_args(library, "exp2neg")),
         build.int_array(slot_args(library, "recip")),
-        build.int_array(strides, build.ctypes.c_int64),
+        build.int_array(_strides(q, k, v, out), build.ctypes.c_int64),
         build.int_array([b, h, kvh, sq, sk, d, dv, tq]), int(causal),
         -1 if window is None else int(window), float(scale),
         _DTYPES[q.dtype], dev.index or 0, build.stream_of(dev))
     build.check("flash_attn_lib", rc)
     build.LAUNCHES["flash_attn_lib"] += 1
+    return out
+
+
+def flash_attn_tab_cuda(q, k, v, exp_design, recip_design, *,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """The per-table flash attention: q (B, Sq, H, D), k and v (B, Sk, H,
+    D), any strides with a contiguous last dim; causal by index (query row i
+    sees keys j <= i, top-left aligned when Sq != Sk), skipping the key
+    tiles strictly above a query tile's diagonal. p and the running
+    correction read ``exp_design``'s own (2^R, 3) coefficients, 1/l
+    ``recip_design``'s (``device_coeffs``, which raises for a design that
+    exceeds int32). Returns (B, Sq, H, D) in v's dtype."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if tuple(k.shape) != (b, sk, h, d) or v.shape != k.shape:
+        raise ValueError(f"bad attention shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}: K/V need "
+                         f"the query's heads and head dim")
+    _check("flash_attn_tab", q, k, v)
+    dev = q.device
+    tq = query_tile(sq, 1, d)
+    ec = exp_design.device_coeffs(dev)
+    rc = recip_design.device_coeffs(dev)
+    out = torch.empty((b, sq, h, d), dtype=v.dtype, device=dev)
+    scale = (d ** -0.5) if scale is None else scale
+    ret = build.load().repro_flash_attn_tab(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        ec.data_ptr(), build.int_array(design_args(exp_design)),
+        rc.data_ptr(), build.int_array(design_args(recip_design)),
+        build.int_array(_strides(q, k, v, out), build.ctypes.c_int64),
+        build.int_array([b, h, h, sq, sk, d, d, tq]), int(causal),
+        float(scale), _DTYPES[q.dtype], dev.index or 0, build.stream_of(dev))
+    build.check("flash_attn_tab", ret)
+    build.LAUNCHES["flash_attn_tab"] += 1
     return out

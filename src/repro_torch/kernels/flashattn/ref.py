@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the library-bound flash attention (twin of
-``repro/kernels/flashattn/ref.py`` ``flash_attention_lib_ref`` and of the
-reference wrapper's ``use_kernel=False`` path).
+"""Plain PyTorch versions of the flash attention kernels: the library-bound
+one (twin of ``repro/kernels/flashattn/ref.py`` ``flash_attention_lib_ref``
+and of the reference wrapper's ``use_kernel=False`` path) and the per-table
+one (twin of ``flash_attention_ref``, the oracle of ``attention_fused``).
 
 ``flash_attention_lib_ref`` is unchunked: the scores of a whole (query,
 key) block are formed at once, so the online-softmax correction never runs.
@@ -14,13 +15,22 @@ reassociation flips a table code. The skip matters once the exp2neg table's
 tab(0) is not exactly 2^out_bits (the segmented default gives 8191 at 13
 bits): a tile that leaves the running max unchanged still scales l and the
 accumulator by tab(0) * 2^-out_bits, so a skipped tile and a processed one
-differ by up to one reciprocal-table step.
+differ by up to one reciprocal-table step. The 10-bit exp2neg design has
+tab(0) = 8191 at 13 bits too. ``flash_attention_chunked_ref`` is the same
+tile-by-tile twin on two per-table designs with ``arange`` positions.
+
+``flash_attention_ref`` is the reference's per-table oracle: unchunked, and
+through the *unfused* glue of ``numerics.ops`` (scale after Q.K^T, the
+``frexp`` split for 1/l), so it differs from the per-table kernel by table
+ulps too.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.interp.ref import LOG2E, table_exp_neg, table_recip
+from repro_torch.kernels.softmax.ops import _meta
+from repro_torch.numerics.ops import approx_exp_neg, approx_recip_pos
 
 NEG = -1e30
 M_FLOOR = -1e20
@@ -70,7 +80,7 @@ def _chunk_live(q_pos, kv_pos, causal, window, block_q):
     qp[:, :sq] = q_pos
     qp = qp.reshape(n, n_tiles, block_q)
     kp = kv_pos.to(torch.int64)
-    need = (kp >= 0).any(-1, keepdim=True)
+    need = (kp >= 0).any(-1, keepdim=True).expand(n, n_tiles)
     if causal:
         kmin = torch.where(kp < 0, imax, kp).amin(-1, keepdim=True)
         need = need & (kmin <= qp.amax(-1))
@@ -96,6 +106,15 @@ def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
     skip a key tile for a tile of that many query positions where it is
     dead (``_chunk_live``), as the reference's kernel and the port's do;
     None runs every tile for every row."""
+    return _flash_chunks(q, k, v, q_pos, kv_pos, (coeffs, exp_meta),
+                         (coeffs, recip_meta), causal=causal, window=window,
+                         scale=scale, block_k=block_k, block_q=block_q)
+
+
+def _flash_chunks(q, k, v, q_pos, kv_pos, exp_tab, recip_tab, *, causal,
+                  window, scale, block_k, block_q) -> torch.Tensor:
+    """The tile loop of :func:`flash_attention_lib_chunked_ref`; each table
+    is a (coeffs, meta) pair for ``table_exp_neg`` / ``table_recip``."""
     n, sq, d = q.shape
     scale = (d ** -0.5) if scale is None else scale
     qf = q.to(torch.float32) * scale
@@ -110,8 +129,8 @@ def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
                         torch.full_like(s, NEG))
         m_new = torch.clamp(torch.maximum(m, s.amax(-1, keepdim=True)),
                             min=M_FLOOR)
-        p = table_exp_neg((m_new - s) * LOG2E, coeffs, exp_meta)
-        corr = table_exp_neg((m_new - m) * LOG2E, coeffs, exp_meta)
+        p = table_exp_neg((m_new - s) * LOG2E, *exp_tab)
+        corr = table_exp_neg((m_new - m) * LOG2E, *exp_tab)
         pv = torch.einsum("nqk,nkd->nqd", p.to(v.dtype).to(torch.float32),
                           v[:, sl].to(torch.float32))
         acc_new = acc * corr + pv
@@ -123,8 +142,80 @@ def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
             m = torch.where(live, m_new, m)
             l = torch.where(live, l_new, l)
             acc = torch.where(live, acc_new, acc)
-    recip = table_recip(torch.clamp(l, min=1e-30), coeffs, recip_meta)
+    recip = table_recip(torch.clamp(l, min=1e-30), *recip_tab)
     return (acc * recip).to(v.dtype)
+
+
+def _arange_pos(n: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(n, s)
+
+
+def flash_attention_ref(q, k, v, exp_design, recip_design, *,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """The per-table oracle: q (N, Sq, D), k and v (N, Sk, D); causal by
+    index (query row i sees keys j <= i). Unchunked, scores scaled after
+    Q.K^T, p = ``approx_exp_neg(s - m)`` and 1/l = ``approx_recip_pos``,
+    whose tables read through ``table_eval_int`` (the ``interp_eval``
+    kernel for CUDA tensors)."""
+    sq, d = q.shape[1], q.shape[2]
+    sk = k.shape[1]
+    scale = (d ** -0.5) if scale is None else scale
+    s = torch.einsum("nqd,nkd->nqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        qp = torch.arange(sq, device=q.device)[:, None]
+        kp = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(qp >= kp, s, torch.full_like(s, NEG))
+    m = torch.clamp(s.amax(-1, keepdim=True), min=M_FLOOR)
+    p = approx_exp_neg(s - m, exp_design)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("nqk,nkd->nqd", p.to(v.dtype).to(torch.float32),
+                     v.to(torch.float32))
+    return (o * approx_recip_pos(torch.clamp(l, min=1e-30), recip_design)
+            ).to(v.dtype)
+
+
+def flash_attention_chunked_ref(q, k, v, exp_design, recip_design, *,
+                                causal: bool = True,
+                                scale: float | None = None,
+                                block_k: int = 64,
+                                block_q: int | None = None) -> torch.Tensor:
+    """Tile-by-tile twin of the per-table kernel (the reference's
+    ``_flash_kernel`` over ``_flash_loop``): :func:`flash_attention_lib_
+    chunked_ref`'s loop with ``arange`` positions and each table read from
+    its design's own (2^R, 3) rows. With the kernel's ``query_tile`` as
+    ``block_q`` it skips exactly the key tiles the kernel skips: those
+    strictly above the diagonal of a query tile."""
+    n, sq, _ = q.shape
+    dev = q.device
+    return _flash_chunks(
+        q, k, v, _arange_pos(n, sq, dev), _arange_pos(n, k.shape[1], dev),
+        (exp_design.device_coeffs(dev), _meta(exp_design)),
+        (recip_design.device_coeffs(dev), _meta(recip_design)),
+        causal=causal, window=None, scale=scale, block_k=block_k,
+        block_q=block_q)
+
+
+def attention_fused_ref(q, k, v, exp_design, recip_design, *,
+                        causal: bool = True, scale: float | None = None,
+                        block_k: int | None = None,
+                        block_q: int | None = None) -> torch.Tensor:
+    """The per-table plain version at ``attention_fused``'s signature: q, k,
+    v (B, S, H, D) with as many KV heads as query heads. ``block_k``
+    selects the tile-by-tile twin instead of the unchunked oracle, and
+    ``block_q`` its per-query-tile skip."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    qn = q.transpose(1, 2).reshape(b * h, sq, d)
+    kn = k.transpose(1, 2).reshape(b * h, sk, d)
+    vn = v.transpose(1, 2).reshape(b * h, sk, d)
+    kw = dict(causal=causal, scale=scale)
+    o = (flash_attention_ref(qn, kn, vn, exp_design, recip_design, **kw)
+         if block_k is None else
+         flash_attention_chunked_ref(qn, kn, vn, exp_design, recip_design,
+                                     block_k=block_k, block_q=block_q, **kw))
+    return o.reshape(b, h, sq, d).transpose(1, 2)
 
 
 def attention_fused_library_ref(q, k, v, library, *, causal: bool = True,

@@ -145,6 +145,15 @@ def interp_eval_cuda(codes: torch.Tensor, coeffs: torch.Tensor, *,
     return out
 
 
+def design_args(design) -> list[int]:
+    """The 12-int table row of one design's own (2^R, 3) coefficients, the
+    per-table kernels' operand: row 0, its 2^R rows, its datapath row and
+    widths, no segment table (the layout of :func:`slot_args`)."""
+    return [0, len(design.a), design.eval_bits, design.k, design.sq_trunc,
+            design.lin_trunc, design.degree, design.in_bits, design.out_bits,
+            0, 0, 0]
+
+
 def slot_args(library, kind: str) -> list[int]:
     """The 12-int table row the fused kernels take for one library slot:
     (first ROM row, slot rows, eval_bits, k, sq_trunc, lin_trunc, degree,

@@ -176,13 +176,18 @@ def interp_eval_wide(codes: torch.Tensor, coeffs_wide: torch.Tensor, *,
 
 def lut_rom_ref(codes: torch.Tensor, coeffs: torch.Tensor,
                 meta: dict) -> torch.Tensor:
-    """One function's table read from the padded ROM (static func id in
-    ``meta``): ``interp_eval_seg_ref`` on the slot when ``meta["eval"]``
-    carries a ``seg`` spec, else ``interp_eval_ref`` on its 2^R rows."""
+    """One function's table read: from the padded (F, R_max, 3) ROM at the
+    static func id in ``meta`` (``interp_eval_seg_ref`` on the slot when
+    ``meta["eval"]`` carries a ``seg`` spec, else ``interp_eval_ref`` on its
+    2^R rows), or from one design's own (2^R, 3) rows, the per-table
+    kernels' operand (``meta`` then has no func id)."""
     ev = meta["eval"]
-    if ev.get("seg") is not None:
+    if coeffs.dim() == 2:
+        rows = coeffs
+    elif ev.get("seg") is not None:
         return interp_eval_seg_ref(codes, coeffs[meta["fid"]], seg=ev["seg"])
-    rows = coeffs[meta["fid"], : 1 << (meta["in_bits"] - ev["eval_bits"])]
+    else:
+        rows = coeffs[meta["fid"], : 1 << (meta["in_bits"] - ev["eval_bits"])]
     return interp_eval_ref(codes, rows, eval_bits=ev["eval_bits"], k=ev["k"],
                            sq_trunc=ev["sq_trunc"], lin_trunc=ev["lin_trunc"],
                            degree=ev["degree"])

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the fused RMSNorm (twin of
-``repro/kernels/rmsnorm/ref.py`` ``fused_rmsnorm_lib_ref``)."""
+"""Plain PyTorch versions of the fused RMSNorm (twins of
+``repro/kernels/rmsnorm/ref.py`` ``fused_rmsnorm_ref``, the per-table
+kernel's, and ``fused_rmsnorm_lib_ref``, the library-bound one's)."""
 from __future__ import annotations
 
 import torch
@@ -25,17 +26,22 @@ def rsqrt_codes(ms: torch.Tensor, meta: dict):
     return codes.to(torch.int32), h
 
 
-def fused_rmsnorm_lib_ref(x: torch.Tensor, gamma: torch.Tensor,
-                          coeffs: torch.Tensor, meta: dict,
-                          eps: float = 1e-6) -> torch.Tensor:
-    """x: (rows, D); the rsqrt read at its static func id in the padded
-    (F, R_max, 3) ROM, then the reference's glue."""
+def fused_rmsnorm_ref(x: torch.Tensor, gamma: torch.Tensor,
+                      coeffs: torch.Tensor, meta: dict,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """x: (rows, D); the rsqrt read from ``coeffs``, one design's (2^R, 3)
+    rows (meta from ``softmax.ops._meta``) or the padded (F, R_max, 3)
+    library ROM at the static func id of ``lib_meta``; then the reference's
+    glue."""
     xf = x.to(torch.float32)
     ms = torch.mean(xf * xf, dim=-1, keepdim=True) + eps
     codes, h = rsqrt_codes(ms, meta)
     tab = lut_rom_ref(codes, coeffs, meta).to(torch.float32)
     rs = tab * (2.0 ** -meta["out_bits"]) * pow2(-h)
     return (xf * rs * gamma.to(torch.float32)).to(x.dtype)
+
+
+fused_rmsnorm_lib_ref = fused_rmsnorm_ref  # the ROM operand, read by fid
 
 
 def approx_rmsnorm_library_ref(x: torch.Tensor, gamma: torch.Tensor,

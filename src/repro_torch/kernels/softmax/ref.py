@@ -1,6 +1,8 @@
-"""Plain PyTorch version of the library-bound fused softmax (twin of
-``repro/kernels/softmax/ref.py`` ``fused_softmax_lib_ref`` /
-``fused_softmax_ref``), on the port's library ROM. A segmented (ROM v2)
+"""Plain PyTorch versions of the fused softmax (twins of
+``repro/kernels/softmax/ref.py`` ``fused_softmax_ref``, the per-table
+kernel's, and ``fused_softmax_lib_ref``, the library-bound one's). The
+per-table version reads each table from its design's own (2^R, 3) rows; the
+library version from the port's library ROM, where a segmented (ROM v2)
 slot decodes through ``interp_eval_seg_ref`` (``lut_rom_ref`` routes on the
 meta's ``eval["seg"]``), as the reference's ``lut`` does.
 """
@@ -13,7 +15,8 @@ from repro_torch.kernels.interp.ref import (LOG2E, lut_rom_ref, pow2,
 
 
 def softmax_exp(x: torch.Tensor, coeffs: torch.Tensor, exp_meta: dict):
-    """The exp half of the fused softmax over the last axis: returns the
+    """The exp half of the fused softmax over the last axis (``coeffs`` and
+    ``exp_meta`` as in :func:`fused_softmax_ref`): returns the
     exp2neg table codes (int32) and the terms e (float32), with
     t = min((max - x) * log2e, 126) and e = tab(code(frac t)) *
     2^-out_bits * 2^-floor(t) in the reference's operation order."""
@@ -28,14 +31,25 @@ def softmax_exp(x: torch.Tensor, coeffs: torch.Tensor, exp_meta: dict):
     return codes, tab * (2.0 ** -exp_meta["out_bits"]) * pow2(-n)
 
 
+def fused_softmax_ref(x: torch.Tensor, exp_coeffs: torch.Tensor,
+                      recip_coeffs: torch.Tensor, exp_meta: dict,
+                      recip_meta: dict) -> torch.Tensor:
+    """x: (rows, D) (or any leading shape); the exp table read from
+    ``exp_coeffs``, the row sum's reciprocal from its IEEE-754 split and
+    ``recip_coeffs``. Each operand is one design's (2^R, 3) rows (metas
+    from ``softmax.ops._meta``) or the padded (F, R_max, 3) library ROM
+    (metas from ``lib_meta``). Output in x's dtype."""
+    _, e = softmax_exp(x, exp_coeffs, exp_meta)
+    s = torch.sum(e, dim=-1, keepdim=True)
+    return (e * table_recip(s, recip_coeffs, recip_meta)).to(x.dtype)
+
+
 def fused_softmax_lib_ref(x: torch.Tensor, coeffs: torch.Tensor,
                           exp_meta: dict, recip_meta: dict) -> torch.Tensor:
-    """x: (rows, D) (or any leading shape); both tables read at their static
-    func ids in the padded (F, R_max, 3) ROM; the row sum's reciprocal from
-    its IEEE-754 split. Output in x's dtype."""
-    _, e = softmax_exp(x, coeffs, exp_meta)
-    s = torch.sum(e, dim=-1, keepdim=True)
-    return (e * table_recip(s, coeffs, recip_meta)).to(x.dtype)
+    """Both tables read at their static func ids in the padded (F, R_max,
+    3) ROM, then the per-table glue: bit-identical to
+    :func:`fused_softmax_ref` on the designs the ROM packs."""
+    return fused_softmax_ref(x, coeffs, coeffs, exp_meta, recip_meta)
 
 
 def approx_softmax_library_ref(x: torch.Tensor, library) -> torch.Tensor:

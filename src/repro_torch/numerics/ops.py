@@ -1,14 +1,18 @@
-"""Numerics backends handed to the model stack (twin of
-``repro/numerics/ops.py``).
+"""Numerics backends handed to the model stack, and the per-table
+approximate ops (twin of ``repro/numerics/ops.py``).
 
 The float glue (max-subtract, exponent split, power-of-two scaling) mirrors
 the reference's operation order; only the integer table reads carry
-approximation error. ``FusedInterpNumerics`` lowers rmsnorm, the attention
-inner loop, the activations and the softmax to the library-bound kernels on
-a CUDA device
-(their plain versions on the CPU). ``PlainFusedNumerics`` runs the same
-fused datapath through the plain versions on any device: it is the oracle a
-card run holds the kernel path against.
+approximation error. The module-level ``approx_*`` functions take one
+``TableDesign`` each (default: the process session's table through
+``get_table``) and read it with :func:`table_eval_int`.
+``InterpNumerics`` reads a bound library's ROM, or, unbound, resolves each
+table through ``get_table`` as those functions do. ``FusedInterpNumerics``
+lowers rmsnorm, the attention inner loop, the activations and the softmax
+to the library-bound kernels on a CUDA device (their plain versions on the
+CPU). ``PlainFusedNumerics`` runs the same fused datapath through the plain
+versions on any device: it is the oracle a card run holds the kernel path
+against.
 """
 from __future__ import annotations
 
@@ -17,9 +21,20 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.funcspec import ACT_HI, ACT_LO, act_out_span
+from repro_torch.core.table import TableDesign
+from repro_torch.kernels.interp.ops import table_eval
 from repro_torch.kernels.interp.ref import LOG2E, pow2
+from repro_torch.numerics.registry import get_table
 
 _F32 = torch.float32
+
+
+# The reference's name for one design's exact integer evaluation on int32
+# codes: the ``interp_eval`` kernel for CUDA codes, its plain version for CPU
+# codes, the native int64 ``interp_eval_wide`` for a design that exceeds
+# int32 (``kernels.interp.ops.table_eval`` routes all three).
+table_eval_int = table_eval
 
 
 def _quantize(v: torch.Tensor, bits: int) -> torch.Tensor:
@@ -70,20 +85,93 @@ def _rsqrt_pos_glue(x, in_bits: int, out_bits: int, ev) -> torch.Tensor:
 
 
 def _range_glue(x, in_bits: int, out_bits: int, span: float, ev,
-                lo: float, hi: float) -> torch.Tensor:
+                lo: float = ACT_LO, hi: float = ACT_HI) -> torch.Tensor:
     """Direct table over [lo, hi): quantize the window, rescale the output."""
     xc = torch.clamp(x.to(_F32), lo, hi - 1e-6)
     codes = _quantize((xc - lo) / (hi - lo), in_bits)
     return ev(codes).to(_F32) * (span / (1 << out_bits))
 
 
-def _act_tails(kind: str, x, y, lo: float, hi: float) -> torch.Tensor:
+def _act_tails(kind: str, x, y, lo: float = ACT_LO,
+               hi: float = ACT_HI) -> torch.Tensor:
     """Outside the table window the activations are linear (right tail) or
     saturate; sigmoid saturates to 1/0, tanh to 1/-1, the rest to x/0."""
     top = 1.0 if kind in ("sigmoid", "tanh") else x
     bot = -1.0 if kind == "tanh" else 0.0
     inner = torch.where(x <= lo, bot, y)
     return torch.where(x >= hi, top, inner).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# per-table entry points (one design each; default: the process session's
+# table). They are the unfused oracles of the per-table kernels.
+# ---------------------------------------------------------------------------
+
+def _tab(kind: str, design: TableDesign | None) -> TableDesign:
+    return design if design is not None else get_table(kind)
+
+
+def approx_exp_neg(x, design: TableDesign | None = None) -> torch.Tensor:
+    """exp(x) for x <= 0 via the exp2neg table; exact power-of-two scaling."""
+    d = _tab("exp2neg", design)
+    return _exp_neg_glue(x, d.in_bits, d.out_bits,
+                         lambda c: table_eval_int(c, d))
+
+
+def approx_recip_pos(x, design: TableDesign | None = None) -> torch.Tensor:
+    d = _tab("recip", design)
+    return _recip_pos_glue(x, d.in_bits, lambda c: table_eval_int(c, d))
+
+
+def approx_rsqrt_pos(x, design: TableDesign | None = None) -> torch.Tensor:
+    d = _tab("rsqrt", design)
+    return _rsqrt_pos_glue(x, d.in_bits, d.out_bits,
+                           lambda c: table_eval_int(c, d))
+
+
+def _approx_act(kind: str, x, design: TableDesign | None) -> torch.Tensor:
+    d = _tab(kind, design)
+    y = _range_glue(x, d.in_bits, d.out_bits, act_out_span(kind),
+                    lambda c: table_eval_int(c, d))
+    return _act_tails(kind, x, y)
+
+
+def approx_silu(x, design: TableDesign | None = None) -> torch.Tensor:
+    return _approx_act("silu", x, design)
+
+
+def approx_sigmoid(x, design: TableDesign | None = None) -> torch.Tensor:
+    return _approx_act("sigmoid", x, design)
+
+
+def approx_softplus(x, design: TableDesign | None = None) -> torch.Tensor:
+    return _approx_act("softplus", x, design)
+
+
+def approx_gelu(x, design: TableDesign | None = None) -> torch.Tensor:
+    return _approx_act("gelu", x, design)
+
+
+def approx_tanh(x, design: TableDesign | None = None) -> torch.Tensor:
+    return _approx_act("tanh", x, design)
+
+
+def approx_softmax(x, axis: int = -1, exp_design: TableDesign | None = None,
+                   recip_design: TableDesign | None = None) -> torch.Tensor:
+    """Softmax with the table-backed exponential and normalization
+    reciprocal (the unfused glue: ``frexp`` split for 1/sum)."""
+    xf = x.to(_F32)
+    m = torch.amax(xf, dim=axis, keepdim=True)
+    e = approx_exp_neg(xf - m, exp_design)
+    s = torch.sum(e, dim=axis, keepdim=True)
+    return (e * approx_recip_pos(s, recip_design)).to(x.dtype)
+
+
+def approx_rmsnorm(x, gamma, eps: float = 1e-6,
+                   design: TableDesign | None = None) -> torch.Tensor:
+    xf = x.to(_F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True) + eps
+    return (xf * approx_rsqrt_pos(var, design) * gamma).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,23 +205,28 @@ class ExactNumerics:
 
 
 class InterpNumerics:
-    """The paper's technique as the model's numerics backend, bound to a
-    compiled :class:`repro_torch.api.InterpLibrary` (every table read goes
-    through the library ROM)."""
+    """The paper's technique as the model's numerics backend. Bound to a
+    compiled :class:`repro_torch.api.InterpLibrary`, every table read goes
+    through the library ROM; unbound (``library=None``, the
+    ``get_numerics("interp")`` default) each op resolves its table lazily
+    through ``get_table`` and reads it with :func:`table_eval_int`, and the
+    activations quantize over the default window."""
 
-    def __init__(self, library):
-        if library is None:
-            raise ValueError("interp numerics need an InterpLibrary "
-                             "(InterpLibrary.default_library(device))")
+    def __init__(self, library=None):
         self.library = library
 
     def _eval(self, kind: str):
         """The integer evaluator of ``kind``: int32 codes -> table output."""
         lib = self.library
+        if lib is None:
+            d = get_table(kind)
+            return lambda c: table_eval_int(c, d)
         return lambda c: lib.eval_int(c, kind)
 
     def _ev(self, kind: str):
-        m = self.library.meta(kind)
+        """(in_bits, out_bits, int evaluator) for ``kind``."""
+        lib = self.library
+        m = get_table(kind) if lib is None else lib.meta(kind)
         return m.in_bits, m.out_bits, self._eval(kind)
 
     def exp_neg(self, x):
@@ -149,6 +242,11 @@ class InterpNumerics:
         return _rsqrt_pos_glue(x, ib, ob, ev)
 
     def _act(self, kind: str, x):
+        if self.library is None:
+            ib, ob, ev = self._ev(kind)
+            return _act_tails(kind, x,
+                              _range_glue(x, ib, ob, act_out_span(kind), ev))
+        # the artifact records the window its table was generated over
         m = self.library.meta(kind)
         y = _range_glue(x, m.in_bits, m.out_bits, m.act_span,
                         self._eval(kind), m.act_lo, m.act_hi)
@@ -182,6 +280,14 @@ class FusedInterpNumerics(InterpNumerics):
     outputs may differ from :class:`InterpNumerics` by one table ulp, so
     fused runs are held against fused runs.
     """
+
+    def __init__(self, library):
+        if library is None:
+            raise ValueError(
+                "FusedInterpNumerics needs a compiled InterpLibrary: the "
+                "fused kernels thread its ROM as an operand (compile one "
+                "with Explorer.compile() or pass fused=False)")
+        super().__init__(library)
 
     def softmax(self, x, axis: int = -1):
         if axis not in (-1, x.dim() - 1):
@@ -265,8 +371,11 @@ class PlainFusedNumerics(FusedInterpNumerics):
 
 def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
     """A numerics backend instance for a model config (or backend name).
+    ``library`` binds the interp backend to a compiled ``InterpLibrary``;
+    without one, ``"interp"`` resolves each table through ``get_table``.
     ``fused=True`` or the ``"interp-fused"`` name selects the fused-kernel
-    lowering. Per-layer plans are not ported: a config carrying one raises.
+    lowering, which needs a library. Per-layer plans are not ported: a
+    config carrying one raises.
     """
     if getattr(cfg_or_name, "plan", None) is not None:
         raise NotImplementedError("per-layer numerics plans are not ported")
@@ -280,14 +389,17 @@ def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
     raise KeyError(f"unknown numerics backend {name!r}")
 
 
-def softmax_ulp_bound(exp_meta, recip_meta) -> float:
+def softmax_ulp_bound(exp_design=None, recip_design=None) -> float:
     """Certified relative error bound of table-softmax terms from the
-    tables' widths (``FuncMeta``, ``TableDesign`` or ``SegmentedDesign``):
-    the twin of the reference's bound, used to state attention tolerances.
-    It reads only in_bits and out_bits, so it holds for segmented exp2neg /
-    recip slots too: a segmented design meets the same faithful-rounding
-    certificate at every code."""
-    exp_rel = ((2.0 ** -exp_meta.out_bits) * 2
-               + math.log(2.0) * 2.0 ** -(exp_meta.in_bits + 1))
-    recip_rel = 2.0 ** -recip_meta.in_bits
+    tables' widths (``TableDesign``, ``FuncMeta`` or ``SegmentedDesign``;
+    ``None`` resolves through the default session): the twin of the
+    reference's bound, used to state attention tolerances. It reads only
+    in_bits and out_bits, so it holds for segmented exp2neg / recip slots
+    too: a segmented design meets the same faithful-rounding certificate at
+    every code."""
+    exp_design = _tab("exp2neg", exp_design)
+    recip_design = _tab("recip", recip_design)
+    exp_rel = ((2.0 ** -exp_design.out_bits) * 2
+               + math.log(2.0) * 2.0 ** -(exp_design.in_bits + 1))
+    recip_rel = 2.0 ** -recip_design.in_bits
     return 2 * exp_rel + 2 * recip_rel

@@ -27,6 +27,14 @@ Tolerances:
 * interp_eval, the envelope kernels and dd_max_rows: bitwise. The
   envelope arithmetic is IEEE float32 add, subtract and divide of small
   integers in the reference's order, and min / max do not depend on order.
+* The per-table kernels (softmax_tab, rmsnorm_tab, flash_attn_tab) on the
+  default R6, the vendored R5 and generated 10-bit designs, at the
+  tolerances of their library twins above (with each design's own widths);
+  rmsnorm_tab bitwise on rows whose mean(x^2) is exact in any order (the
+  same rsqrt code); the tile-by-tile twin with the kernel's query tiles,
+  and the unchunked oracle (its unfused glue one more table ulp, inside the
+  (n_tiles + 2) bound). On the R6 designs each equals its library twin
+  bitwise.
 * The smoke models through the kernels against the plain versions:
   4 * 2^-12 * max|logit| (a few table-code flips). The MoE routing is the
   same on both paths: a recip flip scales a whole row of router
@@ -51,20 +59,27 @@ from repro_torch.kernels.dspace import kernel as dk
 from repro_torch.kernels.dspace import ops as dops
 from repro_torch.kernels.dspace import ref as dref
 from repro_torch.kernels.flashattn.kernel import query_tile
-from repro_torch.kernels.flashattn.ops import attention_fused_library
-from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
+from repro_torch.kernels.flashattn.ops import (attention_fused,
+                                               attention_fused_library)
+from repro_torch.kernels.flashattn.ref import (attention_fused_library_ref,
+                                               attention_fused_ref)
 from repro_torch.kernels.interp.kernel import interp_eval_cuda, rom_eval_cuda
 from repro_torch.kernels.interp.ops import (library_eval, library_walk,
                                             rom_eval, table_eval)
 from repro_torch.kernels.interp.ref import (interp_eval_ref,
                                             library_eval_ref,
                                             library_walk_ref)
-from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
-from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
-from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
-from repro_torch.kernels.softmax.ops import approx_softmax_library, lib_meta
+from repro_torch.kernels.rmsnorm.ops import (approx_rmsnorm_fused,
+                                             approx_rmsnorm_library)
+from repro_torch.kernels.rmsnorm.ref import (approx_rmsnorm_library_ref,
+                                             fused_rmsnorm_ref)
+from repro_torch.kernels.softmax.kernel import (softmax_lib_cuda,
+                                                softmax_tab_cuda)
+from repro_torch.kernels.softmax.ops import (_meta, approx_softmax_fused,
+                                             approx_softmax_library,
+                                             lib_meta)
 from repro_torch.kernels.softmax.ref import (approx_softmax_library_ref,
-                                             softmax_exp)
+                                             fused_softmax_ref, softmax_exp)
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.numerics.ops import (FusedInterpNumerics, PlainFusedNumerics,
@@ -588,3 +603,181 @@ def test_engine_on_segmented_library_counts(seg_lib, dev):
     forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
     assert eng.stats["launches"] == {
         k: n * forwards for k, n in _seg_per_forward(cfg).items()}
+
+
+# ------------------------------------------------- per-table kernels (*_tab)
+
+TAB_SETS = ("R6", "R5", "10b")
+
+
+@pytest.fixture(scope="module")
+def tab_designs():
+    """set -> {kind: design} for exp2neg, recip and rsqrt, generated into a
+    fresh cache directory: the default 12-bit R6 tables (those the default
+    library packs), 12-bit R5 ones and 10-bit ones."""
+    kw = {"R6": {}, "R5": {"lookup_bits": 5}, "10b": {"bits": 10}}
+    with tempfile.TemporaryDirectory() as d:
+        gen = Explorer(ExploreConfig(device="cpu", cache_dir=d))
+        return {name: {k: gen.get_table(k, **kw[name])
+                       for k in ("exp2neg", "recip", "rsqrt")}
+                for name in TAB_SETS}
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
+                                          (37, 1000, torch.bfloat16),
+                                          (3, 1500, torch.float32),
+                                          (5, 33, torch.bfloat16)])
+@pytest.mark.parametrize("dset", TAB_SETS)
+def test_softmax_tab_matches_plain(dset, rows, d, dtype, tab_designs, dev):
+    ed, rd = tab_designs[dset]["exp2neg"], tab_designs[dset]["recip"]
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    x = torch.randn(rows, d, device=dev, generator=g) * 4
+    x[0] = 1.5
+    x[1, ::2] = -1000.0
+    x = x.to(dtype)
+    n0 = build.LAUNCHES["softmax_tab"]
+    got, e = softmax_tab_cuda(x, ed, rd, return_e=True)
+    assert torch.equal(approx_softmax_fused(x, ed, rd), got)
+    assert build.LAUNCHES["softmax_tab"] == n0 + 2
+    ec, rc = ed.device_coeffs(dev), rd.device_coeffs(dev)
+    want = fused_softmax_ref(x, ec, rc, _meta(ed), _meta(rd)).float()
+    _, e_ref = softmax_exp(x, ec, _meta(ed))
+    assert got.dtype == dtype and torch.equal(e, e_ref)
+    tol = 2.0 ** -(rd.in_bits - 1) + (2.0 ** -7 if dtype == torch.bfloat16
+                                      else 0.0)
+    got = got.float()
+    assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(4, 4096, torch.bfloat16),
+                                          (7, 1000, torch.float32),
+                                          (5, 64, torch.float32)])
+@pytest.mark.parametrize("dset", TAB_SETS)
+def test_rmsnorm_tab_matches_plain(dset, rows, d, dtype, tab_designs, dev):
+    sd = tab_designs[dset]["rsqrt"]
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows, d, device=dev, generator=g) * \
+        torch.rand(rows, 1, device=dev, generator=g) * 10
+    # rows of +-0.5, 1, 2: mean(x^2) exact in any order, the same rsqrt code
+    x[:2] = torch.tensor([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0], device=dev)[
+        torch.randint(0, 6, (2, d), device=dev, generator=g)]
+    x = x.to(dtype)
+    gamma = torch.rand(d, device=dev, generator=g) + 0.5
+    n0 = build.LAUNCHES["rmsnorm_tab"]
+    got = approx_rmsnorm_fused(x, gamma, sd).float()
+    assert build.LAUNCHES["rmsnorm_tab"] == n0 + 1
+    want = fused_rmsnorm_ref(x, gamma, sd.device_coeffs(dev),
+                             _meta(sd)).float()
+    assert torch.equal(got[:2], want[:2])
+    tol = 2 * 2.0 ** -(sd.out_bits - 1) + (2.0 ** -7 if dtype ==
+                                           torch.bfloat16 else 0.0)
+    assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
+
+
+def _tab_case(case, dev, dtype):
+    """q, k, v (B, S, H, D) and causal: Yi-6B's causal 512-token prefill
+    (32 heads, K/V expanded from 4 by the caller) and a non-causal decode
+    query against 1024 keys; small ragged cases (Sq != Sk, top-left causal
+    alignment; a ragged last key tile)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    kw = dict(device=dev, dtype=dtype)
+    b, sq, sk, h, kvh, d, causal = {
+        "prefill": (1, 512, 512, 32, 4, 128, True),
+        "decode": (4, 1, 1024, 32, 4, 128, False),
+        "ragged": (2, 37, 100, 3, 3, 16, True),
+        "wide": (1, 70, 45, 2, 2, 64, False)}[case]
+    q = torch.randn(b, sq, h, d, generator=g, **kw)
+    k = torch.randn(b, sk, kvh, d, generator=g, **kw)
+    v = torch.randn(b, sk, kvh, d, generator=g, **kw)
+    k, v = (t.repeat_interleave(h // kvh, dim=2) for t in (k, v))
+    return q, k, v, causal
+
+
+@pytest.mark.parametrize("case,dtype", [("prefill", torch.bfloat16),
+                                        ("decode", torch.bfloat16),
+                                        ("ragged", torch.float32),
+                                        ("wide", torch.bfloat16)])
+@pytest.mark.parametrize("dset", TAB_SETS)
+def test_flash_tab_matches_plain(dset, case, dtype, tab_designs, dev):
+    ed, rd = tab_designs[dset]["exp2neg"], tab_designs[dset]["recip"]
+    q, k, v, causal = _tab_case(case, dev, dtype)
+    kw = dict(causal=causal, exp_design=ed, recip_design=rd)
+    n0 = build.LAUNCHES["flash_attn_tab"]
+    got = attention_fused(q, k, v, **kw).float()
+    assert build.LAUNCHES["flash_attn_tab"] == n0 + 1
+    bound = softmax_ulp_bound(ed, rd)
+    vmax = v.float().abs().max()
+    tq = query_tile(q.shape[1], 1, q.shape[-1])
+    twin = attention_fused_ref(q, k, v, ed, rd, causal=causal, block_k=64,
+                               block_q=tq).float()
+    tight = bound * vmax
+    if dtype == torch.bfloat16:
+        tight = tight + 2.0 ** -8 * twin.abs()
+    err = (got - twin).abs()
+    assert torch.all(err <= tight), float(err.max())
+    want = attention_fused_ref(q, k, v, ed, rd, causal=causal).float()
+    tol = ((k.shape[1] + 63) // 64 + 2) * bound * vmax
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * (vmax + want.abs())
+    err = (got - want).abs()
+    assert torch.all(err <= tol), float(err.max())
+
+
+@pytest.mark.parametrize("kernel", ["softmax", "rmsnorm", "flash"])
+def test_tab_equals_lib_bitwise_on_default_designs(kernel, tab_designs, lib,
+                                                   dev):
+    """The default library packs the R6 designs: each per-table kernel
+    equals its library twin bitwise (the same rows, the same body)."""
+    d6 = tab_designs["R6"]
+    for k, dz in d6.items():  # the tables the library packs
+        assert torch.equal(dz.device_coeffs(dev),
+                           lib.coeffs[lib.func_id(k), :len(dz.a)])
+    g = torch.Generator(device=dev).manual_seed(7)
+    if kernel == "softmax":
+        for rows, d, dtype in ((4, 64, torch.float32),
+                               (9, 3000, torch.bfloat16)):
+            x = (torch.randn(rows, d, device=dev, generator=g) * 4).to(dtype)
+            assert torch.equal(approx_softmax_fused(x, d6["exp2neg"],
+                                                    d6["recip"]),
+                               approx_softmax_library(x, lib))
+    elif kernel == "rmsnorm":
+        x = torch.randn(5, 4096, device=dev, generator=g).to(torch.bfloat16)
+        gamma = torch.rand(4096, device=dev, generator=g) + 0.5
+        assert torch.equal(approx_rmsnorm_fused(x, gamma, d6["rsqrt"]),
+                           approx_rmsnorm_library(x, gamma, lib))
+    else:
+        for case in ("prefill", "decode", "ragged"):
+            q, k, v, causal = _tab_case(case, dev, torch.bfloat16)
+            assert torch.equal(
+                attention_fused(q, k, v, causal=causal,
+                                exp_design=d6["exp2neg"],
+                                recip_design=d6["recip"]),
+                attention_fused_library(q, k, v, lib, causal=causal))
+
+
+def _const_design(r: int) -> TableDesign:
+    """An exp2neg-shaped design of 2^r rows reading 2^13 everywhere (16-bit
+    codes, 13 output bits)."""
+    meta = CoeffMeta(14, 0, True)
+    zeros = np.zeros(1 << r, np.int64)
+    return TableDesign("const", 16, 13, r, 0, 1, 0, 0, zeros, zeros,
+                       zeros + 8192, meta, meta, meta)
+
+
+def test_softmax_tab_shared_memory_limit(tab_designs, dev):
+    """Staged tables past 48 KB take the opt-in shared memory (2^13 rows,
+    96 KB); two 2^14-row tables (384 KB) exceed a block's and raise instead
+    of being read from global memory."""
+    rd = tab_designs["R6"]["recip"]
+    x = torch.randn(8, 300, device=dev) * 3
+    big = _const_design(13)
+    got = approx_softmax_fused(x, big, rd)
+    want = fused_softmax_ref(x, big.device_coeffs(dev), rd.device_coeffs(dev),
+                             _meta(big), _meta(rd))
+    tol = 2.0 ** -(rd.in_bits - 1)
+    assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
+    huge = _const_design(14)
+    n0 = build.LAUNCHES["softmax_tab"]
+    with pytest.raises(RuntimeError, match="softmax_tab"):
+        approx_softmax_fused(x, huge, huge)
+    assert build.LAUNCHES["softmax_tab"] == n0

@@ -33,7 +33,10 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             # the segmentation slice's
             "repro_torch.segment", "repro_torch.segment.tree",
             "repro_torch.segment.design", "repro_torch.segment.decide",
-            "repro_torch.segment.segmenter", "repro_torch.segment.cost")
+            "repro_torch.segment.segmenter", "repro_torch.segment.cost",
+            # the per-table slice's
+            "repro_torch.numerics.registry", "repro_torch.kernels.flashattn.ops",
+            "repro_torch.kernels.rmsnorm.ops")
 
 
 @pytest.fixture
