@@ -32,8 +32,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    mismatch beyond the stated tolerance; the activation kernel at every
    shape the served models hand it) and times kernel, plain version and a
    yardstick PyTorch call (device time from the profiler, read only from
-   traces that hold every launch of the kernel; call time from CUDA
-   events), on the uniform library compiled in step 3 and, for the walk,
+   traces that hold every launch of the kernel; ``graph_ms``, the replay of
+   one CUDA graph of 50 captured calls between CUDA events, for every
+   kernel and yardstick; call time from CUDA events), the flash kernel
+   against its tile twin with the kernel's query tile and key splits, on
+   the uniform library compiled in step 3 and, for the walk,
    ``rom_eval`` and the fused kernels, on the segmented one of step 4;
 6. runs the per-table path at full Yi-6B width: 10-bit exp2neg, recip and
    rsqrt designs generated on the card into a fresh cache, the vendored
@@ -200,6 +203,69 @@ def device_ms(fn, iters: int = 10, label: str = "",
     return backlog_ms(fn, iters=iters)
 
 
+def graph_ms(fn, n: int = 50, reps: int = 3) -> tuple[float | None,
+                                                     str | None]:
+    """Device milliseconds per call of ``fn()`` from a CUDA graph that
+    captures ``n`` calls, replayed ``reps`` times between two CUDA events:
+    no host launch gaps, no profiler. Returns (ms, None), or (None, the
+    reason) where ``fn()`` cannot be captured (it syncs with the host)."""
+    import torch
+
+    fn()  # builds, fills the caches a first call fills
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        return None, f"syncs with the host: {str(err)[:160]}"
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        return None, f"capture failed: {str(err)[:160]}"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * n)
+    del graph
+    return ms, None
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.5f} ms"
+
+
+def graph_cols(fn, yard=None) -> dict:
+    """``graph_ms`` of a kernel's call and ``library_graph_ms`` of its
+    yardstick (None without one), with the reason beside a null reading."""
+    out = {}
+    for key, f in (("graph_ms", fn), ("library_graph_ms", yard)):
+        ms, why = graph_ms(f) if f is not None else (None, "no yardstick")
+        out[key] = ms
+        if why:
+            out[f"{key}_null"] = why
+            if f is not None:
+                print(f"  {key}: not measured ({why})")
+    return out
+
+
 def backlog_ms(fn, iters: int = 10) -> float:
     """Median device milliseconds of one ``fn()`` from a CUDA event pair
     around each call, enqueued behind a spin kernel (``torch.cuda._sleep``,
@@ -325,7 +391,8 @@ def dspace_kernel_phase(dev):
                        L.reshape(n_rows, n), U.reshape(n_rows, n)), iters=2,
                        label=f"plain {label}"),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                   pairs=n_rows * (even + odd))
+                   pairs=n_rows * (even + odd),
+                   **graph_cols(lambda: cuda[name](L, U)))
         details.append(row)
         rows.setdefault(name, row)
         if name != "envelopes_parity":
@@ -357,7 +424,8 @@ def dspace_kernel_phase(dev):
                                           iters=2,
                                           label=f"plain dd {label} {side}"),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                       pairs=pairs)
+                       pairs=pairs,
+                       **graph_cols(lambda: dk.dd_max_rows_cuda(g, h)))
             details.append(row)
             rows.setdefault("dd_max_rows", row)
     # the one-row kernel through its public drop-in, against the plain one
@@ -700,7 +768,10 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
                        label=f"plain walk {shape}"),
                    library_ms=device_ms(lambda: F.silu(gate),
                                         label=f"silu {shape}"),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   **graph_cols(lambda: library_walk(codes, arg, lib.coeffs,
+                                                     walk, dp),
+                                lambda: F.silu(gate)))
         details.append(row)
         rows.setdefault("library_walk", row)
     # rom_eval: the silu slot at the same two shapes
@@ -732,13 +803,16 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
                                       label=f"plain rom_eval {shape}"),
                    library_ms=device_ms(lambda: F.silu(gate),
                                         label=f"silu {shape}"),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   **graph_cols(lambda: rom_eval(codes, lib, "silu"),
+                                lambda: F.silu(gate)))
         details.append(row)
         rows.setdefault("rom_eval", row)
     for r in details:
         print(f"  device time {r['name']} {r['shape']}: kernel {r['ms']:.5f} "
-              f"ms, plain {r['plain_ms']:.5f} ms, library "
-              f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+              f"ms (graph {_ms(r['graph_ms'])}), plain {r['plain_ms']:.5f} "
+              f"ms, library {r['library_ms']:.5f} ms (graph "
+              f"{_ms(r['library_graph_ms'])}), bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms")
     return rows, details
 
@@ -779,7 +853,9 @@ def interp_eval_phase(lib_designs, dev):
                                iters=3, label=f"plain interp_eval {kind}"),
             library_ms=device_ms(lambda: torch.reciprocal(x),
                                  label=f"reciprocal {kind}"),
-            bound_ms=b_ms, bound_by=b_by))
+            bound_ms=b_ms, bound_by=b_by,
+            **graph_cols(lambda: interp_eval_cuda(codes, coeffs, **dp),
+                         lambda: torch.reciprocal(x))))
     print(f"interp_eval on all 4096 codes of {len(details)} generated "
           f"tables: max_abs_err 0 against the plain version (tolerance 0)")
     rec = next(r for r in details if r["case"] == "recip")
@@ -794,7 +870,7 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flashattn.kernel import query_tile
+    from repro_torch.kernels.flashattn.kernel import kv_splits, query_tile
     from repro_torch.kernels.flashattn.ops import attention_fused_library
     from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
     from repro_torch.kernels.interp.ops import library_eval
@@ -843,7 +919,10 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
                        label=f"{label} plain {shape}"),
                    library_ms=device_ms(lambda: F.silu(gate),
                                         label=f"{label} silu {shape}"),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   **graph_cols(lambda: library_eval(codes, silu, lib.coeffs,
+                                                     meta),
+                                lambda: F.silu(gate)))
         details.append(row)
         rows.setdefault("library_eval", row)
 
@@ -879,17 +958,23 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
                    library_ms=device_ms(lambda: F.rms_norm(x, (d,), g16,
                                                            1e-6),
                                         label=f"{label} F.rms_norm {x.shape}"),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   **graph_cols(lambda: approx_rmsnorm_library(x, gamma, lib),
+                                lambda: F.rms_norm(x, (d,), g16, 1e-6)))
         details.append(row)
         rows.setdefault("rmsnorm_lib", row)
 
     # -- flash_attn_lib ----------------------------------------------------
     sm_bound = softmax_ulp_bound(lib.meta("exp2neg"), lib.meta("recip"))
-    bf = dict(device=dev, dtype=torch.bfloat16)
     d = 128
-    # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16 (g = 1)
-    for (h, kvh), mode in ((hk, m) for hk in ((32, 4), (16, 16))
-                           for m in ("decode", "prefill")):
+    # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16 (g = 1);
+    # in bf16 (the tensor-core body) and, at Yi-6B's shapes, in float32 (the
+    # CUDA-core body)
+    cases = [(hk, m, torch.bfloat16) for hk in ((32, 4), (16, 16))
+             for m in ("decode", "prefill")]
+    cases += [((32, 4), m, torch.float32) for m in ("decode", "prefill")]
+    for (h, kvh), mode, dtype in cases:
+        bf = dict(device=dev, dtype=dtype)
         if mode == "decode":  # 4 slots against a 1024-row cache, dead rows
             b, sq, sk = 4, 1, 1024
             kc = torch.randn(b, kvh, sk, d, generator=g, **bf)
@@ -917,20 +1002,23 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
         excess = float(((got - want).abs() - tol_abs
                         - 2.0 ** -7 * (vmax + want.abs())).max())
         err = float((got - want).abs().max())
-        print(f"flash_attn_lib {mode} B={b} H={h} KVH={kvh} D={d} Sq={sq} "
-              f"Sk={sk}: max_abs_err {err:.3e} (tolerance {tol_abs:.3e} = "
+        print(f"flash_attn_lib {mode} {str(dtype)[6:]} B={b} H={h} KVH={kvh} "
+              f"D={d} Sq={sq} Sk={sk}: max_abs_err {err:.3e} (tolerance "
+              f"{tol_abs:.3e} = "
               f"({n_tiles} tiles + 2) x softmax_ulp_bound {sm_bound:.3e} x "
               f"max|v|, + 2^-7 (max|v| + |out|) bf16 roundings)")
         if excess > 0:
             raise AssertionError(f"flash_attn_lib {mode} differs from plain")
         tq = query_tile(sq, h // kvh, d)
+        splits = kv_splits(b, kvh, -(-sq // tq), sk)
         twin = attention_fused_library_ref(q, k, v, lib, block_k=64,
-                                           block_q=tq, **kw).float()
+                                           block_q=tq, kv_splits=splits,
+                                           **kw).float()
         terr = (got - twin).abs()
         t_excess = float((terr - sm_bound * vmax - 2.0 ** -8 * twin.abs()
                           ).max())
         print(f"  against the tile-by-tile twin (64-key tiles, {tq}-query "
-              f"tiles): max_abs_err "
+              f"tiles, {splits} key splits): max_abs_err "
               f"{float(terr.max()):.3e}, mean {float(terr.mean()):.3e} "
               f"(tolerance {sm_bound * vmax:.3e} = one table-code flip, + "
               f"2^-8 |out| one bf16 rounding)")
@@ -943,9 +1031,12 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
         pairs = int(live.sum())
         live_rows = int(((kv_pos >= 0) & (kv_pos <= q_pos.max(-1, keepdim=True)
                                           .values)).sum())
-        nbytes = (q.numel() * 2 + 2 * live_rows * kvh * d * 2
-                  + kv_pos.numel() * 4 + q_pos.numel() * 4 + q.numel() * 2)
-        b_ms, b_by = bound(nbytes, 4 * d * h * pairs, BF16_FLOPS)
+        es = q.element_size()
+        nbytes = (q.numel() * es + 2 * live_rows * kvh * d * es
+                  + kv_pos.numel() * 4 + q_pos.numel() * 4 + q.numel() * es)
+        b_ms, b_by = bound(nbytes, 4 * d * h * pairs,
+                           BF16_FLOPS if dtype == torch.bfloat16
+                           else F32_FLOPS)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         if mode == "decode":
             mask = live[:, None]
@@ -959,7 +1050,8 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
                                                       is_causal=True,
                                                       enable_gqa=True)
         row = dict(name="flash_attn_lib", shape=[b, sq, h, kvh, d, sk],
-                   mode=mode, max_abs_err=err, tolerance=tol_abs,
+                   mode=mode, dtype=str(dtype)[6:], max_abs_err=err,
+                   tolerance=tol_abs,
                    ms=device_ms(lambda: attention_fused_library(q, k, v, lib,
                                                                 **kw),
                                 label=f"{label} flash {mode} H={h}",
@@ -971,7 +1063,10 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
                        label=f"{label} plain flash {mode} H={h}"),
                    library_ms=device_ms(sdpa,
                                         label=f"{label} sdpa {mode} H={h}"),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by, kv_splits=splits,
+                   **graph_cols(lambda: attention_fused_library(q, k, v, lib,
+                                                                **kw),
+                                sdpa))
         details.append(row)
         rows.setdefault("flash_attn_lib", row)
 
@@ -1018,15 +1113,20 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
                    library_ms=device_ms(lambda: torch.softmax(x, -1),
                                         label=f"{label} torch.softmax "
                                               f"{shape}"),
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   **graph_cols(lambda: approx_softmax_library(x, lib),
+                                lambda: torch.softmax(x, -1)))
         details.append(row)
         rows.setdefault("softmax_lib", row)
     for r in details:
         r["library"] = label
-        print(f"  device time {r['name']} {r['shape']} ({label} library): "
-              f"kernel {r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
-              f"library {r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} "
-              f"ms ({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms")
+        print(f"  device time {r['name']} {r['shape']}"
+              f"{' ' + r['dtype'] if r.get('dtype') else ''} ({label} library): "
+              f"kernel {r['ms']:.5f} ms (graph {_ms(r['graph_ms'])}), plain "
+              f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms "
+              f"(graph {_ms(r['library_graph_ms'])}), bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); back-to-back call "
+              f"{r['call_ms']:.5f} ms")
     return rows, details
 
 
@@ -1058,7 +1158,7 @@ def pertable_phase(lib, dev):
 
     from repro_torch.api import Explorer, ExploreConfig
     from repro_torch.kernels import build
-    from repro_torch.kernels.flashattn.kernel import query_tile
+    from repro_torch.kernels.flashattn.kernel import kv_splits, query_tile
     from repro_torch.kernels.flashattn.ops import (attention_fused,
                                                    attention_fused_library)
     from repro_torch.kernels.flashattn.ref import attention_fused_ref
@@ -1191,8 +1291,11 @@ def pertable_phase(lib, dev):
             gf = got.float()
             vmax = float(v.float().abs().max())
             tq = query_tile(q.shape[1], 1, q.shape[-1])
+            splits = kv_splits(q.shape[0], q.shape[2], -(-q.shape[1] // tq),
+                               k.shape[1])
             twin = attention_fused_ref(q, k, v, ed, rd, causal=causal,
-                                       block_k=64, block_q=tq).float()
+                                       block_k=64, block_q=tq,
+                                       kv_splits=splits).float()
             terr = (gf - twin).abs()
             t_excess = float((terr - sm_bound * vmax
                               - 2.0 ** -8 * twin.abs()).max())
@@ -1206,7 +1309,8 @@ def pertable_phase(lib, dev):
             mode = "prefill" if causal else "decode"
             print(f"flash_attn_tab {name} {mode} q{tuple(q.shape)} "
                   f"Sk={k.shape[1]}: against the tile-by-tile twin "
-                  f"({tq}-query tiles) max_abs_err {float(terr.max()):.3e}, "
+                  f"({tq}-query tiles, {splits} key splits) max_abs_err "
+                  f"{float(terr.max()):.3e}, "
                   f"mean {float(terr.mean()):.3e} (tolerance "
                   f"{sm_bound * vmax:.3e}, one table-code flip, + 2^-8 |out|)"
                   f"; against the unchunked oracle {err:.3e} (tolerance "
@@ -1280,16 +1384,19 @@ def pertable_phase(lib, dev):
             nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
             b_ms, b_by = bound(nbytes, 4 * d * h * pairs, BF16_FLOPS)
         r.update(ms=device_ms(fn, label=label, kernel=name),
-                 call_ms=timed(fn), bound_ms=b_ms, bound_by=b_by)
+                 call_ms=timed(fn), bound_ms=b_ms, bound_by=b_by,
+                 **graph_cols(fn, yard if dset == "R6" else None))
         if dset == "R6":
             r.update(plain_ms=device_ms(plain, iters=3,
                                         label=f"plain {label}"),
                      library_ms=device_ms(yard, label=f"yardstick {label}"))
             rows.setdefault(name, r)
         print(f"  device time {name} {r['shape']} ({dset} designs): kernel "
-              f"{r['ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})"
+              f"{r['ms']:.5f} ms (graph {_ms(r['graph_ms'])}), bound "
+              f"{b_ms:.5f} ms ({b_by})"
               + (f", plain {r['plain_ms']:.5f} ms, library "
-                 f"{r['library_ms']:.5f} ms" if dset == "R6" else "")
+                 f"{r['library_ms']:.5f} ms (graph "
+                 f"{_ms(r['library_graph_ms'])})" if dset == "R6" else "")
               + f"; back-to-back call {r['call_ms']:.5f} ms")
     return rows, dict(designs=info, generate_s=gen_s, checks=details,
                       launches={k: launches[k] for k in TAB_KERNELS})
@@ -1640,7 +1747,9 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        "graph_ms": r["graph_ms"],
+                        "library_graph_ms": r["library_graph_ms"]})
     report = {"device": smi[0], "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
               "kernel_phases": (dspace_details + ie_details + walk_details

@@ -225,6 +225,9 @@ class InterpLibrary:
     def segmented_kinds(self) -> tuple[str, ...]:
         return tuple(m.kind for m in self.metas if m.seg_depth)
 
+    def __contains__(self, kind: str) -> bool:
+        return kind in self._index
+
     def __len__(self) -> int:
         return len(self.metas)
 

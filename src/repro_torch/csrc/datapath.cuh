@@ -10,7 +10,7 @@
 // into a table code uses explicitly rounded operations (__fmul_rn,
 // __fsub_rn) so nvcc cannot contract it into an FMA and flip a code at a
 // boundary, rintf (round half to even, as jnp.round), and exact powers of
-// two (ldexpf).
+// two (ldexpf, or the exponent field where the exponent is normal).
 #pragma once
 
 #include <cstdint>
@@ -52,51 +52,82 @@ __device__ __forceinline__ int32_t poly_tail(int32_t a, int32_t b, int32_t c,
 // row-major, so no division by 3), then the leaf's coefficient row and its
 // own datapath row, with per-element shift amounts. A cell past the table or
 // a leaf past the slot reads a zero row, as the reference's one-hot reads.
+// Written without branches (selects around in-slot reads), so a caller's
+// unrolled loop of table reads stays one block the compiler can interleave.
 __device__ __forceinline__ int32_t lut_seg(const int32_t* rom,
                                            const TableArgs& t, uint32_t u) {
   const uint32_t cell = u >> (t.in_bits - t.seg_depth);
-  if (cell >= (1u << t.seg_depth)) return 0;
-  const int leaf = rom[3 * (t.row0 + t.n_leaves) + (int)cell];
-  if ((unsigned)leaf >= (unsigned)t.n_leaves) return 0;
-  const int32_t* m = t.leaf_dp + 5 * leaf;
-  const int32_t* row = rom + 3 * (t.row0 + leaf);
+  const bool in_cell = cell < (1u << t.seg_depth);
+  const int leaf = rom[3 * (t.row0 + t.n_leaves) + (in_cell ? (int)cell : 0)];
+  const bool in_leaf = in_cell && (unsigned)leaf < (unsigned)t.n_leaves;
+  const int li = in_leaf ? leaf : 0;
+  const int32_t* m = t.leaf_dp + 5 * li;
+  const int32_t* row = rom + 3 * (t.row0 + li);
   const uint32_t x = u & ((1u << m[0]) - 1u);
-  return poly_tail(row[0], row[1], row[2], x, m[1], m[2], m[3], m[4]);
+  const int32_t v = poly_tail(row[0], row[1], row[2], x, m[1], m[2], m[3],
+                              m[4]);
+  return in_leaf ? v : 0;
 }
 
-// Table read against a ROM of int32 (a, b, c) rows. Uniform slot: region =
-// top bits of the code, x = its low eval_bits bits; a region past the slot
-// reads a zero row, as the reference's one-hot ROM read does. Segmented
-// slot: `lut_seg`.
+// Uniform slot read: region = top bits of the code, x = its low eval_bits
+// bits; a region past the slot reads a zero row, as the reference's one-hot
+// ROM read does (branch-free, as `lut_seg`).
+__device__ __forceinline__ int32_t lut_uniform(const int32_t* rom,
+                                               const TableArgs& t,
+                                               uint32_t u) {
+  const uint32_t r = u >> t.eval_bits;
+  const uint32_t x = u & ((1u << t.eval_bits) - 1u);
+  const bool in = r < (uint32_t)t.rows;
+  const int32_t* row = rom + 3 * (t.row0 + (in ? (int)r : 0));
+  const int32_t a = in ? row[0] : 0, b = in ? row[1] : 0, c = in ? row[2] : 0;
+  return poly_tail(a, b, c, x, t.k, t.sq_trunc, t.lin_trunc, t.degree);
+}
+
+// Table read of a slot whose kind (segmented or not) the caller knows.
+template <bool SEG>
+__device__ __forceinline__ int32_t lut_slot(const int32_t* rom,
+                                            const TableArgs& t, int32_t code) {
+  if constexpr (SEG) return lut_seg(rom, t, (uint32_t)code);
+  else return lut_uniform(rom, t, (uint32_t)code);
+}
+
+// Table read against a ROM of int32 (a, b, c) rows: `lut_uniform` or, for a
+// segmented slot, `lut_seg`.
 __device__ __forceinline__ int32_t lut_rom(const int32_t* rom,
                                            const TableArgs& t, int32_t code) {
-  uint32_t u = (uint32_t)code;
-  if (t.seg_depth) return lut_seg(rom, t, u);
-  uint32_t r = u >> t.eval_bits;
-  uint32_t x = u & ((1u << t.eval_bits) - 1u);
-  int32_t a = 0, b = 0, c = 0;
-  if (r < (uint32_t)t.rows) {
-    const int32_t* row = rom + 3 * (t.row0 + (int)r);
-    a = row[0];
-    b = row[1];
-    c = row[2];
-  }
-  return poly_tail(a, b, c, x, t.k, t.sq_trunc, t.lin_trunc, t.degree);
+  return t.seg_depth ? lut_slot<true>(rom, t, code)
+                     : lut_slot<false>(rom, t, code);
 }
 
 __device__ __forceinline__ float pow2i(int e) { return ldexpf(1.0f, e); }
 
-// 2^(-t) for t >= 0 through the exp2neg table: 2^-floor(t) * tab(frac(t)).
-__device__ __forceinline__ float table_exp_neg(float t, const int32_t* rom,
-                                               const TableArgs& tb) {
+// 2^e for the normal exponents -126 <= e <= 127, exactly (pow2i's value
+// there, without its range handling).
+__device__ __forceinline__ float pow2_normal(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+// 2^(-t) for t >= 0 through the exp2neg table: 2^-floor(t) * tab(frac(t)),
+// t clamped at 126 (so both powers of two are normal), for a slot whose
+// kind the caller knows.
+template <bool SEG>
+__device__ __forceinline__ float exp_neg_slot(float t, const int32_t* rom,
+                                              const TableArgs& tb) {
   t = fminf(t, 126.0f);
   float n = floorf(t);
   float frac = __fsub_rn(t, n);
   int eb = tb.in_bits;
   int code = (int)rintf(__fmul_rn(frac, (float)(1 << eb)));
   code = min(max(code, 0), (1 << eb) - 1);
-  float tab = (float)lut_rom(rom, tb, code);
-  return __fmul_rn(__fmul_rn(tab, pow2i(-tb.out_bits)), pow2i(-(int)n));
+  float tab = (float)lut_slot<SEG>(rom, tb, code);
+  return __fmul_rn(__fmul_rn(tab, pow2_normal(-tb.out_bits)),
+                   pow2_normal(-(int)n));
+}
+
+__device__ __forceinline__ float table_exp_neg(float t, const int32_t* rom,
+                                               const TableArgs& tb) {
+  return tb.seg_depth ? exp_neg_slot<true>(t, rom, tb)
+                      : exp_neg_slot<false>(t, rom, tb);
 }
 
 // 1/s for s > 0: IEEE-754 exponent/mantissa split, the reciprocal table on

@@ -187,7 +187,10 @@ cudaError_t launch_one(void (*kern)(P...), dim3 grid, size_t smem,
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // refused: leave no error for the next launch
+      return err;
+    }
   }
   kern<<<grid, kThreads, smem, s>>>(args...);
   return cudaGetLastError();

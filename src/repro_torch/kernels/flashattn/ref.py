@@ -96,8 +96,8 @@ def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
                                     window: int | None = None,
                                     scale: float | None = None,
                                     block_k: int = 64,
-                                    block_q: int | None = None
-                                    ) -> torch.Tensor:
+                                    block_q: int | None = None,
+                                    kv_splits: int = 1) -> torch.Tensor:
     """Twin of the reference's ``_flash_loop`` over ``block_k``-key tiles
     (same operands as :func:`flash_attention_lib_ref`): q scaled before the
     product, the running max floored at M_FLOOR, p and the correction from
@@ -105,24 +105,49 @@ def flash_attention_lib_chunked_ref(q, k, v, q_pos, kv_pos, coeffs,
     recip table. Keys past Sk do not exist (no padded tail). ``block_q``:
     skip a key tile for a tile of that many query positions where it is
     dead (``_chunk_live``), as the reference's kernel and the port's do;
-    None runs every tile for every row."""
+    None runs every tile for every row. ``kv_splits``: the kernel's key
+    split (``kernel.kv_splits``): the tile loop runs per range of
+    ``ceil(n_tiles / kv_splits)`` tiles and the ranges are combined through
+    the exp2neg table in range order (:func:`_combine`)."""
     return _flash_chunks(q, k, v, q_pos, kv_pos, (coeffs, exp_meta),
                          (coeffs, recip_meta), causal=causal, window=window,
-                         scale=scale, block_k=block_k, block_q=block_q)
+                         scale=scale, block_k=block_k, block_q=block_q,
+                         kv_splits=kv_splits)
 
 
 def _flash_chunks(q, k, v, q_pos, kv_pos, exp_tab, recip_tab, *, causal,
-                  window, scale, block_k, block_q) -> torch.Tensor:
+                  window, scale, block_k, block_q,
+                  kv_splits=1) -> torch.Tensor:
     """The tile loop of :func:`flash_attention_lib_chunked_ref`; each table
     is a (coeffs, meta) pair for ``table_exp_neg`` / ``table_recip``."""
     n, sq, d = q.shape
     scale = (d ** -0.5) if scale is None else scale
     qf = q.to(torch.float32) * scale
-    m = torch.full((n, sq, 1), M_FLOOR, dtype=torch.float32, device=q.device)
-    l = torch.zeros((n, sq, 1), dtype=torch.float32, device=q.device)
+    n_kt = -(-k.shape[1] // block_k)
+    per = -(-n_kt // kv_splits) if n_kt else 0
+    if kv_splits > 1 and (kv_splits - 1) * per >= n_kt:
+        raise ValueError(f"{kv_splits} key splits of {n_kt} tiles leave one "
+                         f"empty")
+    parts = [_tile_loop(qf, k, v, q_pos, kv_pos, exp_tab, causal, window,
+                        block_k, block_q, t * per, min(t * per + per, n_kt))
+             for t in range(kv_splits)]
+    if kv_splits == 1:
+        _, l, acc = parts[0]
+    else:
+        l, acc = _combine(parts, exp_tab)
+    recip = table_recip(torch.clamp(l, min=1e-30), *recip_tab)
+    return (acc * recip).to(v.dtype)
+
+
+def _tile_loop(qf, k, v, q_pos, kv_pos, exp_tab, causal, window, block_k,
+               block_q, t0, t1):
+    """(m, l, acc) of the online softmax over key tiles [t0, t1)."""
+    n, sq, _ = qf.shape
+    m = torch.full((n, sq, 1), M_FLOOR, dtype=torch.float32, device=qf.device)
+    l = torch.zeros((n, sq, 1), dtype=torch.float32, device=qf.device)
     acc = torch.zeros((n, sq, v.shape[-1]), dtype=torch.float32,
-                      device=q.device)
-    for k0 in range(0, k.shape[1], block_k):
+                      device=qf.device)
+    for k0 in range(t0 * block_k, t1 * block_k, block_k):
         sl = slice(k0, k0 + block_k)
         s = torch.einsum("nqd,nkd->nqk", qf, k[:, sl].to(torch.float32))
         s = torch.where(_mask(q_pos, kv_pos[:, sl], causal, window), s,
@@ -142,8 +167,25 @@ def _flash_chunks(q, k, v, q_pos, kv_pos, exp_tab, recip_tab, *, causal,
             m = torch.where(live, m_new, m)
             l = torch.where(live, l_new, l)
             acc = torch.where(live, acc_new, acc)
-    recip = table_recip(torch.clamp(l, min=1e-30), *recip_tab)
-    return (acc * recip).to(v.dtype)
+    return m, l, acc
+
+
+def _combine(parts, exp_tab):
+    """The key splits' (m_s, l_s, acc_s) into one (l, acc), as the kernel's
+    ``flash_attn_combine``: m = max_s m_s, c_s = exp2neg((m - m_s) *
+    LOG2E), l = sum_s l_s c_s and acc = sum_s acc_s c_s in split order. A
+    split whose tiles were all skipped (m_s = M_FLOOR, l_s = 0, acc_s = 0)
+    adds exactly 0."""
+    m = parts[0][0]
+    for m_s, _, _ in parts[1:]:
+        m = torch.maximum(m, m_s)
+    l = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for m_s, l_s, acc_s in parts:
+        c = table_exp_neg((m - m_s) * LOG2E, *exp_tab)
+        l = l + l_s * c
+        acc = acc + acc_s * c
+    return l, acc
 
 
 def _arange_pos(n: int, s: int, device) -> torch.Tensor:
@@ -180,13 +222,15 @@ def flash_attention_chunked_ref(q, k, v, exp_design, recip_design, *,
                                 causal: bool = True,
                                 scale: float | None = None,
                                 block_k: int = 64,
-                                block_q: int | None = None) -> torch.Tensor:
+                                block_q: int | None = None,
+                                kv_splits: int = 1) -> torch.Tensor:
     """Tile-by-tile twin of the per-table kernel (the reference's
     ``_flash_kernel`` over ``_flash_loop``): :func:`flash_attention_lib_
     chunked_ref`'s loop with ``arange`` positions and each table read from
     its design's own (2^R, 3) rows. With the kernel's ``query_tile`` as
     ``block_q`` it skips exactly the key tiles the kernel skips: those
-    strictly above the diagonal of a query tile."""
+    strictly above the diagonal of a query tile; ``kv_splits`` as the
+    kernel's."""
     n, sq, _ = q.shape
     dev = q.device
     return _flash_chunks(
@@ -194,17 +238,18 @@ def flash_attention_chunked_ref(q, k, v, exp_design, recip_design, *,
         (exp_design.device_coeffs(dev), _meta(exp_design)),
         (recip_design.device_coeffs(dev), _meta(recip_design)),
         causal=causal, window=None, scale=scale, block_k=block_k,
-        block_q=block_q)
+        block_q=block_q, kv_splits=kv_splits)
 
 
 def attention_fused_ref(q, k, v, exp_design, recip_design, *,
                         causal: bool = True, scale: float | None = None,
                         block_k: int | None = None,
-                        block_q: int | None = None) -> torch.Tensor:
+                        block_q: int | None = None,
+                        kv_splits: int = 1) -> torch.Tensor:
     """The per-table plain version at ``attention_fused``'s signature: q, k,
     v (B, S, H, D) with as many KV heads as query heads. ``block_k``
-    selects the tile-by-tile twin instead of the unchunked oracle, and
-    ``block_q`` its per-query-tile skip."""
+    selects the tile-by-tile twin instead of the unchunked oracle,
+    ``block_q`` its per-query-tile skip and ``kv_splits`` its key split."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     qn = q.transpose(1, 2).reshape(b * h, sq, d)
@@ -214,7 +259,8 @@ def attention_fused_ref(q, k, v, exp_design, recip_design, *,
     o = (flash_attention_ref(qn, kn, vn, exp_design, recip_design, **kw)
          if block_k is None else
          flash_attention_chunked_ref(qn, kn, vn, exp_design, recip_design,
-                                     block_k=block_k, block_q=block_q, **kw))
+                                     block_k=block_k, block_q=block_q,
+                                     kv_splits=kv_splits, **kw))
     return o.reshape(b, h, sq, d).transpose(1, 2)
 
 
@@ -223,12 +269,14 @@ def attention_fused_library_ref(q, k, v, library, *, causal: bool = True,
                                 window: int | None = None, q_pos=None,
                                 kv_pos=None,
                                 block_k: int | None = None,
-                                block_q: int | None = None) -> torch.Tensor:
+                                block_q: int | None = None,
+                                kv_splits: int = 1) -> torch.Tensor:
     """The plain version at the wrapper's signature: q (B, Sq, H, D), k / v
     (B, Sk, KVH, D*), positions (B, S*); grouped KV heads are expanded to
     one stripe per query head (query head h reads KV head h // g).
     ``block_k`` selects the tile-by-tile twin instead of the unchunked
-    oracle, and ``block_q`` its per-query-tile skip of dead key tiles."""
+    oracle, ``block_q`` its per-query-tile skip of dead key tiles and
+    ``kv_splits`` its key split."""
     from repro_torch.kernels.interp.ops import lib_meta
 
     b, sq, h, d = q.shape
@@ -249,5 +297,6 @@ def attention_fused_library_ref(q, k, v, library, *, causal: bool = True,
     kw = dict(causal=causal, window=window, scale=scale)
     o = (flash_attention_lib_ref(*args, **kw) if block_k is None else
          flash_attention_lib_chunked_ref(*args, block_k=block_k,
-                                         block_q=block_q, **kw))
+                                         block_q=block_q,
+                                         kv_splits=kv_splits, **kw))
     return o.reshape(b, h, sq, dv).transpose(1, 2)

@@ -13,10 +13,12 @@ Tolerances:
   version is not; each running correction is a table read, so
   |diff| <= (n_tiles + 2) * softmax_ulp_bound * max|v|, plus one bf16
   rounding of p and of the output (2^-7 * (max|v| + |out|)) in bf16.
-  Against the tile-by-tile twin with the same 64-key tiles and the
-  kernel's query tiles (so the same dead tiles are skipped) only float
-  reassociation remains: one table-code flip (softmax_ulp_bound * max|v|)
-  plus one output rounding (2^-8 * |out| in bf16).
+  Against the tile-by-tile twin with the same 64-key tiles, the kernel's
+  query tiles (so the same dead tiles are skipped) and its key splits (the
+  same table-corrected combine) only float reassociation remains, and in
+  bf16 the product of q*scale split into bf16 hi + lo planes (16 of its 24
+  bits): one table-code flip (softmax_ulp_bound * max|v|) plus one output
+  rounding (2^-8 * |out| in bf16).
 * softmax_lib: the exp terms e come from the row max and one element, so
   they are bit-exact; only the row sum's order differs, which can move the
   reciprocal's code by one step: relative 2^-(recip in_bits - 1), plus one
@@ -58,7 +60,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dspace import kernel as dk
 from repro_torch.kernels.dspace import ops as dops
 from repro_torch.kernels.dspace import ref as dref
-from repro_torch.kernels.flashattn.kernel import query_tile
+from repro_torch.kernels.flashattn.kernel import kv_splits, query_tile
 from repro_torch.kernels.flashattn.ops import (attention_fused,
                                                attention_fused_library)
 from repro_torch.kernels.flashattn.ref import (attention_fused_library_ref,
@@ -190,22 +192,30 @@ def _check_softmax(rows, d, dtype, lib, dev):
     assert torch.allclose(got[0], torch.full_like(got[0], got[0, 0]))
 
 
+# decode: 4 slots against the cache, (Sk, cache lengths, window); the
+# lengths of "decode_dead" and its window leave whole key splits dead
+DECODE = {"decode": (1024, (17, 300, 1000, 600), None),
+          "decode_g1": (1024, (17, 300, 1000, 600), None),
+          "decode_4096": (4096, (100, 1500, 4096, 3001), None),
+          "decode_dead": (1024, (1, 65, 200, 1024), 128)}
+
+
 def _flash_case(mode, dev, dtype):
     g = torch.Generator(device=dev).manual_seed(1)
     kw = dict(device=dev, dtype=dtype)
-    if mode in ("decode", "decode_g1"):  # 4 slots, 1024-row cache, dead rows
+    if mode in DECODE:  # 4 slots against a cache view, dead rows
         # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16
-        b, sq, sk, h, kvh, d = 4, 1, 1024, 32, 4, 128
+        sk, lens, window = DECODE[mode]
+        b, sq, h, kvh, d = 4, 1, 32, 4, 128
         if mode == "decode_g1":
             h = kvh = 16
         kc = torch.randn(b, kvh, sk, d, generator=g, **kw)
         vc = torch.randn(b, kvh, sk, d, generator=g, **kw)
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)  # cache views
-        lens = torch.tensor([17, 300, 1000, 600], device=dev)
+        lens = torch.tensor(lens, device=dev)
         kv_pos = torch.arange(sk, device=dev).expand(b, sk).clone()
         kv_pos[kv_pos >= lens[:, None]] = -1
         q_pos = (lens - 1)[:, None]
-        window = None
     elif mode in ("prefill", "prefill_g1"):  # causal prefill, Sq = Sk = 512
         b, sq, sk, h, kvh, d = 1, 512, 512, 32, 4, 128
         if mode == "prefill_g1":
@@ -214,6 +224,13 @@ def _flash_case(mode, dev, dtype):
         v = torch.randn(b, sk, kvh, d, generator=g, **kw)
         kv_pos = torch.arange(sk, device=dev).expand(b, sk)
         q_pos = kv_pos
+        window = None
+    elif mode == "wide_head":  # D = 256: bf16 past the tensor-core body
+        b, sq, sk, h, kvh, d = 1, 5, 70, 2, 1, 256
+        k = torch.randn(b, sk, kvh, d, generator=g, **kw)
+        v = torch.randn(b, sk, kvh, d, generator=g, **kw)
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk)
+        q_pos = torch.arange(sk - sq, sk, device=dev).expand(b, sq)
         window = None
     else:  # small GQA with a window, padded query rows, ragged last tile
         b, sq, sk, h, kvh, d = 2, 37, 100, 6, 2, 16
@@ -228,12 +245,26 @@ def _flash_case(mode, dev, dtype):
     return q, k, v, q_pos.to(torch.int32), kv_pos.to(torch.int32), window
 
 
+def _tiles(q, k, v):
+    """The kernel's query tile and key splits for (B, Sq, H, D) q and
+    (B, Sk, KVH, D) K/V: what the tile twin needs to skip and combine as
+    the kernel does."""
+    b, sq, h, _ = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    tq = query_tile(sq, h // kvh, v.shape[-1])
+    return tq, kv_splits(b, kvh, -(-sq // tq), sk)
+
+
 @pytest.mark.parametrize("mode,dtype", [("decode", torch.bfloat16),
                                         ("decode_g1", torch.bfloat16),
+                                        ("decode_4096", torch.bfloat16),
+                                        ("decode_dead", torch.bfloat16),
+                                        ("decode_dead", torch.float32),
                                         ("prefill", torch.bfloat16),
                                         ("prefill_g1", torch.bfloat16),
                                         ("small", torch.float32),
-                                        ("small", torch.bfloat16)])
+                                        ("small", torch.bfloat16),
+                                        ("wide_head", torch.bfloat16)])
 def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
     _check_flash(mode, dtype, lib, dev)
 
@@ -255,9 +286,11 @@ def _check_flash(mode, dtype, lib, dev):
         tol = tol + 2.0 ** -7 * (vmax + want.abs())
     err = (got - want).abs()
     assert torch.all(err <= tol), float(err.max())
-    tq = query_tile(q.shape[1], q.shape[2] // k.shape[2], v.shape[-1])
+    tq, splits = _tiles(q, k, v)
+    if mode in DECODE:
+        assert splits > 1
     twin = attention_fused_library_ref(q, k, v, lib, block_k=64, block_q=tq,
-                                       **kw).float()[live]
+                                       kv_splits=splits, **kw).float()[live]
     tight = bound * vmax
     if dtype == torch.bfloat16:
         tight = tight + 2.0 ** -8 * twin.abs()
@@ -558,6 +591,7 @@ def test_softmax_kernel_on_segmented_library(rows, d, dtype, seg_lib, dev):
 
 
 @pytest.mark.parametrize("mode,dtype", [("decode", torch.bfloat16),
+                                        ("decode_dead", torch.bfloat16),
                                         ("prefill_g1", torch.bfloat16),
                                         ("small", torch.float32)])
 def test_flash_kernel_on_segmented_library(mode, dtype, seg_lib, dev):
@@ -707,9 +741,9 @@ def test_flash_tab_matches_plain(dset, case, dtype, tab_designs, dev):
     assert build.LAUNCHES["flash_attn_tab"] == n0 + 1
     bound = softmax_ulp_bound(ed, rd)
     vmax = v.float().abs().max()
-    tq = query_tile(q.shape[1], 1, q.shape[-1])
+    tq, splits = _tiles(q, k, v)
     twin = attention_fused_ref(q, k, v, ed, rd, causal=causal, block_k=64,
-                               block_q=tq).float()
+                               block_q=tq, kv_splits=splits).float()
     tight = bound * vmax
     if dtype == torch.bfloat16:
         tight = tight + 2.0 ** -8 * twin.abs()
@@ -781,3 +815,34 @@ def test_softmax_tab_shared_memory_limit(tab_designs, dev):
     with pytest.raises(RuntimeError, match="softmax_tab"):
         approx_softmax_fused(x, huge, huge)
     assert build.LAUNCHES["softmax_tab"] == n0
+
+
+def test_flash_tab_shared_memory_limit(tab_designs, dev):
+    """The flash body stages both tables next to its K/V ring; two 2^14-row
+    tables exceed a block's shared memory, and the launch is refused
+    (raises, counts nothing) instead of reading the tables from global
+    memory."""
+    q, k, v, causal = _tab_case("ragged", dev, torch.bfloat16)
+    huge = _const_design(14)
+    n0 = build.LAUNCHES["flash_attn_tab"]
+    with pytest.raises(RuntimeError, match="flash_attn_tab"):
+        attention_fused(q, k, v, causal=causal, exp_design=huge,
+                        recip_design=huge)
+    assert build.LAUNCHES["flash_attn_tab"] == n0
+
+
+@pytest.mark.parametrize("mode", ["decode", "prefill_g1"])
+def test_flash_kernel_captures_in_a_cuda_graph(mode, lib, dev):
+    """Neither the split path (workspace, combine kernel) nor the one-split
+    path syncs with the host: a CUDA graph captures the wrapper, and its
+    replay equals the eager call bitwise."""
+    q, k, v, q_pos, kv_pos, window = _flash_case(mode, dev, torch.bfloat16)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    want = attention_fused_library(q, k, v, lib, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = attention_fused_library(q, k, v, lib, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -124,3 +124,13 @@ def test_func_id_and_meta_lookup():
     assert torch.equal(lib.meta_rows()[lib.func_id("silu")],
                        torch.tensor(lib.meta("silu").datapath_row(),
                                     dtype=torch.int32))
+
+
+def test_contains_matches_reference(jax_lib):
+    """``kind in lib`` is True exactly for the library's kinds, as the
+    reference's ``InterpLibrary.__contains__``."""
+    lib = InterpLibrary.default_library("cpu")
+    for kind in (*DEFAULT_LIBRARY_KINDS, "no_such_kind", "Silu", ""):
+        assert (kind in lib) == (kind in jax_lib)
+    assert "silu" in lib and "no_such_kind" not in lib
+    assert all(kind in lib for kind in lib.kinds)

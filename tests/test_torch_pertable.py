@@ -338,6 +338,32 @@ def test_tile_twin_matches_reference_kernel_10bit(causal, designs):
         np.testing.assert_array_equal(every_tile, got)
 
 
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("case", ["decode", "dead_splits"])
+def test_split_twin_matches_reference_oracle_10bit(case, splits, designs):
+    """The per-table tile twin with key splits on the 10-bit designs (tab(0)
+    = 8191: each split's combine factor is a real rescale) against the
+    reference's unfused per-table oracle, within (n_tiles + 2) * bound *
+    max|v|: a non-causal decode query over 8 tiles, and 4 causal queries at
+    positions 0-3 (top-left), for which every split past the first is
+    wholly dead."""
+    from repro.kernels.flashattn.ref import flash_attention_ref as jax_oracle
+
+    (ed, jed), (rd, jrd) = designs["10b"]["exp2neg"], designs["10b"]["recip"]
+    sq, causal = (1, False) if case == "decode" else (4, True)
+    rng = np.random.default_rng(23)
+    q = rng.standard_normal((2, sq, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 64, 16)).astype(np.float32)
+            for _ in range(2))
+    got = flash_attention_chunked_ref(
+        *(torch.from_numpy(a) for a in (q, k, v)), ed, rd, causal=causal,
+        block_k=8, block_q=query_tile(sq, 1, 16), kv_splits=splits).numpy()
+    want = np.asarray(jax_oracle(*(jnp.asarray(a) for a in (q, k, v)), jed,
+                                 jrd, causal=causal))
+    tol = (8 + 2) * ops.softmax_ulp_bound(ed, rd) * np.abs(v).max()
+    assert np.abs(got - want).max() <= tol
+
+
 def test_attention_fused_takes_expanded_heads_only(designs):
     q = torch.zeros(1, 4, 4, 8)
     kv = torch.zeros(1, 4, 2, 8)

@@ -469,6 +469,40 @@ def test_chunked_twin_skips_dead_tiles_as_the_reference_kernel(window, seg):
     assert np.abs(every - kern).mean() > err.mean()  # the skip is seen
 
 
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("window", [None, 10])
+def test_split_twin_on_segmented_library(window, splits, seg):
+    """The tile twin with key splits on the segmented library, where tab(0)
+    = 8191 makes every split's combine factor c_s a real rescale: decode
+    rows whose cache lengths (and, with a window, its reach) leave whole
+    splits dead, against the reference's unfused oracle within the chunked
+    tolerance (n_tiles + 2) * bound * max|v|."""
+    from repro_torch.kernels.flashattn.kernel import query_tile
+
+    lib, jlib, _ = seg
+    rng = np.random.default_rng(17)
+    b, h, kvh, d, sk = 3, 4, 2, 16, 64
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    q_pos = np.array([[5], [40], [63]], np.int32)
+    kv_pos = np.broadcast_to(np.arange(sk, dtype=np.int32), (b, sk)).copy()
+    kv_pos[0, 6:] = -1
+    kv_pos[1, 41:] = -1
+    kv_pos[2, 10:30] = -1
+    t = [torch.from_numpy(a) for a in (q, k, v, q_pos, kv_pos)]
+    got = attention_fused_library_ref(
+        *t[:3], lib, q_pos=t[3], kv_pos=t[4], window=window, block_k=8,
+        block_q=query_tile(1, h // kvh, d), kv_splits=splits).numpy()
+    ref = jax.jit(functools.partial(jax_attention, use_kernel=False,
+                                    window=window))
+    want = np.asarray(ref(*(jnp.asarray(a) for a in (q, k, v)), jlib,
+                          q_pos=jnp.asarray(q_pos),
+                          kv_pos=jnp.asarray(kv_pos)))
+    bound = softmax_ulp_bound(lib.meta("exp2neg"), lib.meta("recip"))
+    assert np.abs(got - want).max() <= (sk // 8 + 2) * bound * np.abs(v).max()
+
+
 # -- numerics backends --------------------------------------------------------
 
 def test_plain_fused_numerics_walks_a_segmented_library(seg, mixed):
