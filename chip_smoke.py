@@ -37,7 +37,16 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    kernel and yardstick; call time from CUDA events), the flash kernel
    against its tile twin with the kernel's query tile and key splits, on
    the uniform library compiled in step 3 and, for the walk,
-   ``rom_eval`` and the fused kernels, on the segmented one of step 4;
+   ``rom_eval`` and the fused kernels, on the segmented one of step 4; the
+   served activation (``FusedInterpNumerics.silu``, one ``act_lib``
+   launch and no other device op) at every shape the served models hand
+   it, in their layout (the gate half of a SwiGLU product, read in place),
+   on both libraries, bitwise against the eager chain (the float glue
+   around the int32 kernel, whose launches stand for ``library_eval`` and
+   ``library_walk`` in the kernels line) and the plain version, timed
+   beside the chain and ``F.silu`` on the same view, with each of its two
+   bodies forced (and, at Yi-6B's prefill, with a cold L2, as the int32
+   kernels);
 6. runs the per-table path at full Yi-6B width: 10-bit exp2neg, recip and
    rsqrt designs generated on the card into a fresh cache, the vendored
    12-bit R5 designs and the default R6 ones, each set through
@@ -56,9 +65,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    64 routed experts top-6 + 2 shared, a dense layer 0; the router's
    softmax through the ``softmax_lib`` kernel), first on the uniform
    library, then on the same weights on the segmented library, where the
-   activations go through ``library_walk`` and every table read of the
-   fused kernels through the segment decode: the same launches per forward
-   with ``library_walk`` in place of ``library_eval``;
+   activations and every table read of the fused kernels go through the
+   segment decode: the same launches per forward;
 9. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -125,8 +133,11 @@ EVENT_TIMED: list[str] = []  # measurements the profiler could not time
 SHORT_TRACES: list[str] = []  # kernel times read from a trace that lost some
 
 # each hand-written kernel's symbol, as the profiler names its launches
-KERNEL_SYMBOLS = {"library_eval": "library_eval_kernel",
-                  "library_walk": "library_walk_kernel",
+KERNEL_SYMBOLS = {"library_eval": "table_read_kernel<false",
+                  "library_walk": "table_read_kernel<true",
+                  # the served activation: the float glue around the
+                  # library_eval / library_walk table read, in one kernel
+                  "act_lib": "act_lib_kernel",
                   "rmsnorm_lib": "rmsnorm_kernel",
                   "flash_attn_lib": "flash_attn_kernel",
                   "softmax_lib": "softmax_",
@@ -140,12 +151,13 @@ KERNEL_SYMBOLS = {"library_eval": "library_eval_kernel",
                   "envelopes_parity_batched": "envelopes_parity_kernel",
                   "envelopes_parity_fleet": "envelopes_parity_kernel",
                   "dd_max_rows": "dd_max_rows_kernel"}
-SERVE_KERNELS = ("library_eval", "library_walk", "rmsnorm_lib",
-                 "flash_attn_lib", "softmax_lib")
+# the kernels a serving profile reads
+SERVE_KERNELS = ("act_lib", "rmsnorm_lib", "flash_attn_lib", "softmax_lib")
 
 
 def device_ms(fn, iters: int = 10, label: str = "",
-              kernel: str | None = None) -> float:
+              kernel: str | None = None, symbol: str | None = None,
+              own: bool = False) -> float:
     """Mean device milliseconds of the CUDA kernels one ``fn()`` launches,
     from torch.profiler (CUPTI): the kernels' own execution time, without
     the host's launch gaps. The profiler on this card loses events from a
@@ -156,17 +168,21 @@ def device_ms(fn, iters: int = 10, label: str = "",
     fullest is kept (listed in ``SHORT_TRACES``). The plain versions (no
     ``kernel``) take any trace with device time. A trace that stays empty
     sends the call to ``backlog_ms``, and ``label`` is listed in
-    ``EVENT_TIMED``."""
+    ``EVENT_TIMED``. ``symbol`` overrides the kernel's symbol (a kernel
+    counted under another's name; without ``kernel``, a library kernel
+    ``fn`` launches once); ``own`` leaves out the device time of the other
+    kernels ``fn`` launches (an L2 flush before the call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import build
 
+    sym = symbol or (KERNEL_SYMBOLS[kernel] if kernel else None)
     before = build.LAUNCHES[kernel] if kernel else 0
     fn()
     torch.cuda.synchronize()
-    per_call = build.LAUNCHES[kernel] - before if kernel else 0
+    per_call = build.LAUNCHES[kernel] - before if kernel else int(bool(sym))
     if kernel and not per_call:
         raise AssertionError(f"{label}: fn() does not launch {kernel}")
     best = None  # (launches seen, their device us, other device us)
@@ -179,23 +195,24 @@ def device_ms(fn, iters: int = 10, label: str = "",
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
         total = sum(_dev_us(e) for e in events)
-        if not kernel:
+        if not sym:
             if total > 0:
                 return total / iters / 1e3
             continue
-        mine = [e for e in events if KERNEL_SYMBOLS[kernel] in e.key]
+        mine = [e for e in events if sym in e.key]
         seen = sum(int(e.count) for e in mine)
         if seen and (best is None or seen > best[0]):
-            own = sum(_dev_us(e) for e in mine)
-            best = (seen, own, total - own)
+            mine_us = sum(_dev_us(e) for e in mine)
+            best = (seen, mine_us, total - mine_us)
         if seen == per_call * iters:
             break
     if best:
-        seen, own, rest = best
+        seen, own_us, rest = best
         if seen < per_call * iters:
             SHORT_TRACES.append(f"{label}: {seen} of {per_call * iters} "
                                 f"{kernel} launches")
-        return (own / seen * per_call + rest / iters) / 1e3
+        return (own_us / seen * per_call
+                + (0 if own else rest / iters)) / 1e3
     print(f"  torch.profiler recorded no device time for "
           f"{kernel or ''} {label or fn}: timed with CUDA events on a "
           f"backlogged stream instead")
@@ -671,6 +688,7 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
     from repro_torch.kernels.interp.ref import library_walk_ref, rom_eval_ref
 
     rows, details = {}, []
+    flush = l2_flush(dev)
     for label, lib, designs in (("segmented", seg_lib, seg_designs),
                                 ("uniform", uni_lib, uni_designs)):
         walk, dp = lib.walk_rows()
@@ -772,6 +790,11 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
                    **graph_cols(lambda: library_walk(codes, arg, lib.coeffs,
                                                      walk, dp),
                                 lambda: F.silu(gate)))
+        if mixed:  # the same with a cold L2
+            row["cold_ms"] = device_ms(
+                lambda: (flush(), library_walk(codes, arg, lib.coeffs, walk,
+                                               dp)),
+                label=f"cold walk {shape}", kernel="library_walk", own=True)
         details.append(row)
         rows.setdefault("library_walk", row)
     # rom_eval: the silu slot at the same two shapes
@@ -813,7 +836,9 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
               f"ms (graph {_ms(r['graph_ms'])}), plain {r['plain_ms']:.5f} "
               f"ms, library {r['library_ms']:.5f} ms (graph "
               f"{_ms(r['library_graph_ms'])}), bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms")
+              f"({r['bound_by']}); back-to-back call {r['call_ms']:.5f} ms"
+              + (f"; cold L2 {r['cold_ms']:.5f} ms" if "cold_ms" in r
+                 else ""))
     return rows, details
 
 
@@ -886,6 +911,7 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
 
     g = torch.Generator(device=dev).manual_seed(1234)
     rows, details = {}, []
+    flush = l2_flush(dev)
 
     # -- library_eval: the SwiGLU silu codes at the served shapes ----------
     silu = lib.func_id("silu")
@@ -923,6 +949,12 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
                    **graph_cols(lambda: library_eval(codes, silu, lib.coeffs,
                                                      meta),
                                 lambda: F.silu(gate)))
+        if shape == (1, 512, 11008):  # the same with a cold L2
+            row["cold_ms"] = device_ms(
+                lambda: (flush(), library_eval(codes, silu, lib.coeffs,
+                                               meta)),
+                label=f"{label} cold {shape}", kernel="library_eval",
+                own=True)
         details.append(row)
         rows.setdefault("library_eval", row)
 
@@ -1126,8 +1158,174 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
               f"{r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms "
               f"(graph {_ms(r['library_graph_ms'])}), bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}); back-to-back call "
-              f"{r['call_ms']:.5f} ms")
+              f"{r['call_ms']:.5f} ms"
+              + (f"; cold L2 {r['cold_ms']:.5f} ms" if "cold_ms" in r
+                 else ""))
     return rows, details
+
+
+def l2_flush(dev):
+    """A call that writes 128 MB (2.5x the H100's 50 MB L2), so that the
+    next kernel finds its operands in HBM, as a serving step does."""
+    import torch
+
+    scratch = torch.empty(32 << 20, dtype=torch.float32, device=dev)
+    return scratch.zero_
+
+
+def device_ops(fn, iters: int = 10) -> float:
+    """Device operations (kernels, copies, fills) per ``fn()``, from the
+    profiler: the fullest of three traces of ``iters`` calls (the profiler
+    loses events from some traces)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    most = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        most = max(most, sum(int(e.count) for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA))
+    return most / iters
+
+
+def act_phase(libs, dev):
+    """The served activation, ``FusedInterpNumerics.silu`` (one act_lib
+    launch), at every shape the served models hand it and in their layout
+    (the gate half of a SwiGLU product, a ``torch.chunk`` view), on each
+    ``(label, library)`` of ``libs``: bitwise against the eager chain (the
+    float glue around the int32 kernel, as ``InterpNumerics`` runs it) and
+    against the plain version; timed beside the chain and ``F.silu`` on the
+    same view, warm (the graph replays, the profiler, and each of act_lib's
+    two bodies forced) and, at Yi-6B's prefill, with a cold L2. The chain
+    is the path of ``library_eval`` (uniform library) and ``library_walk``
+    (segmented): their launches are counted over one chain call per shape
+    and library. First, whether ATen's CUDA divide by a host scalar is a
+    true divide (the glue divides by a device scalar)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.interp.kernel import act_library_cuda, slot_args
+    from repro_torch.numerics.ops import (FusedInterpNumerics,
+                                          InterpNumerics, PlainFusedNumerics)
+
+    g = torch.Generator(device=dev).manual_seed(2468)
+    x = torch.rand(1 << 20, device=dev, generator=g) * 12
+    true_div = x / torch.full((), 12.0, device=dev)
+    host_scalar_div = torch.equal(x / 12.0, true_div)
+    cpu_div = torch.equal(true_div.cpu(), x.cpu() / 12.0)
+    print(f"ATen on the card: x / 12.0 (a host scalar) equals the true "
+          f"divide x / tensor(12.0) {host_scalar_div}; the true divide "
+          f"equals the CPU's {cpu_div} (2^20 elements)")
+    if not cpu_div:
+        raise AssertionError("the card's tensor divide is not the CPU's")
+    gates = {}
+    for shape in act_shapes():
+        h = (torch.randn(*shape[:-1], 2 * shape[-1], device=dev,
+                         generator=g) * 3).to(torch.bfloat16)
+        gates[shape] = torch.chunk(h, 2, dim=-1)[0]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    chains = {(label, shape): InterpNumerics(lib).silu(gate)
+              for label, lib in libs for shape, gate in gates.items()}
+    torch.cuda.synchronize()
+    launches = {k: build.LAUNCHES[k] for k in ("library_eval", "library_walk")}
+    print(f"the eager chain over {len(chains)} (shape, library) gates: "
+          f"launches {launches}")
+    flush = l2_flush(dev)
+    rows, details = {}, []
+    for label, lib in libs:
+        fused, chain = FusedInterpNumerics(lib), InterpNumerics(lib)
+        plain = PlainFusedNumerics(lib)
+        sa = slot_args(lib, "silu")
+        slot_bytes = 4 * (3 * sa[1] + 5 * sa[10] * bool(sa[9]))
+        for shape, gate in gates.items():
+            n0 = dict(build.LAUNCHES)
+            got = fused.silu(gate)
+            torch.cuda.synchronize()
+            launched = {k: v - n0[k] for k, v in build.LAUNCHES.items()
+                        if v != n0[k]}
+            same_chain = torch.equal(got, chains[label, shape])
+            same_plain = torch.equal(got, plain.silu(gate))
+            ops = device_ops(lambda: fused.silu(gate))
+            print(f"act_lib silu {shape} bf16 gate view ({label} library): "
+                  f"launches {launched}, {ops} device ops per call; bitwise "
+                  f"equal to the eager chain {same_chain} and to the plain "
+                  f"version {same_plain} (tolerance 0)")
+            if launched != {"act_lib": 1} or ops > 1 or not (
+                    same_chain and same_plain):
+                raise AssertionError(f"act_lib {shape} ({label}) differs")
+            n = gate.numel()
+            # x read once, y written once, the slot staged; ~26 float and
+            # integer operations per element (glue ~14, table read ~12)
+            b_ms, b_by = bound(2 * 2 * n + slot_bytes, 26 * n, F32_FLOPS)
+            chain_graph, chain_why = graph_ms(lambda: chain.silu(gate))
+            row = dict(name="act_lib", shape=list(shape), library=label,
+                       dtype="bfloat16", layout="gate view", ops=ops,
+                       max_abs_err=0.0, tolerance=0,
+                       ms=device_ms(lambda: fused.silu(gate),
+                                    label=f"act {label} {shape}",
+                                    kernel="act_lib"),
+                       call_ms=timed(lambda: fused.silu(gate)),
+                       plain_ms=device_ms(lambda: plain.silu(gate), iters=3,
+                                          label=f"plain act {label} {shape}"),
+                       chain_ms=device_ms(lambda: chain.silu(gate),
+                                          label=f"chain {label} {shape}"),
+                       chain_graph_ms=chain_graph,
+                       library_ms=device_ms(lambda: F.silu(gate),
+                                            label=f"silu {shape}"),
+                       bound_ms=b_ms, bound_by=b_by,
+                       **graph_cols(lambda: fused.silu(gate),
+                                    lambda: F.silu(gate)))
+            if chain_why:
+                row["chain_graph_ms_null"] = chain_why
+            row["body_graph_ms"] = {
+                body: graph_ms(lambda: act_library_cuda(gate, lib, "silu",
+                                                        body=body))[0]
+                for body in ("datapath", "table")}
+            if shape == act_shapes()[0]:
+                row["chain_ops"] = device_ops(lambda: chain.silu(gate))
+                print(f"  device ops per activation: act_lib {ops}, the "
+                      f"eager chain {row['chain_ops']}")
+            if shape == (1, 512, 11008):
+                # the layout's share: the same on a contiguous copy
+                dense = gate.contiguous()
+                row["contiguous_graph_ms"] = graph_ms(
+                    lambda: fused.silu(dense))[0]
+                row["library_contiguous_graph_ms"] = graph_ms(
+                    lambda: F.silu(dense))[0]
+                row["cold_ms"] = device_ms(
+                    lambda: (flush(), fused.silu(gate)),
+                    label=f"cold act {label}", kernel="act_lib", own=True)
+                row["library_cold_ms"] = device_ms(
+                    lambda: (flush(), F.silu(gate)),
+                    label=f"cold silu {label}", symbol="silu", own=True)
+            details.append(row)
+            rows.setdefault("act_lib", row)
+    for r in details:
+        bodies = r["body_graph_ms"]
+        print(f"  device time act_lib {r['shape']} ({r['library']}): graph "
+              f"{_ms(r['graph_ms'])}, profiler {r['ms']:.5f} ms (bodies "
+              f"forced: datapath {_ms(bodies['datapath'])}, table "
+              f"{_ms(bodies['table'])}); F.silu graph "
+              f"{_ms(r['library_graph_ms'])}, profiler "
+              f"{r['library_ms']:.5f} ms; eager chain graph "
+              f"{_ms(r['chain_graph_ms'])}, profiler {r['chain_ms']:.5f} ms;"
+              f" plain {r['plain_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']})"
+              + (f"; cold L2 {r['cold_ms']:.5f} ms (F.silu + flush "
+                 f"{r['library_cold_ms']:.5f} ms); on a contiguous copy graph "
+                 f"{_ms(r['contiguous_graph_ms'])} (F.silu "
+                 f"{_ms(r['library_contiguous_graph_ms'])})"
+                 if "cold_ms" in r else ""))
+    return rows, details, launches
 
 
 TAB_KERNELS = ("softmax_tab", "rmsnorm_tab", "flash_attn_tab")
@@ -1402,22 +1600,21 @@ def pertable_phase(lib, dev):
                       launches={k: launches[k] for k in TAB_KERNELS})
 
 
-def per_forward(cfg, segmented: bool = False) -> dict:
+def per_forward(cfg) -> dict:
     """Kernel launches of one forward pass of ``cfg`` on the main path: an
     rmsnorm before attention and before the FFN of every layer plus the
     final one; one attention per layer; one silu per dense MLP and per
     expert group of an MoE layer (routed, shared); one router softmax per
-    MoE layer. A segmented library's activations launch ``library_walk``
-    in place of ``library_eval``, and nothing else changes."""
+    MoE layer. An activation is one ``act_lib`` launch on either library
+    (a segmented slot adds no launch)."""
     from repro_torch.models import transformer as tf
 
     n_moe = sum(slot[-1].ffn == "moe" for slot in tf.layer_slots(cfg))
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
     from repro_torch.kernels import build
 
-    act = "library_walk" if segmented else "library_eval"
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            act: cfg.n_layers + n_moe * shared,
+            "act_lib": cfg.n_layers + n_moe * shared,
             "rmsnorm_lib": 2 * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
@@ -1450,19 +1647,15 @@ def serve_phase(libs, dev, config) -> list[dict]:
         out.append(res)
         gc.collect()  # this engine's cache goes before the next one's
         torch.cuda.empty_cache()
-    if len(out) > 1:  # the same per-forward launches, walk for eval
+    if len(out) > 1:  # the same launches per forward on every library
         uni = out[0]["per_forward"]
         for res in out[1:]:
-            renamed = dict(res["per_forward"])
-            renamed["library_eval"] = renamed.pop("library_walk")
-            renamed["library_walk"] = 0
-            if renamed != uni:
+            if res["per_forward"] != uni:
                 raise AssertionError(f"{res['library']} library: launches "
                                      f"per forward {res['per_forward']} "
                                      f"differ from the uniform run's {uni}")
             print(f"{cfg.name} on the {res['library']} library: "
-                  f"{res['per_forward']} per forward, the uniform run's "
-                  f"with library_walk in place of library_eval")
+                  f"{res['per_forward']} per forward, as the uniform run")
     return out
 
 
@@ -1480,7 +1673,6 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
 
     print(f"-- {cfg.name} on the {label} library {lib.rom_sha()} "
           f"{tuple(lib.coeffs.shape)}")
-    segmented = bool(lib.segmented_kinds)
     eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
                       library=lib, horizon=HORIZON, device=dev)
     rng = np.random.default_rng(0)
@@ -1504,7 +1696,7 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
                                             for t in r.out):
             raise AssertionError(f"request {r.rid}: bad stream {r.out}")
     forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
-    per = per_forward(cfg, segmented)
+    per = per_forward(cfg)
     expected = {k: n * forwards for k, n in per.items()}
     print(f"{cfg.name} main path: {eng.stats['prefills']} prefills + "
           f"{eng.stats['decode_steps']} decode steps = {forwards} forwards "
@@ -1601,6 +1793,7 @@ def profile_steps(step, n: int = 3) -> dict:
             rows.append((e.key, _dev_us(e), int(e.count)))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    device_ops = sum(r[2] for r in rows) / n  # kernels, copies and fills
     kernels = {}
     for name in SERVE_KERNELS:
         hit = [r for r in rows if KERNEL_SYMBOLS[name] in r[0]]
@@ -1611,7 +1804,8 @@ def profile_steps(step, n: int = 3) -> dict:
         print("profiler: no device time recorded (not measured)")
         return {"device_busy_share": None}
     print(f"profiler, {n} calls: device busy {busy / 1e3:.3f} ms of "
-          f"{wall_us / 1e3:.3f} ms wall = {busy / wall_us:.3f} busy share")
+          f"{wall_us / 1e3:.3f} ms wall = {busy / wall_us:.3f} busy share; "
+          f"{device_ops:.1f} device ops (kernels, copies, fills) per call")
     for name, ms in kernels.items():
         print(f"  {name}: device {ms:.5f} ms per launch" if ms is not None
               else f"  {name}: no launches in the trace")
@@ -1619,7 +1813,8 @@ def profile_steps(step, n: int = 3) -> dict:
         print(f"  top device op: {dev_us / n / 1e3:.4f} ms/step "
               f"x{count // n} {key[:90]}")
     return {"device_busy_share": busy / wall_us, "wall_ms": wall_us / 1e3 / n,
-            "device_ms": busy / 1e3 / n, "kernel_device_ms": kernels,
+            "device_ms": busy / 1e3 / n, "device_ops": device_ops,
+            "kernel_device_ms": kernels,
             "top": [(k[:120], d / 1e3 / n, c // n) for k, d, c in rows[:15]]}
 
 
@@ -1683,6 +1878,8 @@ def main() -> int:
                                          dev, silu_codes)
     rows, details = kernel_phases(lib, dev, silu_codes)
     _, seg_details = kernel_phases(seg_lib, dev, silu_codes, "segmented")
+    act_rows, act_details, act_launches = act_phase(
+        [("uniform", lib), ("segmented", seg_lib)], dev)
     tab_rows, pertable = pertable_phase(lib, dev)
     from repro_torch.configs import deepseek_moe_16b, yi_6b
 
@@ -1701,6 +1898,9 @@ def main() -> int:
     for name in ENVELOPE_KERNELS:
         launches[name] += seg_gen["launches"][name]
     launches.update(pertable["launches"])
+    # the int32 table reads run on the eager chain (act_phase), not in
+    # serving, whose activations are act_lib launches
+    launches.update(act_launches)
     if not all(launches.values()):
         raise AssertionError(f"a kernel never launched on the paths: "
                              f"{launches}")
@@ -1709,6 +1909,10 @@ def main() -> int:
     replaces = {
         "library_eval": ("src/repro_torch/csrc/interp.cu",
                          "src/repro/kernels/interp/kernel.py:241"),
+        # library_eval_2d (or library_walk_2d) with the activation's float
+        # glue around it (repro/numerics/ops.py _range_glue, _act_tails)
+        "act_lib": ("src/repro_torch/csrc/interp.cu",
+                    "src/repro/kernels/interp/kernel.py:241"),
         "rmsnorm_lib": ("src/repro_torch/csrc/rmsnorm.cu",
                         "src/repro/kernels/rmsnorm/kernel.py:62"),
         "flash_attn_lib": ("src/repro_torch/csrc/flashattn.cu",
@@ -1737,7 +1941,7 @@ def main() -> int:
         "dd_max_rows": ("src/repro_torch/csrc/dspace.cu",
                         "src/repro/kernels/dspace/ops.py:79"),
     }
-    rows = {**rows, **dspace_rows, **walk_rows, **tab_rows,
+    rows = {**rows, **dspace_rows, **walk_rows, **tab_rows, **act_rows,
             "interp_eval": ie_row}
     for name, (source, rep) in replaces.items():
         r = rows[name]
@@ -1753,7 +1957,7 @@ def main() -> int:
     report = {"device": smi[0], "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
               "kernel_phases": (dspace_details + ie_details + walk_details
-                                + details + seg_details),
+                                + details + seg_details + act_details),
               "generator": gen, "pertable": pertable, "serve": serves,
               "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES}
     if EVENT_TIMED:

@@ -35,7 +35,7 @@ LAUNCHES: dict[str, int] = {
     "softmax_lib": 0, "interp_eval": 0, "envelopes_parity": 0,
     "envelopes_parity_batched": 0, "envelopes_parity_fleet": 0,
     "dd_max_rows": 0, "library_walk": 0, "rom_eval": 0, "softmax_tab": 0,
-    "rmsnorm_tab": 0, "flash_attn_tab": 0}
+    "rmsnorm_tab": 0, "flash_attn_tab": 0, "act_lib": 0}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "repro_library_walk": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _L, _I,
                            _P),
     "repro_rom_eval": (_P, _P, _P, _P, _P, _L, _I, _P),
+    "repro_act_lib": (_P, _P, _L, _L, _L, _I, _P, _P, _P, _P, _I, _I, _I,
+                      _P),
     "repro_rmsnorm_lib": (_P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _I, _P),
     "repro_flash_attn_lib": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _I, _I, _F, _I, _I, _P),

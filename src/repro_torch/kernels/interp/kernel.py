@@ -1,16 +1,23 @@
-"""CUDA wrappers of ``library_eval``, ``library_walk``, ``rom_eval`` and
-``interp_eval`` (``csrc/interp.cu``), the ports of
+"""CUDA wrappers of ``library_eval``, ``library_walk``, ``act_lib``,
+``rom_eval`` and ``interp_eval`` (``csrc/interp.cu``), the ports of
 ``repro/kernels/interp/kernel.py`` ``library_eval_2d`` /
 ``_library_kernel``, ``library_walk_2d`` / ``_library_walk_kernel``,
 ``rom_eval_2d`` / ``_rom_kernel`` and ``interp_eval_2d`` /
-``_interp_kernel``.
+``_interp_kernel``; ``act_lib`` is the served activation, the reference's
+float glue (``repro/numerics/ops.py`` ``_range_glue`` / ``_act_tails``)
+around ``library_eval_2d`` or ``library_walk_2d``, in one kernel.
 
 The reference tiles codes as (rows, 128) lanes with rows % 8 and reads the
 ROM by one-hot MXU contractions; on Hopper the kernel takes any shape
-flattened, stages the ROM in shared memory and reads it by index.
+flattened, stages the ROM (or the one slot a call reads) in shared memory
+and reads it by index.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -93,6 +100,83 @@ def library_walk_cuda(codes: torch.Tensor, fids: torch.Tensor | int,
         dev.index or 0, build.stream_of(dev))
     build.check("library_walk", rc)
     build.LAUNCHES["library_walk"] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _act_operands(library, kind: str, dtype: torch.dtype):
+    """(slot row, glue constants, top_is_x) of ``act_lib`` for ``kind``'s
+    slot of ``library`` and an x of ``dtype``: the constants the glue
+    rounds once, in its order (``repro_torch.numerics.ops._range_glue`` /
+    ``_act_tails``)."""
+    from repro_torch.numerics.ops import act_tail_values
+
+    m = library.meta(kind)
+    if not m.act_span:
+        raise ValueError(f"{kind!r} is not an activation slot")
+    lo, hi = m.act_lo, m.act_hi
+
+    def f32(v: float) -> float:
+        return float(np.float32(v))
+
+    def in_dtype(v: float) -> float:  # the tails compare in x's dtype
+        return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+    top, bot = act_tail_values(kind)
+    glue = [f32(lo), f32(hi - 1e-6), f32(hi - lo),
+            f32(m.act_span / (1 << m.out_bits)), in_dtype(lo), in_dtype(hi),
+            0.0 if top is None else top, bot]
+    return (build.int_array(slot_args(library, kind)),
+            build.int_array(glue, ctypes.c_float), int(top is None))
+
+
+def act_rows(x: torch.Tensor) -> tuple[torch.Tensor, int, int, int]:
+    """``x`` and the (rows, cols, row stride) ``act_lib`` reads it as, in
+    elements: one row for a contiguous x; rows at one stride for a view
+    whose last dim is contiguous and whose outer dims merge, as the gate
+    half of a SwiGLU product (``torch.chunk(h, 2, -1)[0]``, stride 2 *
+    cols); any other layout is copied contiguous first."""
+    if not x.is_contiguous() and x.dim() and x.stride(-1) == 1:
+        try:
+            rows = x.view(-1, x.shape[-1])
+        except RuntimeError:  # outer dims that do not merge
+            rows = None
+        if rows is not None and rows.shape[0] > 1:
+            return x, rows.shape[0], rows.shape[1], rows.stride(0)
+    x = x.contiguous()
+    return x, 1, x.numel(), x.numel()
+
+
+_ACT_BODIES = {None: -1, "datapath": 0, "table": 1}
+
+
+def act_library_cuda(x: torch.Tensor, library, kind: str, *,
+                     body: str | None = None) -> torch.Tensor:
+    """The served activation ``kind`` of ``library`` on a bf16 or float32
+    CUDA tensor of any shape, in one ``act_lib`` launch: bitwise the float
+    glue of ``InterpNumerics._act`` around ``library.eval_int``. A row
+    strided x (:func:`act_rows`) is read in place; the result is
+    contiguous. ``body`` forces the per-element datapath (``"datapath"``)
+    or the table of outputs (``"table"``); by default the kernel takes the
+    table from 16 elements per code on a segmented slot, 384 on a uniform
+    one."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"act_lib takes bfloat16 or float32, got {x.dtype}")
+    dev = x.device
+    if library.device != dev:
+        raise ValueError(f"operands on {library.device} and {dev}")
+    slot, glue, top_is_x = _act_operands(library, kind, x.dtype)
+    out = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    if x.numel() == 0:
+        return out
+    x, rows, cols, stride = act_rows(x)
+    rc = build.load().repro_act_lib(
+        x.data_ptr(), out.data_ptr(), rows, cols, stride,
+        int(x.dtype == torch.bfloat16), library.coeffs.data_ptr(), slot,
+        library.walk_rows()[1].data_ptr(), glue, top_is_x, _ACT_BODIES[body],
+        dev.index or 0, build.stream_of(dev))
+    build.check("act_lib", rc)
+    build.LAUNCHES["act_lib"] += 1
     return out
 
 

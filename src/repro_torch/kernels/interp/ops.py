@@ -7,7 +7,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.table import TableDesign
-from repro_torch.kernels.interp.kernel import (interp_eval_cuda,
+from repro_torch.kernels.interp.kernel import (act_library_cuda,
+                                               interp_eval_cuda,
                                                library_eval_cuda,
                                                library_walk_cuda,
                                                rom_eval_cuda)
@@ -64,6 +65,18 @@ def library_walk(codes: torch.Tensor, fids, coeffs: torch.Tensor,
         return library_walk_cuda(codes, fids, coeffs, walk, dp)
     fids = torch.as_tensor(fids, dtype=torch.int32).expand(codes.shape)
     return library_walk_ref(codes, fids, coeffs, walk, dp)
+
+
+def act_library(x: torch.Tensor, library, kind: str) -> torch.Tensor:
+    """The served activation ``kind`` (silu, sigmoid, softplus, gelu, tanh)
+    of ``library`` on x of any shape, in x's dtype: one ``act_lib`` launch
+    for a CUDA x (bfloat16 or float32), the float glue around the plain
+    table read (``PlainFusedNumerics._act``) for a CPU x."""
+    if x.is_cuda:
+        return act_library_cuda(x, library, kind)
+    from repro_torch.numerics.ops import PlainFusedNumerics
+
+    return PlainFusedNumerics(library)._act(kind, x)
 
 
 def rom_eval(codes: torch.Tensor, library, kind: str) -> torch.Tensor:

@@ -88,16 +88,26 @@ def _range_glue(x, in_bits: int, out_bits: int, span: float, ev,
                 lo: float = ACT_LO, hi: float = ACT_HI) -> torch.Tensor:
     """Direct table over [lo, hi): quantize the window, rescale the output."""
     xc = torch.clamp(x.to(_F32), lo, hi - 1e-6)
-    codes = _quantize((xc - lo) / (hi - lo), in_bits)
+    # a true divide on every device, as the reference's: ATen's CUDA divide
+    # by a host scalar multiplies by its reciprocal, which moves codes where
+    # the window's span is not a power of two
+    width = torch.full((), hi - lo, dtype=_F32, device=xc.device)
+    codes = _quantize((xc - lo) / width, in_bits)
     return ev(codes).to(_F32) * (span / (1 << out_bits))
+
+
+def act_tail_values(kind: str) -> tuple[float | None, float]:
+    """(top, bottom) of :func:`_act_tails`; top None is x itself."""
+    return (1.0 if kind in ("sigmoid", "tanh") else None,
+            -1.0 if kind == "tanh" else 0.0)
 
 
 def _act_tails(kind: str, x, y, lo: float = ACT_LO,
                hi: float = ACT_HI) -> torch.Tensor:
     """Outside the table window the activations are linear (right tail) or
     saturate; sigmoid saturates to 1/0, tanh to 1/-1, the rest to x/0."""
-    top = 1.0 if kind in ("sigmoid", "tanh") else x
-    bot = -1.0 if kind == "tanh" else 0.0
+    top, bot = act_tail_values(kind)
+    top = x if top is None else top
     inner = torch.where(x <= lo, bot, y)
     return torch.where(x >= hi, top, inner).to(x.dtype)
 
@@ -271,9 +281,9 @@ class InterpNumerics:
 class FusedInterpNumerics(InterpNumerics):
     """Library-bound interp numerics lowered to the fused kernels: rmsnorm
     (``rmsnorm_lib``), the attention inner loop (``flash_attn_lib``), the
-    last-axis softmax (``softmax_lib``) and the activations
-    (``library_eval``, or ``library_walk`` once a slot is segmented) read
-    the library ROM in-kernel.
+    last-axis softmax (``softmax_lib``) and the activations (``act_lib``:
+    the float glue and the table read in one kernel) read the library ROM
+    in-kernel.
 
     As in the reference, the fused rsqrt / recip glue derives table codes by
     IEEE-754 bit twiddles where the unfused glue uses ``frexp``; composite
@@ -304,6 +314,14 @@ class FusedInterpNumerics(InterpNumerics):
 
         return approx_rmsnorm_library(x, gamma, self.library, eps=eps
                                       ).to(x.dtype)
+
+    def _act(self, kind: str, x):
+        """One ``act_lib`` launch on a CUDA tensor (glue and table read in
+        one kernel, bitwise the glue around ``eval_int``); its plain
+        version on the CPU."""
+        from repro_torch.kernels.interp.ops import act_library
+
+        return act_library(x, self.library, kind)
 
     def _attention(self, q, k, v, **kw):
         from repro_torch.kernels.flashattn.ops import attention_fused_library
@@ -350,6 +368,9 @@ class PlainFusedNumerics(FusedInterpNumerics):
                                         *lib.walk_rows())
             return library_eval_ref(codes, fids, lib.coeffs, lib.meta_rows())
         return ev
+
+    # the glue around the plain table read on every device
+    _act = InterpNumerics._act
 
     def _softmax(self, x):
         from repro_torch.kernels.softmax.ref import approx_softmax_library_ref

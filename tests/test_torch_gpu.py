@@ -307,13 +307,14 @@ def _smoke(dev, arch, dtype="float32"):
 def _per_forward(cfg) -> dict:
     """Kernel launches of one forward pass: an rmsnorm before attention and
     before the FFN of every layer plus the final one; one attention per
-    layer; one silu per dense MLP and per expert group (routed, shared);
-    one router softmax per MoE layer."""
+    layer; one silu (``act_lib``: the glue and the table read in one
+    kernel) per dense MLP and per expert group (routed, shared); one router
+    softmax per MoE layer."""
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            "library_eval": cfg.n_layers + n_moe * shared,
+            "act_lib": cfg.n_layers + n_moe * shared,
             "rmsnorm_lib": 2 * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
@@ -599,11 +600,10 @@ def test_flash_kernel_on_segmented_library(mode, dtype, seg_lib, dev):
 
 
 def _seg_per_forward(cfg) -> dict:
-    """The uniform library's launches per forward, with library_walk in
-    place of library_eval (no extra launch for the segment decode)."""
-    per = _per_forward(cfg)
-    per["library_walk"], per["library_eval"] = per["library_eval"], 0
-    return per
+    """The uniform library's launches per forward: a segmented slot's
+    activation is the same one act_lib launch (no extra launch for the
+    segment decode)."""
+    return _per_forward(cfg)
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
@@ -846,3 +846,209 @@ def test_flash_kernel_captures_in_a_cuda_graph(mode, lib, dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ------------------------------------------ the fused activation (act_lib)
+
+ACT_LIBS = ("uniform", "segmented", "window6")
+
+
+def _act_inputs(meta, seed=0):
+    """Every code of ``meta``'s slot (the centre of each code cell, both of
+    its edges and their float32 neighbours), the window's ends, hi - 1e-6
+    and their neighbours, +-inf, NaN and 3 * randn: an odd count (a vector
+    tail)."""
+    c = np.arange(1 << meta.in_bits, dtype=np.float64)
+    lo, hi = meta.act_lo, meta.act_hi
+    x = np.concatenate([lo + (c + d) * (hi - lo) / (1 << meta.in_bits)
+                        for d in (-0.5, 0.0, 0.5)]).astype(np.float32)
+    sp = np.array([lo, hi, hi - 1e-6, np.inf, -np.inf, np.nan], np.float32)
+    x = np.concatenate([x, sp])
+    x = np.concatenate([x, np.nextafter(x, np.float32(np.inf)),
+                        np.nextafter(x, np.float32(-np.inf)),
+                        3 * np.random.default_rng(seed).standard_normal(
+                            4095).astype(np.float32)])
+    assert len(x) % 2
+    return x
+
+
+def _act_lib(name, lib, seg_lib):
+    if name == "uniform":
+        return lib
+    if name == "segmented":
+        return seg_lib
+    from repro_torch.api.library import (DEFAULT_LIBRARY_KINDS,
+                                         DEFAULT_TABLE_KEY, TABLES_DIR)
+
+    designs = [TableDesign.from_dict(json.loads(
+        (TABLES_DIR / f"{k}_{DEFAULT_TABLE_KEY}.json").read_text()))
+        for k in DEFAULT_LIBRARY_KINDS]
+    return InterpLibrary.from_designs(designs, DEFAULT_LIBRARY_KINDS,
+                                      act_windows={"silu": (-6.0, 6.0)},
+                                      device=lib.device)
+
+
+def _bits(t):
+    return t.float().cpu().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("body", ["datapath", "table"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ACT_LIBS)
+def test_act_lib_bitwise_eager_chain_and_plain(name, dtype, body, lib,
+                                               seg_lib, dev):
+    """Every activation slot: one act_lib launch equals the eager chain
+    (the glue on the card around the int32 kernel), the plain version on
+    the card and the glue on the CPU, bitwise, at every code's cell edges,
+    the window's ends, +-inf, NaN and an odd element count; the eager
+    chain's divide by the window's span is a true divide on the card too
+    (the (-6, 6) window's span is no power of two). ``table``: the inputs
+    39 times over, 1598103 elements, past the 384 per code (1572864) from
+    which the kernel evaluates a uniform slot into a table of outputs
+    first (16 per code on a segmented one)."""
+    from repro_torch.kernels.interp.ops import act_library
+    from repro_torch.numerics.ops import InterpNumerics
+
+    card = _act_lib(name, lib, seg_lib)
+    host = InterpLibrary(card.coeffs.cpu(), card.metas)
+    for kind in ("silu", "sigmoid", "softplus", "gelu", "tanh"):
+        x = _act_inputs(card.meta(kind))
+        if body == "table":
+            x = np.tile(x, 39)
+        x = torch.from_numpy(x).to(dev, dtype)
+        n0 = dict(build.LAUNCHES)
+        got = FusedInterpNumerics(card)._act(kind, x)
+        assert build.LAUNCHES["act_lib"] == n0["act_lib"] + 1
+        assert sum(build.LAUNCHES.values()) == sum(n0.values()) + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        chain = InterpNumerics(card)._act(kind, x)
+        plain = PlainFusedNumerics(card)._act(kind, x)
+        cpu = InterpNumerics(host)._act(kind, x.cpu())
+        for want in (chain, plain, cpu, act_library(x, card, kind)):
+            assert np.array_equal(_bits(got), _bits(want)), (name, kind)
+
+
+@pytest.mark.parametrize("name", ["uniform", "segmented"])
+def test_act_lib_misaligned_view_and_empty(name, lib, seg_lib, dev):
+    """A contiguous view that starts 2 bytes past a 16-byte boundary (the
+    scalar path) and an empty tensor: the eager chain's values, no launch
+    for the empty one."""
+    from repro_torch.numerics.ops import InterpNumerics
+
+    card = _act_lib(name, lib, seg_lib)
+    g = torch.Generator(device=dev).manual_seed(5)
+    base = (torch.randn(3 * 11008 + 2, device=dev, generator=g) * 3
+            ).to(torch.bfloat16)
+    x = base.view(-1)[1:]
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    got = FusedInterpNumerics(card)._act("silu", x)
+    assert torch.equal(got, InterpNumerics(card)._act("silu", x))
+    empty = torch.empty(0, 4, device=dev, dtype=torch.bfloat16)
+    n0 = dict(build.LAUNCHES)
+    out = FusedInterpNumerics(card)._act("silu", empty)
+    assert out.shape == (0, 4) and build.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", ACT_LIBS)
+def test_act_lib_reads_swiglu_gates_in_place(name, dtype, lib, seg_lib,
+                                             dev):
+    """The gate and up halves of a SwiGLU product, as the models hand them
+    (``torch.chunk`` views: rows at twice their width; Yi-6B's decode
+    gate, a routed-expert group's up half, an odd width), and rows at an
+    odd stride: read in place (``act_rows`` hands the view itself), one
+    act_lib launch through either body, a contiguous result bitwise equal
+    to the eager chain and the plain version for all five slots."""
+    from repro_torch.kernels.interp import kernel as ik
+    from repro_torch.numerics.ops import InterpNumerics
+
+    card = _act_lib(name, lib, seg_lib)
+    g = torch.Generator(device=dev).manual_seed(8)
+    views = []
+    for lead, cols, half in (((4, 1), 11008, 0), ((1, 64), 1408, 1),
+                             ((3, 7), 37, 0)):
+        h = (torch.randn(*lead, 2 * cols, device=dev, generator=g) * 3
+             ).to(dtype)
+        views.append(torch.chunk(h, 2, dim=-1)[half])
+    views.append((torch.randn(6, 33, device=dev, generator=g) * 3
+                  ).to(dtype)[:, :16])
+    for x in views:
+        assert ik.act_rows(x)[0] is x and not x.is_contiguous()
+        for kind in ("silu", "sigmoid", "softplus", "gelu", "tanh"):
+            chain = InterpNumerics(card)._act(kind, x)
+            plain = PlainFusedNumerics(card)._act(kind, x)
+            for body in (None, "datapath", "table"):
+                n0 = dict(build.LAUNCHES)
+                got = ik.act_library_cuda(x, card, kind, body=body)
+                assert build.LAUNCHES["act_lib"] == n0["act_lib"] + 1
+                assert sum(build.LAUNCHES.values()) == sum(n0.values()) + 1
+                assert got.is_contiguous() and got.shape == x.shape
+                assert torch.equal(got, chain), (kind, body, x.shape)
+                assert torch.equal(got, plain), (kind, body, x.shape)
+
+
+def test_act_lib_replays_in_a_cuda_graph(lib, seg_lib, dev):
+    """The fused activation makes no host sync: a captured CUDA graph
+    replays it bitwise, on both libraries."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(4, 1, 11008, device=dev, generator=g) * 3
+         ).to(torch.bfloat16)
+    for card in (lib, seg_lib):
+        num = FusedInterpNumerics(card)
+        want = num.silu(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = num.silu(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_act_lib_refuses_what_it_cannot_take(seg_lib, dev):
+    """float16, a slot that is no activation and a malformed slot raise,
+    and nothing launches."""
+    from repro_torch.kernels.interp import kernel as ik
+
+    x = torch.randn(64, device=dev)
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(TypeError):
+        ik.act_library_cuda(x.half(), seg_lib, "silu")
+    with pytest.raises(ValueError, match="activation"):
+        ik.act_library_cuda(x, seg_lib, "recip")
+    bad = list(ik.slot_args(seg_lib, "tanh"))
+    bad[9] = 12  # a 4096-cell table in a 42-row slot
+    real = ik.slot_args
+    try:
+        ik.slot_args = lambda library, kind: bad
+        ik._act_operands.cache_clear()
+        with pytest.raises(RuntimeError, match="act_lib"):
+            ik.act_library_cuda(x, seg_lib, "tanh")
+    finally:
+        ik.slot_args = real
+        ik._act_operands.cache_clear()
+    assert build.LAUNCHES == n0
+
+
+@pytest.mark.parametrize("name", ["uniform", "segmented"])
+def test_int32_one_id_staging_at_an_odd_count(name, lib, seg_lib, dev):
+    """library_eval and library_walk with one id (the one-slot staging)
+    on an odd code count and on a view 4 bytes past a 16-byte boundary:
+    the plain version's values for every slot."""
+    card = _act_lib(name, lib, seg_lib)
+    g = torch.Generator(device=dev).manual_seed(7)
+    base = torch.randint(0, 4096, (3 * 4096 + 6,), dtype=torch.int32,
+                         device=dev, generator=g)
+    walk, dp = card.walk_rows()
+    for codes in (base[:-1], base[1:-2]):
+        assert codes.numel() % 2
+        for kind in card.kinds:
+            fid = card.func_id(kind)
+            fids = torch.full_like(codes, fid)
+            want = library_walk_ref(codes, fids, card.coeffs, walk, dp)
+            assert torch.equal(library_walk(codes, fid, card.coeffs, walk,
+                                            dp), want), kind
+            assert torch.equal(card.eval_int(codes, kind), want), kind
+            if not card.segmented_kinds:
+                assert torch.equal(library_eval(codes, fid, card.coeffs,
+                                                card.meta_rows()), want)
