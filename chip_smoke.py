@@ -46,7 +46,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    ``library_walk`` in the kernels line) and the plain version, timed
    beside the chain and ``F.silu`` on the same view, with each of its two
    bodies forced (and, at Yi-6B's prefill, with a cold L2, as the int32
-   kernels);
+   kernels); ``rmsnorm_lib`` at the served models' decode and prefill
+   shapes with its two bodies and a gamma in bf16 and float32 against the
+   plain version, the served norm (``apply_norm``, the bf16 scale as
+   stored) one launch and one device op (CUDA graph nodes), timed beside
+   ``F.rms_norm`` with the same gamma, at every thread count per row and,
+   at Yi-6B's prefill, with a cold L2;
 6. runs the per-table path at full Yi-6B width: 10-bit exp2neg, recip and
    rsqrt designs generated on the card into a fresh cache, the vendored
    12-bit R5 designs and the default R6 ones, each set through
@@ -79,10 +84,12 @@ import functools
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -900,8 +907,6 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
     from repro_torch.kernels.interp.ops import library_eval
     from repro_torch.kernels.interp.ref import library_eval_ref
-    from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
-    from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
     from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
     from repro_torch.kernels.softmax.ops import (approx_softmax_library,
                                                  lib_meta)
@@ -959,40 +964,7 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
         rows.setdefault("library_eval", row)
 
     # -- rmsnorm_lib -------------------------------------------------------
-    rs_tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1) + 2.0 ** -7
-    for n_rows, d in ((4, 4096), (512, 4096), (4, 2048), (511, 2048)):
-        x = (torch.randn(n_rows, d, device=dev, generator=g) * 2
-             ).to(torch.bfloat16)
-        gamma = torch.rand(d, device=dev, generator=g) + 0.5
-        got = approx_rmsnorm_library(x, gamma, lib).float()
-        want = approx_rmsnorm_library_ref(x, gamma, lib).float()
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        print(f"rmsnorm_lib ({n_rows}, {d}) bf16: max_abs_err {err:.3e}, "
-              f"max rel {rel:.3e} (tolerance rel {rs_tol:.3e}: 2 rsqrt-table "
-              f"ulps + 1 bf16 rounding)")
-        if rel > rs_tol:
-            raise AssertionError(f"rmsnorm_lib ({n_rows}, {d}) differs")
-        b_ms, b_by = bound(2 * x.numel() * 2 + d * 4, 4 * x.numel(),
-                           F32_FLOPS)
-        g16 = gamma.to(torch.bfloat16)
-        row = dict(name="rmsnorm_lib", shape=[n_rows, d], max_abs_err=err,
-                   tolerance=rs_tol,
-                   ms=device_ms(lambda: approx_rmsnorm_library(x, gamma, lib),
-                                label=f"{label} rmsnorm {x.shape}",
-                                kernel="rmsnorm_lib"),
-                   call_ms=timed(lambda: approx_rmsnorm_library(x, gamma,
-                                                                lib)),
-                   plain_ms=device_ms(lambda: approx_rmsnorm_library_ref(
-                       x, gamma, lib), iters=3,
-                       label=f"{label} plain {x.shape}"),
-                   library_ms=device_ms(lambda: F.rms_norm(x, (d,), g16,
-                                                           1e-6),
-                                        label=f"{label} F.rms_norm {x.shape}"),
-                   bound_ms=b_ms, bound_by=b_by,
-                   **graph_cols(lambda: approx_rmsnorm_library(x, gamma, lib),
-                                lambda: F.rms_norm(x, (d,), g16, 1e-6)))
+    for row in rmsnorm_lib_rows(lib, dev, g, flush, label):
         details.append(row)
         rows.setdefault("rmsnorm_lib", row)
 
@@ -1164,6 +1136,144 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     return rows, details
 
 
+# rmsnorm_lib's main-path shapes: Yi-6B (d 4096) and DeepSeekMoE (d 2048)
+# at decode (4 slots) and in a prefill (512 and 511 tokens), bf16
+RMS_SHAPES = ((4, 4096), (512, 4096), (4, 2048), (511, 2048))
+RMS_TPRS = (64, 128, 256, 512, 1024)  # the thread counts per row timed
+
+
+def rmsnorm_lib_rows(lib, dev, g, flush, label):
+    """rmsnorm_lib at ``RMS_SHAPES`` on ``lib``: both bodies and both gamma
+    dtypes against the plain version (2 rsqrt-table ulps + one bf16
+    rounding; bitwise on two rows whose mean(x^2) is exact in any order),
+    the bf16 scale bitwise its float32 cast, and the served call
+    (``apply_norm`` with the bf16 scale as stored, the model's layout) one
+    launch and one device op. Timed: the served call (bf16 gamma) against
+    ``F.rms_norm`` with the same gamma, the float32 gamma, the masked body
+    forced and, on the uniform library, every thread count per row the
+    vector body takes and, at (512, 4096), a cold L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import deepseek_moe_16b, yi_6b
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm.kernel import (launch_shape,
+                                                    rmsnorm_lib_cuda)
+    from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
+    from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.numerics.ops import FusedInterpNumerics
+
+    num = FusedInterpNumerics(lib)
+    rs_tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1) + 2.0 ** -7
+    pow2 = torch.tensor([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0], device=dev)
+    out = []
+    for n_rows, d in RMS_SHAPES:
+        x = torch.randn(n_rows, d, device=dev, generator=g) * 2
+        x[:2] = pow2[torch.randint(0, 6, (2, d), device=dev, generator=g)]
+        x = x.to(torch.bfloat16)
+        g32 = torch.rand(d, device=dev, generator=g) + 0.5
+        g16 = g32.to(torch.bfloat16)  # the served scale, as stored
+        g32 = g16.float()  # the same values as float32
+        checks = {}
+        for gname, gm in (("bfloat16", g16), ("float32", g32)):
+            want = approx_rmsnorm_library_ref(x, gm, lib)
+            for body in ("vector", "masked"):
+                got = rmsnorm_lib_cuda(x, gm, lib, body=body)
+                torch.cuda.synchronize()
+                exact = torch.equal(got[:2], want[:2])
+                gf, wf = got.float(), want.float()
+                err = float((gf - wf).abs().max())
+                rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)
+                             ).max())
+                checks[f"{gname} gamma, {body}"] = dict(
+                    max_abs_err=err, max_rel=rel, exact_rows_bitwise=exact)
+                print(f"rmsnorm_lib ({n_rows}, {d}) bf16, {gname} gamma, "
+                      f"{body} body ({label} library): exact-ms rows bitwise"
+                      f" {exact}, max_abs_err {err:.3e}, max rel {rel:.3e} "
+                      f"(tolerance rel {rs_tol:.3e}: 2 rsqrt-table ulps + 1 "
+                      f"bf16 rounding)")
+                if rel > rs_tol or not exact:
+                    raise AssertionError(f"rmsnorm_lib ({n_rows}, {d}) "
+                                         f"{gname} {body} differs")
+        fn = functools.partial(approx_rmsnorm_library, x, g16, lib)
+        if not torch.equal(fn(), approx_rmsnorm_library(x, g32, lib)):
+            raise AssertionError("rmsnorm_lib: bf16 gamma differs from its "
+                                 "float32 cast")
+        # the served call: apply_norm on the model's (B, S, D) layout
+        cfg = yi_6b.CONFIG if d == yi_6b.CONFIG.d_model else \
+            deepseek_moe_16b.CONFIG
+        x3 = x.reshape(4, 1, d) if n_rows == 4 else x.reshape(1, n_rows, d)
+        p = {"scale": g16}
+        n0 = dict(build.LAUNCHES)
+        served = apply_norm(p, x3, cfg, num)
+        torch.cuda.synchronize()
+        launched = {k: v - n0[k] for k, v in build.LAUNCHES.items()
+                    if v != n0[k]}
+        ops = device_ops(lambda: apply_norm(p, x3, cfg, num))
+        nodes = graph_ops(lambda: apply_norm(p, x3, cfg, num))
+        cast_nodes = graph_ops(lambda: num.rmsnorm(x3, g16.float()))
+        same = torch.equal(served.reshape(n_rows, d), fn())
+        print(f"  apply_norm {tuple(x3.shape)} bf16 scale ({label} "
+              f"library): launches {launched}, device ops per call "
+              f"{ops} (profiler; it may lose events), {nodes} (CUDA graph "
+              f"nodes; {cast_nodes} with the scale cast first, as before), "
+              f"bitwise the kernel call {same}")
+        if (launched != {"rmsnorm_lib": 1} or nodes != 1 or ops > 1
+                or not same):
+            raise AssertionError(f"apply_norm {tuple(x3.shape)} is not one "
+                                 f"rmsnorm_lib launch and one device op")
+        yard = functools.partial(F.rms_norm, x, (d,), g16, 1e-6)
+        b_ms, b_by = bound(2 * x.numel() * 2 + d * 2, 4 * x.numel(),
+                           F32_FLOPS)
+        tag = f"{label} rmsnorm ({n_rows}, {d})"
+        row = dict(name="rmsnorm_lib", shape=[n_rows, d], library=label,
+                   dtype="bfloat16", gamma_dtype="bfloat16",
+                   launch=list(launch_shape(n_rows, d, 2, True)),
+                   checks=checks, ops=ops, graph_nodes=nodes,
+                   cast_graph_nodes=cast_nodes,
+                   max_abs_err=checks["bfloat16 gamma, vector"]
+                   ["max_abs_err"], tolerance=rs_tol,
+                   ms=device_ms(fn, label=tag, kernel="rmsnorm_lib"),
+                   call_ms=timed(fn),
+                   plain_ms=device_ms(functools.partial(
+                       approx_rmsnorm_library_ref, x, g16, lib), iters=3,
+                       label=f"plain {tag}"),
+                   library_ms=device_ms(yard, label=f"F.rms_norm {tag}"),
+                   bound_ms=b_ms, bound_by=b_by,
+                   f32_gamma_bound_ms=bound(2 * x.numel() * 2 + d * 4,
+                                            4 * x.numel(), F32_FLOPS)[0],
+                   **graph_cols(fn, yard))
+        row["f32_gamma_graph_ms"] = graph_ms(functools.partial(
+            approx_rmsnorm_library, x, g32, lib))[0]
+        row["masked_graph_ms"] = graph_ms(functools.partial(
+            rmsnorm_lib_cuda, x, g16, lib, body="masked"))[0]
+        if label == "uniform":
+            tprs = {}
+            for tpr in RMS_TPRS:
+                try:
+                    launch_shape(n_rows, d, 2, True, tpr)
+                except ValueError:
+                    continue
+                tprs[tpr] = graph_ms(functools.partial(
+                    rmsnorm_lib_cuda, x, g16, lib, tpr=tpr))[0]
+            row["tpr_graph_ms"] = tprs
+        if (n_rows, d) == (512, 4096):
+            row["cold_ms"] = device_ms(lambda: (flush(), fn()),
+                                       label=f"cold {tag}",
+                                       kernel="rmsnorm_lib", own=True)
+        print(f"  rmsnorm_lib ({n_rows}, {d}) ({label}): graph "
+              f"{_ms(row['graph_ms'])} (F.rms_norm {_ms(row['library_graph_ms'])}"
+              f"), f32 gamma {_ms(row['f32_gamma_graph_ms'])}, masked body "
+              f"{_ms(row['masked_graph_ms'])}, bound {b_ms:.5f} ms; launch "
+              f"{row['launch']}; threads per row "
+              f"{ {k: _ms(v) for k, v in row.get('tpr_graph_ms', {}).items()} }"
+              + (f"; cold L2 {row['cold_ms']:.5f} ms" if "cold_ms" in row
+                 else ""))
+        out.append(row)
+    return out
+
+
 def l2_flush(dev):
     """A call that writes 128 MB (2.5x the H100's 50 MB L2), so that the
     next kernel finds its operands in HBM, as a serving step does."""
@@ -1193,6 +1303,37 @@ def device_ops(fn, iters: int = 10) -> float:
         most = max(most, sum(int(e.count) for e in prof.key_averages()
                              if e.device_type == DeviceType.CUDA))
     return most / iters
+
+
+def graph_ops(fn) -> int | None:
+    """Device operations (kernel, copy and fill nodes) one ``fn()``
+    enqueues, counted in a CUDA graph that captures it (its DOT dump):
+    exact where the profiler loses events. None where ``fn()`` cannot be
+    captured or the dump names no node."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+    with tempfile.TemporaryDirectory() as d, warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the dump announces itself
+        path = pathlib.Path(d) / "graph.dot"
+        graph.debug_dump(str(path))
+        dot = path.read_text()
+    nodes = len(re.findall(r'^"graph_\d+_node_\d+"\s*\[', dot, re.M))
+    return nodes or None
 
 
 def act_phase(libs, dev):
@@ -1584,6 +1725,9 @@ def pertable_phase(lib, dev):
         r.update(ms=device_ms(fn, label=label, kernel=name),
                  call_ms=timed(fn), bound_ms=b_ms, bound_by=b_by,
                  **graph_cols(fn, yard if dset == "R6" else None))
+        if name == "rmsnorm_tab":  # the scale as a bf16 model stores it
+            r["bf16_gamma_graph_ms"] = graph_ms(functools.partial(
+                approx_rmsnorm_fused, x, g16, sd))[0]
         if dset == "R6":
             r.update(plain_ms=device_ms(plain, iters=3,
                                         label=f"plain {label}"),

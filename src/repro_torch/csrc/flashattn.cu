@@ -412,27 +412,6 @@ flash_attn_kernel(const FlashParams p) {
 // ---------------------------------------------------------------------------
 // Tensor-core body (bf16, D and Dv <= 128).
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-// 16 (or 4) bytes global -> shared, asynchronously; src_bytes 0 zero-fills.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -464,20 +443,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 8 rows one ldmatrix reads start 16 bytes apart modulo 128 (no conflicts).
 __host__ __device__ __forceinline__ int tc_stride(int d) {
   return ((d + 15) & ~15) + 8;
-}
-
-// Copy one table slot to shared memory with cp.async (as `stage_slot`) and
-// re-base `t` on the copy; the caller commits, waits and synchronizes.
-__device__ __forceinline__ void stage_slot_async(const int32_t* rom,
-                                                 TableArgs& t, int32_t* s) {
-  for (int i = threadIdx.x; i < 3 * t.rows; i += blockDim.x)
-    cp_async4(smem_addr(s + i), rom + 3 * t.row0 + i, 4);
-  if (t.seg_depth) {
-    for (int i = threadIdx.x; i < 5 * t.n_leaves; i += blockDim.x)
-      cp_async4(smem_addr(s + 3 * t.rows + i), t.leaf_dp + i, 4);
-    t.leaf_dp = s + 3 * t.rows;
-  }
-  t.row0 = 0;
 }
 
 // Calls body(row, chunk) once for every row < rows and chunk < cpr across

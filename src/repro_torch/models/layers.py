@@ -62,7 +62,11 @@ def embed_shapes(cfg) -> dict:
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
-    return numerics.rmsnorm(x, p["scale"].to(torch.float32)).to(x.dtype)
+    """RMSNorm with the scale as stored: the reference casts it to float32
+    first, and every backend promotes it to float32 itself (bf16 -> f32 is
+    exact, so the result is bitwise the same); the fused kernel reads it in
+    its own dtype, so the served norm is one device op."""
+    return numerics.rmsnorm(x, p["scale"]).to(x.dtype)
 
 
 def rope_angles(positions: torch.Tensor, dim: int, theta: float):

@@ -133,27 +133,166 @@ def test_library_eval_silu_shapes(shape, lib, dev):
     assert build.LAUNCHES["library_eval"] == n0 + 2
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(4, 4096, torch.bfloat16),
-                                          (512, 4096, torch.bfloat16),
-                                          (7, 1000, torch.float32)])
-def test_rmsnorm_kernel_matches_plain(rows, d, dtype, lib, dev):
-    _check_rmsnorm(rows, d, dtype, lib, dev)
+# the main path's shapes (Yi-6B, DeepSeekMoE: decode, prefill), one row,
+# and shapes only the masked body takes (D no multiple of the vector)
+RMS_SHAPES = [(4, 4096, torch.bfloat16), (512, 4096, torch.bfloat16),
+              (4, 2048, torch.bfloat16), (511, 2048, torch.bfloat16),
+              (1, 4096, torch.bfloat16), (7, 1000, torch.float32),
+              (3, 4095, torch.bfloat16)]
+GAMMA_DTYPES = [torch.float32, torch.bfloat16]
 
 
-def _check_rmsnorm(rows, d, dtype, lib, dev):
-    g = torch.Generator(device=dev).manual_seed(rows)
+@pytest.mark.parametrize("gdtype", GAMMA_DTYPES)
+@pytest.mark.parametrize("rows,d,dtype", RMS_SHAPES)
+def test_rmsnorm_kernel_matches_plain(rows, d, dtype, gdtype, lib, dev):
+    _check_rmsnorm(rows, d, dtype, lib, dev, gdtype)
+
+
+@pytest.mark.parametrize("gdtype", GAMMA_DTYPES)
+@pytest.mark.parametrize("case", ["masked_f32", "masked_4095",
+                                  "unaligned_view", "unaligned_gamma"])
+def test_rmsnorm_masked_body_matches_plain(case, gdtype, lib, dev):
+    """The masked body: forced at (7, 1000) float32 (a D the vector body
+    takes too), picked for D = 4095 and for operands at an odd offset (a
+    row view starting 2 bytes past a 16-byte boundary; a gamma view)."""
+    rows, d, dtype, body, view = {
+        "masked_f32": (7, 1000, torch.float32, "masked", None),
+        "masked_4095": (3, 4095, torch.bfloat16, None, None),
+        "unaligned_view": (5, 4096, torch.bfloat16, None, "x"),
+        "unaligned_gamma": (4, 2048, torch.bfloat16, None, "gamma"),
+    }[case]
+    _check_rmsnorm(rows, d, dtype, lib, dev, gdtype, body=body, view=view)
+
+
+def _rms_inputs(rows, d, dtype, dev, gdtype=torch.float32, view=None,
+                seed=None):
+    """x (rows of random scale; the first min(2, rows - 1) rows of +-0.5,
+    1, 2, whose mean(x^2) is exact in any order) and gamma in [0.5, 1.5);
+    ``view`` puts x or gamma at a 2-byte offset from a 16-byte boundary."""
+    g = torch.Generator(device=dev).manual_seed(rows if seed is None
+                                                else seed)
     x = (torch.randn(rows, d, device=dev, generator=g) *
-         torch.rand(rows, 1, device=dev, generator=g) * 10).to(dtype)
-    gamma = torch.rand(d, device=dev, generator=g) + 0.5
-    n0 = build.LAUNCHES["rmsnorm_lib"]
-    got = approx_rmsnorm_library(x, gamma, lib).float()
-    want = approx_rmsnorm_library_ref(x, gamma, lib).float()
+         torch.rand(rows, 1, device=dev, generator=g) * 10)
+    n_exact = min(2, rows - 1)
+    x[:n_exact] = torch.tensor([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0],
+                               device=dev)[torch.randint(
+                                   0, 6, (n_exact, d), device=dev,
+                                   generator=g)]
+    gamma = (torch.rand(d, device=dev, generator=g) + 0.5).to(gdtype)
+    x = x.to(dtype)
+    if view == "x":
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        flat[1:].copy_(x.reshape(-1))
+        x = flat[1:].view(rows, d)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    elif view == "gamma":
+        flat = torch.empty(d + 1, dtype=gdtype, device=dev)
+        flat[1:].copy_(gamma)
+        gamma = flat[1:]
+        assert gamma.data_ptr() % 16
+    return x, gamma, n_exact
+
+
+def _rms_tol(design_or_meta, dtype):
+    """2 rsqrt-table ulps (the sum's order may move the code by one) plus
+    one output rounding in bf16."""
+    tol = 2 * 2.0 ** -(design_or_meta.out_bits - 1)
+    return tol + (2.0 ** -7 if dtype == torch.bfloat16 else 0.0)
+
+
+def _check_rmsnorm(rows, d, dtype, lib, dev, gdtype=torch.float32, body=None,
+                   view=None):
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_lib_cuda
+
+    x, gamma, n_exact = _rms_inputs(rows, d, dtype, dev, gdtype, view)
+    n0 = dict(build.LAUNCHES)
+    if body is None:
+        got = approx_rmsnorm_library(x, gamma, lib)
+    else:
+        got = rmsnorm_lib_cuda(x, gamma, lib, body=body)
+    want = approx_rmsnorm_library_ref(x, gamma, lib)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["rmsnorm_lib"] == n0 + 1
-    tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1)
-    if dtype == torch.bfloat16:
-        tol += 2.0 ** -7
+    assert build.LAUNCHES["rmsnorm_lib"] == n0["rmsnorm_lib"] + 1
+    assert sum(build.LAUNCHES.values()) == sum(n0.values()) + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got[:n_exact], want[:n_exact])
+    got, want = got.float(), want.float()
+    tol = _rms_tol(lib.meta("rsqrt"), dtype)
     assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
+
+
+def test_rmsnorm_bodies_and_thread_counts_agree(lib, dev):
+    """At Yi-6B's decode shape the vector body at every thread count the
+    wrapper takes and the masked body forced, each also with too few
+    threads to hold the row in one pass, agree with the plain version at
+    the tolerance and with each other on the exact-ms rows; a gamma in
+    bf16 and its float32 cast give the same bits."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_lib_cuda
+
+    x, gamma, n_exact = _rms_inputs(4, 4096, torch.bfloat16, dev,
+                                    torch.bfloat16)
+    want = approx_rmsnorm_library_ref(x, gamma, lib).float()
+    tol = _rms_tol(lib.meta("rsqrt"), torch.bfloat16)
+    outs = [rmsnorm_lib_cuda(x, gamma, lib, tpr=tpr)
+            for tpr in (64, 128, 256, 512, 1024)]
+    outs.append(rmsnorm_lib_cuda(x, gamma, lib, body="masked"))
+    # rows longer than one pass of the registers: read again to be written
+    outs.append(rmsnorm_lib_cuda(x, gamma, lib, tpr=32))  # 2 passes
+    outs.append(rmsnorm_lib_cuda(x, gamma, lib, body="masked", tpr=64))  # 8
+    for out in outs:
+        assert torch.equal(out[:n_exact], outs[0][:n_exact])
+        assert torch.all((out.float() - want).abs() <= tol * want.abs())
+    assert torch.equal(rmsnorm_lib_cuda(x, gamma.float(), lib),
+                       rmsnorm_lib_cuda(x, gamma, lib))
+    with pytest.raises(ValueError, match="vector body"):
+        rmsnorm_lib_cuda(x[:, :4095], gamma[:4095], lib, body="vector")
+
+
+def _graph_nodes(fn, tmp_path) -> int:
+    """Device operations (kernel, copy and fill nodes) one ``fn()``
+    enqueues: the nodes of a CUDA graph that captures it, from its DOT
+    dump (the profiler loses events from some traces)."""
+    import re
+    import warnings
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        graph.debug_dump(str(tmp_path / "graph.dot"))
+    dot = (tmp_path / "graph.dot").read_text()
+    return len(re.findall(r'^"graph_\d+_node_\d+"\s*\[', dot, re.M))
+
+
+def test_apply_norm_is_one_launch_and_one_device_op(lib, dev, tmp_path):
+    """The served norm at Yi-6B width: ``apply_norm`` with the bf16 scale
+    as stored under the fused numerics is one rmsnorm_lib launch and one
+    device op (no cast of the scale, no copy of x; the scale cast first
+    is two), and equals the kernel handed the scale's float32 cast."""
+    from repro_torch.models.layers import apply_norm
+
+    cfg = get_config("yi_6b")
+    g = torch.Generator(device=dev).manual_seed(9)
+    p = {"scale": (torch.rand(cfg.d_model, device=dev, generator=g) + 0.5
+                   ).to(torch.bfloat16)}
+    x = torch.randn(4, 1, cfg.d_model, device=dev, generator=g
+                    ).to(torch.bfloat16)
+    num = FusedInterpNumerics(lib)
+    n0 = dict(build.LAUNCHES)
+    got = apply_norm(p, x, cfg, num)
+    assert build.LAUNCHES["rmsnorm_lib"] == n0["rmsnorm_lib"] + 1
+    assert sum(build.LAUNCHES.values()) == sum(n0.values()) + 1
+    assert torch.equal(got, num.rmsnorm(x, p["scale"].float()))
+    assert _graph_nodes(lambda: apply_norm(p, x, cfg, num), tmp_path) == 1
+    assert _graph_nodes(lambda: num.rmsnorm(x, p["scale"].float()),
+                        tmp_path) == 2
 
 
 @pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
@@ -578,10 +717,21 @@ def test_rom_eval_refuses_a_malformed_slot(seg_lib, dev):
         ik.slot_args = real
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(4, 4096, torch.bfloat16),
-                                          (4, 2048, torch.float32)])
-def test_rmsnorm_kernel_on_segmented_library(rows, d, dtype, seg_lib, dev):
-    _check_rmsnorm(rows, d, dtype, seg_lib, dev)
+@pytest.mark.parametrize("gdtype", GAMMA_DTYPES)
+@pytest.mark.parametrize("rows,d,dtype", RMS_SHAPES + [(4, 2048,
+                                                        torch.float32)])
+def test_rmsnorm_kernel_on_segmented_library(rows, d, dtype, gdtype, seg_lib,
+                                             dev):
+    _check_rmsnorm(rows, d, dtype, seg_lib, dev, gdtype)
+
+
+@pytest.mark.parametrize("case", ["masked_f32", "unaligned_view"])
+def test_rmsnorm_masked_body_on_segmented_library(case, seg_lib, dev):
+    rows, d, dtype, body, view = {
+        "masked_f32": (7, 1000, torch.float32, "masked", None),
+        "unaligned_view": (5, 4096, torch.bfloat16, None, "x")}[case]
+    _check_rmsnorm(rows, d, dtype, seg_lib, dev, torch.bfloat16, body=body,
+                   view=view)
 
 
 @pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
@@ -775,10 +925,20 @@ def test_tab_equals_lib_bitwise_on_default_designs(kernel, tab_designs, lib,
                                                     d6["recip"]),
                                approx_softmax_library(x, lib))
     elif kernel == "rmsnorm":
-        x = torch.randn(5, 4096, device=dev, generator=g).to(torch.bfloat16)
-        gamma = torch.rand(4096, device=dev, generator=g) + 0.5
-        assert torch.equal(approx_rmsnorm_fused(x, gamma, d6["rsqrt"]),
-                           approx_rmsnorm_library(x, gamma, lib))
+        from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_lib_cuda,
+                                                        rmsnorm_tab_cuda)
+
+        for rows, d, dtype in [(5, 4096, torch.bfloat16)] + RMS_SHAPES:
+            for gdtype in GAMMA_DTYPES:
+                x, gamma, _ = _rms_inputs(rows, d, dtype, dev, gdtype,
+                                          seed=7)
+                assert torch.equal(approx_rmsnorm_fused(x, gamma,
+                                                        d6["rsqrt"]),
+                                   approx_rmsnorm_library(x, gamma, lib))
+        x, gamma, _ = _rms_inputs(7, 1000, torch.float32, dev, seed=7)
+        assert torch.equal(
+            rmsnorm_tab_cuda(x, gamma, d6["rsqrt"], body="masked"),
+            rmsnorm_lib_cuda(x, gamma, lib, body="masked"))
     else:
         for case in ("prefill", "decode", "ragged"):
             q, k, v, causal = _tab_case(case, dev, torch.bfloat16)

@@ -186,6 +186,96 @@ def test_prefill_and_decode_logits_match_reference(name, setup):
                                   _stacked_cache(jcache, s["jcfg"])[2])
 
 
+def _bf16_params(arch):
+    """The smoke configs of ``arch`` and reference parameters in bfloat16,
+    with every norm scale drawn off 1 (bf16-exact values in [0.5, 1.5)) so
+    that the scale's dtype matters; the port's parameters carried over."""
+    jcfg = jax_smoke_config(arch).replace(param_dtype="bfloat16")
+    cfg = get_smoke_config(arch).replace(param_dtype="bfloat16")
+    rng = np.random.default_rng(5)
+
+    def scales(tree):
+        return {k: scales(v) if isinstance(v, dict) else
+                ((1 + rng.integers(-64, 64, v.shape) / 128).astype(v.dtype)
+                 if k == "scale" else v) for k, v in tree.items()}
+
+    tree = scales(jax.tree.map(np.asarray,
+                               jtf.init_params(jax.random.key(0), jcfg)))
+    return (jcfg, cfg, jax.tree.map(jnp.asarray, tree),
+            params_from_jax(tree, cfg, "cpu"))
+
+
+def _port_logits(params, cfg, numerics, toks, feed):
+    """Prefill logits, then one decode step's per (token, position) of
+    ``feed``."""
+    log, cache = tf.prefill(params, torch.from_numpy(toks).long(), cfg,
+                            numerics, CACHE)
+    out = [log]
+    for tok, pos in feed:
+        log, cache = tf.decode_step(params, torch.from_numpy(tok).long(),
+                                    torch.from_numpy(pos), cache, cfg,
+                                    numerics)
+        out.append(log)
+    return out
+
+
+def _cast_norm(p, x, cfg, numerics):
+    """``apply_norm`` as it was: the scale cast to float32 first."""
+    return numerics.rmsnorm(x, p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def test_bf16_norm_scale_as_stored_matches_the_cast(setup, monkeypatch):
+    """bfloat16 parameters under interp-fused numerics: prefill and decode
+    logits with the norm scale passed as stored are bitwise those with the
+    scale cast to float32 first (the expression before)."""
+    _, cfg, _, params = _bf16_params(setup["cfg"].name)
+    tnum = _numerics(setup, "interp-fused")[1]
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 13)).astype(np.int32)
+    feed = [(np.array([[3], [7]], np.int32) + i, np.array([13, 13], np.int32)
+             + i) for i in range(3)]
+    now = _port_logits(params, cfg, tnum, toks, feed)
+    monkeypatch.setattr(tf, "apply_norm", _cast_norm)
+    before = _port_logits(params, cfg, tnum, toks, feed)
+    for a, b in zip(now, before):
+        assert a.dtype == torch.bfloat16
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def test_bf16_params_logits_match_reference():
+    """The same bfloat16 parameters on the dense decoder against the
+    reference, as ``test_prefill_and_decode_logits_match_reference`` holds
+    float32 ones (its tolerance, tie-aware greedy tokens, decode
+    teacher-forced with the reference's tokens). The MoE config is held by
+    the test above and the float32 reference test only: the reference's CPU
+    backend has no bf16 x bf16 -> f32 dot for its expert layer (XLA's CPU
+    DotThunk)."""
+    jcfg, cfg, jparams, params = _bf16_params("yi_6b")
+    jnum = jax_get_numerics("interp-fused", default_explorer().compile())
+    tnum = get_numerics("interp-fused", InterpLibrary.default_library("cpu"))
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 13)).astype(np.int32)
+    jpre = jax.jit(functools.partial(jtf.prefill, cfg=jcfg, numerics=jnum,
+                                     cache_len=CACHE))
+    jdec = jax.jit(functools.partial(jtf.decode_step, cfg=jcfg,
+                                     numerics=jnum))
+    jlog, jcache, _ = jpre(jparams, jnp.asarray(toks))
+    ref, feed = [np.asarray(jlog).astype(np.float32)], []
+    pos = np.array([13, 13], np.int32)
+    for _ in range(3):
+        tok = ref[-1][:, 0].argmax(-1)[:, None].astype(np.int32)
+        feed.append((tok, pos))
+        jlog, jcache = jdec(jparams, jnp.asarray(tok), jnp.asarray(pos),
+                            jcache)
+        ref.append(np.asarray(jlog).astype(np.float32))
+        pos = pos + 1
+    for got, want in zip(_port_logits(params, cfg, tnum, toks, feed), ref):
+        got = got.float().numpy()
+        tol = _tol("interp-fused", want)
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+        _assert_greedy(want, got, tol)
+
+
 def test_mixed_length_pool_decode_matches_reference(setup):
     """Two prompts of different lengths prefilled alone, spliced into a
     3-slot pool, decoded together at per-slot positions."""

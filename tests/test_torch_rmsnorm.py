@@ -10,6 +10,9 @@ table output lies in (2^(out_bits-1), 2^out_bits], so rtol 2 * 2^-(out_bits-1).
 """
 from __future__ import annotations
 
+import functools
+import json
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,10 +22,21 @@ from repro.api import default_explorer
 from repro.kernels.rmsnorm.kernel import fused_rmsnorm_lib
 from repro.kernels.rmsnorm.ref import fused_rmsnorm_lib_ref
 from repro.kernels.softmax.ops import lib_meta as jax_lib_meta
-from repro_torch.api.library import InterpLibrary
+from repro_torch.api import spec_for
+from repro_torch.api.library import (DEFAULT_LIBRARY_KINDS, DEFAULT_TABLE_KEY,
+                                     TABLES_DIR, InterpLibrary)
+from repro_torch.core.table import TableDesign
 from repro_torch.kernels.interp.ops import lib_meta
-from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
+from repro_torch.kernels.rmsnorm.kernel import (launch_shape,
+                                                rmsnorm_lib_cuda,
+                                                rmsnorm_tab_cuda, vector_ok)
+from repro_torch.kernels.rmsnorm.ops import (approx_rmsnorm_fused,
+                                             approx_rmsnorm_library)
 from repro_torch.kernels.rmsnorm.ref import rsqrt_codes
+from repro_torch.numerics.ops import (ExactNumerics, FusedInterpNumerics,
+                                      InterpNumerics, PlainFusedNumerics,
+                                      approx_rmsnorm)
+from repro_torch.segment import explore_segmented
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,6 +54,24 @@ EPS = 1e-6
 @pytest.fixture(scope="module")
 def libs():
     return InterpLibrary.default_library("cpu"), default_explorer().compile()
+
+
+def _vendored(kind):
+    return TableDesign.from_dict(json.loads(
+        (TABLES_DIR / f"{kind}_{DEFAULT_TABLE_KEY}.json").read_text()))
+
+
+@pytest.fixture(scope="module")
+def seg_lib():
+    """The default library with its rsqrt slot segmented (ROM v2), the
+    other slots uniform."""
+    designs = [explore_segmented(spec_for(k), max_depth=6, engine="batched",
+                                 device="cpu") if k == "rsqrt"
+               else _vendored(k) for k in DEFAULT_LIBRARY_KINDS]
+    lib = InterpLibrary.from_designs(designs, DEFAULT_LIBRARY_KINDS,
+                                     device="cpu")
+    assert lib.segmented_kinds == ("rsqrt",)
+    return lib
 
 
 def _inputs(seed=0, rows=8, d=256):
@@ -137,3 +169,102 @@ def test_unfused_interp_rmsnorm_matches_reference(libs):
     out_bits = lib.meta("rsqrt").out_bits
     np.testing.assert_allclose(got[same], want[same], rtol=1e-6)
     np.testing.assert_allclose(got, want, rtol=2 * 2.0 ** -(out_bits - 1))
+
+
+# -- the norm scale as stored: float32 or bfloat16 --------------------------
+
+_PATHS = {
+    "library": lambda lib, seg: functools.partial(
+        approx_rmsnorm_library, library=lib),
+    "library_segmented": lambda lib, seg: functools.partial(
+        approx_rmsnorm_library, library=seg),
+    "fused_per_table": lambda lib, seg: functools.partial(
+        approx_rmsnorm_fused, design=_vendored("rsqrt")),
+    "fused_numerics_segmented": lambda lib, seg: FusedInterpNumerics(
+        seg).rmsnorm,
+    "plain_fused_numerics": lambda lib, seg: PlainFusedNumerics(lib).rmsnorm,
+    "interp": lambda lib, seg: InterpNumerics(lib).rmsnorm,
+    "interp_segmented": lambda lib, seg: InterpNumerics(seg).rmsnorm,
+    "exact": lambda lib, seg: ExactNumerics.rmsnorm,
+    "approx_rmsnorm": lambda lib, seg: functools.partial(
+        approx_rmsnorm, design=_vendored("rsqrt")),
+}
+
+
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("path", list(_PATHS))
+def test_bf16_gamma_equals_its_f32_cast_bitwise(path, xdtype, libs,
+                                                seg_lib):
+    """A bf16 norm scale as stored gives bitwise the output of its float32
+    cast on every rmsnorm path (bf16 -> f32 is exact and each path
+    promotes gamma to float32), on the uniform and segmented libraries."""
+    fn = _PATHS[path](libs[0], seg_lib)
+    x, gamma = _inputs(seed=3, rows=6, d=192)
+    xt = torch.from_numpy(x).to(getattr(torch, xdtype))
+    g16 = torch.from_numpy(gamma).to(torch.bfloat16)
+    got = fn(xt, g16)
+    assert got.dtype == xt.dtype
+    assert torch.equal(got, fn(xt, g16.to(torch.float32)))
+
+
+@pytest.mark.parametrize("entry", ["rmsnorm_lib", "rmsnorm_tab"])
+@pytest.mark.parametrize("bad,err", [("float16", TypeError),
+                                     ("float64", TypeError),
+                                     ("short", ValueError),
+                                     ("matrix", ValueError)])
+def test_wrapper_refuses_gamma(entry, bad, err, libs):
+    """The CUDA wrappers take gamma in float32 or bfloat16 of shape (D,)
+    and cast nothing: another dtype or shape raises before any launch."""
+    x = torch.zeros(4, 64)
+    gamma = {"float16": torch.ones(64, dtype=torch.float16),
+             "float64": torch.ones(64, dtype=torch.float64),
+             "short": torch.ones(63),
+             "matrix": torch.ones(1, 64)}[bad]
+    with pytest.raises(err, match="gamma"):
+        if entry == "rmsnorm_lib":
+            rmsnorm_lib_cuda(x, gamma, libs[0])
+        else:
+            rmsnorm_tab_cuda(x, gamma, _vendored("rsqrt"))
+
+
+@pytest.mark.parametrize("rows,d,itemsize,vector,want", [
+    (4, 4096, 2, True, (1, 256, 2, 1)),     # Yi-6B decode
+    (512, 4096, 2, True, (1, 256, 2, 1)),   # Yi-6B prefill
+    (4, 2048, 2, True, (1, 256, 1, 1)),     # DeepSeekMoE decode
+    (511, 2048, 2, True, (1, 256, 1, 1)),   # DeepSeekMoE prefill
+    (4, 4096, 4, True, (1, 256, 4, 1)),     # float32: 1024 vectors
+    (3, 4095, 2, False, (0, 512, 8, 1)),    # masked: 4095 elements
+    (7, 1000, 4, False, (0, 256, 4, 1)),
+    (5, 64, 4, True, (1, 32, 1, 4)),        # narrow rows share a block
+    (2, 1 << 20, 2, True, (1, 512, 8, 1)),  # passes of 4096 vectors
+])
+def test_launch_shape(rows, d, itemsize, vector, want):
+    """Threads per row from D: one chunk a thread up to 256 threads, then
+    up to 8 chunks, then up to 512 threads (longer rows take passes); 128
+    threads or more a block."""
+    assert launch_shape(rows, d, itemsize, vector) == want
+
+
+def test_launch_shape_refuses_bad_thread_counts():
+    for tpr in (0, 48, 2048):
+        with pytest.raises(ValueError, match="threads per row"):
+            launch_shape(4, 4096, 2, True, tpr)
+    with pytest.raises(ValueError, match="at most 512"):
+        launch_shape(4, 1 << 16, 2, True, 1024)  # 8 vectors a thread
+    assert launch_shape(4, 4096, 2, True, 128) == (1, 128, 4, 1)
+
+
+def test_vector_body_needs_whole_vectors_and_aligned_rows():
+    """The vector body takes D a multiple of 8 bf16 (4 f32) and 16-byte
+    aligned operands; a row view at an odd offset, or D = 4095, takes the
+    masked body."""
+    g = torch.ones(4096, dtype=torch.bfloat16)
+    x = torch.zeros(3, 4096, dtype=torch.bfloat16)
+    assert vector_ok(x, g, torch.empty_like(x))
+    flat = torch.zeros(3 * 4096 + 1, dtype=torch.bfloat16)
+    view = flat[1:].view(3, 4096)  # contiguous rows at a 2-byte offset
+    assert not vector_ok(view, g, torch.empty_like(view))
+    odd = torch.zeros(3, 4095, dtype=torch.bfloat16)
+    assert not vector_ok(odd, g[:4095], torch.empty_like(odd))
+    f = torch.zeros(7, 1000)
+    assert vector_ok(f, torch.ones(1000), torch.empty_like(f))
