@@ -51,7 +51,13 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    plain version, the served norm (``apply_norm``, the bf16 scale as
    stored) one launch and one device op (CUDA graph nodes), timed beside
    ``F.rms_norm`` with the same gamma, at every thread count per row and,
-   at Yi-6B's prefill, with a cold L2;
+   at Yi-6B's prefill, with a cold L2; ``softmax_lib`` at the router's
+   decode and prefill shapes, a wide bf16 row and the per-table phase's
+   two large calls, both bodies e bitwise and the output bitwise the twin
+   with the kernels' sum order, the served router call one launch and one
+   device op, timed beside ``torch.softmax`` on the same tensor with each
+   body, with and without the float table of exp2neg outputs, at every
+   thread count per row and, at (16384, 512), with a cold L2;
 6. runs the per-table path at full Yi-6B width: 10-bit exp2neg, recip and
    rsqrt designs generated on the card into a fresh cache, the vendored
    12-bit R5 designs and the default R6 ones, each set through
@@ -147,11 +153,11 @@ KERNEL_SYMBOLS = {"library_eval": "table_read_kernel<false",
                   "act_lib": "act_lib_kernel",
                   "rmsnorm_lib": "rmsnorm_kernel",
                   "flash_attn_lib": "flash_attn_kernel",
-                  "softmax_lib": "softmax_",
+                  "softmax_lib": "softmax_kernel<",
                   # the per-table entry points run the same bodies
                   "rmsnorm_tab": "rmsnorm_kernel",
                   "flash_attn_tab": "flash_attn_kernel",
-                  "softmax_tab": "softmax_",
+                  "softmax_tab": "softmax_kernel<",
                   "rom_eval": "rom_eval_kernel",
                   "interp_eval": "interp_eval_kernel",
                   "envelopes_parity": "envelopes_parity_kernel",
@@ -907,11 +913,6 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
     from repro_torch.kernels.interp.ops import library_eval
     from repro_torch.kernels.interp.ref import library_eval_ref
-    from repro_torch.kernels.softmax.kernel import softmax_lib_cuda
-    from repro_torch.kernels.softmax.ops import (approx_softmax_library,
-                                                 lib_meta)
-    from repro_torch.kernels.softmax.ref import (approx_softmax_library_ref,
-                                                 softmax_exp)
     from repro_torch.numerics.ops import softmax_ulp_bound
 
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -1074,52 +1075,8 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
         details.append(row)
         rows.setdefault("flash_attn_lib", row)
 
-    # -- softmax_lib: DeepSeekMoE's router at decode (4 slots) and at the
-    # 511-token prefill, 64 experts in float32; and a wide bf16 row --------
-    rb = lib.meta("recip").in_bits
-    em = lib_meta(lib, "exp2neg")
-    for shape, dtype in (((4, 64), torch.float32),
-                         ((511, 64), torch.float32),
-                         ((8, 4096), torch.bfloat16)):
-        x = (torch.randn(shape, device=dev, generator=g) * 4).to(dtype)
-        got, e = softmax_lib_cuda(x, lib, return_e=True)
-        want = approx_softmax_library_ref(x, lib)
-        _, e_ref = softmax_exp(x, lib.coeffs, em)
-        torch.cuda.synchronize()
-        e_exact = torch.equal(e, e_ref)
-        gf, wf = got.float(), want.float()
-        err = float((gf - wf).abs().max())
-        rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)).max())
-        tol = 2.0 ** -(rb - 1) + (2.0 ** -7 if dtype == torch.bfloat16
-                                  else 0.0)
-        print(f"softmax_lib {shape} {str(dtype)[6:]}: e bit-exact "
-              f"{e_exact}, max_abs_err {err:.3e}, max rel {rel:.3e} "
-              f"(tolerance rel {tol:.3e}: one recip-table step 2^-{rb - 1}"
-              f"{' + 1 bf16 rounding' if dtype == torch.bfloat16 else ''})")
-        if not e_exact or rel > tol:
-            raise AssertionError(f"softmax_lib {shape} differs from plain")
-        n = x.numel()
-        # read x once, write out once, both table slots; ~24 float and
-        # integer operations per element (max, t, floor, code, Horner,
-        # scale, sum, final scale) at the float32 rate
-        b_ms, b_by = bound(2 * n * x.element_size() + 2 * lib.r_max * 12,
-                           24 * n, F32_FLOPS)
-        row = dict(name="softmax_lib", shape=list(shape),
-                   dtype=str(dtype)[6:], max_abs_err=err, tolerance=tol,
-                   e_bit_exact=e_exact,
-                   ms=device_ms(lambda: approx_softmax_library(x, lib),
-                                label=f"{label} softmax {shape}",
-                                kernel="softmax_lib"),
-                   call_ms=timed(lambda: approx_softmax_library(x, lib)),
-                   plain_ms=device_ms(lambda: approx_softmax_library_ref(
-                       x, lib), iters=3,
-                       label=f"{label} plain softmax {shape}"),
-                   library_ms=device_ms(lambda: torch.softmax(x, -1),
-                                        label=f"{label} torch.softmax "
-                                              f"{shape}"),
-                   bound_ms=b_ms, bound_by=b_by,
-                   **graph_cols(lambda: approx_softmax_library(x, lib),
-                                lambda: torch.softmax(x, -1)))
+    # -- softmax_lib -------------------------------------------------------
+    for row in softmax_lib_rows(lib, dev, g, flush, label):
         details.append(row)
         rows.setdefault("softmax_lib", row)
     for r in details:
@@ -1134,6 +1091,152 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
               + (f"; cold L2 {r['cold_ms']:.5f} ms" if "cold_ms" in r
                  else ""))
     return rows, details
+
+
+# softmax_lib's shapes: DeepSeekMoE's router at decode (4 slots) and in
+# the 511-token prefill (64 experts, float32), a wide bf16 row, and the
+# per-table phase's two large calls (the same body): ragged bf16 rows and a
+# 512-token prefill's scores over 32 heads
+SOFTMAX_SHAPES = (((4, 64), "float32"), ((511, 64), "float32"),
+                  ((8, 4096), "bfloat16"), ((37, 1000), "bfloat16"),
+                  ((16384, 512), "float32"))
+SOFTMAX_TPRS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+
+
+def softmax_lib_rows(lib, dev, g, flush, label):
+    """softmax_lib at ``SOFTMAX_SHAPES`` on ``lib``: e bitwise against the
+    plain version's, the output bitwise against the twin with the kernels'
+    sum order (``kernel_order_softmax``) for both bodies and within one
+    recip-table step (+ one bf16 rounding) of the plain version; the served
+    router call (``FusedInterpNumerics.softmax`` on (1, 4, 64) logits) one
+    launch and one device op. Timed beside ``torch.softmax`` on the same
+    tensor: both bodies forced (``body_graph_ms``), the float table of
+    exp2neg outputs forced on and off (``lut_graph_ms``), every thread
+    count per row the wrapper takes (``tpr_graph_ms``) and, at (16384,
+    512), a cold L2 (``cold_ms``, ``library_cold_ms``)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.softmax.kernel import (launch_shape,
+                                                    softmax_lib_cuda,
+                                                    vector_ok)
+    from repro_torch.kernels.softmax.ops import (approx_softmax_library,
+                                                 lib_meta)
+    from repro_torch.kernels.softmax.ref import (approx_softmax_library_ref,
+                                                 kernel_order_softmax,
+                                                 softmax_exp)
+    from repro_torch.numerics.ops import FusedInterpNumerics
+
+    rb = lib.meta("recip").in_bits
+    em, rm = lib_meta(lib, "exp2neg"), lib_meta(lib, "recip")
+    out = []
+    for shape, dname in SOFTMAX_SHAPES:
+        dtype = getattr(torch, dname)
+        x = (torch.randn(shape, device=dev, generator=g) * 4).to(dtype)
+        n_rows, d = shape
+        es = x.element_size()
+        want = approx_softmax_library_ref(x, lib)
+        _, e_ref = softmax_exp(x, lib.coeffs, em)
+        tol = 2.0 ** -(rb - 1) + (2.0 ** -7 if dtype == torch.bfloat16
+                                  else 0.0)
+        checks = {}
+        for body in ("vector", "masked"):
+            got, e = softmax_lib_cuda(x, lib, return_e=True, body=body)
+            vector = body == "vector" and vector_ok(x, got)
+            _, tpr, _, _ = launch_shape(n_rows, d, es, vector)
+            twin = kernel_order_softmax(x, lib.coeffs, lib.coeffs, em, rm,
+                                        16 // es if vector else 1, tpr)
+            torch.cuda.synchronize()
+            e_exact, twin_exact = torch.equal(e, e_ref), torch.equal(got,
+                                                                     twin)
+            gf, wf = got.float(), want.float()
+            err = float((gf - wf).abs().max())
+            rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)).max())
+            checks[body] = dict(e_bit_exact=e_exact, twin_bitwise=twin_exact,
+                                max_abs_err=err, max_rel=rel)
+            print(f"softmax_lib {shape} {dname}, {body} body ({label} "
+                  f"library): e bit-exact {e_exact}, bitwise the "
+                  f"kernel-order twin {twin_exact}, max_abs_err {err:.3e}, "
+                  f"max rel {rel:.3e} (tolerance rel {tol:.3e}: one "
+                  f"recip-table step 2^-{rb - 1}"
+                  f"{' + 1 bf16 rounding' if dtype == torch.bfloat16 else ''})")
+            if not (e_exact and twin_exact) or rel > tol:
+                raise AssertionError(f"softmax_lib {shape} {body} differs")
+        fn = functools.partial(approx_softmax_library, x, lib)
+        yard = functools.partial(torch.softmax, x, -1)
+        row = dict(name="softmax_lib", shape=list(shape), dtype=dname,
+                   library=label, checks=checks,
+                   launch=list(launch_shape(n_rows, d, es, vector_ok(
+                       x, torch.empty_like(x)))),
+                   max_abs_err=checks["vector"]["max_abs_err"],
+                   tolerance=tol, e_bit_exact=True)
+        if shape == (4, 64):  # the served router call, the model's layout
+            num = FusedInterpNumerics(lib)
+            x3 = x.reshape(1, 4, 64)
+            n0 = dict(build.LAUNCHES)
+            served = num.softmax(x3, axis=-1)
+            torch.cuda.synchronize()
+            launched = {k: v - n0[k] for k, v in build.LAUNCHES.items()
+                        if v != n0[k]}
+            nodes = graph_ops(lambda: num.softmax(x3, axis=-1))
+            same = torch.equal(served.reshape(shape), fn())
+            print(f"  router softmax (1, 4, 64) float32 ({label} library): "
+                  f"launches {launched}, {nodes} device op(s) (CUDA graph "
+                  f"nodes), bitwise the kernel call {same}")
+            if launched != {"softmax_lib": 1} or nodes != 1 or not same:
+                raise AssertionError("the router softmax is not one "
+                                     "softmax_lib launch and one device op")
+            row.update(graph_ops=nodes)
+        # read x once, write out once, both table slots; ~24 float and
+        # integer operations per element (max, t, floor, code, Horner,
+        # scale, sum, final scale) at the float32 rate
+        b_ms, b_by = bound(2 * x.numel() * es + 2 * lib.r_max * 12,
+                           24 * x.numel(), F32_FLOPS)
+        tag = f"{label} softmax {shape}"
+        row.update(ms=device_ms(fn, label=tag, kernel="softmax_lib"),
+                   call_ms=timed(fn),
+                   plain_ms=device_ms(functools.partial(
+                       approx_softmax_library_ref, x, lib), iters=3,
+                       label=f"plain {tag}"),
+                   library_ms=device_ms(yard, label=f"torch.softmax {tag}"),
+                   bound_ms=b_ms, bound_by=b_by, **graph_cols(fn, yard))
+        row["body_graph_ms"] = {body: graph_ms(functools.partial(
+            softmax_lib_cuda, x, lib, body=body))[0]
+            for body in ("vector", "masked")}
+        # the float table of exp2neg outputs forced on and off (bitwise the
+        # same outputs: the card tests)
+        row["lut_graph_ms"] = {name: graph_ms(functools.partial(
+            softmax_lib_cuda, x, lib, lut=on))[0]
+            for name, on in (("table", True), ("datapath", False))}
+        tprs = {}
+        for tpr in SOFTMAX_TPRS:
+            try:
+                launch_shape(n_rows, d, es, True, tpr)
+            except ValueError:
+                continue
+            tprs[tpr] = graph_ms(functools.partial(softmax_lib_cuda, x, lib,
+                                                   tpr=tpr))[0]
+        row["tpr_graph_ms"] = tprs
+        if shape == (16384, 512):
+            row["cold_ms"] = device_ms(lambda: (flush(), fn()),
+                                       label=f"cold {tag}",
+                                       kernel="softmax_lib", own=True)
+            row["library_cold_ms"] = device_ms(
+                lambda: (flush(), yard()), label=f"cold torch.softmax {tag}",
+                symbol="softmax_warp_forward", own=True)
+        print(f"  softmax_lib {shape} {dname} ({label}): graph "
+              f"{_ms(row['graph_ms'])} (torch.softmax "
+              f"{_ms(row['library_graph_ms'])}), bodies "
+              f"{ {k: _ms(v) for k, v in row['body_graph_ms'].items()} }, "
+              f"table of outputs "
+              f"{ {k: _ms(v) for k, v in row['lut_graph_ms'].items()} }, "
+              f"bound {b_ms:.5f} ms; launch {row['launch']}; threads per "
+              f"row { {k: _ms(v) for k, v in tprs.items()} }"
+              + (f"; cold L2 {row['cold_ms']:.5f} ms (torch.softmax "
+                 f"{row['library_cold_ms']:.5f} ms)" if "cold_ms" in row
+                 else ""))
+        out.append(row)
+    return out
 
 
 # rmsnorm_lib's main-path shapes: Yi-6B (d 4096) and DeepSeekMoE (d 2048)

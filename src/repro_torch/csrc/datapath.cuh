@@ -16,6 +16,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include <mutex>
+
 namespace repro {
 
 // One library slot's static datapath: where its rows start in the ROM the
@@ -221,6 +223,47 @@ __host__ __device__ inline bool table_args_ok(const TableArgs& t) {
   return t.leaf_dp != nullptr && t.seg_depth > 0 && t.seg_depth < 32 &&
          t.seg_depth <= t.in_bits && t.n_leaves > 0 &&
          t.n_leaves + ((1 << t.seg_depth) + 2) / 3 <= t.rows;
+}
+
+// Host side: blocks of `threads` that fill every SM of `device` at full
+// residency for `kernel` with `smem` bytes of dynamic shared memory (at most
+// `per_sm_max` blocks an SM), capped at the blocks `work` items need (one
+// per thread). The occupancy is cached per (kernel, threads, smem, device):
+// the query reads the kernel's attributes (ctypes calls run without the
+// GIL, hence the lock).
+inline cudaError_t grid_for(const void* kernel, int threads, size_t smem,
+                            int device, int64_t work, int* blocks,
+                            int per_sm_max = 64) {
+  struct Entry {
+    const void* kernel;
+    size_t smem;
+    int threads, device, resident;
+  };
+  static Entry cache[128];
+  static int used = 0;
+  static std::mutex mu;
+  const std::lock_guard<std::mutex> lock(mu);
+  int resident = 0;
+  for (int i = 0; i < used && !resident; ++i)
+    if (cache[i].kernel == kernel && cache[i].smem == smem &&
+        cache[i].threads == threads && cache[i].device == device)
+      resident = cache[i].resident;
+  if (!resident) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    resident = sms * (per_sm < 1 ? 1 : per_sm < per_sm_max ? per_sm
+                                                             : per_sm_max);
+    if (used < 128)
+      cache[used++] = Entry{kernel, smem, threads, device, resident};
+  }
+  const int64_t need = (work + threads - 1) / threads;
+  *blocks = (int)(need < 1 ? 1 : (need < resident ? need : resident));
+  return cudaSuccess;
 }
 
 // The runtime's current device is per runtime instance: set it to the one

@@ -52,7 +52,6 @@
 #include <cuda_bf16.h>
 
 #include <cmath>
-#include <mutex>
 
 #include "datapath.cuh"
 
@@ -64,45 +63,6 @@ constexpr int kThreads = 128;
 // act_lib's table-of-outputs body: one block of 1024 threads per SM, so
 // each SM builds the table once
 constexpr int kLutThreads = 1024;
-
-// Blocks of `threads` that fill every SM of `device` at full residency for
-// `kernel` with `smem` bytes of dynamic shared memory (at most `per_sm_max`
-// blocks an SM), capped at the blocks `work` items need (one per thread).
-// The occupancy is cached per (kernel, smem, device): the query reads the
-// kernel's attributes (ctypes calls run without the GIL, hence the lock).
-cudaError_t grid_for(const void* kernel, int threads, size_t smem,
-                     int device, int64_t work, int* blocks,
-                     int per_sm_max = 64) {
-  struct Entry {
-    const void* kernel;
-    size_t smem;
-    int device, resident;
-  };
-  static Entry cache[64];
-  static int used = 0;
-  static std::mutex mu;
-  const std::lock_guard<std::mutex> lock(mu);
-  int resident = 0;
-  for (int i = 0; i < used && !resident; ++i)
-    if (cache[i].kernel == kernel && cache[i].smem == smem &&
-        cache[i].device == device)
-      resident = cache[i].resident;
-  if (!resident) {
-    int sms = 0, per_sm = 0;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
-    if (err != cudaSuccess) return err;
-    resident = sms * (per_sm < 1 ? 1 : per_sm < per_sm_max ? per_sm
-                                                             : per_sm_max);
-    if (used < 64) cache[used++] = Entry{kernel, smem, device, resident};
-  }
-  const int64_t need = (work + threads - 1) / threads;
-  *blocks = (int)(need < 1 ? 1 : (need < resident ? need : resident));
-  return cudaSuccess;
-}
 
 cudaError_t allow_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;

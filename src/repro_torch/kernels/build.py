@@ -49,8 +49,10 @@ _SIGNATURES = {
                           _I, _P),
     "repro_flash_attn_lib": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _I, _I, _F, _I, _I, _P),
-    "repro_softmax_lib": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _P),
-    "repro_softmax_tab": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _I, _P),
+    "repro_softmax_lib": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I,
+                          _P),
+    "repro_softmax_tab": (_P, _P, _P, _L, _I, _I, _P, _P, _P, _P, _P, _I,
+                          _P),
     "repro_rmsnorm_tab": (_P, _P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _I,
                           _P),
     "repro_flash_attn_tab": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -52,6 +52,58 @@ def fused_softmax_lib_ref(x: torch.Tensor, coeffs: torch.Tensor,
     return fused_softmax_ref(x, coeffs, coeffs, exp_meta, recip_meta)
 
 
+def kernel_row_sum(e: torch.Tensor, vec: int, tpr: int) -> torch.Tensor:
+    """The CUDA kernels' row sum of e ((rows, D) float32) in their order,
+    for chunks of ``vec`` elements and ``tpr`` threads per row (``softmax/
+    kernel.py`` ``launch_shape``): thread t adds the elements of chunks t,
+    t + tpr, t + 2 tpr, ... in index order, a warp's threads are summed by
+    an xor butterfly (each step adds the partner's value to its own, so
+    every lane keeps lane 0's bits), then a row's warp partials by the same
+    butterfly over 32 lanes (zeros past the row's warps). Returns (rows,)
+    float32, on e's device. The CPU tests hold it against the reference's
+    sum; the card tests hold the kernels bitwise against
+    :func:`kernel_order_softmax`."""
+    rows, d = e.shape
+    per_pass = vec * tpr
+    passes = max(1, -(-d // per_pass))
+    kw = dict(dtype=torch.float32, device=e.device)
+    padded = torch.zeros(rows, passes * per_pass, **kw)
+    padded[:, :d] = e  # zeros after a thread's last element add nothing
+    chunks = padded.view(rows, passes, tpr, vec)
+    acc = torch.zeros(rows, tpr, **kw)
+    for p in range(passes):
+        for j in range(vec):
+            acc = acc + chunks[:, p, :, j]
+    width = min(tpr, 32)
+    warps = _butterfly(acc.view(rows, tpr // width, width))
+    if tpr <= 32:
+        return warps[:, 0]
+    lanes = torch.zeros(rows, 32, **kw)
+    lanes[:, :warps.shape[1]] = warps
+    return _butterfly(lanes)
+
+
+def kernel_order_softmax(x: torch.Tensor, exp_coeffs: torch.Tensor,
+                         recip_coeffs: torch.Tensor, exp_meta: dict,
+                         recip_meta: dict, vec: int,
+                         tpr: int) -> torch.Tensor:
+    """:func:`fused_softmax_ref` on x (rows, D) with the row sum in the CUDA
+    kernels' order (:func:`kernel_row_sum`): the kernels' output, bit for
+    bit, at that launch shape."""
+    _, e = softmax_exp(x, exp_coeffs, exp_meta)
+    s = kernel_row_sum(e, vec, tpr)[:, None]
+    return (e * table_recip(s, recip_coeffs, recip_meta)).to(x.dtype)
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """Lane 0 of an xor-shuffle sum over the last axis (a power of two):
+    at each step lane l adds lane l + half."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
 def approx_softmax_library_ref(x: torch.Tensor, library) -> torch.Tensor:
     """The plain version at the wrapper's signature: softmax over the last
     axis of any leading shape."""

@@ -22,7 +22,9 @@ Tolerances:
 * softmax_lib: the exp terms e come from the row max and one element, so
   they are bit-exact; only the row sum's order differs, which can move the
   reciprocal's code by one step: relative 2^-(recip in_bits - 1), plus one
-  output rounding (2^-7 relative) in bf16.
+  output rounding (2^-7 relative) in bf16. Against the twin with the
+  kernels' sum order at the wrapper's launch shape
+  (``kernel_order_softmax``): bitwise, for every body and thread count.
 * library_walk and rom_eval: bit-exact, on the uniform and the segmented
   (ROM v2) default library; the fused kernels on the segmented library at
   the tolerances above.
@@ -75,13 +77,16 @@ from repro_torch.kernels.rmsnorm.ops import (approx_rmsnorm_fused,
                                              approx_rmsnorm_library)
 from repro_torch.kernels.rmsnorm.ref import (approx_rmsnorm_library_ref,
                                              fused_rmsnorm_ref)
-from repro_torch.kernels.softmax.kernel import (softmax_lib_cuda,
-                                                softmax_tab_cuda)
+from repro_torch.kernels.softmax.kernel import (launch_shape,
+                                                softmax_lib_cuda,
+                                                softmax_tab_cuda, vector_ok)
 from repro_torch.kernels.softmax.ops import (_meta, approx_softmax_fused,
                                              approx_softmax_library,
                                              lib_meta)
 from repro_torch.kernels.softmax.ref import (approx_softmax_library_ref,
-                                             fused_softmax_ref, softmax_exp)
+                                             fused_softmax_ref,
+                                             kernel_order_softmax,
+                                             softmax_exp)
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.numerics.ops import (FusedInterpNumerics, PlainFusedNumerics,
@@ -295,40 +300,144 @@ def test_apply_norm_is_one_launch_and_one_device_op(lib, dev, tmp_path):
                         tmp_path) == 2
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
-                                          (511, 64, torch.float32),
-                                          (8, 4096, torch.bfloat16),
-                                          (7, 1000, torch.float32),
-                                          (3, 1500, torch.bfloat16),
-                                          (5, 33, torch.bfloat16)])
-def test_softmax_kernel_matches_plain(rows, d, dtype, lib, dev):
-    """The DeepSeekMoE router at decode and prefill (D = 64, float32), a
-    wide bf16 row, and ragged rows on the warp-per-row (D <= 1024) and
-    block-per-row paths; rows 0-1 hold equal values and a spread past the
-    t = 126 clamp."""
-    _check_softmax(rows, d, dtype, lib, dev)
+# softmax shapes: the DeepSeekMoE router at decode and prefill (D = 64,
+# float32), wide bf16 rows, the per-table phase's (16384, 512) scores, a
+# row read in two passes, and ragged D for the masked body; (rows, d,
+# dtype, view): view puts x at a 2-byte offset from a 16-byte boundary
+SOFTMAX_SHAPES = [(4, 64, torch.float32, False),
+                  (511, 64, torch.float32, False),
+                  (8, 4096, torch.bfloat16, False),
+                  (7, 1000, torch.float32, False),
+                  (3, 1500, torch.bfloat16, False),
+                  (5, 33, torch.bfloat16, False),
+                  (16384, 512, torch.float32, False),
+                  (1, 8192, torch.bfloat16, False),
+                  (2, 32768, torch.float32, False),
+                  (3, 4095, torch.bfloat16, False),
+                  (5, 4096, torch.bfloat16, True)]
 
 
-def _check_softmax(rows, d, dtype, lib, dev):
-    g = torch.Generator(device=dev).manual_seed(rows + d)
+@pytest.mark.parametrize("rows,d,dtype,view", SOFTMAX_SHAPES)
+def test_softmax_kernel_matches_plain(rows, d, dtype, view, lib, dev):
+    """The DeepSeekMoE router at decode and prefill (D = 64, float32), wide
+    bf16 rows, (16384, 512) scores, a row longer than one pass, ragged
+    rows on the masked body and a row view at an odd offset; rows 0-1 hold
+    equal values and a spread past the t = 126 clamp."""
+    _check_softmax(rows, d, dtype, lib, dev, view)
+
+
+def _softmax_inputs(rows, d, dtype, dev, view=False, seed=None):
+    g = torch.Generator(device=dev).manual_seed(rows + d if seed is None
+                                                else seed)
     x = torch.randn(rows, d, device=dev, generator=g) * 4
     x[0] = 1.5
-    x[1, ::2] = -1000.0
+    if rows > 1:
+        x[1, ::2] = -1000.0
     x = x.to(dtype)
+    if view:
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        flat[1:].copy_(x.reshape(-1))
+        x = flat[1:].view(rows, d)
+        assert x.is_contiguous() and x.data_ptr() % 16
+    return x
+
+
+def _twin_shape(x, **kw):
+    """(vec, tpr) of the wrapper's launch for x (``body``, ``tpr`` as the
+    wrapper takes them)."""
+    vector = vector_ok(x, torch.empty_like(x)) and kw.get("body") != "masked"
+    _, tpr, _, _ = launch_shape(x.shape[0], x.shape[1], x.element_size(),
+                                vector, kw.get("tpr"))
+    return (16 // x.element_size() if vector else 1), tpr
+
+
+def _check_softmax(rows, d, dtype, lib, dev, view=False):
+    x = _softmax_inputs(rows, d, dtype, dev, view)
+    em, rm = lib_meta(lib, "exp2neg"), lib_meta(lib, "recip")
     n0 = build.LAUNCHES["softmax_lib"]
     got, e = softmax_lib_cuda(x, lib, return_e=True)
     assert torch.equal(approx_softmax_library(x, lib), got)
     want = approx_softmax_library_ref(x, lib)
-    _, e_ref = softmax_exp(x, lib.coeffs, lib_meta(lib, "exp2neg"))
+    _, e_ref = softmax_exp(x, lib.coeffs, em)
+    twin = kernel_order_softmax(x, lib.coeffs, lib.coeffs, em, rm,
+                                *_twin_shape(x))
     torch.cuda.synchronize()
     assert build.LAUNCHES["softmax_lib"] == n0 + 2
     assert got.dtype == dtype and torch.equal(e, e_ref)
+    assert torch.equal(got, twin)
     tol = 2.0 ** -(lib.meta("recip").in_bits - 1)
     if dtype == torch.bfloat16:
         tol += 2.0 ** -7
     got, want = got.float(), want.float()
     assert torch.all((got - want).abs() <= tol * want.abs() + 1e-30)
     assert torch.allclose(got[0], torch.full_like(got[0], got[0, 0]))
+
+
+def test_softmax_bodies_and_thread_counts_agree(lib, dev):
+    """At the router's, a wide bf16, a ragged and a many-row shape, the
+    vector body at every thread count per row the wrapper takes (sub-warp
+    rows, whole warps, multi-warp rows, rows read in passes) and the masked
+    body forced at each, each with and without the float table of exp2neg
+    outputs: e bitwise, and the output bitwise the twin with the kernels'
+    sum order at that launch (the order is fixed per thread count), so
+    equal wherever two orders give one reciprocal code."""
+    em, rm = lib_meta(lib, "exp2neg"), lib_meta(lib, "recip")
+    tprs = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+    n = 0
+    for rows, d, dtype in ((4, 64, torch.float32), (8, 4096, torch.bfloat16),
+                           (37, 1000, torch.bfloat16), (3, 200, torch.float32),
+                           (2048, 512, torch.float32)):
+        x = _softmax_inputs(rows, d, dtype, dev)
+        _, e_ref = softmax_exp(x, lib.coeffs, em)
+        for body in ("vector", "masked"):
+            for tpr in tprs:
+                try:
+                    vec, t = _twin_shape(x, body=body, tpr=tpr)
+                except ValueError:  # 1024 threads of 32 elements
+                    continue
+                if rows * t * d // vec > 1 << 22 or (d // vec) // t > 512:
+                    continue  # keep the twin's loops short
+                twin = kernel_order_softmax(x, lib.coeffs, lib.coeffs, em,
+                                            rm, vec, t)
+                for lut in (False, True) if t <= 512 else (False,):
+                    got, e = softmax_lib_cuda(x, lib, return_e=True,
+                                              body=body, tpr=tpr, lut=lut)
+                    assert torch.equal(e, e_ref), (rows, d, body, tpr, lut)
+                    assert torch.equal(got, twin), (rows, d, body, tpr, lut)
+                    n += 1
+    assert n >= 150
+
+
+def test_softmax_kernel_captures_in_a_cuda_graph(lib, dev):
+    """The wrapper does not sync with the host: a CUDA graph captures the
+    router's call and a many-block one, and its replay equals the eager
+    calls bitwise."""
+    xs = [_softmax_inputs(4, 64, torch.float32, dev),
+          _softmax_inputs(16384, 512, torch.float32, dev)]
+    want = [approx_softmax_library(x, lib) for x in xs]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = [approx_softmax_library(x, lib) for x in xs]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_router_softmax_is_one_launch_and_one_device_op(lib, dev, tmp_path):
+    """The served router softmax, ``FusedInterpNumerics.softmax`` on
+    DeepSeekMoE's decode logits (1, 4, 64) float32: one softmax_lib launch
+    and one device op (no copy, no cast), equal to the kernel's call."""
+    x = _softmax_inputs(4, 64, torch.float32, dev).reshape(1, 4, 64)
+    num = FusedInterpNumerics(lib)
+    n0 = dict(build.LAUNCHES)
+    got = num.softmax(x, axis=-1)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["softmax_lib"] == n0["softmax_lib"] + 1
+    assert sum(build.LAUNCHES.values()) == sum(n0.values()) + 1
+    assert torch.equal(got, softmax_lib_cuda(x.reshape(4, 64), lib
+                                             ).reshape(1, 4, 64))
+    assert _graph_nodes(lambda: num.softmax(x, axis=-1), tmp_path) == 1
 
 
 # decode: 4 slots against the cache, (Sk, cache lengths, window); the
@@ -734,11 +843,15 @@ def test_rmsnorm_masked_body_on_segmented_library(case, seg_lib, dev):
                    view=view)
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
-                                          (511, 64, torch.float32),
-                                          (3, 1500, torch.bfloat16)])
-def test_softmax_kernel_on_segmented_library(rows, d, dtype, seg_lib, dev):
-    _check_softmax(rows, d, dtype, seg_lib, dev)
+@pytest.mark.parametrize("rows,d,dtype,view", [
+    (4, 64, torch.float32, False), (511, 64, torch.float32, False),
+    (3, 1500, torch.bfloat16, False), (8, 4096, torch.bfloat16, False),
+    (16384, 512, torch.float32, False), (1, 8192, torch.bfloat16, False),
+    (2, 32768, torch.float32, False), (3, 4095, torch.bfloat16, False),
+    (5, 4096, torch.bfloat16, True)])
+def test_softmax_kernel_on_segmented_library(rows, d, dtype, view, seg_lib,
+                                             dev):
+    _check_softmax(rows, d, dtype, seg_lib, dev, view)
 
 
 @pytest.mark.parametrize("mode,dtype", [("decode", torch.bfloat16),
@@ -807,18 +920,17 @@ def tab_designs():
                 for name in TAB_SETS}
 
 
-@pytest.mark.parametrize("rows,d,dtype", [(4, 64, torch.float32),
-                                          (37, 1000, torch.bfloat16),
-                                          (3, 1500, torch.float32),
-                                          (5, 33, torch.bfloat16)])
+@pytest.mark.parametrize("rows,d,dtype,view", [
+    (4, 64, torch.float32, False), (37, 1000, torch.bfloat16, False),
+    (3, 1500, torch.float32, False), (5, 33, torch.bfloat16, False),
+    (16384, 512, torch.float32, False), (1, 8192, torch.bfloat16, False),
+    (2, 32768, torch.float32, False), (3, 4095, torch.bfloat16, False),
+    (5, 4096, torch.bfloat16, True)])
 @pytest.mark.parametrize("dset", TAB_SETS)
-def test_softmax_tab_matches_plain(dset, rows, d, dtype, tab_designs, dev):
+def test_softmax_tab_matches_plain(dset, rows, d, dtype, view, tab_designs,
+                                   dev):
     ed, rd = tab_designs[dset]["exp2neg"], tab_designs[dset]["recip"]
-    g = torch.Generator(device=dev).manual_seed(rows + d)
-    x = torch.randn(rows, d, device=dev, generator=g) * 4
-    x[0] = 1.5
-    x[1, ::2] = -1000.0
-    x = x.to(dtype)
+    x = _softmax_inputs(rows, d, dtype, dev, view)
     n0 = build.LAUNCHES["softmax_tab"]
     got, e = softmax_tab_cuda(x, ed, rd, return_e=True)
     assert torch.equal(approx_softmax_fused(x, ed, rd), got)
@@ -827,6 +939,8 @@ def test_softmax_tab_matches_plain(dset, rows, d, dtype, tab_designs, dev):
     want = fused_softmax_ref(x, ec, rc, _meta(ed), _meta(rd)).float()
     _, e_ref = softmax_exp(x, ec, _meta(ed))
     assert got.dtype == dtype and torch.equal(e, e_ref)
+    assert torch.equal(got, kernel_order_softmax(
+        x, ec, rc, _meta(ed), _meta(rd), *_twin_shape(x)))
     tol = 2.0 ** -(rd.in_bits - 1) + (2.0 ** -7 if dtype == torch.bfloat16
                                       else 0.0)
     got = got.float()
@@ -924,6 +1038,15 @@ def test_tab_equals_lib_bitwise_on_default_designs(kernel, tab_designs, lib,
             assert torch.equal(approx_softmax_fused(x, d6["exp2neg"],
                                                     d6["recip"]),
                                approx_softmax_library(x, lib))
+        for rows, d, dtype, view in SOFTMAX_SHAPES:
+            x = _softmax_inputs(rows, d, dtype, dev, view, seed=7)
+            assert torch.equal(approx_softmax_fused(x, d6["exp2neg"],
+                                                    d6["recip"]),
+                               approx_softmax_library(x, lib))
+            assert torch.equal(
+                softmax_tab_cuda(x, d6["exp2neg"], d6["recip"],
+                                 body="masked"),
+                softmax_lib_cuda(x, lib, body="masked"))
     elif kernel == "rmsnorm":
         from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_lib_cuda,
                                                         rmsnorm_tab_cuda)
