@@ -36,8 +36,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    one CUDA graph of 50 captured calls between CUDA events, for every
    kernel and yardstick; call time from CUDA events), the flash kernel
    against its tile twin with the kernel's query tile and key splits, on
-   the uniform library compiled in step 3 and, for the walk,
-   ``rom_eval`` and the fused kernels, on the segmented one of step 4; the
+   the uniform library compiled in step 3 and, for the walk and the fused
+   kernels, on the segmented one of step 4 (``rom_eval`` on both, and with
+   ``interp_eval`` on the silu design also at Yi-6B's prefill width with a
+   cold L2); the
    served activation (``FusedInterpNumerics.silu``, one ``act_lib``
    launch and no other device op) at every shape the served models hand
    it, in their layout (the gate half of a SwiGLU product, read in place),
@@ -158,8 +160,9 @@ KERNEL_SYMBOLS = {"library_eval": "table_read_kernel<false",
                   "rmsnorm_tab": "rmsnorm_kernel",
                   "flash_attn_tab": "flash_attn_kernel",
                   "softmax_tab": "softmax_kernel<",
-                  "rom_eval": "rom_eval_kernel",
-                  "interp_eval": "interp_eval_kernel",
+                  # the one-slot body on a table row the host passes
+                  "rom_eval": "slot_read_kernel",
+                  "interp_eval": "slot_read_kernel",
                   "envelopes_parity": "envelopes_parity_kernel",
                   "envelopes_parity_batched": "envelopes_parity_kernel",
                   "envelopes_parity_fleet": "envelopes_parity_kernel",
@@ -810,42 +813,51 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
                 label=f"cold walk {shape}", kernel="library_walk", own=True)
         details.append(row)
         rows.setdefault("library_walk", row)
-    # rom_eval: the silu slot at the same two shapes
-    m = lib.meta("silu")
-    rom_args = dict(fid=silu, r_max=lib.r_max, eval_bits=m.eval_bits, k=m.k,
-                    sq_trunc=m.sq_trunc, lin_trunc=m.lin_trunc,
-                    degree=m.degree, seg=m.seg_spec())
-    flat = lib.coeffs.reshape(-1, 3)
-    for shape in ((4, 1, 11008), (1, 512, 11008)):
-        gate = (torch.randn(shape, device=dev, generator=g) * 3
-                ).to(torch.bfloat16)
-        codes = silu_codes(gate)
-        got = rom_eval(codes, lib, "silu")
-        err = int((got - rom_eval_ref(codes, flat, **rom_args)).abs().max())
-        if err:
-            raise AssertionError(f"rom_eval {shape} differs from plain")
-        n = codes.numel()
-        b_ms, b_by = bound(8 * n + 12 * lib.r_max + 20 * len(m.seg_meta),
-                           14 * n, F32_FLOPS)
-        row = dict(name="rom_eval", shape=list(shape), library="segmented",
-                   case="silu", max_abs_err=err, tolerance=0,
-                   ms=device_ms(lambda: rom_eval(codes, lib, "silu"),
-                                label=f"rom_eval {shape}",
-                                kernel="rom_eval"),
-                   call_ms=timed(lambda: rom_eval(codes, lib, "silu")),
-                   plain_ms=device_ms(lambda: rom_eval_ref(codes, flat,
-                                                           **rom_args),
-                                      iters=3,
-                                      label=f"plain rom_eval {shape}"),
-                   library_ms=device_ms(lambda: F.silu(gate),
-                                        label=f"silu {shape}"),
-                   bound_ms=b_ms, bound_by=b_by,
-                   **graph_cols(lambda: rom_eval(codes, lib, "silu"),
-                                lambda: F.silu(gate)))
-        details.append(row)
-        rows.setdefault("rom_eval", row)
+    # rom_eval: the silu slot at the same two shapes, on both libraries
+    for label, lib in (("segmented", seg_lib), ("uniform", uni_lib)):
+        m = lib.meta("silu")
+        rom_args = dict(fid=lib.func_id("silu"), r_max=lib.r_max,
+                        eval_bits=m.eval_bits, k=m.k, sq_trunc=m.sq_trunc,
+                        lin_trunc=m.lin_trunc, degree=m.degree,
+                        seg=m.seg_spec())
+        flat = lib.coeffs.reshape(-1, 3)
+        for shape in ((4, 1, 11008), (1, 512, 11008)):
+            gate = (torch.randn(shape, device=dev, generator=g) * 3
+                    ).to(torch.bfloat16)
+            codes = silu_codes(gate)
+            got = rom_eval(codes, lib, "silu")
+            err = int((got - rom_eval_ref(codes, flat, **rom_args)
+                       ).abs().max())
+            if err:
+                raise AssertionError(f"rom_eval {shape} on the {label} "
+                                     f"library differs from plain")
+            n = codes.numel()
+            b_ms, b_by = bound(8 * n + 12 * lib.r_max + 20 * len(m.seg_meta),
+                               14 * n, F32_FLOPS)
+            row = dict(name="rom_eval", shape=list(shape), library=label,
+                       case="silu", max_abs_err=err, tolerance=0,
+                       ms=device_ms(lambda: rom_eval(codes, lib, "silu"),
+                                    label=f"rom_eval {shape} {label}",
+                                    kernel="rom_eval"),
+                       call_ms=timed(lambda: rom_eval(codes, lib, "silu")),
+                       plain_ms=device_ms(lambda: rom_eval_ref(
+                           codes, flat, **rom_args), iters=3,
+                           label=f"plain rom_eval {shape} {label}"),
+                       library_ms=device_ms(lambda: F.silu(gate),
+                                            label=f"silu {shape}"),
+                       bound_ms=b_ms, bound_by=b_by,
+                       **graph_cols(lambda: rom_eval(codes, lib, "silu"),
+                                    lambda: F.silu(gate)))
+            if shape[1] > 1:  # the same with a cold L2
+                row["cold_ms"] = device_ms(
+                    lambda: (flush(), rom_eval(codes, lib, "silu")),
+                    label=f"cold rom_eval {shape} {label}",
+                    kernel="rom_eval", own=True)
+            details.append(row)
+            rows.setdefault("rom_eval", row)
     for r in details:
-        print(f"  device time {r['name']} {r['shape']}: kernel {r['ms']:.5f} "
+        print(f"  device time {r['name']} {r['shape']} {r['library']}: "
+              f"kernel {r['ms']:.5f} "
               f"ms (graph {_ms(r['graph_ms'])}), plain {r['plain_ms']:.5f} "
               f"ms, library {r['library_ms']:.5f} ms (graph "
               f"{_ms(r['library_graph_ms'])}), bound {r['bound_ms']:.5f} ms "
@@ -855,18 +867,28 @@ def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
     return rows, details
 
 
-def interp_eval_phase(lib_designs, dev):
+def interp_eval_phase(lib_designs, dev, silu_codes):
     """interp_eval against its plain version on every table of the
-    generated library, all 4096 codes."""
+    generated library, all 4096 codes, and on the silu design at Yi-6B's
+    prefill width (the unbound ``InterpNumerics`` activation), warm and
+    with a cold L2."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.interp.kernel import interp_eval_cuda
     from repro_torch.kernels.interp.ref import interp_eval_ref
 
     details = []
-    for kind, design in lib_designs.items():
-        codes = torch.arange(1 << design.in_bits, dtype=torch.int32,
-                             device=dev)
+    flush = l2_flush(dev)
+    g = torch.Generator(device=dev).manual_seed(2020)
+    gate = (torch.randn(1, 512, 11008, device=dev, generator=g) * 3
+            ).to(torch.bfloat16)
+    cases = [(kind, torch.arange(1 << d.in_bits, dtype=torch.int32,
+                                 device=dev))
+             for kind, d in lib_designs.items()]
+    cases.append(("silu", silu_codes(gate)))
+    for kind, codes in cases:
+        design = lib_designs[kind]
         coeffs = design.device_coeffs(dev)
         dp = dict(eval_bits=design.eval_bits, k=design.k,
                   sq_trunc=design.sq_trunc, lin_trunc=design.lin_trunc,
@@ -876,26 +898,44 @@ def interp_eval_phase(lib_designs, dev):
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         if err:
-            raise AssertionError(f"interp_eval {kind} differs from plain")
+            raise AssertionError(f"interp_eval {kind} {tuple(codes.shape)} "
+                                 f"differs from plain")
         n = codes.numel()
-        x = 1.0 + codes.float() / n  # the decoded input of the recip table
+        wide = codes.dim() > 1
+        # the yardstick: recip's decoded input, or the gate the codes
+        # quantize
+        x = gate if wide else 1.0 + codes.float() / n
+        yard = (lambda: F.silu(x)) if wide else (lambda: torch.reciprocal(x))
         b_ms, b_by = bound(8 * n + coeffs.numel() * 4, 12 * n, F32_FLOPS)
-        details.append(dict(
-            name="interp_eval", shape=[n], case=kind, max_abs_err=err,
-            tolerance=0,
+        row = dict(
+            name="interp_eval", shape=list(codes.shape), case=kind,
+            max_abs_err=err, tolerance=0,
             ms=device_ms(lambda: interp_eval_cuda(codes, coeffs, **dp),
-                         label=f"interp_eval {kind}",
+                         label=f"interp_eval {kind} {tuple(codes.shape)}",
                          kernel="interp_eval"),
             call_ms=timed(lambda: interp_eval_cuda(codes, coeffs, **dp)),
             plain_ms=device_ms(lambda: interp_eval_ref(codes, coeffs, **dp),
                                iters=3, label=f"plain interp_eval {kind}"),
-            library_ms=device_ms(lambda: torch.reciprocal(x),
-                                 label=f"reciprocal {kind}"),
+            library_ms=device_ms(yard, label=f"yardstick {kind}"),
             bound_ms=b_ms, bound_by=b_by,
             **graph_cols(lambda: interp_eval_cuda(codes, coeffs, **dp),
-                         lambda: torch.reciprocal(x))))
-    print(f"interp_eval on all 4096 codes of {len(details)} generated "
-          f"tables: max_abs_err 0 against the plain version (tolerance 0)")
+                         yard))
+        if wide:
+            row["cold_ms"] = device_ms(
+                lambda: (flush(), interp_eval_cuda(codes, coeffs, **dp)),
+                label=f"cold interp_eval {kind}", kernel="interp_eval",
+                own=True)
+        details.append(row)
+    print(f"interp_eval on all 4096 codes of {len(lib_designs)} generated "
+          f"tables and on (1, 512, 11008) silu codes: max_abs_err 0 against "
+          f"the plain version (tolerance 0)")
+    for r in (details[[r['case'] for r in details].index('recip')],
+              details[-1]):
+        print(f"  device time interp_eval {r['case']} {r['shape']}: kernel "
+              f"{r['ms']:.5f} ms (graph {_ms(r['graph_ms'])}), yardstick "
+              f"graph {_ms(r['library_graph_ms'])}, bound {r['bound_ms']:.5f}"
+              f" ms" + (f"; cold L2 {r['cold_ms']:.5f} ms" if "cold_ms" in r
+                        else ""))
     rec = next(r for r in details if r["case"] == "recip")
     return rec, details
 
@@ -2114,12 +2154,13 @@ def main() -> int:
     designs = gen.pop("designs")
     seg_gen, seg_lib, seg_designs = segmented_generator_phase(dev)
     gen["segmented"] = seg_gen
-    ie_row, ie_details = interp_eval_phase(designs, dev)
     m = lib.meta("silu")
 
     def silu_codes(gate):
         xc = torch.clamp(gate.float(), m.act_lo, m.act_hi - 1e-6)
         return _quantize((xc - m.act_lo) / (m.act_hi - m.act_lo), m.in_bits)
+
+    ie_row, ie_details = interp_eval_phase(designs, dev, silu_codes)
 
     walk_rows, walk_details = walk_phase(seg_lib, seg_designs, lib, designs,
                                          dev, silu_codes)

@@ -192,17 +192,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Copy `words` int32 words global -> shared with cp.async: 16 bytes a copy
+// where both ends are 16-byte aligned (the last words % 4 one at a time),
+// else 4 bytes a copy.
+__device__ __forceinline__ void copy_words_async(int32_t* dst,
+                                                 const int32_t* src,
+                                                 int words) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | smem_addr(dst)) & 15u) == 0) {
+    for (int v = threadIdx.x; v < words / 4; v += blockDim.x)
+      cp_async16(smem_addr(dst + 4 * v), src + 4 * v, 16);
+    done = words & ~3;
+  }
+  for (int i = done + threadIdx.x; i < words; i += blockDim.x)
+    cp_async4(smem_addr(dst + i), src + i, 4);
+}
+
 // Copy one table slot to shared memory with cp.async (as `stage_slot`) and
 // re-base `t` on the copy; the caller commits, waits and synchronizes.
+// VEC16 copies 16 bytes at a time where the rows are 16-byte aligned.
+template <bool VEC16 = false>
 __device__ __forceinline__ void stage_slot_async(const int32_t* rom,
                                                  TableArgs& t, int32_t* s) {
-  for (int i = threadIdx.x; i < 3 * t.rows; i += blockDim.x)
-    cp_async4(smem_addr(s + i), rom + 3 * t.row0 + i, 4);
-  if (t.seg_depth) {
-    for (int i = threadIdx.x; i < 5 * t.n_leaves; i += blockDim.x)
-      cp_async4(smem_addr(s + 3 * t.rows + i), t.leaf_dp + i, 4);
-    t.leaf_dp = s + 3 * t.rows;
+  if constexpr (VEC16) {
+    copy_words_async(s, rom + 3 * t.row0, 3 * t.rows);
+    if (t.seg_depth)
+      copy_words_async(s + 3 * t.rows, t.leaf_dp, 5 * t.n_leaves);
+  } else {
+    for (int i = threadIdx.x; i < 3 * t.rows; i += blockDim.x)
+      cp_async4(smem_addr(s + i), rom + 3 * t.row0 + i, 4);
+    if (t.seg_depth)
+      for (int i = threadIdx.x; i < 5 * t.n_leaves; i += blockDim.x)
+        cp_async4(smem_addr(s + 3 * t.rows + i), t.leaf_dp + i, 4);
   }
+  if (t.seg_depth) t.leaf_dp = s + 3 * t.rows;
   t.row0 = 0;
 }
 

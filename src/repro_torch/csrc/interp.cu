@@ -1,8 +1,8 @@
 // The elementwise table reads of the port: library_eval and library_walk
 // (int32 codes -> int32 table outputs, one function id for every element
-// or one per element), the fused activation act_lib (x in bf16 or f32 ->
-// the activation in x's dtype, the float glue inside the kernel),
-// interp_eval (one design's rows) and rom_eval (one slot of the flat ROM).
+// or one per element), rom_eval (one slot of the flat ROM), interp_eval
+// (one design's own rows) and the fused activation act_lib (x in bf16 or
+// f32 -> the activation in x's dtype, the float glue inside the kernel).
 //
 // library_eval replaces repro/kernels/interp/kernel.py `library_eval_2d` /
 // `_library_kernel` (l.241): element i evaluates function fids[i] on
@@ -17,8 +17,10 @@
 // datapath row dp[leaf_base + leaf]. A malformed walk row (a base or leaf
 // count past the dp rows, a segment table that does not fit the slot or a
 // depth the shifts cannot take) becomes an empty slot, which reads 0 as an
-// out-of-range id or region does. Both are one body, `table_read_kernel`,
-// over `datapath.cuh`'s `lut_slot` / `lut_rom`.
+// out-of-range id or region does. rom_eval replaces `rom_eval_2d` (l.175)
+// and interp_eval `interp_eval_2d` (l.366): one slot whose table row the
+// host passes (a library slot, uniform or segmented; or one design's
+// (2^R, 3) rows). All four run over `datapath.cuh`'s `lut_slot` / `lut_rom`.
 //
 // act_lib is the served activation, `FusedInterpNumerics._act`: the
 // reference computes it as the float glue of `_range_glue` / `_act_tails`
@@ -39,16 +41,19 @@
 // steps in flight), the scalar tail after them, and the scalar path alone
 // where a pointer (or act_lib's row stride) is not 16-byte aligned (a view
 // with a storage offset).
-// With one id for every element (the served case) a block stages only that
-// slot (and a segmented slot's leaf rows) in shared memory and holds its
-// TableArgs in registers, and the slot's kind selects a body without a
-// per-element branch; with one id per element it stages the whole ROM, the
-// leaf rows and one TableArgs per function, read by reference. act_lib on a
-// large call (16 elements per code, 2^in_bits, on a segmented slot, 384 on
-// a uniform one) evaluates the slot once per code into a float table of
-// outputs in shared memory, so an element costs the glue and one shared
-// load. The grid fills every SM at full
-// residency (the occupancy query) and no more.
+// One slot (one id for every element, rom_eval, interp_eval) has one body,
+// `read_one_slot`: each thread issues the loads of its first codes, then the
+// block stages the slot by cp.async under them (16-byte copies where the
+// rows are 16-byte aligned), waits once and reads with the TableArgs in
+// registers and the slot's kind a template parameter, so no element
+// branches on it. A design's rows past a block's opt-in shared memory are
+// read where they lie (interp_eval only). With one id per element the block
+// stages the whole ROM, the leaf rows and one TableArgs per function, read
+// by reference. act_lib on a large call (16 elements per code, 2^in_bits,
+// on a segmented slot, 384 on a uniform one) evaluates the slot once per
+// code into a float table of outputs in shared memory, so an element costs
+// the glue and one shared load. The grid fills every SM at full residency
+// (the occupancy query) and no more.
 #include <cuda_bf16.h>
 
 #include <cmath>
@@ -110,10 +115,10 @@ __device__ __forceinline__ TableArgs slot_of(int f, int r_max,
   }
 }
 
-// out[i] = read(codes[i], fids[i]) (fid 0 without PER): 16-byte vectors of 4
-// codes over the first n_vec * 4 elements, two vectors in flight per thread
-// and step, then one element at a time.
-template <bool PER, typename Read>
+// out[i] = read(codes[i], fids[i]): 16-byte vectors of 4 codes and 4 ids
+// over the first n_vec * 4 elements, two vectors in flight per thread and
+// step, then one element at a time.
+template <typename Read>
 __device__ __forceinline__ void stream_codes(
     const int32_t* __restrict__ codes, const int32_t* __restrict__ fids,
     int32_t* __restrict__ out, int64_t n, int64_t n_vec, Read read) {
@@ -127,8 +132,8 @@ __device__ __forceinline__ void stream_codes(
     const bool two = i + step < n_vec;
     const int4 c0 = __ldg(cv + i);
     const int4 c1 = two ? __ldg(cv + i + step) : zero;
-    const int4 f0 = PER ? __ldg(fv + i) : zero;
-    const int4 f1 = PER && two ? __ldg(fv + i + step) : zero;
+    const int4 f0 = __ldg(fv + i);
+    const int4 f1 = two ? __ldg(fv + i + step) : zero;
     ov[i] = make_int4(read(c0.x, f0.x), read(c0.y, f0.y), read(c0.z, f0.z),
                       read(c0.w, f0.w));
     if (two)
@@ -136,7 +141,77 @@ __device__ __forceinline__ void stream_codes(
                                read(c1.z, f1.z), read(c1.w, f1.w));
   }
   for (int64_t i = n_vec * 4 + tid; i < n; i += step)
-    out[i] = read(codes[i], PER ? fids[i] : 0);
+    out[i] = read(codes[i], fids[i]);
+}
+
+// The codes a thread reads first, loaded before its block stages the slot
+// so that the two latencies overlap: its first two 16-byte vectors and its
+// first element past the vectors (of the tail, or of every element on the
+// scalar path).
+struct CodeHead {
+  int4 c0, c1;
+  int32_t s0;
+};
+
+__device__ __forceinline__ int4 code_vec(const int32_t* __restrict__ codes,
+                                         int64_t v, int64_t n_vec) {
+  return v < n_vec ? __ldg(reinterpret_cast<const int4*>(codes) + v)
+                   : make_int4(0, 0, 0, 0);
+}
+
+__device__ __forceinline__ int32_t code_at(const int32_t* __restrict__ codes,
+                                           int64_t i, int64_t n) {
+  return i < n ? __ldg(codes + i) : 0;
+}
+
+__device__ __forceinline__ CodeHead code_head(
+    const int32_t* __restrict__ codes, int64_t n, int64_t n_vec) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  return CodeHead{code_vec(codes, tid, n_vec),
+                  code_vec(codes, tid + step, n_vec),
+                  code_at(codes, n_vec * 4 + tid, n)};
+}
+
+// The one-slot body: out[i] = lut_slot<SEG>(slot, t, codes[i]) after
+// `code_head`. With STAGED the block stages the slot in shared memory `s`
+// by cp.async under the head's loads (16-byte copies where the rows are
+// 16-byte aligned), waits once and reads the copy; without it the slot is
+// read where it lies, through the read-only cache. Then 16-byte vectors of
+// 4 codes, two per thread and step with the next two in flight, and the
+// elements past them one at a time, the next one in flight.
+template <bool SEG, bool STAGED>
+__device__ __forceinline__ void read_one_slot(
+    const int32_t* __restrict__ codes, int32_t* __restrict__ out, int64_t n,
+    int64_t n_vec, const int32_t* __restrict__ rom, TableArgs t, int32_t* s,
+    CodeHead h) {
+  const int32_t* __restrict__ slot = rom;
+  if constexpr (STAGED) {
+    stage_slot_async<true>(rom, t, s);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    slot = s;
+  }
+  auto read = [&](int32_t c) { return lut_slot<SEG>(slot, t, c); };
+  auto read4 = [&](int4 c) {
+    return make_int4(read(c.x), read(c.y), read(c.z), read(c.w));
+  };
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t step = (int64_t)gridDim.x * blockDim.x;
+  int4* ov = reinterpret_cast<int4*>(out);
+  for (int64_t i = tid; i < n_vec; i += 2 * step) {
+    const int4 c0 = h.c0, c1 = h.c1;
+    h.c0 = code_vec(codes, i + 2 * step, n_vec);
+    h.c1 = code_vec(codes, i + 3 * step, n_vec);
+    ov[i] = read4(c0);
+    if (i + step < n_vec) ov[i + step] = read4(c1);
+  }
+  for (int64_t i = n_vec * 4 + tid; i < n; i += step) {
+    const int32_t c = h.s0;
+    h.s0 = code_at(codes, i + step, n);
+    out[i] = read(c);
+  }
 }
 
 // library_eval (WALK false: `rows` are the (F, 5) meta rows, no dp) and
@@ -151,23 +226,18 @@ __global__ void __launch_bounds__(kThreads) table_read_kernel(
     int64_t n_vec) {
   extern __shared__ __align__(16) unsigned char read_smem[];
   if constexpr (!PER) {
-    // one slot: staged alone, its TableArgs in registers
+    // one slot: the first codes in flight, its TableArgs in registers, the
+    // slot alone staged; its kind picks the body once
+    const CodeHead h = code_head(codes, n, n_vec);
     int32_t* s = reinterpret_cast<int32_t*>(read_smem);
-    TableArgs t = (unsigned)fid0 < (unsigned)n_funcs
-                      ? slot_of<WALK>(fid0, r_max, rows, dp, n_dp)
-                      : TableArgs{0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, nullptr};
-    stage_slot(rom, t, s);
-    __syncthreads();
+    const TableArgs t =
+        (unsigned)fid0 < (unsigned)n_funcs
+            ? slot_of<WALK>(fid0, r_max, rows, dp, n_dp)
+            : TableArgs{0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, nullptr};
     if (WALK && t.seg_depth)
-      stream_codes<false>(codes, nullptr, out, n, n_vec,
-                          [&](int32_t c, int) {
-                            return lut_slot<true>(s, t, c);
-                          });
+      read_one_slot<true, true>(codes, out, n, n_vec, rom, t, s, h);
     else
-      stream_codes<false>(codes, nullptr, out, n, n_vec,
-                          [&](int32_t c, int) {
-                            return lut_slot<false>(s, t, c);
-                          });
+      read_one_slot<false, true>(codes, out, n, n_vec, rom, t, s, h);
   } else {
     // every slot: the ROM, the leaf rows and one TableArgs per function
     TableArgs* s_args = reinterpret_cast<TableArgs*>(read_smem);
@@ -181,12 +251,38 @@ __global__ void __launch_bounds__(kThreads) table_read_kernel(
     for (int f = threadIdx.x; f < n_funcs; f += blockDim.x)
       s_args[f] = slot_of<WALK>(f, r_max, rows, s_dp, n_dp);
     __syncthreads();
-    stream_codes<true>(codes, fids, out, n, n_vec, [&](int32_t c, int f) {
+    stream_codes(codes, fids, out, n, n_vec, [&](int32_t c, int f) {
       if ((unsigned)f >= (unsigned)n_funcs) return 0;
       const TableArgs& t = s_args[f];
       return WALK ? lut_rom(s_rom, t, c) : lut_slot<false>(s_rom, t, c);
     });
   }
+}
+
+// rom_eval and interp_eval: the one-slot body on a slot whose TableArgs the
+// host built, its kind (SEG) and its place (STAGED: shared memory, else
+// global) template parameters.
+template <bool SEG, bool STAGED>
+__global__ void __launch_bounds__(kThreads) slot_read_kernel(
+    const int32_t* __restrict__ codes, const int32_t* __restrict__ rom,
+    TableArgs t, int32_t* __restrict__ out, int64_t n, int64_t n_vec) {
+  extern __shared__ __align__(16) unsigned char read_smem[];
+  const CodeHead h = code_head(codes, n, n_vec);
+  read_one_slot<SEG, STAGED>(codes, out, n, n_vec, rom, t,
+                             reinterpret_cast<int32_t*>(read_smem), h);
+}
+
+// Blocks of kThreads for `kernel` on n codes, of which n_vec 16-byte
+// vectors (0 where a pointer is not 16-byte aligned).
+static cudaError_t code_grid(const void* kernel, size_t smem, int device,
+                             const int32_t* codes, const int32_t* fids,
+                             const int32_t* out, int64_t n, int64_t* n_vec,
+                             int* blocks) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  *n_vec = aligned16(codes) && aligned16(fids) && aligned16(out) ? n / 4 : 0;
+  return grid_for(kernel, kThreads, smem, device, *n_vec ? *n_vec : n,
+                  blocks);
 }
 
 // The C entries of library_eval and library_walk: fids is one id per
@@ -208,12 +304,9 @@ static int launch_table_read(const int32_t* codes, const int32_t* fids,
       per ? (size_t)n_funcs * sizeof(TableArgs) +
                 (size_t)(n_funcs * r_max * 3 + (WALK ? 5 * n_dp : 0)) * 4
           : (size_t)(3 * r_max + (WALK ? 5 * n_dp : 0)) * 4;
-  err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n_vec =
-      aligned16(codes) && aligned16(fids) && aligned16(out) ? n / 4 : 0;
+  int64_t n_vec = 0;
   int blocks = 0;
-  err = grid_for(kernel, kThreads, smem, device, n_vec ? n_vec : n, &blocks);
+  err = code_grid(kernel, smem, device, codes, fids, out, n, &n_vec, &blocks);
   if (err != cudaSuccess) return (int)err;
   if (per)
     table_read_kernel<WALK, true>
@@ -491,109 +584,70 @@ extern "C" int repro_act_lib(const void* x, void* y, int64_t rows,
                                         stream);
 }
 
-// interp_eval: one design's Figure-1 evaluation.
-//
-// Replaces repro/kernels/interp/kernel.py `interp_eval_2d` / `_interp_kernel`
-// (l.366): out[i] = ((a*xs^2 + b*xl + c) >> k) on the design's (2^R, 3)
-// int32 coefficients, region = code >> eval_bits. Bound on an H100: bytes
-// (a 4-byte code in, a 4-byte result out, a handful of integer operations).
-// Design: the coefficients are staged in shared memory while they fit
-// (2^R * 12 bytes; read through the cache beyond), a grid-stride loop takes
-// any code count; the reference's (rows % 8, 128) tiling is TPU layout.
-__global__ void interp_eval_kernel(const int32_t* __restrict__ codes,
-                                   const int32_t* __restrict__ coeffs,
-                                   TableArgs t, int staged,
-                                   int32_t* __restrict__ out, int64_t n) {
-  extern __shared__ int32_t smem[];
-  const int32_t* rom = coeffs;
-  if (staged) {
-    for (int i = threadIdx.x; i < t.rows * 3; i += blockDim.x)
-      smem[i] = coeffs[i];
-    __syncthreads();
-    rom = smem;
-  }
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step)
-    out[i] = lut_rom(rom, t, codes[i]);
-}
-
-extern "C" int repro_interp_eval(const int32_t* codes, const int32_t* coeffs,
-                                 int rows, int eval_bits, int k, int sq_trunc,
-                                 int lin_trunc, int degree, int32_t* out,
-                                 int64_t n, int device, void* stream) {
-  cudaError_t err = use_device(device);
+template <bool SEG, bool STAGED>
+static int launch_slot_read(const int32_t* codes, const int32_t* rom,
+                            const TableArgs& t, int32_t* out, int64_t n,
+                            int device, void* stream) {
+  const void* kernel = (const void*)slot_read_kernel<SEG, STAGED>;
+  const size_t smem = STAGED ? (size_t)slot_words(t) * 4 : 0;
+  int64_t n_vec = 0;
+  int blocks = 0;
+  const cudaError_t err =
+      code_grid(kernel, smem, device, codes, nullptr, out, n, &n_vec, &blocks);
   if (err != cudaSuccess) return (int)err;
-  if (n == 0) return 0;
-  size_t smem = (size_t)rows * 3 * 4;
-  if (smem > 96 * 1024) {
-    smem = 0;  // too large to stage: read the coefficients from global
-  } else if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(interp_eval_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (int64_t)sms * 8) blocks = (int64_t)sms * 8;
-  const TableArgs t{0, rows, eval_bits, k, sq_trunc, lin_trunc, degree, 0, 0};
-  interp_eval_kernel<<<(int)blocks, threads, smem, (cudaStream_t)stream>>>(
-      codes, coeffs, t, smem > 0, out, n);
+  slot_read_kernel<SEG, STAGED><<<blocks, kThreads, smem,
+                                  (cudaStream_t)stream>>>(codes, rom, t, out,
+                                                          n, n_vec);
   return (int)cudaGetLastError();
 }
 
-// rom_eval: one slot of a flat library ROM through `lut_rom`.
-//
-// Replaces repro/kernels/interp/kernel.py `rom_eval_2d` / `_rom_kernel`
-// (l.175), the golden harness of the in-kernel read: one function of the
-// (F * r_max, 3) ROM, uniform or segmented, through exactly the `lut_rom`
-// that softmax_lib, rmsnorm_lib and flash_attn_lib inline. Bound on an
-// H100: bytes (a 4-byte code in, a 4-byte result out). Design: the slot and
-// a segmented slot's leaf rows are staged in shared memory (`stage_slot`,
-// as the fused kernels stage them); a slot too large for shared memory is
-// refused at launch. A grid-stride loop takes any code count.
-__global__ void rom_eval_kernel(const int32_t* __restrict__ codes,
-                                const int32_t* __restrict__ rom, TableArgs t,
-                                int32_t* __restrict__ out, int64_t n) {
-  extern __shared__ int32_t smem[];
-  stage_slot(rom, t, smem);
-  __syncthreads();
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step)
-    out[i] = lut_rom(smem, t, codes[i]);
+// The C entries of rom_eval and interp_eval. The slot is staged while it
+// fits a block's opt-in shared memory; past it, interp_eval (global_ok)
+// reads the rows where they lie and rom_eval refuses the slot, as it
+// refuses a malformed one.
+static int slot_read(const int32_t* codes, const int32_t* rom,
+                     const TableArgs& t, int32_t* out, int64_t n,
+                     bool global_ok, int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return (int)err;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return (int)err;
+  const bool fits = (size_t)slot_words(t) * 4 <= (size_t)optin;
+  if (!table_args_ok(t) || (!fits && !global_ok))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  if (t.seg_depth)
+    return launch_slot_read<true, true>(codes, rom, t, out, n, device, stream);
+  return fits ? launch_slot_read<false, true>(codes, rom, t, out, n, device,
+                                              stream)
+              : launch_slot_read<false, false>(codes, rom, t, out, n, device,
+                                               stream);
 }
 
-// slot12: see datapath.cuh `table_args`; dp: the library's leaf rows.
+// rom_eval replaces repro/kernels/interp/kernel.py `rom_eval_2d` /
+// `_rom_kernel` (l.175), the golden harness of the in-kernel read: one slot
+// of the flat (F * r_max, 3) ROM, uniform or segmented, through the
+// `lut_slot` the fused kernels inline. slot12: see datapath.cuh
+// `table_args`; dp: the library's leaf rows.
 extern "C" int repro_rom_eval(const int32_t* codes, const int32_t* rom,
                               const int32_t* slot12, const int32_t* dp,
                               int32_t* out, int64_t n, int device,
                               void* stream) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
-  const TableArgs t = table_args(slot12, dp);
-  if (!table_args_ok(t)) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  const size_t smem = (size_t)slot_words(t) * 4;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(rom_eval_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (int64_t)sms * 8) blocks = (int64_t)sms * 8;
-  rom_eval_kernel<<<(int)blocks, threads, smem, (cudaStream_t)stream>>>(
-      codes, rom, t, out, n);
-  return (int)cudaGetLastError();
+  return slot_read(codes, rom, table_args(slot12, dp), out, n, false, device,
+                   stream);
+}
+
+// interp_eval replaces repro/kernels/interp/kernel.py `interp_eval_2d` /
+// `_interp_kernel` (l.366): one design's (2^R, 3) int32 rows, region = code
+// >> eval_bits; row12: the design's table row (kernel.py `design_args`, no
+// segment table). The reference's (rows % 8, 128) tiling is TPU layout.
+extern "C" int repro_interp_eval(const int32_t* codes, const int32_t* coeffs,
+                                 const int32_t* row12, int32_t* out,
+                                 int64_t n, int device, void* stream) {
+  return slot_read(codes, coeffs, table_args(row12, nullptr), out, n, true,
+                   device, stream);
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -57,7 +57,7 @@ _SIGNATURES = {
                           _P),
     "repro_flash_attn_tab": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _F, _I, _I, _P),
-    "repro_interp_eval": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _L, _I, _P),
+    "repro_interp_eval": (_P, _P, _P, _P, _L, _I, _P),
     "repro_envelopes_parity": (_P, _P, _L, _I, _P, _P, _P, _P, _I, _P),
     "repro_dd_max_rows": (_P, _P, _L, _I, _P, _I, _P),
 }

@@ -9,9 +9,9 @@ around ``library_eval_2d`` or ``library_walk_2d``, in one kernel.
 
 The reference tiles codes as (rows, 128) lanes with rows % 8 and reads the
 ROM by one-hot MXU contractions; on Hopper the kernel takes any shape
-flattened, stages the ROM (or the one slot a call reads) in shared memory
-and reads it by index.
-"""
+flattened, stages the ROM (or the one slot a call reads, under the first
+loads of codes) in shared memory and reads it by index; one design's rows
+past a block's shared memory are read in place."""
 from __future__ import annotations
 
 import ctypes
@@ -182,14 +182,16 @@ def act_library_cuda(x: torch.Tensor, library, kind: str, *,
 
 def rom_eval_cuda(codes: torch.Tensor, library, kind: str) -> torch.Tensor:
     """The port of ``rom_eval_2d``: ``kind``'s slot of ``library``'s ROM on
-    int32 codes of any shape, through the ``lut_rom`` read the fused kernels
-    inline (the segmented branch for a v2 slot)."""
+    int32 codes of any shape, through the ``lut_slot`` read the fused
+    kernels inline (the segmented one for a v2 slot)."""
     dev = codes.device
     rom = library.coeffs
     _check_operands(codes, rom)
     dp = library.walk_rows()[1]
     codes = codes.contiguous()
     out = torch.empty_like(codes)
+    if codes.numel() == 0:
+        return out
     rc = build.load().repro_rom_eval(
         codes.data_ptr(), rom.data_ptr(),
         build.int_array(slot_args(library, kind)), dp.data_ptr(),
@@ -220,10 +222,11 @@ def interp_eval_cuda(codes: torch.Tensor, coeffs: torch.Tensor, *,
     out = torch.empty_like(codes)
     if codes.numel() == 0:
         return out
+    row = [0, coeffs.shape[0], eval_bits, k, sq_trunc, lin_trunc, degree,
+           0, 0, 0, 0, 0]  # design_args' layout; the widths go unread
     rc = build.load().repro_interp_eval(
-        codes.data_ptr(), coeffs.data_ptr(), coeffs.shape[0], eval_bits, k,
-        sq_trunc, lin_trunc, degree, out.data_ptr(), codes.numel(),
-        dev.index or 0, build.stream_of(dev))
+        codes.data_ptr(), coeffs.data_ptr(), build.int_array(row),
+        out.data_ptr(), codes.numel(), dev.index or 0, build.stream_of(dev))
     build.check("interp_eval", rc)
     build.LAUNCHES["interp_eval"] += 1
     return out

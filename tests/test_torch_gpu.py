@@ -1335,3 +1335,131 @@ def test_int32_one_id_staging_at_an_odd_count(name, lib, seg_lib, dev):
             if not card.segmented_kinds:
                 assert torch.equal(library_eval(codes, fid, card.coeffs,
                                                 card.meta_rows()), want)
+
+
+# ------------------------------ the one-slot reads (rom_eval, interp_eval)
+
+ONE_SLOT = ("rom_uniform", "rom_segmented", "interp")
+
+
+def _one_slot(name, _seg_cpu, dev):
+    """(call, plain, oracle, counter) of one one-slot read: ``rom_eval`` on
+    the silu slot of the uniform or the segmented library (through
+    ``kernels.interp.ops.rom_eval``), or ``interp_eval`` on the vendored
+    recip design (through ``table_eval``). ``oracle`` is eval_int on the
+    CPU, for codes in range."""
+    from repro_torch.api.library import DEFAULT_TABLE_KEY, TABLES_DIR
+    from repro_torch.kernels.interp.ref import rom_eval_ref
+
+    if name == "interp":
+        d = TableDesign.from_dict(json.loads(
+            (TABLES_DIR / f"recip_{DEFAULT_TABLE_KEY}.json").read_text()))
+        dp = dict(eval_bits=d.eval_bits, k=d.k, sq_trunc=d.sq_trunc,
+                  lin_trunc=d.lin_trunc, degree=d.degree)
+        return (lambda c: table_eval(c, d),
+                lambda c: interp_eval_ref(c, d.device_coeffs(dev), **dp),
+                lambda c: torch.from_numpy(d.eval_int(c.cpu().numpy())),
+                "interp_eval")
+    host = (InterpLibrary.default_library("cpu") if name == "rom_uniform"
+            else _seg_cpu)
+    card = InterpLibrary(host.coeffs.to(dev), host.metas).seal()
+    m = card.meta("silu")
+    args = dict(fid=card.func_id("silu"), r_max=card.r_max,
+                eval_bits=m.eval_bits, k=m.k, sq_trunc=m.sq_trunc,
+                lin_trunc=m.lin_trunc, degree=m.degree, seg=m.seg_spec())
+    return (lambda c: rom_eval(c, card, "silu"),
+            lambda c: rom_eval_ref(c, card.coeffs.reshape(-1, 3), **args),
+            lambda c: host.eval_int(c.cpu(), "silu"), "rom_eval")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [4097, 4098, 4099, 0])
+@pytest.mark.parametrize("name", ONE_SLOT)
+def test_one_slot_tails_offset_views_and_empty(name, n, offset, _seg_cpu,
+                                               dev):
+    """A count with n % 4 in {1, 2, 3} (the scalar tail after the vectors),
+    a view 4 bytes past a 16-byte boundary (the scalar path alone) and an
+    empty call: bitwise the plain version and eval_int, one launch per call
+    (none for an empty one)."""
+    call, plain, oracle, counter = _one_slot(name, _seg_cpu, dev)
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    base = torch.randint(0, 4096, (n + 8,), dtype=torch.int32, device=dev,
+                         generator=g)
+    codes = base[offset:offset + n]
+    assert not n or codes.data_ptr() % 16 == 4 * offset
+    n0 = build.LAUNCHES[counter]
+    got = call(codes)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[counter] == n0 + (1 if n else 0)
+    assert got.shape == codes.shape and got.dtype == torch.int32
+    assert torch.equal(got, plain(codes))
+    assert torch.equal(got.cpu().to(torch.int64), oracle(codes).to(
+        torch.int64))
+
+
+@pytest.mark.parametrize("name", ONE_SLOT)
+def test_one_slot_reads_out_of_range_codes_as_zero(name, _seg_cpu, dev):
+    """Codes past 2^in_bits and negative codes (a region or cell past the
+    slot) read a zero row, 0, as the kernels did before; the codes in range
+    beside them equal the plain version."""
+    call, plain, _, counter = _one_slot(name, _seg_cpu, dev)
+    inside = torch.arange(0, 4096, 7, dtype=torch.int32, device=dev)
+    outside = torch.tensor([4096, 4097, 65535, 2**31 - 1, -1, -4096, -2**31],
+                           dtype=torch.int32, device=dev)
+    codes = torch.cat([inside, outside, inside.flip(0)])
+    n0 = build.LAUNCHES[counter]
+    got = call(codes)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[counter] == n0 + 1
+    k = inside.numel()
+    assert torch.equal(got[:k], plain(inside))
+    assert torch.equal(got[-k:], plain(inside.flip(0)))
+    assert not got[k:k + outside.numel()].any()
+
+
+@pytest.mark.parametrize("name", ONE_SLOT)
+def test_one_slot_replays_in_a_cuda_graph(name, _seg_cpu, dev):
+    """The one-slot reads make no host sync: a captured CUDA graph replays
+    the call bitwise the eager one (one launch counted at capture)."""
+    call, _, _, counter = _one_slot(name, _seg_cpu, dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    codes = torch.randint(0, 4096, (4, 1, 11008), dtype=torch.int32,
+                          device=dev, generator=g)
+    want = call(codes)
+    torch.cuda.synchronize()
+    n0 = build.LAUNCHES[counter]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = call(codes)
+    assert build.LAUNCHES[counter] == n0 + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r", [14, 15])
+def test_interp_eval_rows_past_shared_memory(r, dev):
+    """A synthetic 16-bit design of 2^r int32-fitting rows: 2^14 rows (192
+    KB) stage in the opt-in shared memory, 2^15 (384 KB) pass a block's
+    227 KB and are read in global memory. Every code, and a view at a
+    4-byte offset, bitwise eval_int and the plain version, one launch a
+    call."""
+    rng = np.random.default_rng(r)
+    meta = CoeffMeta(24, 0, True)
+    d = TableDesign("rows", 16, 20, r, 4, 2, 0, 0,
+                    rng.integers(-2**10, 2**10, 1 << r),
+                    rng.integers(-2**16, 2**16, 1 << r),
+                    rng.integers(-2**24, 2**24, 1 << r), meta, meta, meta)
+    assert d.fits_int32
+    coeffs = d.device_coeffs(dev)
+    dp = dict(eval_bits=d.eval_bits, k=d.k, sq_trunc=d.sq_trunc,
+              lin_trunc=d.lin_trunc, degree=d.degree)
+    codes = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    for c in (codes, codes[1:-2]):
+        n0 = build.LAUNCHES["interp_eval"]
+        got = table_eval(c, d)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["interp_eval"] == n0 + 1
+        assert torch.equal(got, interp_eval_ref(c, coeffs, **dp))
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64),
+                                      d.eval_int(c.cpu().numpy()))

@@ -167,3 +167,96 @@ def test_table_eval_wide_path_all_codes(degree):
     assert d.device_coeffs_wide("cpu").dtype == torch.int64
     with pytest.raises(ValueError, match="exceed int32"):
         d.device_coeffs("cpu")
+
+
+def _rows_design(r: int) -> TableDesign:
+    """A synthetic 16-bit quadratic design of 2^r int32-fitting rows."""
+    rng = np.random.default_rng(r)
+    meta = CoeffMeta(24, 0, True)
+    return TableDesign("rows", 16, 20, r, 4, 2, 0, 0,
+                       rng.integers(-2**10, 2**10, 1 << r),
+                       rng.integers(-2**16, 2**16, 1 << r),
+                       rng.integers(-2**24, 2**24, 1 << r), meta, meta, meta)
+
+
+@pytest.mark.parametrize("case", ["rows_past_shared_memory", "ragged"])
+def test_interp_eval_ref_matches_reference_kernel_on_edge_shapes(case):
+    """The plain ``interp_eval`` == the reference's ``interp_eval_2d`` in
+    interpret mode: on a design of 2^15 rows (384 KB, past the 227 KB a
+    block of the card can stage, so the kernel reads them in global
+    memory), and on a ragged count of 1001 codes, zero-padded to the
+    reference's (8, 128) tile and cut back."""
+    d = _rows_design(15) if case == "rows_past_shared_memory" \
+        else _vendored("recip")
+    assert d.fits_int32
+    n = 1024 if case == "rows_past_shared_memory" else 1001
+    codes = np.random.default_rng(5).integers(
+        0, 1 << d.in_bits, n).astype(np.int32)
+    dp = dict(eval_bits=d.eval_bits, k=d.k, sq_trunc=d.sq_trunc,
+              lin_trunc=d.lin_trunc, degree=d.degree)
+    got = interp_eval_ref(torch.from_numpy(codes),
+                          torch.from_numpy(d.packed_coeffs()), **dp)
+    tile = np.zeros(8 * 128, np.int32)
+    tile[:n] = codes
+    want = interp_eval_2d(jnp.asarray(tile.reshape(8, 128)),
+                          jnp.asarray(d.packed_coeffs()), interpret=True,
+                          **dp)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).reshape(-1)[:n])
+    np.testing.assert_array_equal(got.numpy().astype(np.int64),
+                                  d.eval_int(codes))
+
+
+_DP = dict(eval_bits=6, k=4, sq_trunc=0, lin_trunc=0, degree=2)
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("codes_int64", TypeError), ("coeffs_float", TypeError),
+    ("coeffs_four_columns", ValueError), ("coeffs_flat", ValueError),
+    ("shift_32", ValueError), ("shift_negative", ValueError),
+    ("two_devices", ValueError)])
+def test_interp_eval_wrapper_refuses_before_any_build(case, exc,
+                                                      monkeypatch):
+    """``interp_eval_cuda`` checks its operands before it builds or loads
+    the kernels: a wrong dtype, a coefficient shape other than (2^R, 3), a
+    datapath shift outside [0, 32) and operands on two devices raise."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.interp.kernel import interp_eval_cuda
+
+    def no_build():
+        raise AssertionError("built before the operands were checked")
+
+    monkeypatch.setattr(build, "load", no_build)
+    codes = torch.zeros(16, dtype=torch.int32)
+    coeffs = torch.zeros(64, 3, dtype=torch.int32)
+    dp = dict(_DP)
+    if case == "codes_int64":
+        codes = codes.long()
+    elif case == "coeffs_float":
+        coeffs = coeffs.float()
+    elif case == "coeffs_four_columns":
+        coeffs = torch.zeros(64, 4, dtype=torch.int32)
+    elif case == "coeffs_flat":
+        coeffs = coeffs.reshape(-1)
+    elif case == "shift_32":
+        dp["eval_bits"] = 32
+    elif case == "shift_negative":
+        dp["k"] = -1
+    else:
+        coeffs = coeffs.to("meta")
+    with pytest.raises(exc):
+        interp_eval_cuda(codes, coeffs, **dp)
+
+
+def test_interp_eval_wrapper_empty_call_launches_nothing(monkeypatch):
+    """An empty call returns an empty int32 result of the codes' shape
+    without building, launching or counting a launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.interp.kernel import interp_eval_cuda
+
+    monkeypatch.setattr(build, "load", lambda: pytest.fail("built"))
+    n0 = build.LAUNCHES["interp_eval"]
+    out = interp_eval_cuda(torch.zeros(0, 3, dtype=torch.int32),
+                           torch.zeros(64, 3, dtype=torch.int32), **_DP)
+    assert out.shape == (0, 3) and out.dtype == torch.int32
+    assert build.LAUNCHES["interp_eval"] == n0

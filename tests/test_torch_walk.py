@@ -322,6 +322,34 @@ def test_rom_eval_ref_uniform_slot_matches_reference_kernel(mixed):
         got.numpy())
 
 
+@pytest.mark.parametrize("case,exc", [("codes_int64", TypeError),
+                                      ("two_devices", ValueError),
+                                      ("empty", None)])
+def test_rom_eval_wrapper_checks_before_any_build(case, exc, seg,
+                                                  monkeypatch):
+    """``rom_eval_cuda`` refuses int64 codes and a library on another
+    device than the codes before it builds or loads the kernels, and an
+    empty call returns without a launch (a malformed segmented slot is the
+    C entry's to refuse, on the card)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.interp.kernel import rom_eval_cuda
+
+    lib = seg[0]
+    monkeypatch.setattr(build, "load", lambda: pytest.fail("built"))
+    n0 = build.LAUNCHES["rom_eval"]
+    codes = {"codes_int64": torch.zeros(8, dtype=torch.int64),
+             "two_devices": torch.zeros(8, dtype=torch.int32,
+                                        device="meta"),
+             "empty": torch.zeros(2, 0, dtype=torch.int32)}[case]
+    if exc is None:
+        out = rom_eval_cuda(codes, lib, "tanh")
+        assert out.shape == codes.shape and out.dtype == torch.int32
+    else:
+        with pytest.raises(exc):
+            rom_eval_cuda(codes, lib, "tanh")
+    assert build.LAUNCHES["rom_eval"] == n0
+
+
 def test_lib_meta_carries_the_segment_spec(mixed):
     lib, jlib = mixed
     for kind in DEFAULT_LIBRARY_KINDS:
