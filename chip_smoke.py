@@ -10,8 +10,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
 2. holds the design-space generator's envelope kernels
    (``envelopes_parity``, ``envelopes_parity_batched``,
    ``envelopes_parity_fleet``) and the a-interval kernel ``dd_max_rows``
+   (one side, and both sides in one launch as the generator runs it)
    against their plain versions on the card, bitwise, at the shapes the
-   generator gives them, and times them;
+   generator gives them and on the steep rows (-2^24 per code, 16 and 2048
+   wide) through all three envelope entry points, and times them;
 3. runs the generator through its entry points: Table I's 16-bit
    reciprocal under ``engine="pallas"`` on the card against the exact numpy
    engine (same minimum region count, a design that verifies over all
@@ -20,7 +22,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    ``mesh=2``, and ``engine="pallas"``), each to the vendored library's
    ``rom_sha``, and evaluates every generated table through the
    ``interp_eval`` kernel against ``TableDesign.eval_int``; then the 16-bit
-   log2 and exp2 rows under both engines;
+   log2 and exp2 rows under both engines; checks that every envelope
+   launch came with one two-sided ``dd_max_rows`` launch; and reruns recip
+   16 under ``torch.profiler`` (device time in the envelope kernels) and
+   under ``cProfile`` (the five §III functions of ``core/decision.py``,
+   ``core/batched.py`` and ``core/fleet.py`` with the most cumulative
+   host time);
 4. segments the default manifest on the card: ``compile_segmented()``
    under ``engine="pallas"`` (fresh table cache) to the ROM-v2 library
    ``f775a828748d4ea9`` (8, 42, 3), 153 rows, beside the same call under the
@@ -393,6 +400,22 @@ def dspace_kernel_phase(dev):
     cuda = {"envelopes_parity": dk.envelopes_parity_cuda,
             "envelopes_parity_batched": dk.envelopes_parity_batched_cuda,
             "envelopes_parity_fleet": dk.envelopes_parity_fleet_cuda}
+    # the steep rows (slopes of -2^24 a code: float32 rounds the
+    # numerators) through all three entry points, bitwise
+    for n in (16, 2048):
+        L = f32(-(2.0 ** 24) * np.arange(n))
+        U = f32(-(2.0 ** 24) * np.arange(n) + 8)
+        want = ref.envelopes_parity_ref(L[None], U[None])
+        for name, fn in cuda.items():
+            lead = {"envelopes_parity": (), "envelopes_parity_batched": (1,),
+                    "envelopes_parity_fleet": (1, 1)}[name]
+            got = fn(L.reshape(*lead, n), U.reshape(*lead, n))
+            torch.cuda.synchronize()
+            if not all(torch.equal(g.reshape(1, n), w)
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"{name} steep ({n},) differs from plain")
+        print(f"steep rows ({n},) through the three envelope entry points: "
+              f"bitwise equal to the plain version (tolerance 0)")
     rows, details = {}, []
     dd_inputs = []
     for name, label, L, U in cases:
@@ -433,6 +456,38 @@ def dspace_kernel_phase(dev):
             dd_inputs.append((label, big[:, 1:].contiguous(),
                               m[:, 1:].contiguous()))
     for label, mt, st in dd_inputs:
+        # both sides in one launch, as _merge_reduce runs it
+        got = dk.dd_max_rows2_cuda(mt, st)
+        want = ref.dd_max_rows2_ref(mt, st)
+        one = (dk.dd_max_rows_cuda(mt, st), -dk.dd_max_rows_cuda(-st, -mt))
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        same = all(torch.equal(g, w) and torch.equal(g, o)
+                   for g, w, o in zip(got, want, one))
+        n_rows, t = mt.shape
+        print(f"dd_max_rows {label} a_lo + a_hi, one launch ({n_rows}, {t}): "
+              f"bitwise equal to dd_max_rows2_ref and to the two one-sided "
+              f"launches {same}, max_abs_err {err} (tolerance 0, bitwise)")
+        if not same:
+            raise AssertionError(f"dd_max_rows {label} two-sided differs")
+        pairs = 2 * n_rows * t * (t - 1) // 2  # both sides' pairs
+        b_ms, b_by = bound(4 * (2 * n_rows * t + 2 * n_rows), 3 * pairs,
+                           F32_FLOPS)
+        row = dict(name="dd_max_rows", shape=[n_rows, t],
+                   case=f"{label} a_lo + a_hi", max_abs_err=err, tolerance=0,
+                   ms=device_ms(lambda: dk.dd_max_rows2_cuda(mt, st),
+                                label=f"dd {label} both sides",
+                                kernel="dd_max_rows"),
+                   call_ms=timed(lambda: dk.dd_max_rows2_cuda(mt, st)),
+                   plain_ms=device_ms(lambda: ref.dd_max_rows2_ref(mt, st),
+                                      iters=2,
+                                      label=f"plain dd {label} both sides"),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                   pairs=pairs,
+                   **graph_cols(lambda: dk.dd_max_rows2_cuda(mt, st)))
+        details.append(row)
+        # the kernels line reads the launch the generator makes
+        rows.setdefault("dd_max_rows", row)
         for side, (g, h) in (("a_lo", (mt, st)), ("a_hi", (-st, -mt))):
             got = dk.dd_max_rows_cuda(g, h)
             want = ref.dd_max_rows_ref(g, h)
@@ -460,7 +515,6 @@ def dspace_kernel_phase(dev):
                        pairs=pairs,
                        **graph_cols(lambda: dk.dd_max_rows_cuda(g, h)))
             details.append(row)
-            rows.setdefault("dd_max_rows", row)
     # the one-row kernel through its public drop-in, against the plain one
     L, U = recip.region_bounds(5)
     got = ops.envelopes_pallas(L[0], U[0], device=dev)
@@ -583,6 +637,7 @@ def generator_phase(dev) -> dict:
                        for k in ("interp_eval", *ENVELOPE_KERNELS)}
     print(f"generator phase: {out['wall_s']:.1f} s; launches "
           f"{out['launches']}")
+    check_front_half_launches(out["launches"], "generator phase")
 
     # where the pallas engine's time goes: a profiled rerun of recip16
     spec = get_spec("recip", 16)
@@ -602,8 +657,54 @@ def generator_phase(dev) -> dict:
           f"{kern / 1e6:.4f} s device time in the envelope kernels, "
           f"{total / 1e6:.4f} s device time in all; the rest is the host "
           f"(bounds, the §III decision procedure in numpy, transfers)")
+    out["recip16_pallas_host"] = host_profile(lambda: explore(
+        spec, engine="pallas"))
     out["library"], out["designs"] = libs["engine=pallas"]
     return out
+
+
+def check_front_half_launches(launches: dict, label: str) -> None:
+    """Each §II front-half call (``_merge_reduce``) launches one envelope
+    kernel over its region batch or fleet and one two-sided
+    ``dd_max_rows``: the counts must match."""
+    fronts = (launches["envelopes_parity_batched"]
+              + launches["envelopes_parity_fleet"])
+    print(f"{label}: {launches['dd_max_rows']} dd_max_rows launches for "
+          f"{fronts} batched / fleet envelope launches (one two-sided "
+          f"launch per region batch)")
+    if launches["dd_max_rows"] != fronts:
+        raise AssertionError(f"{label}: dd_max_rows launched "
+                             f"{launches['dd_max_rows']} times for {fronts} "
+                             f"front halves")
+
+
+def host_profile(fn, top: int = 5) -> dict:
+    """``fn()`` under cProfile: its wall seconds and the ``top`` functions
+    of the §III modules (``core/decision.py``, ``core/batched.py``,
+    ``core/fleet.py``) by cumulative time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof)
+    mods = ("decision.py", "batched.py", "fleet.py")
+    rows = []
+    for (path, line, func), (_cc, calls, tot, cum, _) in stats.stats.items():
+        p = pathlib.PurePath(path)
+        if p.name in mods and p.parent.name == "core" and \
+                "repro_torch" in p.parts:
+            rows.append(dict(function=f"core/{p.name}:{line} {func}",
+                             calls=calls, cumulative_s=cum, own_s=tot))
+    rows.sort(key=lambda r: -r["cumulative_s"])
+    print(f"recip16 pallas engine under cProfile: {wall:.2f} s wall; the "
+          f"§III functions with the most cumulative time:")
+    for r in rows[:top]:
+        print(f"  {r['function']}: {r['cumulative_s']:.3f} s cumulative, "
+              f"{r['own_s']:.3f} s own, {r['calls']} calls")
+    return dict(wall_s=wall, top=rows[:top])
 
 
 def segmented_generator_phase(dev) -> dict:
@@ -690,6 +791,7 @@ def segmented_generator_phase(dev) -> dict:
                          for k in ("rom_eval", *ENVELOPE_KERNELS)})
     print(f"segmented generator phase: {out['wall_s']:.1f} s; launches "
           f"{out['launches']}")
+    check_front_half_launches(out["launches"], "segmented generator phase")
     return out, lib, designs
 
 

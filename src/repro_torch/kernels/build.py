@@ -60,6 +60,8 @@ _SIGNATURES = {
     "repro_interp_eval": (_P, _P, _P, _P, _L, _I, _P),
     "repro_envelopes_parity": (_P, _P, _L, _I, _P, _P, _P, _P, _I, _P),
     "repro_dd_max_rows": (_P, _P, _L, _I, _P, _I, _P),
+    "repro_dd_max_rows2": (_P, _P, _L, _I, _P, _P, _I, _P),
+    "repro_envelope_quotient": (_P, _P, _L, _P, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

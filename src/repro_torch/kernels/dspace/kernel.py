@@ -7,9 +7,14 @@ of ``repro/kernels/dspace/kernel.py``.
 ``envelopes_parity_fleet``); all three launch the one ``(rows, n)`` kernel
 and count under the reference's names. The reference's ``TILE``, its 3n
 zero padding and its pad lanes are TPU layout: the kernel masks the row's
-ends instead, so it takes any n and any row count. ``dd_max_rows_cuda`` is
-the Eqns 7-8 a-interval reduction (``repro/kernels/dspace/ops.py``
-``_dd_max_rows``, jnp glue in the reference, no Pallas kernel).
+ends instead, so it takes any n and any row count.
+``dd_max_rows_cuda`` is the Eqns 7-8 a-interval reduction
+(``repro/kernels/dspace/ops.py`` ``_dd_max_rows``, jnp glue in the
+reference, no Pallas kernel); ``dd_max_rows2_cuda`` computes both sides of
+the a-interval, the reference's two calls, in one launch of the same kernel
+and counts under ``dd_max_rows``. The C entries fill the outputs with the
+reference's empty-loop values and a row's blocks merge into them with
+order-free float atomics.
 """
 from __future__ import annotations
 
@@ -76,19 +81,33 @@ def envelopes_parity_fleet_cuda(l_arr: torch.Tensor, u_arr: torch.Tensor):
     return _envelopes(l_arr, u_arr, "envelopes_parity_fleet")
 
 
-def dd_max_rows_cuda(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """Row-wise ``max_{x<y} (g[y]-h[x])/(y-x)`` of (rows, t) float32 rows;
-    -3.4e38 where t < 2."""
+def _dd_rows(g: torch.Tensor, h: torch.Tensor):
     _check(g, "dd_max_rows")
     _check(h, "dd_max_rows")
     if g.dim() != 2 or g.shape != h.shape or g.device != h.device:
         raise ValueError(f"dd_max_rows: g {tuple(g.shape)} on {g.device}, "
                          f"h {tuple(h.shape)} on {h.device}")
-    rows, t = g.shape
-    gc, hc = g.contiguous(), h.contiguous()
-    dev = gc.device
-    out = torch.full((rows,), -BIG, dtype=torch.float32, device=dev)
-    if rows == 0 or t < 2:  # no pair: the reference's empty-loop value
+    return g.contiguous(), h.contiguous()
+
+
+def _dd_out(sides: int, rows: int, t: int, dev: torch.device):
+    """(sides, rows) outputs: the C entry fills them before its launch;
+    with no pair the reference's empty-loop values (-3.4e38, 3.4e38)."""
+    if rows == 0 or t < 2:
+        out = torch.full((sides, rows), -BIG, dtype=torch.float32,
+                         device=dev)
+        out[1:] = BIG
+        return out
+    return torch.empty((sides, rows), dtype=torch.float32, device=dev)
+
+
+def dd_max_rows_cuda(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Row-wise ``max_{x<y} (g[y]-h[x])/(y-x)`` of (rows, t) float32 rows;
+    -3.4e38 where t < 2."""
+    gc, hc = _dd_rows(g, h)
+    (rows, t), dev = gc.shape, gc.device
+    out = _dd_out(1, rows, t, dev)[0]
+    if rows == 0 or t < 2:
         return out
     rc = build.load().repro_dd_max_rows(
         gc.data_ptr(), hc.data_ptr(), rows, t, out.data_ptr(),
@@ -96,3 +115,21 @@ def dd_max_rows_cuda(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     build.check("dd_max_rows", rc)
     build.LAUNCHES["dd_max_rows"] += 1
     return out
+
+
+def dd_max_rows2_cuda(mt: torch.Tensor, st: torch.Tensor):
+    """Both sides of the Eqns 7-8 a-interval of (rows, t) float32 rows in
+    one launch: ``(dd_max_rows(mt, st), -dd_max_rows(-st, -mt))``, i.e.
+    ``max_{x<y} (mt[y]-st[x])/(y-x)`` and ``-max_{x<y} (mt[x]-st[y])/(y-x)``;
+    -3.4e38 and 3.4e38 where t < 2."""
+    mc, sc = _dd_rows(mt, st)
+    (rows, t), dev = mc.shape, mc.device
+    a_lo, a_hi = _dd_out(2, rows, t, dev)
+    if rows == 0 or t < 2:
+        return a_lo, a_hi
+    rc = build.load().repro_dd_max_rows2(
+        mc.data_ptr(), sc.data_ptr(), rows, t, a_lo.data_ptr(),
+        a_hi.data_ptr(), dev.index or 0, build.stream_of(dev))
+    build.check("dd_max_rows", rc)
+    build.LAUNCHES["dd_max_rows"] += 1
+    return a_lo, a_hi

@@ -7,11 +7,12 @@ version.
 path (``repro_torch.core.designspace.envelopes``) produces.
 ``region_envelopes_device`` is the ``pallas`` engine's front half: one
 envelope-kernel launch over all ``2^R`` regions, then the parity merge and
-Eqn 9 feasibility as torch ops on the device and the Eqns 7-8 a-interval
-as the ``dd_max_rows`` kernel. ``fleet_region_envelopes_device`` does the
-same over a stacked probe fleet. Envelope arithmetic is float32 (DESIGN.md
-§9); results come back to numpy float64 in the core layout (index 0 a
-placeholder, sentinels as +/-inf).
+Eqn 9 feasibility as torch ops on the device and both sides of the Eqns 7-8
+a-interval as one launch of the ``dd_max_rows`` kernel.
+``fleet_region_envelopes_device`` does the same over a stacked probe
+fleet. Envelope arithmetic is float32 (DESIGN.md §9); results come back to
+numpy float64 in the core layout (index 0 a placeholder, sentinels as
++/-inf).
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.kernels.dspace.kernel import (dd_max_rows_cuda,
+from repro_torch.kernels.dspace.kernel import (dd_max_rows2_cuda,
+                                               dd_max_rows_cuda,
                                                envelopes_parity_batched_cuda,
                                                envelopes_parity_cuda,
                                                envelopes_parity_fleet_cuda)
-from repro_torch.kernels.dspace.ref import dd_max_rows_ref, envelopes_parity_ref
+from repro_torch.kernels.dspace.ref import (dd_max_rows2_ref, dd_max_rows_ref,
+                                            envelopes_parity_ref)
 
 # the fleet's +/-inf column sentinels become the reference's finite pad
 # values, which lose every min/max reduction the same way
@@ -59,6 +62,14 @@ def dd_max_rows(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     if g.is_cuda:
         return dd_max_rows_cuda(g, h)
     return dd_max_rows_ref(g, h)
+
+
+def dd_max_rows2(mt: torch.Tensor, st: torch.Tensor):
+    """Both sides of the a-interval of (rows, t) float32 rows:
+    ``(dd_max_rows(mt, st), -dd_max_rows(-st, -mt))``, one launch."""
+    if mt.is_cuda:
+        return dd_max_rows2_cuda(mt, st)
+    return dd_max_rows2_ref(mt, st)
 
 
 def _rows_f32(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -106,8 +117,7 @@ def _merge_reduce(me, mo, be, bo):
     big, m = _interleave(me, mo, be, bo)
     mt, st = big[:, 1:].contiguous(), m[:, 1:].contiguous()
     feas9 = torch.all(mt < st, dim=1)
-    a_lo = dd_max_rows(mt, st)
-    a_hi = -dd_max_rows(-st, -mt)
+    a_lo, a_hi = dd_max_rows2(mt, st)
     return big, m, a_lo, a_hi, feas9
 
 

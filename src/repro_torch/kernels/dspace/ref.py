@@ -1,12 +1,13 @@
 """Plain PyTorch versions of the §II envelope kernels (twins of
 ``repro/kernels/dspace/ref.py`` and of the reference's ``_dd_max_rows``).
 
-They repeat the CUDA kernels' arithmetic on any device: the parity-split
+They repeat the CUDA kernels' results on any device: the parity-split
 center stencil as a loop over the offset e, vectorised over rows and
 centers (not the reference's O(N^2)-memory dense oracle), and the
 a-interval reduction as a loop over delta. Every divisor is a tensor, never
 a Python scalar: PyTorch may turn division by a scalar into a multiply by
-its reciprocal, which rounds differently.
+its reciprocal, which rounds differently. ``envelope_quotient_ref`` is the
+envelope kernel's divide-free quotient, for the tests.
 """
 from __future__ import annotations
 
@@ -56,6 +57,45 @@ def envelopes_parity_ref_batched(l_rows: torch.Tensor, u_rows: torch.Tensor
     """Region-batched twin of ``kernel.envelopes_parity_batched``: the
     stencil above is already vectorised over the leading (region) axis."""
     return envelopes_parity_ref(l_rows, u_rows)
+
+
+def envelope_quotient_ref(num: torch.Tensor, d: torch.Tensor
+                          ) -> torch.Tensor:
+    """The envelope kernel's quotient of float32 ``num`` by integer-valued
+    float32 ``d`` in [1, 2^22): r = RN(1/d), q0 = RN(num * r), rem =
+    RN(num - d * q0), q = RN(q0 + rem * r), the last two fused multiply-adds
+    taken exactly in float64 and rounded once to float32 (rem is a float32,
+    so its float64 sum is exact; q's float64 sum lies off every float32
+    midpoint by more than a float64 rounding, csrc/dspace.cu). Equals
+    ``num / d`` bitwise in the kernel's range (the proof in csrc/dspace.cu)."""
+    num = num.to(torch.float32)
+    d = d.to(torch.float32)
+    r = torch.ones_like(d) / d
+    q0 = num * r
+    rem = (num.double() - d.double() * q0.double()).float()
+    return (q0.double() + rem.double() * r.double()).float()
+
+
+def dd_max_rows2_ref(mt: torch.Tensor, st: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both sides of the a-interval, as the two-sided kernel computes them:
+    per delta the max of the float32 numerators over x, one divide, the max
+    over delta. ``a_lo = max (mt[y]-st[x])/(y-x)``, ``a_hi = -max
+    (mt[x]-st[y])/(y-x)``: bitwise ``(dd_max_rows_ref(mt, st),
+    -dd_max_rows_ref(-st, -mt))``, since division by delta > 0 and rounding
+    are monotone and RN(-st[y] - (-mt[x])) = RN(mt[x] - st[y])."""
+    mt = mt.to(torch.float32)
+    st = st.to(torch.float32)
+    rows, t = mt.shape
+    lo = torch.full((rows,), -BIG, dtype=torch.float32, device=mt.device)
+    hi = lo.clone()
+    for delta in range(1, t):
+        d = _divisor(float(delta), mt)[0]
+        num_lo = (mt[:, delta:] - st[:, : t - delta]).amax(dim=1)
+        num_hi = (mt[:, : t - delta] - st[:, delta:]).amax(dim=1)
+        lo = torch.maximum(lo, num_lo / d)
+        hi = torch.maximum(hi, num_hi / d)
+    return lo, -hi
 
 
 def dd_max_rows_ref(g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

@@ -29,8 +29,11 @@ Tolerances:
   (ROM v2) default library; the fused kernels on the segmented library at
   the tolerances above.
 * interp_eval, the envelope kernels and dd_max_rows: bitwise. The
-  envelope arithmetic is IEEE float32 add, subtract and divide of small
-  integers in the reference's order, and min / max do not depend on order.
+  envelope arithmetic is IEEE float32 add and subtract of integers in the
+  reference's order and a quotient that equals the IEEE divide bit for bit
+  (csrc/dspace.cu); dd_max_rows divides once per delta, which monotone
+  rounding makes equal to a divide per pair; min / max do not depend on
+  order.
 * The per-table kernels (softmax_tab, rmsnorm_tab, flash_attn_tab) on the
   default R6, the vendored R5 and generated 10-bit designs, at the
   tolerances of their library twins above (with each design's own widths);
@@ -620,39 +623,110 @@ def test_engine_on_card_counts_and_batching(arch, lib, dev):
 
 # ---------------------------------------------------------------- generator
 
-def _bounds_f32(dev, rows, n, seed):
+def _bounds_f32(dev, shape, seed, steep=False):
+    """Integer bounds: random monotone rows, or the steep table's
+    -2^24 * x rows (U = L + 0..8), where float32 rounds the numerators."""
     rng = np.random.default_rng(seed)
-    L = np.cumsum(rng.integers(0, 3, (rows, n)), axis=1)
-    U = L + rng.integers(0, 4, (rows, n))
+    n = shape[-1]
+    if steep:
+        L = np.broadcast_to(-(1 << 24) * np.arange(n, dtype=np.int64),
+                            shape).copy()
+    else:
+        L = np.cumsum(rng.integers(0, 3, shape), axis=-1)
+    U = L + rng.integers(0, 9 if steep else 4, shape)
     return (torch.as_tensor(L, dtype=torch.float32, device=dev),
             torch.as_tensor(U, dtype=torch.float32, device=dev))
 
 
-@pytest.mark.parametrize("rows,n", [(32, 2048), (256, 256), (3, 200),
-                                    (5, 3), (2, 9000), (1, 24000)])
-def test_envelope_kernels_bitwise(rows, n, dev):
+@pytest.mark.parametrize("shape,steep", [
+    ((32, 2048), False), ((256, 256), False), ((3, 200), False),
+    ((5, 3), False), ((2, 9000), False), ((1, 24000), False),
+    ((1, 2048), False), ((7, 1001), False), ((3, 32, 2048), False),
+    ((1, 16), True), ((4, 2048), True), ((1, 1 << 16), False),
+    ((2, (1 << 16) + 1), False)])
+def test_envelope_kernels_bitwise(shape, steep, dev):
     """The three envelope entry points against the plain stencil, bitwise:
-    the generator's widths, a width off any tile, the narrowest row the
-    kernel takes, one staged above 48 KiB of shared memory and one too wide
-    to stage at all."""
-    L, U = _bounds_f32(dev, rows, n, rows + n)
-    want = dref.envelopes_parity_ref(L, U)
+    the generator's widths (one row: offset groups in a cluster), a width
+    off the 32-center tile, the narrowest row the kernel takes, rows whose
+    offsets take 5 and 8 groups (clusters), the Table I trio's fleet stack,
+    the steep rows, the widest staged row (2^16) and rows one wider, read
+    through the read-only cache; the launch counters move by one each."""
+    L, U = _bounds_f32(dev, shape, sum(shape), steep)
+    n = shape[-1]
+    rows = L.numel() // n
+    want = dref.envelopes_parity_ref(L.reshape(rows, n), U.reshape(rows, n))
     n0 = dict(build.LAUNCHES)
-    got_b = dk.envelopes_parity_batched_cuda(L, U)
-    got_f = dk.envelopes_parity_fleet_cuda(L[None], U[None])
-    got_1 = dk.envelopes_parity_cuda(L[0], U[0])
+    got_b = dk.envelopes_parity_batched_cuda(L.reshape(rows, n),
+                                             U.reshape(rows, n))
+    fleet = L.reshape(-1, shape[-2] if len(shape) > 1 else 1, n)
+    got_f = dk.envelopes_parity_fleet_cuda(fleet, U.reshape(fleet.shape))
+    got_1 = dk.envelopes_parity_cuda(L.reshape(rows, n)[-1],
+                                     U.reshape(rows, n)[-1])
     torch.cuda.synchronize()
     for gb, gf, g1, w in zip(got_b, got_f, got_1, want):
-        assert torch.equal(gb, w) and torch.equal(gf[0], w)
-        assert torch.equal(g1, w[0])
+        assert torch.equal(gb, w) and torch.equal(gf.reshape(rows, n), w)
+        assert torch.equal(g1, w[-1])
     for name in ("envelopes_parity", "envelopes_parity_batched",
                  "envelopes_parity_fleet"):
         assert build.LAUNCHES[name] == n0[name] + 1
 
 
-@pytest.mark.parametrize("rows,t", [(32, 4093), (512, 125), (3, 2),
+def _quotient_cases(kind):
+    """(num, d) float32 pairs the envelope quotient's proof turns on:
+    N / d within u / d of a rounding midpoint (u = 2^-24 at [1, 2); eps = +-1
+    is as close as any N / d comes), candidates one float32 ulp apart, and
+    equal quotients of different divisors."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "midpoint":  # N * 2^24 = eps (mod d): N = d + (eps 2^-24 mod d)
+        d = rng.integers(3, (1 << 22) - 1, 4000) | 1
+        eps = rng.choice([-3, -2, -1, 1, 2, 3], 4000)
+        num = np.array([int(di) + (int(ei) * pow(1 << 24, -1, int(di)))
+                        % int(di) for di, ei in zip(d, eps)], np.float64)
+        num *= 2.0 ** rng.integers(0, 20, 4000)
+    elif kind == "one_ulp":  # N2 / d2 one ulp above RN(N1 / d1)
+        d1 = rng.integers(1, 1 << 12, 2000)
+        n1 = rng.integers(-(1 << 24), 1 << 24, 2000).astype(np.float32)
+        q2 = np.nextafter((n1 / d1.astype(np.float32)).astype(np.float32),
+                          np.float32(np.inf), dtype=np.float32)
+        d2 = rng.integers(1, 1 << 12, 2000)
+        n2 = (q2.astype(np.float64) * d2).astype(np.float32)
+        num, d = np.concatenate([n1, n2]), np.concatenate([d1, d2])
+    else:  # "equal": N k / (d k)
+        d1 = rng.integers(1, 1 << 12, 2000)
+        n1 = rng.integers(-(1 << 24), 1 << 24, 2000).astype(np.float32)
+        k = rng.integers(2, 64, 2000)
+        num = np.concatenate([n1, (n1.astype(np.float64) * k)])
+        d = np.concatenate([d1, d1 * k])
+    return (torch.as_tensor(num, dtype=torch.float32),
+            torch.as_tensor(d, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("kind", ["midpoint", "one_ulp", "equal"])
+def test_envelope_quotient_kernel_is_ieee_quotient(kind, dev):
+    """The compiled divide-free quotient of the envelope kernel (the same
+    div_by, with r = RN(1/d) as its table holds it) against the IEEE
+    divide on the CPU and the plain version of the quotient, bitwise."""
+    num, d = _quotient_cases(kind)
+    num_c, d_c = num.to(dev), d.to(dev)
+    q = torch.empty(num.numel(), device=dev)
+    rc = build.load().repro_envelope_quotient(
+        num_c.data_ptr(), d_c.data_ptr(), num.numel(), q.data_ptr(),
+        dev.index or 0, build.stream_of(dev))
+    build.check("envelope_quotient", rc)
+    got = q.cpu()
+    assert torch.equal(got, num / d)
+    assert torch.equal(got, dref.envelope_quotient_ref(num, d))
+
+
+@pytest.mark.parametrize("rows,t", [(32, 4093), (512, 125), (3, 2), (3, 3),
                                     (2, 30001)])
 def test_dd_max_rows_bitwise(rows, t, dev):
+    """The one-sided launch against the plain version, and the two-sided
+    launch against dd_max_rows2_ref and the two one-sided calls it
+    replaces, bitwise: the generator's width, many short rows, the
+    narrowest rows, and a row too wide to stage (read through the
+    read-only cache); one launch each, counted under dd_max_rows; a second
+    launch into fresh outputs (filled anew by the C entry) agrees."""
     g = torch.Generator(device=dev).manual_seed(t)
     a = torch.randn(rows, t, device=dev, generator=g) * 1000
     b = a - torch.rand(rows, t, device=dev, generator=g) * 50
@@ -660,6 +734,30 @@ def test_dd_max_rows_bitwise(rows, t, dev):
     got = dk.dd_max_rows_cuda(a, b)
     assert torch.equal(got, dref.dd_max_rows_ref(a, b))
     assert build.LAUNCHES["dd_max_rows"] == n0 + 1
+    lo, hi = dk.dd_max_rows2_cuda(a, b)
+    assert build.LAUNCHES["dd_max_rows"] == n0 + 2
+    want = dref.dd_max_rows2_ref(a, b)
+    assert torch.equal(lo, want[0]) and torch.equal(hi, want[1])
+    assert torch.equal(lo, got)
+    assert torch.equal(hi, -dk.dd_max_rows_cuda(-b, -a))
+    again = dk.dd_max_rows2_cuda(a, b)
+    assert torch.equal(again[0], lo) and torch.equal(again[1], hi)
+
+
+def test_front_half_launches_once_per_call(dev):
+    """region_envelopes_device and fleet_region_envelopes_device: one
+    envelope launch and one two-sided dd_max_rows launch a call."""
+    L, U = get_spec("recip", 12).region_bounds(5)
+    for call, name, args in (
+            (dops.region_envelopes_device, "envelopes_parity_batched",
+             (L, U)),
+            (dops.fleet_region_envelopes_device, "envelopes_parity_fleet",
+             (L[None], U[None]))):
+        n0 = dict(build.LAUNCHES)
+        call(*args, device=dev)
+        moved = {k: build.LAUNCHES[k] - n0[k] for k in build.LAUNCHES
+                 if build.LAUNCHES[k] != n0[k]}
+        assert moved == {name: 1, "dd_max_rows": 1}
 
 
 def test_region_envelopes_device_card_equals_cpu(dev):
