@@ -75,19 +75,36 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    ``flash_attn_tab`` kernels, launch counts read right after), each kernel
    held against its plain version and, on R6, bitwise against its library
    twin on the uniform library of step 3, and timed;
-7. serves 6 requests on full-width Yi-6B (bf16, random weights from a
+7. holds the backends' other activations (gelu, sigmoid, softplus, tanh:
+   one ``act_lib`` launch each on their slots) bitwise against their plain
+   versions at the served decode and prefill shapes on both libraries;
+8. serves 6 requests on full-width Yi-6B (bf16, random weights from a
    seeded generator, the uniform library) through the continuous-batching
-   engine with interp-fused numerics, asserts every request completes with
-   in-vocabulary tokens and finite logits, that each kernel launched
-   exactly its expected count per forward pass, and that each request's
-   first token matches a plain-version prefill on the card (tie-aware);
-8. frees Yi-6B and does the same on full-width DeepSeekMoE-16B (28 layers,
-   64 routed experts top-6 + 2 shared, a dense layer 0; the router's
-   softmax through the ``softmax_lib`` kernel), first on the uniform
-   library, then on the same weights on the segmented library, where the
-   activations and every table read of the fused kernels go through the
-   segment decode: the same launches per forward;
-9. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
+   engine with interp-fused numerics, twice: on a graph engine (the main
+   path: each tick the replay of one captured CUDA graph per chunk size)
+   and on an eager one (``graph=False``); asserts every request completes
+   with in-vocabulary tokens and finite logits, the two engines' token
+   streams and final caches (k, v, pos) bitwise equal, that each kernel
+   launched exactly its expected count per forward pass
+   (``stats["launches"]``, which adds each graph's launches on every
+   replay; the wrappers' global counters see the eager engine's every
+   launch and the graph engine's prefills), and that each request's first
+   token matches a plain-version prefill on the card (tie-aware); times
+   both engines' ticks at 4 live slots (wall ms per decode step, the
+   busy share from torch.profiler); then, on the same weights, the serial
+   oracle (exact numerics, one decode and a host argmax per token) against
+   the graph tick, bitwise, and the fault phase: a ROM bit flip at
+   construction serving exact numerics' tokens, NaN ticks retiring slots
+   and moving the engine to the serial rung with guarded numerics, and a
+   journaled run killed at a crash point resuming to the uninterrupted
+   streams;
+9. frees Yi-6B and serves (graph and eager) full-width DeepSeekMoE-16B
+   (28 layers, 64 routed experts top-6 + 2 shared, a dense layer 0; the
+   router's softmax through the ``softmax_lib`` kernel), first on the
+   uniform library, then on the same weights on the segmented library,
+   where the activations and every table read of the fused kernels go
+   through the segment decode: the same launches per forward;
+10. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -288,8 +305,25 @@ def graph_ms(fn, n: int = 50, reps: int = 3) -> tuple[float | None,
     return ms, None
 
 
+PHASE_S: dict[str, float] = {}
+
+
+def phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds printed and kept in
+    ``PHASE_S`` (the report's ``phase_s``)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_S[name] = PHASE_S.get(name, 0.0) + time.perf_counter() - t0
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _ms(x) -> str:
     return "not measured" if x is None else f"{x:.5f} ms"
+
+
+def _share(x) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
 
 
 def graph_cols(fn, yard=None) -> dict:
@@ -444,7 +478,7 @@ def dspace_kernel_phase(dev):
                                  kernel=name),
                    call_ms=timed(lambda: cuda[name](L, U)),
                    plain_ms=device_ms(lambda: ref.envelopes_parity_ref(
-                       L.reshape(n_rows, n), U.reshape(n_rows, n)), iters=2,
+                       L.reshape(n_rows, n), U.reshape(n_rows, n)), iters=1,
                        label=f"plain {label}"),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
                    pairs=n_rows * (even + odd),
@@ -480,7 +514,7 @@ def dspace_kernel_phase(dev):
                                 kernel="dd_max_rows"),
                    call_ms=timed(lambda: dk.dd_max_rows2_cuda(mt, st)),
                    plain_ms=device_ms(lambda: ref.dd_max_rows2_ref(mt, st),
-                                      iters=2,
+                                      iters=1,
                                       label=f"plain dd {label} both sides"),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
                    pairs=pairs,
@@ -509,7 +543,7 @@ def dspace_kernel_phase(dev):
                                     kernel="dd_max_rows"),
                        call_ms=timed(lambda: dk.dd_max_rows_cuda(g, h)),
                        plain_ms=device_ms(lambda: ref.dd_max_rows_ref(g, h),
-                                          iters=2,
+                                          iters=1,
                                           label=f"plain dd {label} {side}"),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
                        pairs=pairs,
@@ -1714,6 +1748,53 @@ def act_phase(libs, dev):
     return rows, details, launches
 
 
+NEW_ACTS = ("gelu", "sigmoid", "softplus", "tanh")
+
+
+def new_act_phase(libs, dev) -> list[dict]:
+    """The backends' gelu, sigmoid, softplus and tanh on the card
+    (``FusedInterpNumerics``: one ``act_lib`` launch on the kind's slot) at
+    the served decode and prefill shapes, (4, 1, 11008) and
+    (1, 512, 11008) bf16, on each ``(label, library)``: bitwise against
+    the plain version (tolerance 0), timed beside the PyTorch function of
+    the exact backend on the same tensor."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.numerics.ops import (ExactNumerics, FusedInterpNumerics,
+                                          PlainFusedNumerics)
+
+    g = torch.Generator(device=dev).manual_seed(1357)
+    xs = {shape: (torch.randn(shape, device=dev, generator=g) * 4
+                  ).to(torch.bfloat16)
+          for shape in ((4, 1, 11008), (1, 512, 11008))}
+    rows = []
+    for label, lib in libs:
+        fused, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+        for kind in NEW_ACTS:
+            for shape, x in xs.items():
+                n0 = build.LAUNCHES["act_lib"]
+                got = getattr(fused, kind)(x)
+                torch.cuda.synchronize()
+                n = build.LAUNCHES["act_lib"] - n0
+                same = torch.equal(got, getattr(plain, kind)(x))
+                yard = getattr(ExactNumerics, kind)
+                row = dict(kind=kind, shape=list(shape), library=label,
+                           launches=n, bitwise_plain=bool(same),
+                           graph_ms=graph_ms(lambda: getattr(fused, kind)(x)
+                                             )[0],
+                           library_graph_ms=graph_ms(lambda: yard(x))[0])
+                print(f"act_lib {kind} {shape} bf16 ({label} library): "
+                      f"{n} launch, bitwise the plain version {same} "
+                      f"(tolerance 0); graph {_ms(row['graph_ms'])}, the "
+                      f"exact backend's {kind} "
+                      f"{_ms(row['library_graph_ms'])}")
+                if n != 1 or not same:
+                    raise AssertionError(f"act_lib {kind} {shape} ({label})")
+                rows.append(row)
+    return rows
+
+
 TAB_KERNELS = ("softmax_tab", "rmsnorm_tab", "flash_attn_tab")
 # the per-table phase's shapes: Yi-6B's width (d_model, query heads, KV
 # heads, head dim), its hidden rows at decode (4 slots) and in a prefill,
@@ -2008,10 +2089,12 @@ def per_forward(cfg) -> dict:
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
 
-def serve_phase(libs, dev, config) -> list[dict]:
+def serve_phase(libs, dev, config, extra=None) -> list[dict]:
     """``config`` at full width through the engine, once per ``(label,
     library)`` of ``libs`` on the same weights; returns one result per
-    library for the report. The parameters are freed when this returns."""
+    library for the report. ``extra(params, cfg)`` runs on the same weights
+    after the serve runs (its result under ``"extra"`` of the first). The
+    parameters are freed when this returns."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -2045,30 +2128,26 @@ def serve_phase(libs, dev, config) -> list[dict]:
                                      f"differ from the uniform run's {uni}")
             print(f"{cfg.name} on the {res['library']} library: "
                   f"{res['per_forward']} per forward, as the uniform run")
+    if extra is not None:
+        out[0]["extra"] = extra(params, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
-def serve_one(params, cfg, lib, label, dev) -> dict:
-    """6 requests through the engine on ``lib``: completion, launch counts,
-    tokens/s, the decode step's time and profile, and first tokens against
-    a plain-version prefill on the same library."""
-    import numpy as np
+def _serve_requests(eng, prompts, max_new=MAX_NEW, rid0=0):
+    from repro_torch.serve.engine import Request
+
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid0 + i, p, max_new=max_new))
+
+
+def _run_timed(eng) -> tuple[dict, float, dict]:
+    """``eng.run()`` between synchronizes with the launch counters at 0
+    just before: (streams, wall seconds, the counters just after)."""
     import torch
 
     from repro_torch.kernels import build
-    from repro_torch.models import transformer as tf
-    from repro_torch.numerics.ops import PlainFusedNumerics
-    from repro_torch.serve.engine import Request, ServeEngine
-
-    print(f"-- {cfg.name} on the {label} library {lib.rom_sha()} "
-          f"{tuple(lib.coeffs.shape)}")
-    eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
-                      library=lib, horizon=HORIZON, device=dev)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in SERVE_LENGTHS]
-    for i, p in enumerate(prompts):
-        eng.submit(Request(i, p, max_new=MAX_NEW))
 
     torch.cuda.synchronize()
     build.reset_launches()
@@ -2076,25 +2155,138 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(build.LAUNCHES)
+    return {r.rid: list(r.out) for r in done}, wall, dict(build.LAUNCHES)
 
-    if sorted(r.rid for r in done) != list(range(len(prompts))):
-        raise AssertionError(f"not every request completed: {done}")
-    for r in done:
-        if len(r.out) != MAX_NEW or not all(0 <= t < cfg.vocab_size
-                                            for t in r.out):
-            raise AssertionError(f"request {r.rid}: bad stream {r.out}")
-    forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+
+TICK_PROMPTS = (300, 400, 500, 600)
+
+
+def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2) -> dict:
+    """The engine's tick at ``SLOTS`` live slots (prompts of
+    ``TICK_PROMPTS`` tokens): wall ms per decode step over ``n`` ticks of
+    ``HORIZON`` steps on the host clock (each tick ends in its download),
+    then device ms per step and the busy share from torch.profiler over
+    ``n_prof`` more ticks (after one warm tick); ``busy_share`` is the
+    profiler's device time over the unprofiled wall time."""
+    import torch
+
+    rng = np.random.default_rng(1)
+    _serve_requests(eng, [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
+                          for k in TICK_PROMPTS],
+                    max_new=1 + HORIZON * (n + n_prof + 4), rid0=1000)
+    eng.step(HORIZON)  # admits all four, one tick
+    if sum(r is not None for r in eng.req) != SLOTS:
+        raise AssertionError("the tick profile needs every slot live")
+    eng.step(HORIZON)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step(HORIZON)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / (n * HORIZON)
+    prof = profile_steps(lambda: eng.step(HORIZON), n=n_prof)
+    dev_ms = prof.get("device_ms")
+    dev_ms = None if dev_ms is None else dev_ms / HORIZON
+    return dict(wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
+                busy_share=None if dev_ms is None else dev_ms / wall_ms,
+                tokens_per_s=SLOTS * 1e3 / wall_ms,
+                profiled_busy_share=prof.get("device_busy_share"),
+                device_ops_per_tick=prof.get("device_ops"),
+                profile=prof)
+
+
+def serve_one(params, cfg, lib, label, dev) -> dict:
+    """6 requests through the engine on ``lib``, on a graph engine (the
+    main path: one CUDA graph replay per tick) and on an eager one
+    (``graph=False``): completion, launch counts (the graph engine's
+    ``stats["launches"]``, which adds each graph's launches on every
+    replay; the eager engine's global counters too), token streams and
+    final caches bitwise equal between the two, tokens/s, the tick's wall
+    ms per step and busy share for both, the decode step's time and
+    profile, and first tokens against a plain-version prefill on the same
+    library."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import PlainFusedNumerics
+    from repro_torch.serve.engine import ServeEngine, chunk_sizes
+
+    print(f"-- {cfg.name} on the {label} library {lib.rom_sha()} "
+          f"{tuple(lib.coeffs.shape)}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_LENGTHS]
     per = per_forward(cfg)
-    expected = {k: n * forwards for k, n in per.items()}
-    print(f"{cfg.name} main path: {eng.stats['prefills']} prefills + "
-          f"{eng.stats['decode_steps']} decode steps = {forwards} forwards "
-          f"x {per} per forward; launches {launches}, expected {expected}")
-    if launches != expected or eng.stats["launches"] != expected:
-        raise AssertionError("kernel launch counts differ from the path")
-    n_tok = sum(len(r.out) for r in done)
-    print(f"served {len(done)} requests, {n_tok} tokens in {wall:.3f} s: "
-          f"{n_tok / wall:.2f} tokens/s (end to end, prefills included)")
+    engines, streams, walls = {}, {}, {}
+    for mode in ("graph", "eager"):
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+                          library=lib, horizon=HORIZON,
+                          graph=mode == "graph", device=dev)
+        build_s = time.perf_counter() - t0
+        if eng.stats["graph"] != (mode == "graph"):
+            raise AssertionError(f"{mode} engine: stats {eng.stats}")
+        _serve_requests(eng, prompts)
+        streams[mode], walls[mode], launches = _run_timed(eng)
+        engines[mode] = eng
+        if sorted(streams[mode]) != list(range(len(prompts))):
+            raise AssertionError(f"{mode}: not every request completed")
+        for rid, out in streams[mode].items():
+            if len(out) != MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                              for t in out):
+                raise AssertionError(f"{mode} request {rid}: bad stream "
+                                     f"{out}")
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        expected = {k: n * forwards for k, n in per.items()}
+        # a replay runs no Python wrapper: the global counters see the
+        # graph engine's prefills only
+        wrappers = (expected if mode == "eager" else
+                    {k: n * eng.stats["prefills"] for k, n in per.items()})
+        print(f"{cfg.name} {mode} engine (built in {build_s:.2f} s, "
+              f"{eng.stats['captures']} graphs captured in "
+              f"{eng.stats['capture_s']:.2f} s): {eng.stats['prefills']} "
+              f"prefills + {eng.stats['decode_steps']} decode steps = "
+              f"{forwards} forwards x {per} per forward; stats launches "
+              f"{eng.stats['launches']}, wrapper counters {launches}, "
+              f"expected {expected}; {eng.stats['ticks']} ticks, "
+              f"{eng.stats['dispatches']} dispatches, "
+              f"{eng.stats['transfers']} transfers")
+        if eng.stats["launches"] != expected or launches != wrappers:
+            raise AssertionError(f"{mode}: kernel launch counts differ "
+                                 f"from the path")
+        if mode == "graph":  # the main path's counts, before the profile
+            main = dict(launches=dict(eng.stats["launches"]),
+                        wrapper_launches=launches, forwards=forwards,
+                        stats=json.loads(json.dumps(eng.stats)))
+            if eng.stats["captures"] != len(chunk_sizes(HORIZON)):
+                raise AssertionError("one graph per chunk size expected")
+    if streams["graph"] != streams["eager"]:
+        raise AssertionError(f"graph and eager streams differ: {streams}")
+    same_cache = [bool(torch.equal(a, b)) for a, b in
+                  zip(engines["graph"].caches, engines["eager"].caches)]
+    print(f"graph vs eager: token streams equal (6 x {MAX_NEW}); caches "
+          f"k, v, pos equal {same_cache}")
+    if not all(same_cache):
+        raise AssertionError("graph and eager caches differ")
+    n_tok = sum(len(v) for v in streams["graph"].values())
+    ticks = {}
+    for mode, eng in engines.items():
+        # an eager tick's trace holds ~27k device ops a tick: one is read
+        ticks[mode] = phase(f"tick profile ({mode})", tick_profile, eng, cfg,
+                            n_prof=2 if mode == "graph" else 1)
+        t = ticks[mode]
+        print(f"{mode} tick at {SLOTS} live slots: {n_tok / walls[mode]:.2f} "
+              f"tokens/s end to end (prefills included); tick wall "
+              f"{t['wall_ms_per_step']:.3f} ms per step "
+              f"({t['tokens_per_s']:.1f} tokens/s), device "
+              f"{_ms(t['device_ms_per_step'])} per step, busy share "
+              f"{_share(t['busy_share'])} (profiled "
+              f"{_share(t['profiled_busy_share'])})")
+    eng = engines["graph"]
+    del engines["eager"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # decode step time at 4 live slots on the filled cache
     num = eng.numerics
@@ -2123,39 +2315,202 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
     max_dlogit = 0.0
     ties = 0
     with torch.inference_mode():
-        for r, p in zip(sorted(done, key=lambda r: r.rid), prompts):
+        for rid, p in enumerate(prompts):
+            first = streams["graph"][rid][0]
             t = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
             lp, _ = tf.prefill(params, t, cfg, plain, CACHE_LEN)
             lk, _ = tf.prefill(params, t, cfg, num, CACHE_LEN)
             lp, lk = lp[0, -1].float(), lk[0, -1].float()
             if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-                raise AssertionError(f"request {r.rid}: non-finite logits")
-            if int(lk.argmax()) != r.out[0]:
-                raise AssertionError(f"request {r.rid}: engine first token "
-                                     f"{r.out[0]} != its own prefill")
+                raise AssertionError(f"request {rid}: non-finite logits")
+            if int(lk.argmax()) != first:
+                raise AssertionError(f"request {rid}: engine first token "
+                                     f"{first} != its own prefill")
             d = float((lk - lp).abs().max())
             max_dlogit = max(max_dlogit, d)
             tol = 2.0 ** -5 * float(lp.abs().max())
-            gap = float(lp.max() - lp[r.out[0]])
+            gap = float(lp.max() - lp[first])
             if gap > 0:
                 ties += 1
                 if gap > tol:
                     raise AssertionError(
-                        f"request {r.rid}: first token {r.out[0]} trails the "
+                        f"request {rid}: first token {first} trails the "
                         f"plain prefill's argmax by {gap} > {tol}")
-    print(f"first tokens vs plain prefill: {len(done) - ties} equal, {ties} "
-          f"inside the tie band (2^-5 max|logit|); max |dlogit| "
+    print(f"first tokens vs plain prefill: {len(prompts) - ties} equal, "
+          f"{ties} inside the tie band (2^-5 max|logit|); max |dlogit| "
           f"{max_dlogit:.4f}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"{cfg.name} peak device memory {peak / 1e9:.2f} GB")
     return dict(model=cfg.name, library=label, rom_sha=lib.rom_sha(),
-                wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                wall_s=walls["graph"], tokens=n_tok,
+                tokens_per_s=n_tok / walls["graph"],
+                eager_wall_s=walls["eager"],
+                eager_tokens_per_s=n_tok / walls["eager"], ticks=ticks,
                 decode_step_ms=step_ms, weight_bound_ms=weight_ms,
                 decode_profile=prof, prefill_profile=prof_pre,
-                launches=launches, per_forward=per, forwards=forwards,
-                stats=eng.stats, peak_bytes=peak, max_dlogit=max_dlogit,
-                first_token_ties=ties,
-                streams={r.rid: r.out for r in done})
+                per_forward=per, **main, peak_bytes=peak,
+                max_dlogit=max_dlogit,
+                first_token_ties=ties, caches_equal=same_cache,
+                streams=streams["graph"])
+
+
+def yi_extra_phases(params, cfg, lib, dev) -> dict:
+    """On the loaded Yi-6B weights: the serial oracle, then the card fault
+    phase."""
+    return {"serial_oracle": phase("serial oracle", serial_oracle_phase,
+                                   params, cfg, dev),
+            "faults": phase("faults", fault_phase, params, cfg, lib, dev)}
+
+
+def serial_oracle_phase(params, cfg, dev) -> dict:
+    """The serial path (one decode forward and a host argmax per token)
+    against the graph tick, both with exact numerics, on the 6 serve
+    requests: bitwise equal streams."""
+    import torch
+
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = cfg.replace(numerics="exact")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_LENGTHS]
+    out, walls, stats = {}, {}, {}
+    for fused in (True, False):
+        eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+                          horizon=HORIZON, fused=fused, device=dev)
+        if eng.stats["graph"] != fused:
+            raise AssertionError(f"fused={fused}: graph {eng.stats}")
+        _serve_requests(eng, prompts)
+        out[fused], walls[fused], _ = _run_timed(eng)
+        stats[fused] = {k: eng.stats[k] for k in
+                        ("dispatches", "transfers", "ticks", "decode_steps")}
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"serial oracle, exact numerics, {cfg.name}: serial "
+          f"{walls[False]:.2f} s {stats[False]}, graph tick "
+          f"{walls[True]:.2f} s {stats[True]}; streams equal "
+          f"{out[True] == out[False]}")
+    if out[True] != out[False]:
+        raise AssertionError(f"serial and graph streams differ: {out}")
+    return dict(streams_equal=True, serial_s=walls[False],
+                graph_s=walls[True], serial_stats=stats[False],
+                graph_stats=stats[True])
+
+
+def fault_phase(params, cfg, lib, dev) -> dict:
+    """The ladder on the card, 3 requests x 8 tokens on the loaded weights:
+    a ROM flip at construction serves exact tokens identical to an exact
+    engine's; NaN ticks retire the slots and, past the watchdog limit,
+    move the engine to the serial rung with guarded numerics (the library
+    kernels) that finishes the rest; a journaled run killed at a crash
+    point resumes to the streams of an uninterrupted run."""
+    import torch
+
+    from repro_torch.faults import (Crashed, TickFaultInjector,
+                                    arm_crashpoint, flip_rom_bit,
+                                    reset_crashpoints)
+    from repro_torch.kernels import build
+    from repro_torch.numerics.guard import GuardedNumerics
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.journal import load_requests
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (37, 90, 250)]
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, horizon=HORIZON, device=dev)
+    res = {}
+
+    def serve(eng, max_new=8):
+        _serve_requests(eng, prompts, max_new)
+        out = {r.rid: list(r.out) for r in eng.run()}
+        return out
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # a ROM bit flip at construction: straight to exact, exact's tokens
+    eng = ServeEngine(cfg, params, library=flip_rom_bit(lib, seed=5), **kw)
+    if not (eng.stats["rom_faults"] == 1 and eng.cfg.numerics == "exact"
+            and eng.library is None and eng.stats["graph"]):
+        raise AssertionError(f"ROM flip: {eng.faults} {eng.stats}")
+    got = serve(eng)
+    faults_flip = list(eng.faults)
+    del eng
+    free()
+    want = serve(ServeEngine(cfg.replace(numerics="exact"), params, **kw))
+    free()
+    print(f"ROM flip at construction: {faults_flip[0]['action']} "
+          f"({faults_flip[0]['reason']}); tokens equal to an exact "
+          f"engine's {got == want}")
+    if got != want:
+        raise AssertionError("the ROM-flip engine's tokens differ from "
+                             "exact numerics")
+    res["rom_flip"] = dict(faults=faults_flip, tokens_equal=True)
+
+    # NaN ticks: retire, then the serial rung with guarded numerics
+    eng = ServeEngine(cfg, params, library=lib, watchdog_limit=2,
+                      **{**kw, "slots": 1})
+    TickFaultInjector("nan", every_n=1, limit=2).install(eng)
+    before = dict(build.LAUNCHES)
+    serve(eng)
+    torch.cuda.synchronize()
+    errors = [(r.rid, r.error) for r in eng.failed]
+    finished = {r.rid: len(r.out) for r in eng.finished}
+    walk = sum(build.LAUNCHES[k] - before[k]
+               for k in ("library_eval", "library_walk"))
+    print(f"NaN ticks: failed {errors}, finished {finished}, rung "
+          f"{eng._rung()}, numerics {type(eng.numerics).__name__} "
+          f"({eng.cfg.numerics}); faults {eng.faults}; library_eval / "
+          f"library_walk launches on the serial rung {walk}")
+    if not (errors == [(0, "non_finite_output"), (1, "non_finite_output")]
+            and finished == {2: 8} and not eng.fused
+            and eng.cfg.numerics == "interp-guarded"
+            and isinstance(eng.numerics, GuardedNumerics) and walk > 0):
+        raise AssertionError("the NaN ladder did not reach the serial rung")
+    res["nan"] = dict(failed=errors, finished=finished, faults=eng.faults,
+                      serial_table_launches=walk)
+    del eng
+    free()
+
+    # crash and resume, journaled, on the graph engine
+    want = serve(ServeEngine(cfg, params, library=lib,
+                             **{**kw, "horizon": 2}))
+    free()
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        jp = pathlib.Path(d) / "serve.jsonl"
+        eng = ServeEngine(cfg, params, library=lib, journal=str(jp),
+                          **{**kw, "horizon": 2})
+        arm_crashpoint("serve.tick.emitted", after=1)
+        try:
+            serve(eng)
+            raise AssertionError("the crash point never fired")
+        except Crashed:
+            pass
+        finally:
+            reset_crashpoints()
+        eng.close()
+        del eng
+        free()
+        pre = {rid: len(st.out) for rid, st in load_requests(jp).items()}
+        resumed = ServeEngine.resume(str(jp), cfg, params, library=lib,
+                                     **{**kw, "horizon": 2})
+        resumed.run()
+        resumed.close()
+        final = {rid: st.out for rid, st in load_requests(jp).items()}
+    print(f"crash at serve.tick.emitted: durable tokens {pre}; resumed "
+          f"{resumed.stats['resumed']} ({resumed.stats['resume_replay_steps']}"
+          f" teacher-forced steps); streams equal to the uninterrupted run "
+          f"{final == want}")
+    if final != want or not resumed.stats["resumed"]:
+        raise AssertionError(f"resume: {final} != {want}")
+    res["resume"] = dict(durable=pre, resumed=resumed.stats["resumed"],
+                         replay_steps=resumed.stats["resume_replay_steps"],
+                         streams_equal=True)
+    del resumed
+    free()
+    return res
 
 
 def profile_steps(step, n: int = 3) -> dict:
@@ -2248,13 +2603,15 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    dspace_rows, dspace_details = dspace_kernel_phase(dev)
-    gen = generator_phase(dev)
+    dspace_rows, dspace_details = phase("dspace kernels", dspace_kernel_phase,
+                                        dev)
+    gen = phase("generator", generator_phase, dev)
     lib = gen.pop("library")  # compiled on the card in this run
     print(f"library {lib.rom_sha()} {tuple(lib.coeffs.shape)} (compiled on "
           f"the card)")
     designs = gen.pop("designs")
-    seg_gen, seg_lib, seg_designs = segmented_generator_phase(dev)
+    seg_gen, seg_lib, seg_designs = phase("segmented generator",
+                                          segmented_generator_phase, dev)
     gen["segmented"] = seg_gen
     m = lib.meta("silu")
 
@@ -2262,25 +2619,32 @@ def main() -> int:
         xc = torch.clamp(gate.float(), m.act_lo, m.act_hi - 1e-6)
         return _quantize((xc - m.act_lo) / (m.act_hi - m.act_lo), m.in_bits)
 
-    ie_row, ie_details = interp_eval_phase(designs, dev, silu_codes)
+    ie_row, ie_details = phase("interp_eval", interp_eval_phase, designs,
+                               dev, silu_codes)
 
-    walk_rows, walk_details = walk_phase(seg_lib, seg_designs, lib, designs,
-                                         dev, silu_codes)
-    rows, details = kernel_phases(lib, dev, silu_codes)
-    _, seg_details = kernel_phases(seg_lib, dev, silu_codes, "segmented")
-    act_rows, act_details, act_launches = act_phase(
-        [("uniform", lib), ("segmented", seg_lib)], dev)
-    tab_rows, pertable = pertable_phase(lib, dev)
+    walk_rows, walk_details = phase("walk", walk_phase, seg_lib, seg_designs,
+                                    lib, designs, dev, silu_codes)
+    rows, details = phase("kernels", kernel_phases, lib, dev, silu_codes)
+    _, seg_details = phase("kernels", kernel_phases, seg_lib, dev,
+                           silu_codes, "segmented")
+    act_rows, act_details, act_launches = phase(
+        "act_lib", act_phase, [("uniform", lib), ("segmented", seg_lib)], dev)
+    new_acts = phase("new activations", new_act_phase,
+                     [("uniform", lib), ("segmented", seg_lib)], dev)
+    tab_rows, pertable = phase("per-table", pertable_phase, lib, dev)
     from repro_torch.configs import deepseek_moe_16b, yi_6b
 
-    serves = serve_phase([("uniform", lib)], dev, yi_6b.CONFIG)
+    serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
+                   yi_6b.CONFIG, extra=lambda params, cfg: yi_extra_phases(
+                       params, cfg, lib, dev))
     gc.collect()  # the Yi-6B weights and cache go before DeepSeekMoE's init
     torch.cuda.empty_cache()
     print(f"after freeing yi_6b: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
           f"GB allocated, max_memory_allocated "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    serves += serve_phase([("uniform", lib), ("segmented", seg_lib)], dev,
-                          deepseek_moe_16b.CONFIG)
+    serves += phase("serve deepseek_moe_16b", serve_phase,
+                    [("uniform", lib), ("segmented", seg_lib)], dev,
+                    deepseek_moe_16b.CONFIG)
     launches = {name: sum(sv["launches"][name] for sv in serves)
                 for name in build.LAUNCHES}
     launches.update(gen["launches"])
@@ -2348,8 +2712,10 @@ def main() -> int:
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
               "kernel_phases": (dspace_details + ie_details + walk_details
                                 + details + seg_details + act_details),
+              "new_activations": new_acts,
               "generator": gen, "pertable": pertable, "serve": serves,
-              "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES}
+              "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES,
+              "phase_s": PHASE_S}
     if EVENT_TIMED:
         print(f"timed with CUDA events (no profiler device time): "
               f"{EVENT_TIMED}")

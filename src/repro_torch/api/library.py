@@ -306,7 +306,8 @@ class InterpLibrary:
             self._sealed_sha = sha
         elif sha != self._sealed_sha:
             raise LibraryIntegrityError(
-                f"resident ROM checksum {sha} != sealed {self._sealed_sha}")
+                f"resident ROM checksum {sha} != sealed {self._sealed_sha}: "
+                f"the in-memory coefficient ROM was corrupted after load")
         return sha
 
     def manifest(self) -> dict:

@@ -13,6 +13,15 @@ tokens. ``--library PATH`` serves a saved :class:`InterpLibrary` (v1 or v2,
 e.g. one from ``Explorer.compile_segmented()``) instead of the default one,
 ``--save-library PATH`` writes the library the engine serves; either
 implies interp numerics and is refused with ``--numerics exact``.
+
+The reference's robustness flags, with its defaults: ``--serial`` (the
+per-token oracle instead of the fused tick), ``--deadline-ms N`` (a TTL per
+request; expired work retires with ``deadline_exceeded``), ``--max-queue
+N`` (admission bound; overflow is rejected with ``queue_full``),
+``--journal PATH`` (the fsync'd admission / token journal) and ``--resume``
+(with ``--journal``: rebuild the engine from that journal after a crash).
+``--eager`` is the port's own debugging switch: the fused tick runs its
+Python loop on the card instead of replaying CUDA graphs.
 """
 from __future__ import annotations
 
@@ -27,7 +36,8 @@ from repro_torch.api.library import InterpLibrary
 from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.device import resolve
 from repro_torch.models import transformer as tf
-from repro_torch.serve.engine import INTERP_BACKENDS, Request, ServeEngine
+from repro_torch.numerics.ops import INTERP_BACKENDS
+from repro_torch.serve.engine import Rejected, Request, ServeEngine
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +50,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--cache-len", type=int, default=128)
-    ap.add_argument("--horizon", type=int, default=8)
+    ap.add_argument("--horizon", type=int, default=8,
+                    help="fused tick: max decode steps per dispatch")
+    ap.add_argument("--serial", action="store_true",
+                    help="per-op dispatch path (the oracle) instead of the "
+                         "fused tick")
+    ap.add_argument("--eager", action="store_true",
+                    help="port-only debugging switch: run the fused tick's "
+                         "loop eagerly instead of replaying CUDA graphs")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request TTL; expired requests are retired "
+                         "with a structured deadline_exceeded error")
+    ap.add_argument("--max-queue", type=int, default=1024,
+                    help="admission queue bound; overflow submissions are "
+                         "rejected (reason=queue_full), never buffered")
+    ap.add_argument("--journal", default=None,
+                    help="fsync'd serve journal (admissions + tokens); "
+                         "makes the run crash-recoverable via --resume")
+    ap.add_argument("--resume", action="store_true",
+                    help="rebuild engine state from --journal instead of "
+                         "submitting fresh requests")
     ap.add_argument("--numerics", choices=["exact", "interp", "interp-fused"],
                     default=None,
                     help="default: the config's own numerics")
@@ -55,6 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.resume and not args.journal:
+        ap.error("--resume requires --journal")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.numerics:
         cfg = cfg.replace(numerics=args.numerics)
@@ -68,15 +99,27 @@ def main(argv=None) -> None:
     library = (InterpLibrary.load(args.library, device=dev) if args.library
                else None)
     params = tf.init_params(cfg, seed=args.seed, device=dev)
-    eng = ServeEngine(cfg, params, slots=args.slots, cache_len=args.cache_len,
-                      horizon=args.horizon, library=library, device=dev)
+    kw = dict(slots=args.slots, cache_len=args.cache_len, library=library,
+              fused=not args.serial, horizon=args.horizon,
+              max_queue=args.max_queue,
+              deadline_s=(args.deadline_ms / 1e3
+                          if args.deadline_ms is not None else None),
+              graph=False if args.eager else None, device=dev)
+    if args.resume:
+        eng = ServeEngine.resume(args.journal, cfg, params, **kw)
+    else:
+        eng = ServeEngine(cfg, params, journal=args.journal, **kw)
     if args.save_library:
         print(f"saved library -> {eng.library.save(args.save_library)}")
-    rng = np.random.default_rng(args.seed)
-    for i in range(args.requests):
-        n = max(1, args.prompt_len - i % 4)
-        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-        eng.submit(Request(i, prompt, max_new=args.max_new))
+    if not args.resume:
+        rng = np.random.default_rng(args.seed)
+        for i in range(args.requests):
+            n = max(1, args.prompt_len - i % 4)
+            prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            try:
+                eng.submit(Request(i, prompt, max_new=args.max_new))
+            except Rejected as e:
+                print(f"request {i} rejected ({e.reason})")
     t0 = time.perf_counter()
     done = eng.run()
     if dev.type == "cuda":
@@ -84,10 +127,13 @@ def main(argv=None) -> None:
     dt = time.perf_counter() - t0
     for r in sorted(done, key=lambda r: r.rid):
         print(f"request {r.rid}: {len(r.prompt)} prompt -> {r.out}")
+    for r in eng.failed:
+        print(f"request {r.rid} failed: {r.error}")
     n_tok = sum(len(r.out) for r in done)
-    print(json.dumps({"device": str(dev), "numerics": cfg.numerics,
+    print(json.dumps({"device": str(dev), "numerics": eng.cfg.numerics,
                       "tokens": n_tok, "seconds": dt,
                       "rom_sha": eng.library and eng.library.rom_sha(),
+                      "failed": len(eng.failed), "faults": eng.faults,
                       "stats": eng.stats}))
 
 

@@ -18,6 +18,9 @@ from repro_torch.models.layers import apply_rope, pdtype, rope_angles, spec
 
 NEG = -1e30
 M_FLOOR = -1e20  # running-max clamp: exp(NEG - M_FLOOR) == 0
+# the glue path skips dead key chunks (a host read of the chunk's
+# positions) once a call has this many of them
+SKIP_CHUNKS = 8
 _F32 = torch.float32
 
 
@@ -83,7 +86,7 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
         return o.reshape(b, sq, h, dv).to(v.dtype)
 
     imax = torch.iinfo(torch.int32).max
-    use_skip = nk >= 8
+    use_skip = nk >= SKIP_CHUNKS
 
     def q_block(qb, qpb):
         tq = qb.shape[1]
@@ -170,6 +173,26 @@ def gqa_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
     return y, KVCache(kc, vc, pos_buf)
 
 
+def decode_kv_chunk(cache_len: int) -> int:
+    """The key chunk ``gqa_decode`` hands ``attention_core``."""
+    return min(4096, cache_len)
+
+
+def decode_reads_host(cache_len: int, numerics) -> bool:
+    """Whether ``gqa_decode`` on a cache of ``cache_len`` rows reads device
+    values back to the host: the glue path's chunk liveness test
+    (``SKIP_CHUNKS`` or more key chunks), which ``attention_core`` takes
+    where ``numerics`` has no fused attention or the cache is longer than
+    the fused attention takes."""
+    from repro_torch.numerics.ops import FUSED_ATTN_MAX_KEYS
+
+    if (getattr(numerics, "fused_attention", None) is not None
+            and cache_len <= FUSED_ATTN_MAX_KEYS):
+        return False
+    return cache_len // _divisor_chunk(
+        cache_len, decode_kv_chunk(cache_len)) >= SKIP_CHUNKS
+
+
 def _decode_positions(pos, b: int, device):
     """Normalize a decode position: scalar (uniform batch) or (B,) per
     slot. Returns (pos, positions (B, 1))."""
@@ -194,6 +217,6 @@ def gqa_decode(p: dict, x, pos, cache: KVCache, cfg, numerics):
     cache.pos[rows, slot] = positions[:, 0]
     o = attention_core(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
                        positions, cache.pos, numerics, causal=True,
-                       kv_chunk=min(4096, s_max))
+                       kv_chunk=decode_kv_chunk(s_max))
     y = o.reshape(b, 1, -1) @ p["wo"]
     return y, cache

@@ -82,7 +82,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
     slot = torch.where(keep, pos_in_e, cap)  # overflow -> scratch row C
 
     # dispatch into (B, E, C + 1, d); row C collects the dropped copies
-    xk = torch.repeat_interleave(x, k, dim=1)  # (B, SK, d) token-major
+    # (B, SK, d) token-major: each token's k copies side by side
+    xk = x[:, :, None].expand(b, s, k, d).reshape(b, s * k, d)
     buf = torch.zeros((b, e_n, cap + 1, d), dtype=x.dtype, device=x.device)
     bidx = torch.arange(b, device=x.device)[:, None].expand(b, s * k)
     buf.index_put_((bidx, flat_e, slot), xk, accumulate=True)

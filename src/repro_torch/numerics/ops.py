@@ -12,7 +12,9 @@ lowers rmsnorm, the attention inner loop, the activations and the softmax
 to the library-bound kernels on a CUDA device (their plain versions on the
 CPU). ``PlainFusedNumerics`` runs the same fused datapath through the plain
 versions on any device: it is the oracle a card run holds the kernel path
-against.
+against. ``"interp-guarded"`` wraps the unfused backend in
+:class:`repro_torch.numerics.guard.GuardedNumerics` (the engine's degraded
+rung).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ from repro_torch.kernels.interp.ref import LOG2E, pow2
 from repro_torch.numerics.registry import get_table
 
 _F32 = torch.float32
+# the longest key axis the fused attention takes; longer ones run the
+# chunked glue path (``models.attention.attention_core``)
+FUSED_ATTN_MAX_KEYS = 4096
 
 
 # The reference's name for one design's exact integer evaluation on int32
@@ -189,11 +194,20 @@ def approx_rmsnorm(x, gamma, eps: float = 1e-6,
 # ---------------------------------------------------------------------------
 
 class ExactNumerics:
-    """Plain PyTorch transcendentals (the no-technique baseline). The ops of
-    the dense and MoE decoders only; the other activations port with the
-    model families that use them."""
+    """Plain PyTorch transcendentals (the no-technique baseline)."""
+
+    name = "exact"
+    library = None
 
     silu = staticmethod(F.silu)
+    sigmoid = staticmethod(torch.sigmoid)
+    softplus = staticmethod(F.softplus)
+    tanh = staticmethod(torch.tanh)
+
+    @staticmethod
+    def gelu(x):
+        # the reference's partial(jax.nn.gelu, approximate=True)
+        return F.gelu(x, approximate="tanh")
 
     @staticmethod
     def softmax(x, axis: int = -1):
@@ -221,6 +235,8 @@ class InterpNumerics:
     ``get_numerics("interp")`` default) each op resolves its table lazily
     through ``get_table`` and reads it with :func:`table_eval_int`, and the
     activations quantize over the default window."""
+
+    name = "interp"
 
     def __init__(self, library=None):
         self.library = library
@@ -265,6 +281,18 @@ class InterpNumerics:
     def silu(self, x):
         return self._act("silu", x)
 
+    def sigmoid(self, x):
+        return self._act("sigmoid", x)
+
+    def softplus(self, x):
+        return self._act("softplus", x)
+
+    def gelu(self, x):
+        return self._act("gelu", x)
+
+    def tanh(self, x):
+        return self._act("tanh", x)
+
     def softmax(self, x, axis: int = -1):
         xf = x.to(_F32)
         m = torch.amax(xf, dim=axis, keepdim=True)
@@ -290,6 +318,8 @@ class FusedInterpNumerics(InterpNumerics):
     outputs may differ from :class:`InterpNumerics` by one table ulp, so
     fused runs are held against fused runs.
     """
+
+    fused = True
 
     def __init__(self, library):
         if library is None:
@@ -331,13 +361,14 @@ class FusedInterpNumerics(InterpNumerics):
     def fused_attention(self, q, k, v, q_pos, kv_pos, *, causal, window,
                         scale):
         """The ``attention_core`` fast path; None sends the caller to the
-        chunked glue path (the reference's routing: Sk > 4096 always, and
-        Sq * Sk > 2^22 where the plain version would form the whole score
-        block, which here means on the CPU)."""
+        chunked glue path (the reference's routing: Sk >
+        ``FUSED_ATTN_MAX_KEYS`` always, and Sq * Sk > 2^22 where the plain
+        version would form the whole score block, which here means on the
+        CPU)."""
         h, kvh = q.shape[2], k.shape[2]
         if h % kvh:
             return None
-        if k.shape[1] > 4096:
+        if k.shape[1] > FUSED_ATTN_MAX_KEYS:
             return None
         if q.shape[1] * k.shape[1] > (1 << 22) and not q.is_cuda:
             return None
@@ -390,19 +421,32 @@ class PlainFusedNumerics(FusedInterpNumerics):
         return attention_fused_library_ref(q, k, v, self.library, **kw)
 
 
+BACKENDS = {"exact": ExactNumerics, "interp": InterpNumerics,
+            "interp-fused": FusedInterpNumerics}
+
+INTERP_BACKENDS = ("interp", "interp-fused", "interp-guarded")
+
+
 def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
     """A numerics backend instance for a model config (or backend name).
     ``library`` binds the interp backend to a compiled ``InterpLibrary``;
     without one, ``"interp"`` resolves each table through ``get_table``.
     ``fused=True`` or the ``"interp-fused"`` name selects the fused-kernel
-    lowering, which needs a library. Per-layer plans are not ported: a
-    config carrying one raises.
+    lowering, which needs a library. ``"interp-guarded"`` is the degraded
+    backend: the unfused interp datapath behind the
+    :class:`~repro_torch.numerics.guard.GuardedNumerics` domain clamp,
+    which clamps silently (counting violations costs a host sync per op).
+    Per-layer plans are not ported: a config carrying one raises.
     """
     if getattr(cfg_or_name, "plan", None) is not None:
         raise NotImplementedError("per-layer numerics plans are not ported")
     name = getattr(cfg_or_name, "numerics", cfg_or_name)
     if name == "exact":
         return ExactNumerics()
+    if name == "interp-guarded":
+        from repro_torch.numerics.guard import GuardedNumerics
+
+        return GuardedNumerics(InterpNumerics(library))
     if name == "interp-fused" or (name == "interp" and fused):
         return FusedInterpNumerics(library)
     if name == "interp":

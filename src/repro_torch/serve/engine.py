@@ -1,41 +1,95 @@
-"""Continuous-batching greedy serving engine (twin of
-``repro/serve/engine.py``'s fused engine).
+"""Fault-tolerant continuous-batching greedy serving engine (twin of
+``repro/serve/engine.py``).
 
 A fixed pool of ``slots`` holds one request's cache rows each. Admission
 prefills the prompt (batch 1), splices its cache into a free slot and takes
-the greedy first token. A tick then runs up to ``horizon`` decode steps for
-every slot at once: decode -> argmax -> feed back, on the device, with one
-device-to-host copy of the (steps, slots) token block per tick. Each slot
-decodes at its own next position; dead slots keep decoding at a frozen
-position (their rows are overwritten at the next admission). With interp
-numerics the decode runs through the library-bound kernels.
+the greedy first token. With ``fused=True`` (the default) a tick then runs
+up to ``horizon`` decode steps for every slot at once: decode -> argmax ->
+feed back -> position bump -> NaN/Inf sentinel, on the device, with one
+device-to-host copy of the (steps, slots) token block and the (slots,)
+sentinel per tick. Each slot decodes at its own next position; dead slots
+keep decoding at a frozen position (their rows are overwritten at the next
+admission). With interp numerics the decode runs through the library-bound
+kernels.
 
-Not in this port slice: faults and the degradation ladder, journal and
-resume, AOT buckets, meshes, the host pipeline, plans, CUDA graphs. A
-non-finite logit in a live slot raises instead of being streamed.
+The tick is the reference's one-dispatch ``lax.scan``: on a CUDA device
+``_tick_fn(steps)`` replays one captured ``torch.cuda.CUDAGraph`` per
+power-of-two chunk size up to ``horizon``, captured at construction over
+static slot-state buffers (``_tok``, ``_pos``, ``_live``, the sentinel
+``_ok`` and the token block ``_block``, all updated in place) and the KV
+pool (updated in place by ``gqa_decode``). Before a capture one eager
+decode step runs on a side stream over scratch slot state and a scratch
+cache, so lazily built operands (kernel builds, cuBLAS workspaces, the
+library's operand rows) exist before capture without touching the served
+state. A graph bakes in addresses: when the parameters, the numerics, the
+library or the cache pool are other objects than those it was captured
+over (the degradation ladder; a caller assigning ``engine.library``), the
+graphs are dropped and recaptured at the next tick. A configuration whose
+decode reads device values on the host (the attention glue's chunk
+liveness test, ``models.attention.decode_reads_host``) ticks eagerly, with
+``stats["graph"]`` False and the reason in ``stats["graph_reason"]``; so
+does ``graph=False`` (a debugging switch) and the CPU. A capture that
+fails raises. ``build.LAUNCHES`` counts in the kernels' Python wrappers,
+which a replay does not run: each graph's launches are recorded at capture
+and added to ``stats["launches"]`` on every replay, so that it counts the
+launches that ran. ``fused=False`` is the reference's serial oracle: per
+token one decode forward with the unfused numerics (``InterpNumerics``
+bound to the library: its glue around the ``library_eval`` /
+``library_walk`` kernels), then a host argmax.
+
+The serving-robustness layer is the reference's: bounded-queue
+backpressure and per-request deadlines against an injectable ``clock``
+(typed :class:`Rejected` errors, ``deadline_exceeded`` retirement); the
+NaN/Inf sentinel retires a poisoned slot with ``"non_finite_output"``;
+watchdog trips (a poisoned or stalled tick, ``max_tick_s``) walk the
+degradation ladder fused -> serial with ``"interp-guarded"`` numerics ->
+exact after ``watchdog_limit`` trips, and a resident-ROM integrity failure
+(:meth:`InterpLibrary.verify_resident`, at construction, on a trip, and
+every ``verify_rom_every`` ticks) jumps straight to exact; ``journal=``
+writes the reference's admission / token journal
+(:mod:`repro_torch.serve.journal`), and :meth:`resume` rebuilds an engine
+from one, either package's.
+
+Not in the port: the per-layer rung (``_degrade_slots``, which needs
+numerics plans), ``mesh``, ``aot_buckets`` with packed bucketed prefill,
+``async_host`` (the host pipeline). Their ``stats`` keys stay at 0.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import time
+from typing import Callable
 
 import numpy as np
 import torch
 
-from repro_torch.api.library import InterpLibrary
+from repro_torch.api.library import InterpLibrary, LibraryIntegrityError
 from repro_torch.device import resolve
+from repro_torch.faults.inject import crashpoint
 from repro_torch.kernels import build
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
-from repro_torch.numerics.ops import get_numerics
+from repro_torch.numerics.ops import INTERP_BACKENDS, get_numerics
+from repro_torch.serve.journal import ServeJournal, load_requests
 
-INTERP_BACKENDS = ("interp", "interp-fused")
+
+def _interp(cfg) -> bool:
+    """Does this config's numerics backend read an InterpLibrary?"""
+    return cfg.numerics in INTERP_BACKENDS
+
+
+def chunk_sizes(horizon: int) -> tuple[int, ...]:
+    """The tick's chunk sizes: the powers of two up to ``horizon``."""
+    return tuple(1 << i for i in range(max(1, int(horizon)).bit_length()))
 
 
 class Rejected(ValueError):
     """Typed request rejection. ``reason`` is a stable key:
     ``"prompt_overflow"`` / ``"decode_overflow"`` (the request cannot fit
     the slot cache), ``"queue_full"`` (bounded queue), ``"bad_prompt"``
-    (empty, or token ids outside the vocabulary)."""
+    (empty, or token ids outside the vocabulary), ``"deadline"`` (already
+    expired at submit)."""
 
     def __init__(self, reason: str, message: str):
         self.reason = reason
@@ -49,28 +103,66 @@ class Request:
     max_new: int
     out: list = dataclasses.field(default_factory=list)
     done: bool = False
+    deadline: float | None = None  # absolute engine-clock seconds
+    error: str | None = None  # structured failure ("deadline_exceeded", ...)
 
 
 class ServeEngine:
-    """Continuous batching over a fixed slot pool (greedy decoding).
+    """Fault-tolerant continuous batching over a fixed slot pool (greedy).
 
     ``library``: the :class:`InterpLibrary` interp numerics read; ``None``
     builds the default library on ``device``. Exact-numerics engines take
-    none. ``stats`` counts ticks, decode steps, prefills, device-to-host
-    transfers and, under ``"launches"``, each kernel's launches made by
-    this engine.
+    none. Assigning ``engine.library`` rebinds the numerics to it (the
+    reference's tick reads the library it is handed on every call).
+
+    ``fused`` (default): one tick per chunk of up to ``horizon`` decode
+    steps (a CUDA graph replay on a CUDA device, the eager loop otherwise
+    or with ``graph=False``). ``fused=False``: the serial oracle, one
+    decode forward and a host argmax per token.
+
+    The robustness knobs are the reference's: ``max_queue`` (``None`` =
+    unbounded), ``deadline_s`` (default TTL; ``Request.deadline``, absolute,
+    overrides), ``clock`` (``repro_torch.faults.FaultClock`` drives
+    deadline and stall tests), ``watchdog_limit`` (trips tolerated before
+    one rung down), ``max_tick_s`` (stall watchdog), ``verify_rom_every``
+    (re-checksum the ROM every N ticks; 0 = at construction and on trips
+    only), ``journal`` (a path or :class:`ServeJournal`; see
+    :meth:`resume`).
+
+    ``stats`` holds the reference's counters (``dispatches`` counts a tick
+    as one, a serial token as two; ``transfers`` the host copies) and the
+    port's: ``prefills``; ``launches``, each kernel's launches made by this
+    engine (per forward times prefills + decode steps + resume replay
+    steps); ``graph`` / ``graph_reason``; ``captures`` and ``capture_s``.
     """
 
     def __init__(self, cfg, params: dict, slots: int, cache_len: int,
-                 library: InterpLibrary | None = None, horizon: int = 8,
-                 max_queue: int | None = 1024,
+                 library: InterpLibrary | None = None, fused: bool = True,
+                 horizon: int = 8, max_queue: int | None = 1024,
+                 deadline_s: float | None = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 watchdog_limit: int = 2, max_tick_s: float | None = None,
+                 verify_rom_every: int = 0,
+                 journal: str | ServeJournal | None = None,
+                 graph: bool | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve(device)
+        if graph is None:
+            graph = self.device.type == "cuda"
+        if graph and self.device.type != "cuda":
+            raise ValueError(f"graph=True needs a CUDA device, not "
+                             f"{self.device}")
         self.cfg, self.params = cfg, params
         self.slots, self.cache_len = slots, cache_len
-        self.horizon = max(1, int(horizon))
+        self.fused, self.horizon = bool(fused), max(1, int(horizon))
         self.max_queue = max_queue
-        interp = cfg.numerics in INTERP_BACKENDS
+        self.deadline_s = deadline_s
+        self.clock = clock
+        self.watchdog_limit = max(1, int(watchdog_limit))
+        self.max_tick_s = max_tick_s
+        self.verify_rom_every = max(0, int(verify_rom_every))
+        self.graph = bool(graph)
+        interp = _interp(cfg)
         if not interp and library is not None:
             raise ValueError(f"library passed but cfg.numerics="
                              f"{cfg.numerics!r} never reads it")
@@ -79,20 +171,282 @@ class ServeEngine:
         if library is not None and library.device != self.device:
             raise ValueError(f"library on {library.device}, engine on "
                              f"{self.device}")
-        self.library = library
-        self.numerics = get_numerics(cfg, library, fused=interp)
         self.caches = tf.init_cache(cfg, slots, cache_len, self.device)
         dev = self.device
+        # device slot state, updated in place (a graph bakes its addresses)
         self._tok = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
         self._pos = torch.zeros(slots, dtype=torch.int32, device=dev)
         self._live = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self._ok = torch.ones(slots, dtype=torch.bool, device=dev)
+        self._block = torch.zeros((self.horizon, slots), dtype=torch.int64,
+                                  device=dev)
+        # host mirrors: next position and current token per slot
+        self.pos = np.zeros(slots, np.int32)
+        self.cur = np.full(slots, -1, np.int32)
         self.req: list[Request | None] = [None] * slots
         self._emitted = np.zeros(slots, np.int64)
         self.queue: collections.deque[Request] = collections.deque()
         self.finished: list[Request] = []
-        self.stats = {"ticks": 0, "decode_steps": 0, "prefills": 0,
-                      "transfers": 0, "rejected": 0,
+        self.failed: list[Request] = []
+        self.stats = {"dispatches": 0, "transfers": 0, "ticks": 0,
+                      "decode_steps": 0, "rejected": 0, "expired": 0,
+                      "watchdog_trips": 0, "degradations": 0,
+                      "rom_verifies": 0, "rom_faults": 0, "slot_failures": 0,
+                      "resumed": 0, "resume_skipped_done": 0,
+                      "resume_replay_steps": 0,
+                      "aot_compiles": 0, "aot_hits": 0, "aot_misses": 0,
+                      "aot_reshards": 0, "aot_fallbacks": 0,
+                      "packed_admits": 0, "packed_requests": 0,
+                      "admit_dispatches": 0,
+                      "async_chunks": 0, "async_tokens": 0,
+                      "prefills": 0, "graph": False, "graph_reason": None,
+                      "captures": 0, "capture_s": 0.0,
                       "launches": dict.fromkeys(build.LAUNCHES, 0)}
+        self.faults: list[dict] = []  # structured fault / degradation log
+        self._trips = 0  # watchdog trips since the last degradation
+        self.journal = (journal if isinstance(journal, (ServeJournal,
+                                                        type(None)))
+                        else ServeJournal(journal))
+        self._graphs: dict[int, tuple] = {}  # steps -> (graph, launches)
+        self._graph_key: tuple | None = None
+        self._graph_reason: str | None = None
+        self._pool = None
+        self.library = library  # binds the numerics
+        # serve-time ROM integrity: the load-time checksum catches a
+        # corrupt artifact; this catches the resident copy going bad
+        self.verify_library()
+        if self._graph_state() is None:
+            self._capture(chunk_sizes(self.horizon))
+
+    # -- numerics binding --------------------------------------------------
+    @property
+    def library(self) -> InterpLibrary | None:
+        return self._library
+
+    @library.setter
+    def library(self, library: InterpLibrary | None) -> None:
+        self._library = library
+        self._bind()
+
+    def _bind(self) -> None:
+        """The numerics of the current cfg, library and rung (the graphs
+        captured over the old ones go)."""
+        self.numerics = get_numerics(
+            self.cfg, self._library, fused=self.fused and _interp(self.cfg))
+        self._graph_state()
+
+    # -- the tick: one CUDA graph per chunk size, or the eager loop ---------
+    def _graph_blocker(self) -> str | None:
+        if not self.fused:
+            return "serial: one decode forward and a host argmax per token"
+        if not self.graph:
+            return ("eager: no CUDA device" if self.device.type != "cuda"
+                    else "eager: graph=False")
+        if attn.decode_reads_host(self.cache_len, self.numerics):
+            return (f"eager: decode attention over {self.cache_len} cache "
+                    f"rows takes the glue path's chunk liveness test, a "
+                    f"host read (models.attention.decode_reads_host)")
+        return None
+
+    def _graph_state(self) -> str | None:
+        """Why the tick runs eagerly (None: it replays CUDA graphs). Drops
+        graphs captured over other parameters, numerics, library or cache
+        than the engine's current ones."""
+        key = (self.params, self.numerics, self._library, self.caches)
+        if self._graph_key is None or any(
+                a is not b for a, b in zip(key, self._graph_key)):
+            self._drop_graphs()
+            self._graph_key = key
+            self._graph_reason = self._graph_blocker()
+            self.stats["graph"] = self._graph_reason is None
+            self.stats["graph_reason"] = self._graph_reason
+        return self._graph_reason
+
+    def _drop_graphs(self) -> None:
+        """Free the captured graphs and their memory pool (the allocator
+        releases a pool with its last graph: a later capture takes a new
+        one)."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _decode_chunk(self, steps: int, params, tok, pos, live, caches, ok,
+                      block) -> None:
+        """``steps`` decode -> argmax -> feed back -> position bump ->
+        sentinel steps over every slot, updating ``tok``, ``pos``, ``ok``
+        and ``block[:steps]`` in place (the body a graph captures)."""
+        ok.fill_(True)
+        for i in range(steps):
+            logits, _ = tf.decode_step(params, tok, pos, caches, self.cfg,
+                                       self.numerics)
+            last = logits[:, 0]
+            ok &= torch.isfinite(last).all(-1) | ~live
+            nxt = torch.where(live, torch.argmax(last, -1), tok[:, 0])
+            block[i].copy_(nxt)
+            pos.copy_(torch.where(live, pos + 1, pos))
+            tok.copy_(nxt[:, None])
+
+    def _warm_up(self) -> None:
+        """One eager decode step on a side stream over scratch slot state
+        and a scratch cache: builds what a capture may not create (kernel
+        builds, cuBLAS handles and workspaces, the library's operand rows)
+        and leaves the served state alone."""
+        scratch = tf.init_cache(self.cfg, self.slots, self.cache_len,
+                                self.device)
+        state = [torch.zeros_like(t) for t in (self._tok, self._pos,
+                                               self._live, self._ok)]
+        block = torch.zeros_like(self._block)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.inference_mode():
+            tok, pos, live, ok = state
+            self._decode_chunk(1, self.params, tok, pos, live, scratch, ok,
+                               block)
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+
+    def _capture(self, sizes) -> None:
+        """Capture one graph per chunk size in ``sizes`` (raises on
+        failure: a capture is never skipped quietly)."""
+        t0 = time.perf_counter()
+        self._warm_up()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        for steps in sizes:
+            g = torch.cuda.CUDAGraph()
+            before = dict(build.LAUNCHES)
+            with torch.inference_mode(), torch.cuda.graph(g, pool=self._pool):
+                self._decode_chunk(steps, self.params, self._tok, self._pos,
+                                   self._live, self.caches, self._ok,
+                                   self._block)
+            self._graphs[steps] = (g, {k: n - before[k] for k, n
+                                       in build.LAUNCHES.items()})
+            self.stats["captures"] += 1
+        torch.cuda.synchronize(self.device)
+        self.stats["capture_s"] += time.perf_counter() - t0
+
+    def _tick_fn(self, steps: int) -> Callable:
+        """The tick for a chunk of ``steps`` decode steps:
+        ``(params, tok, pos, live, caches) -> (toks, tok, pos, ok,
+        caches)``, a graph replay or the eager loop, called with the
+        engine's own buffers (a replay reads those it was captured on),
+        which it updates in place and returns."""
+        if self._graph_state() is not None:
+            return self._eager_tick(steps)
+        if steps not in self._graphs:
+            self._capture((steps,))
+        return self._graph_tick(steps)
+
+    def _eager_tick(self, steps: int) -> Callable:
+        def tick(params, tok, pos, live, caches):
+            with torch.inference_mode():
+                self._decode_chunk(steps, params, tok, pos, live, caches,
+                                   self._ok, self._block)
+            return self._block[:steps], tok, pos, self._ok, caches
+        return tick
+
+    def _graph_tick(self, steps: int) -> Callable:
+        g, launches = self._graphs[steps]
+
+        def tick(params, tok, pos, live, caches):
+            g.replay()  # on the buffers it was captured on
+            for name, n in launches.items():
+                self.stats["launches"][name] += n
+            return self._block[:steps], tok, pos, self._ok, caches
+        return tick
+
+    # -- fault handling: integrity, watchdog, degradation ladder ----------
+    def _rung(self) -> str:
+        """Current rung: fused, then serial (interp numerics only), then
+        exact."""
+        if self.fused:
+            return "fused"
+        return "serial" if _interp(self.cfg) else "exact"
+
+    def _record_fault(self, reason: str, detail: str = "",
+                      action: str = "") -> None:
+        self.faults.append({"tick": self.stats["ticks"], "reason": reason,
+                            "detail": detail, "action": action})
+
+    def verify_library(self) -> bool:
+        """Re-checksum the resident ROM; on a mismatch jump straight to
+        exact (both interp rungs would read the corrupt ROM)."""
+        if self._library is None:
+            return True
+        self.stats["rom_verifies"] += 1
+        try:
+            self._library.verify_resident()
+            return True
+        except LibraryIntegrityError as e:
+            self.stats["rom_faults"] += 1
+            self._degrade("rom_integrity", to="exact", detail=str(e))
+            return False
+
+    def _degrade(self, reason: str, to: str | None = None,
+                 detail: str = "") -> None:
+        """Walk one rung down the ladder (or jump to ``to``): fused ->
+        serial swaps in the domain-guarded numerics for interp engines;
+        -> exact drops the library. The KV pool and slot state carry over:
+        in-flight requests keep decoding on the safer datapath."""
+        was = self._rung()
+        if to is None:
+            to = "serial" if was == "fused" else "exact"
+        if to == was:
+            # already at (or below) the requested rung: log and keep going
+            self._record_fault(reason, detail=detail, action=f"hold:{was}")
+            self._trips = 0
+            return
+        if to == "serial":
+            self.fused = False
+            if _interp(self.cfg) and self.cfg.numerics != "interp-guarded":
+                self.cfg = self.cfg.replace(numerics="interp-guarded")
+        elif to == "exact":
+            if self.cfg.numerics != "exact":
+                self.cfg = self.cfg.replace(numerics="exact")
+        else:
+            raise ValueError(f"unknown degradation rung {to!r}")
+        self.stats["degradations"] += 1
+        self._record_fault(reason, detail=detail, action=f"{was}->{to}")
+        self._trips = 0
+        if to == "exact":
+            self.library = None  # rebinds the numerics
+        else:
+            self._bind()
+
+    def _watchdog_trip(self, reason: str, detail: str = "") -> None:
+        self.stats["watchdog_trips"] += 1
+        self._trips += 1
+        self._record_fault(reason, detail=detail, action="trip")
+        # silent ROM corruption often presents as a poisoned datapath
+        still_ok = self.verify_library()
+        if still_ok and self._trips >= self.watchdog_limit:
+            self._degrade(f"repeated_{reason}")
+
+    def _journal(self, method: str, *args, crash: str | None = None) -> None:
+        """One journal write (fsync'd), then the named crash point."""
+        if self.journal is None:
+            return
+        getattr(self.journal, method)(*args)
+        if crash is not None:
+            crashpoint(crash)
+
+    def _free_slot(self, s: int) -> None:
+        self.req[s] = None
+        self.cur[s] = -1
+        self.pos[s] = 0
+        self._emitted[s] = 0
+        self._live[s] = False
+
+    def _fail_slot(self, s: int, error: str) -> None:
+        """Retire a poisoned / expired slot with a structured error."""
+        r = self.req[s]
+        if r is None:
+            return
+        r.error = error
+        self.failed.append(r)
+        self.stats["slot_failures"] += 1
+        self._free_slot(s)
+        self._journal("fail", r.rid, error, crash="serve.fail.journaled")
 
     # -- admission control -------------------------------------------------
     def _reject(self, reason: str, message: str):
@@ -102,10 +456,10 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         """Enqueue a request, or raise :class:`Rejected`: decode writes KV
         rows at absolute positions up to len(prompt) + max_new - 2, which
-        must fit the slot cache."""
+        must fit the slot cache; a request past its deadline is refused."""
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self._reject("queue_full", f"request {req.rid}: queue full "
-                         f"({len(self.queue)} >= {self.max_queue})")
+                         f"({len(self.queue)} >= max_queue {self.max_queue})")
         if len(req.prompt) == 0:
             self._reject("bad_prompt", f"request {req.rid}: empty prompt")
         pmin, pmax = int(np.min(req.prompt)), int(np.max(req.prompt))
@@ -121,91 +475,208 @@ class ServeEngine:
             self._reject("decode_overflow", f"request {req.rid}: prompt "
                          f"({len(req.prompt)}) + max_new ({req.max_new}) "
                          f"overflows cache_len {self.cache_len}")
+        if req.deadline is None and self.deadline_s is not None:
+            req.deadline = self.clock() + self.deadline_s
+        if req.deadline is not None and self.clock() > req.deadline:
+            self._reject("deadline", f"request {req.rid}: already past its "
+                         f"deadline")
+        self._journal("submit", req.rid, req.prompt, req.max_new,
+                      req.deadline, crash="serve.submit.journaled")
         self.queue.append(req)
 
-    # -- device work ---------------------------------------------------------
+    def _expired(self, r: Request) -> bool:
+        return r.deadline is not None and self.clock() > r.deadline
+
+    def _fail_expired_queued(self, r: Request) -> None:
+        """Expired while queued: fail without burning a prefill."""
+        r.error = "deadline_exceeded"
+        self.failed.append(r)
+        self.stats["expired"] += 1
+        self._journal("fail", r.rid, r.error)
+
+    def _admit(self) -> None:
+        for s in range(self.slots):
+            while self.req[s] is None and self.queue:
+                r = self.queue.popleft()
+                if self._expired(r):
+                    self._fail_expired_queued(r)  # keep draining into s
+                    continue
+                if r.out:  # resumed mid-stream: rebuild, emit nothing
+                    self._admit_replay(r, s)
+                else:
+                    self._admit_one(r, s)
+                break
+
     def _count(self, before: dict) -> None:
         for name, n in build.LAUNCHES.items():
             self.stats["launches"][name] += n - before[name]
 
-    @torch.inference_mode()
-    def _admit_one(self, r: Request, s: int) -> None:
-        """Prefill + splice into slot ``s`` + greedy first token."""
-        before = dict(build.LAUNCHES)
+    def _prefill_into(self, r: Request, s: int) -> torch.Tensor:
+        """Prefill ``r``'s prompt and splice its cache into slot ``s``;
+        returns the last position's logits."""
         prompt = torch.as_tensor(np.asarray(r.prompt, np.int64),
                                  device=self.device)[None]
         logits, cache1 = tf.prefill(self.params, prompt, self.cfg,
                                     self.numerics, self.cache_len)
         tf.splice_cache(self.cfg, self.caches, cache1, s)
-        first = torch.argmax(logits[0, -1])
-        self._tok[s, 0] = first
-        self._pos[s] = len(r.prompt)
-        self._live[s] = True
-        self._count(before)
         self.stats["prefills"] += 1
-        tok = int(first)
-        self.stats["transfers"] += 1
-        self.req[s] = r
-        self._emitted[s] = 1
-        r.out.append(tok)
+        return logits[0, -1]
 
-    def _admit(self) -> None:
-        for s in range(self.slots):
-            if self.req[s] is None and self.queue:
-                self._admit_one(self.queue.popleft(), s)
+    def _set_slot(self, s: int, tok, pos: int) -> None:
+        """Slot ``s`` live at ``pos`` with current token ``tok`` (device
+        state, in place)."""
+        self._tok[s, 0] = tok
+        self._pos[s] = pos
+        self._live[s] = True
 
     @torch.inference_mode()
-    def _tick(self, steps: int) -> np.ndarray:
-        """``steps`` decode -> argmax -> feed-back steps for every slot;
-        returns the (steps, slots) token block (one transfer)."""
+    def _admit_one(self, r: Request, s: int) -> None:
+        """Prefill + splice into slot ``s`` + greedy first token."""
+        self.stats["admit_dispatches"] += 1
         before = dict(build.LAUNCHES)
-        toks, ok = [], torch.ones(self.slots, dtype=torch.bool,
-                                  device=self.device)
-        for _ in range(steps):
-            logits, self.caches = tf.decode_step(
-                self.params, self._tok, self._pos, self.caches, self.cfg,
-                self.numerics)
-            ok &= torch.isfinite(logits[:, 0]).all(-1) | ~self._live
-            nxt = torch.argmax(logits[:, 0], -1)
-            nxt = torch.where(self._live, nxt, self._tok[:, 0])
-            self._pos = torch.where(self._live, self._pos + 1, self._pos)
-            self._tok = nxt[:, None]
-            toks.append(nxt)
-        block, ok = torch.stack(toks).cpu().numpy(), ok.cpu().numpy()
+        first = torch.argmax(self._prefill_into(r, s))
+        self._set_slot(s, first, len(r.prompt))
         self._count(before)
-        self.stats["transfers"] += 1
-        self.stats["ticks"] += 1
-        self.stats["decode_steps"] += steps
-        bad = [s for s, r in enumerate(self.req) if r is not None and not ok[s]]
-        if bad:
-            raise FloatingPointError(f"non-finite logits in live slots {bad}")
-        return block
+        tok = int(first)
+        self.req[s] = r
+        self.pos[s] = len(r.prompt)
+        self._emitted[s] = 1
+        r.out.append(tok)
+        self.cur[s] = tok
+        if self.journal is not None:
+            self.journal.emit(r.rid, [tok])
+            crashpoint("serve.admit.emitted")
+
+    @torch.inference_mode()
+    def _admit_replay(self, r: Request, s: int) -> None:
+        """Re-admit a journal-recovered in-flight request at its recorded
+        position: prefill the prompt, then teacher-force the emitted tokens
+        through the decode to rebuild the slot's cache rows. Nothing is
+        re-emitted or re-journaled.
+
+        The reference rebuilds at batch 1; here each forced step decodes
+        the whole pool, as the original steps did, so that the rebuilt rows
+        come from the same batch shape (a GEMM of another row count may sum
+        in another order). The other slots are fed their current token at
+        their next position, which writes the rows their next step writes
+        anyway (dead slots: row 0, overwritten at admission)."""
+        before = dict(build.LAUNCHES)
+        self._prefill_into(r, s)
+        start = len(r.prompt)
+        tok = np.maximum(self.cur, 0).astype(np.int64)
+        pos = self.pos.copy()
+        for i, t in enumerate(r.out[:-1]):
+            tok[s], pos[s] = t, start + i
+            tf.decode_step(self.params,
+                           torch.as_tensor(tok[:, None], device=self.device),
+                           torch.as_tensor(pos, device=self.device),
+                           self.caches, self.cfg, self.numerics)
+            self.stats["resume_replay_steps"] += 1
+        self._set_slot(s, int(r.out[-1]), start + len(r.out) - 1)
+        self._count(before)
+        self.req[s] = r
+        self.pos[s] = start + len(r.out) - 1
+        self.cur[s] = r.out[-1]
+        self._emitted[s] = len(r.out)
+        self.stats["resumed"] += 1
 
     def _retire(self) -> None:
         for s, r in enumerate(self.req):
-            if r is not None and self._emitted[s] >= r.max_new:
+            if r is None:
+                continue
+            if self._emitted[s] >= r.max_new:
                 r.done = True
                 self.finished.append(r)
-                self.req[s] = None
-                self._emitted[s] = 0
-                self._live[s] = False
+                self._free_slot(s)
+                self._journal("done", r.rid, crash="serve.retire.journaled")
+            elif self._expired(r):
+                self.stats["expired"] += 1
+                self._fail_slot(s, "deadline_exceeded")
 
+    # -- ticks -------------------------------------------------------------
     def step(self, max_steps: int = 1) -> bool:
         """Admit, decode up to ``max_steps`` steps for every live slot
         (bounded by the smallest remaining budget, rounded down to a power
-        of two as the reference does), retire. Returns False when idle."""
+        of two as the reference does; one step on the serial path),
+        retire. Returns False when idle."""
+        if (self.verify_rom_every
+                and self.stats["ticks"] % self.verify_rom_every == 0):
+            self.verify_library()
         self._admit()
         if all(r is None for r in self.req):
             return False
+        if not self.fused:
+            return self._step_serial()
         remaining = min(r.max_new - int(self._emitted[s])
                         for s, r in enumerate(self.req) if r is not None)
         steps = max(1, min(max_steps, remaining))
         steps = 1 << (steps.bit_length() - 1)
-        block = self._tick(steps)
+        t0 = self.clock()
+        tick = self._tick_fn(steps)
+        before = dict(build.LAUNCHES)
+        # the slot state and the cache are updated in place
+        toks, _tok, _pos, ok, _caches = tick(self.params, self._tok,
+                                             self._pos, self._live,
+                                             self.caches)
+        self._count(before)
+        self.stats["dispatches"] += 1  # the tick
+        # one device-to-host copy: the token block and the sentinel
+        host = torch.cat([toks, ok[None].to(toks.dtype)]).cpu().numpy()
+        out, ok = host[:-1], host[-1].astype(bool)
+        return self._finish_tick(out, ok, steps, t0)
+
+    def _step_serial(self) -> bool:
+        """The serial oracle: token and position upload, one decode
+        forward, argmax and sentinel, one download."""
+        toks = torch.as_tensor(np.maximum(self.cur, 0)[:, None],
+                               dtype=torch.int64, device=self.device)
+        pos = torch.as_tensor(self.pos, dtype=torch.int32,
+                              device=self.device)
+        self.stats["transfers"] += 2  # token + position upload
+        t0 = self.clock()
+        before = dict(build.LAUNCHES)
+        with torch.inference_mode():
+            logits, _ = tf.decode_step(self.params, toks, pos, self.caches,
+                                       self.cfg, self.numerics)
+            self.stats["dispatches"] += 1  # the decode forward
+            last = logits[:, 0]
+            nxt_ok = torch.stack([torch.argmax(last, -1),
+                                  torch.isfinite(last).all(-1).long()])
+            self.stats["dispatches"] += 1  # argmax + sentinel
+        host = nxt_ok.cpu().numpy()
+        self._count(before)
+        return self._finish_tick(host[:1], host[1].astype(bool), 1, t0)
+
+    def _finish_tick(self, out: np.ndarray, ok: np.ndarray, steps: int,
+                     t0: float) -> bool:
+        """Host side of a tick: stream the (steps, slots) block ``out`` to
+        the healthy live slots, retire the poisoned ones (their chunk is
+        never streamed or journaled), the watchdog, retirement."""
+        self.stats["transfers"] += 1
+        self.stats["ticks"] += 1
+        self.stats["decode_steps"] += steps
+        tick_s = self.clock() - t0
+        poisoned = [s for s, r in enumerate(self.req)
+                    if r is not None and not ok[s]]
         for s, r in enumerate(self.req):
-            if r is not None:
-                r.out.extend(int(t) for t in block[:, s])
+            if r is not None and s not in poisoned:
+                fresh = [int(t) for t in out[:, s]]
+                r.out.extend(fresh)
+                self.cur[s] = fresh[-1]
+                self.pos[s] += steps
                 self._emitted[s] += steps
+                if self.journal is not None:
+                    self.journal.emit(r.rid, fresh)
+        if self.journal is not None:
+            crashpoint("serve.tick.emitted")
+        for s in poisoned:
+            self._fail_slot(s, "non_finite_output")
+        if poisoned:
+            self._watchdog_trip("non_finite_output",
+                                detail=f"slots {poisoned}")
+        if self.max_tick_s is not None and tick_s > self.max_tick_s:
+            self._watchdog_trip("stalled_tick",
+                                detail=f"{tick_s:.3f}s > {self.max_tick_s}s")
         self._retire()
         return True
 
@@ -216,3 +687,50 @@ class ServeEngine:
             self.step(self.horizon)
             t += 1
         return self.finished
+
+    def close(self) -> None:
+        """Close the journal's file and drop the captured graphs (their
+        memory returns to the allocator). The engine stays usable: the
+        journal reopens at its next record, the graphs are recaptured at
+        the next tick."""
+        if self.journal is not None:
+            self.journal.close()
+        self._drop_graphs()
+        self._graph_key = None
+
+    # -- crash recovery ----------------------------------------------------
+    @classmethod
+    def resume(cls, journal: str, cfg, params, *, slots: int, cache_len: int,
+               **kw) -> "ServeEngine":
+        """Reconstruct an engine from its admission / token journal (the
+        reference's or the port's: the records are the same).
+
+        Completed (``done`` / ``fail``) requests are never replayed
+        (``stats["resume_skipped_done"]`` counts them). In-flight requests
+        are re-queued with their durable token prefix and re-admitted
+        through the teacher-forced rebuild (:meth:`_admit_replay`):
+        nothing already journaled is re-emitted, and the continued greedy
+        decode produces bitwise the token suffix an uninterrupted run
+        would have. The journal stays attached."""
+        states = load_requests(journal)
+        eng = cls(cfg, params, slots=slots, cache_len=cache_len,
+                  journal=journal, **kw)
+        for st in states.values():
+            if not st.in_flight:
+                eng.stats["resume_skipped_done"] += 1
+                continue
+            if len(st.out) >= st.max_new:
+                # crashed between the last emit and the done record: the
+                # request is complete; journal the terminal event now
+                req = Request(st.rid, st.prompt, st.max_new,
+                              out=list(st.out), done=True,
+                              deadline=st.deadline)
+                eng.finished.append(req)
+                eng.stats["resume_skipped_done"] += 1
+                if eng.journal is not None:
+                    eng.journal.done(st.rid)
+                continue
+            eng.queue.append(Request(st.rid, st.prompt, st.max_new,
+                                     out=list(st.out),
+                                     deadline=st.deadline))
+        return eng

@@ -1561,3 +1561,200 @@ def test_interp_eval_rows_past_shared_memory(r, dev):
         assert torch.equal(got, interp_eval_ref(c, coeffs, **dp))
         np.testing.assert_array_equal(got.cpu().numpy().astype(np.int64),
                                       d.eval_int(c.cpu().numpy()))
+
+
+# --------------------------------------- the serving control layer's tick
+
+def _serve_on(eng, prompts, max_new=6):
+    for i, p in enumerate(prompts):
+        eng.submit(Request(i, p, max_new=max_new))
+    return {r.rid: list(r.out) for r in eng.run()}
+
+
+def _prompts_for(cfg, lengths=(5, 11, 3, 8, 2), seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lengths]
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_graph_tick_equals_eager_tick_bitwise(arch, lib, dev):
+    """The same requests on a graph engine (one CUDA graph replay per tick)
+    and an eager one: token streams and the caches afterwards (k, v, pos)
+    bitwise equal; both count per-forward launches times forwards in
+    ``stats["launches"]``, and the graph engine's replays leave the global
+    counters to its prefills."""
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    prompts = _prompts_for(cfg)
+    out, engines = {}, {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=64, library=lib,
+                          horizon=4, graph=graph, device=dev)
+        build.reset_launches()
+        out[graph] = _serve_on(eng, prompts)
+        torch.cuda.synchronize()
+        engines[graph] = (eng, dict(build.LAUNCHES))
+    g, e = engines[True][0], engines[False][0]
+    assert out[True] == out[False]
+    for a, b in zip(g.caches, e.caches):
+        assert torch.equal(a, b)
+    assert g.stats["graph"] is True and g.stats["captures"] == 3
+    assert e.stats["graph"] is False and e.stats["captures"] == 0
+    per = _per_forward(cfg)
+    for eng, glob in engines.values():
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        assert eng.stats["launches"] == {k: n * forwards
+                                         for k, n in per.items()}
+    assert engines[False][1] == e.stats["launches"]
+    assert engines[True][1] == {k: n * g.stats["prefills"]
+                                for k, n in per.items()}
+    for key in ("ticks", "decode_steps", "dispatches", "transfers"):
+        assert g.stats[key] == e.stats[key]
+    assert g.stats["dispatches"] == g.stats["ticks"]
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_fused_tick_makes_no_host_sync(arch, lib, dev):
+    """A warm eager tick over live slots under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation of the decode
+    -> argmax -> feed-back loop reads the device from the host (what a
+    capture needs)."""
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    eng = ServeEngine(cfg, params, slots=2, cache_len=64, library=lib,
+                      horizon=4, graph=False, device=dev)
+    for i, p in enumerate(_prompts_for(cfg, (5, 9))):
+        eng.submit(Request(i, p, max_new=20))
+    eng.step(4)
+    tick = eng._tick_fn(4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tick(eng.params, eng._tok, eng._pos, eng._live, eng.caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_graph_recaptures_after_a_library_swap(lib, dev):
+    """Assigning ``engine.library`` mid-run drops the graphs: the next tick
+    recaptures over the new ROM. A ROM with one flipped bit in a silu row
+    (no verification armed) serves exactly the tokens an eager engine with
+    the same swap serves, and not those of the unswapped engine."""
+    from repro_torch.faults import flip_rom_bit
+
+    cfg, params = _smoke(dev, "yi_6b")
+    prompts = _prompts_for(cfg, (5, 11))
+    f, r_max = lib.func_id("silu"), lib.r_max
+    bit = ((f * r_max + r_max // 2) * 3 + 2) * 32 + 24
+    bad = flip_rom_bit(lib, bit=bit)
+    outs = {}
+    for graph, swap in ((True, True), (False, True), (True, False)):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=64, library=lib,
+                          horizon=4, graph=graph, device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(i, p, max_new=12))
+        eng.step(4)
+        n = eng.stats["captures"]
+        if swap:
+            eng.library = bad
+            assert eng.numerics.library is bad
+        eng.run()
+        outs[graph, swap] = {r.rid: r.out for r in eng.finished}
+        if graph:  # after a swap, each chunk size is captured anew
+            assert (eng.stats["captures"] > n) == swap
+            assert eng._graph_key[2] is (bad if swap else lib)
+    assert outs[True, True] == outs[False, True]
+    assert outs[True, True] != outs[True, False]
+
+
+def test_graph_launch_counts_under_replay(lib, seg_lib, dev):
+    """Launches per forward hold on ``stats["launches"]`` under replay, on
+    both libraries, through every chunk size (1, 2, 4, 8)."""
+    cfg, params = _smoke(dev, "deepseek_moe_16b", "bfloat16")
+    for card in (lib, seg_lib):
+        eng = ServeEngine(cfg, params, slots=3, cache_len=64, library=card,
+                          horizon=8, device=dev)
+        _serve_on(eng, _prompts_for(cfg, (4, 7, 2, 9)), max_new=16)
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        assert eng.stats["launches"] == {
+            k: n * forwards for k, n in _per_forward(cfg).items()}
+        assert eng.stats["captures"] == 4
+
+
+def test_uncapturable_configuration_stays_eager(dev):
+    """Exact numerics over 32768 cache rows take the attention glue's chunk
+    liveness test (a host read) at decode: the engine ticks eagerly and
+    says why; it still serves what a graph engine at a short cache
+    serves."""
+    cfg, params = _smoke(dev, "yi_6b")
+    cfg = cfg.replace(numerics="exact")
+    long = ServeEngine(cfg, params, slots=2, cache_len=32768, horizon=4,
+                       device=dev)
+    assert long.stats["graph"] is False
+    assert "decode_reads_host" in long.stats["graph_reason"]
+    short = ServeEngine(cfg, params, slots=2, cache_len=64, horizon=4,
+                        device=dev)
+    assert short.stats["graph"] is True
+    prompts = _prompts_for(cfg, (5, 3))
+    assert _serve_on(long, prompts, 4) == _serve_on(short, prompts, 4)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_serial_oracle_equals_graph_tick_on_exact_numerics(arch, dev):
+    """The serial path (one decode and a host argmax per token) and the
+    graph tick decode the same tokens with exact numerics."""
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    cfg = cfg.replace(numerics="exact")
+    prompts = _prompts_for(cfg)
+    outs = {}
+    for fused in (True, False):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=64, horizon=4,
+                          fused=fused, device=dev)
+        outs[fused] = _serve_on(eng, prompts)
+        assert eng.stats["graph"] is fused
+    assert outs[True] == outs[False]
+
+
+def test_card_fault_ladder(lib, dev):
+    """On the card: a ROM flip at construction serves exact tokens; NaN
+    ticks retire the slots and, past the watchdog limit, move the engine
+    to the serial rung with guarded numerics, which finishes the rest
+    through the library kernels."""
+    from repro_torch.faults import TickFaultInjector, flip_rom_bit
+    from repro_torch.numerics.guard import GuardedNumerics
+
+    cfg, params = _smoke(dev, "yi_6b", "bfloat16")
+    prompts = _prompts_for(cfg, (5, 7, 4))
+    eng = ServeEngine(cfg, params, slots=2, cache_len=64, device=dev,
+                      library=flip_rom_bit(lib, seed=5))
+    assert eng.cfg.numerics == "exact" and eng.stats["rom_faults"] == 1
+    exact = ServeEngine(cfg.replace(numerics="exact"), params, slots=2,
+                        cache_len=64, device=dev)
+    assert _serve_on(eng, prompts) == _serve_on(exact, prompts)
+    eng = ServeEngine(cfg, params, slots=1, cache_len=64, library=lib,
+                      watchdog_limit=2, device=dev)
+    TickFaultInjector("nan", every_n=1, limit=2).install(eng)
+    before = build.LAUNCHES["library_eval"]
+    _serve_on(eng, prompts, 4)
+    assert [r.error for r in eng.failed] == ["non_finite_output"] * 2
+    assert eng.fused is False and eng.cfg.numerics == "interp-guarded"
+    assert isinstance(eng.numerics, GuardedNumerics)
+    assert [r.rid for r in eng.finished] == [2]
+    assert build.LAUNCHES["library_eval"] > before
+
+
+@pytest.mark.parametrize("kind", ["gelu", "sigmoid", "softplus", "tanh"])
+def test_new_activations_through_act_lib(kind, lib, seg_lib, dev):
+    """The backends' gelu / sigmoid / softplus / tanh on the card: one
+    act_lib launch each, bitwise the plain version, at the served decode
+    and prefill shapes, on both libraries."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    for card in (lib, seg_lib):
+        for shape in ((4, 1, 11008), (1, 512, 11008)):
+            x = (torch.randn(shape, device=dev, generator=g) * 4
+                 ).to(torch.bfloat16)
+            n0 = build.LAUNCHES["act_lib"]
+            got = getattr(FusedInterpNumerics(card), kind)(x)
+            assert build.LAUNCHES["act_lib"] == n0 + 1
+            want = getattr(PlainFusedNumerics(card), kind)(x)
+            assert torch.equal(got, want)

@@ -36,7 +36,11 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.segment.segmenter", "repro_torch.segment.cost",
             # the per-table slice's
             "repro_torch.numerics.registry", "repro_torch.kernels.flashattn.ops",
-            "repro_torch.kernels.rmsnorm.ops")
+            "repro_torch.kernels.rmsnorm.ops",
+            # the serving control layer's
+            "repro_torch.numerics.guard", "repro_torch.util",
+            "repro_torch.util.journal", "repro_torch.serve.journal",
+            "repro_torch.faults", "repro_torch.faults.inject")
 
 
 @pytest.fixture
