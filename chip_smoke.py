@@ -97,13 +97,29 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    construction serving exact numerics' tokens, NaN ticks retiring slots
    and moving the engine to the serial rung with guarded numerics, and a
    journaled run killed at a crash point resuming to the uninterrupted
-   streams;
+   streams; then the plan phase: a uniform interp-fused plan against the
+   homogeneous graph engine (streams and final caches bitwise), a
+   three-slot plan (layer 0 on an R5 library generated on the card, layer
+   1 on the segmented one, the rest on the default; launches per forward
+   per slot library, first tokens against the plain versions) and an R5
+   ROM flip mid-run that takes layer 0 alone to exact, recaptures and
+   finishes; then the AOT phase: the 6 requests and a second group of 4
+   same-bucket prompts through the graph-only engine and through
+   ``aot_buckets=True, max_pack=4`` (one CUDA graph per (bucket, pack)),
+   capture seconds, memory, tokens/s end to end, zero misses, each packed
+   group's first tokens against the plain ``prefill_padded``, streams
+   against the graph-only engine's in the tie band, a packed admission
+   replayed and eager (wall, device ms, busy share); and the host
+   pipeline (``async_host=True``: streams bitwise the synchronous AOT
+   run's, a journaled async run stopped mid-run and resumed);
 9. frees Yi-6B and serves (graph and eager) full-width DeepSeekMoE-16B
    (28 layers, 64 routed experts top-6 + 2 shared, a dense layer 0; the
    router's softmax through the ``softmax_lib`` kernel), first on the
    uniform library, then on the same weights on the segmented library,
    where the activations and every table read of the fused kernels go
-   through the segment decode: the same launches per forward;
+   through the segment decode: the same launches per forward; then its
+   AOT phase on the uniform library (first tokens held against the plain
+   ``prefill_padded``: an MoE bucket's expert capacity is the bucket's);
 10. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -2354,12 +2370,16 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
                 streams=streams["graph"])
 
 
-def yi_extra_phases(params, cfg, lib, dev) -> dict:
-    """On the loaded Yi-6B weights: the serial oracle, then the card fault
-    phase."""
+def yi_extra_phases(params, cfg, lib, seg_lib, dev) -> dict:
+    """On the loaded Yi-6B weights: the serial oracle, the card fault
+    phase, the plan phase, and the AOT phase with the async host run."""
     return {"serial_oracle": phase("serial oracle", serial_oracle_phase,
                                    params, cfg, dev),
-            "faults": phase("faults", fault_phase, params, cfg, lib, dev)}
+            "faults": phase("faults", fault_phase, params, cfg, lib, dev),
+            "plans": phase("plans", plan_phase, params, cfg, lib, seg_lib,
+                           dev),
+            "aot": phase("aot yi_6b", aot_phase, params, cfg, lib, dev,
+                         async_host=True)}
 
 
 def serial_oracle_phase(params, cfg, dev) -> dict:
@@ -2513,6 +2533,521 @@ def fault_phase(params, cfg, lib, dev) -> dict:
     return res
 
 
+def launches_by_library(fn, libs: dict):
+    """Run ``fn()``; return its result and the served kernels' launches in
+    it by the slot library whose ROM each read, ``{slot key: {kernel: n}}``,
+    as the wrappers count them at the launch site
+    (``build.LAUNCHES_BY_ROM``)."""
+    from repro_torch.kernels import build
+
+    names = {lib.coeffs.data_ptr(): k for k, lib in libs.items()}
+    before = dict(build.LAUNCHES_BY_ROM)
+    out = fn()
+    counts: dict = {}
+    for (kernel, ptr), n in build.LAUNCHES_BY_ROM.items():
+        n -= before.get((kernel, ptr), 0)
+        if n:
+            counts.setdefault(names.get(ptr, "?"), {})[kernel] = n
+    return out, counts
+
+
+def three_slot_plan(n_layers: int):
+    """Layer 0 on an R5 slot, layer 1 on the segmented (hier) slot, every
+    other layer and ``rest`` on the default slot; all interp-fused."""
+    from repro_torch.plan import (LayerAssign, NumericsPlan, SiteAssign,
+                                  SlotSpec)
+
+    def la(slot):
+        return LayerAssign(*(SiteAssign("interp-fused", slot),) * 3)
+    rest = la(SlotSpec())
+    return NumericsPlan(
+        layers=(la(SlotSpec(lookup_bits=5)), la(SlotSpec(
+            segmentation="hier"))) + (rest,) * (n_layers - 2), rest=rest)
+
+
+def plan_phase(params, cfg, lib, seg_lib, dev) -> dict:
+    """Per-layer numerics plans at full width, on the loaded weights: a
+    uniform interp-fused plan against the homogeneous graph engine (token
+    streams and final caches bitwise); a three-slot plan (R5 layer 0,
+    segmented layer 1, default elsewhere) through the graph tick, with its
+    launches per forward per slot library and its first tokens against
+    the plain versions; and a ROM flip in the R5 slot mid-run, which must
+    take layer 0 and only layer 0 to exact, recapture and finish."""
+    import torch
+
+    from repro_torch.api import Explorer, ExploreConfig
+    from repro_torch.faults import flip_rom_bit
+    from repro_torch.models import transformer as tf
+    from repro_torch.plan import NumericsPlan
+    from repro_torch.plan.numerics import PlanNumerics
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_LENGTHS]
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, horizon=HORIZON, device=dev)
+    res = {}
+
+    # a uniform plan is the homogeneous engine, bitwise
+    runs = {}
+    uniform = cfg.replace(plan=NumericsPlan.uniform("interp-fused",
+                                                    cfg.n_layers))
+    for name, c, library in (("homogeneous", cfg, lib),
+                             ("uniform plan", uniform, {"default": lib})):
+        eng = ServeEngine(c, params, library=library, **kw)
+        if not eng.stats["graph"]:
+            raise AssertionError(f"{name}: {eng.stats['graph_reason']}")
+        _serve_requests(eng, prompts)
+        streams, wall, _ = _run_timed(eng)
+        runs[name] = (streams, eng.caches, wall)
+        del eng
+    same_cache = [bool(torch.equal(a, b)) for a, b in
+                  zip(runs["homogeneous"][1], runs["uniform plan"][1])]
+    same = runs["homogeneous"][0] == runs["uniform plan"][0]
+    print(f"uniform interp-fused plan vs the homogeneous graph engine: "
+          f"streams equal {same}, caches k, v, pos equal {same_cache} "
+          f"({runs['uniform plan'][2]:.2f} s / "
+          f"{runs['homogeneous'][2]:.2f} s)")
+    if not (same and all(same_cache)):
+        raise AssertionError("the uniform plan is not the homogeneous "
+                             "engine bitwise")
+    res["uniform"] = dict(streams_equal=True, caches_equal=same_cache,
+                          wall_s=runs["uniform plan"][2],
+                          homogeneous_wall_s=runs["homogeneous"][2])
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the three-slot plan
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        r5 = Explorer(ExploreConfig(device=str(dev), cache_dir=d)).compile(
+            lookup_bits=5)
+    print(f"R5 library {r5.rom_sha()} {tuple(r5.coeffs.shape)} generated on "
+          f"the card in {time.perf_counter() - t0:.2f} s")
+    libs = {"R5": r5, "hier": seg_lib, "default": lib}
+    plan = three_slot_plan(cfg.n_layers)
+    c = cfg.replace(plan=plan)
+    t0 = time.perf_counter()
+    eng, built_by_lib = launches_by_library(
+        lambda: ServeEngine(c, params, library=dict(libs), **kw), libs)
+    build_s = time.perf_counter() - t0
+    if not eng.stats["graph"]:
+        raise AssertionError(f"plan engine: {eng.stats['graph_reason']}")
+    _serve_requests(eng, prompts)
+    streams, wall, wrappers = _run_timed(eng)
+    per = per_forward(cfg)
+    forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+    expected = {k: n * forwards for k, n in per.items()}
+    if (eng.stats["launches"] != expected or wrappers !=
+            {k: n * eng.stats["prefills"] for k, n in per.items()}):
+        raise AssertionError(f"plan engine launches {eng.stats['launches']}"
+                             f" / {wrappers}, expected {expected}")
+    if sorted(streams) != list(range(len(prompts))) or any(
+            len(v) != MAX_NEW for v in streams.values()):
+        raise AssertionError(f"plan engine streams {streams}")
+    # launches of one eager forward, by the library each kernel read; the
+    # engine's construction (warm-up and graph captures) must read each
+    # library in the same proportion, a whole number of forwards
+    t = torch.as_tensor(prompts[0], dtype=torch.int64, device=dev)[None]
+    with torch.inference_mode():
+        _, by_lib = launches_by_library(
+            lambda: tf.prefill(params, t, c, eng.numerics, CACHE_LEN), libs)
+    one = {"rmsnorm_lib": 2, "flash_attn_lib": 1, "act_lib": 1}
+    want_by_lib = {"R5": one, "hier": one,
+                   "default": {"rmsnorm_lib": 2 * (cfg.n_layers - 2) + 1,
+                               "flash_attn_lib": cfg.n_layers - 2,
+                               "act_lib": cfg.n_layers - 2}}
+    built_forwards = built_by_lib.get("R5", {}).get("flash_attn_lib", 0)
+    want_built = {k: {kernel: n * built_forwards for kernel, n in v.items()}
+                  for k, v in want_by_lib.items()}
+    print(f"three-slot plan (R5 / hier / default): built in {build_s:.2f} s "
+          f"({eng.stats['captures']} graphs, {eng.stats['capture_s']:.2f} "
+          f"s); 6 requests {wall:.2f} s, {96 / wall:.2f} tokens/s; launches "
+          f"{eng.stats['launches']} = per forward x {forwards}; "
+          f"launches by library (counted at the launch site): one eager "
+          f"forward {by_lib}, the construction's warm-up and captures "
+          f"{built_by_lib} ({built_forwards} forwards)")
+    if by_lib != want_by_lib:
+        raise AssertionError(f"launches by library {by_lib} != "
+                             f"{want_by_lib}")
+    if not built_forwards or built_by_lib != want_built:
+        raise AssertionError(f"construction launches by library "
+                             f"{built_by_lib} != {want_built}")
+    # first tokens against the plain versions under the same plan
+    plain = PlanNumerics(plan, libs, plain=True)
+    ties, max_dlogit = 0, 0.0
+    with torch.inference_mode():
+        for rid, p in enumerate(prompts):
+            t = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
+            lk, _ = tf.prefill(params, t, c, eng.numerics, CACHE_LEN)
+            lp, _ = tf.prefill(params, t, c, plain, CACHE_LEN)
+            lk, lp = lk[0, -1].float(), lp[0, -1].float()
+            first = streams[rid][0]
+            if int(lk.argmax()) != first:
+                raise AssertionError(f"plan request {rid}: first token "
+                                     f"{first} != its own prefill")
+            max_dlogit = max(max_dlogit, float((lk - lp).abs().max()))
+            gap = float(lp.max() - lp[first])
+            if gap > 0:
+                ties += 1
+                if gap > 2.0 ** -5 * float(lp.abs().max()):
+                    raise AssertionError(f"plan request {rid}: {gap}")
+    print(f"three-slot plan first tokens vs plain versions: "
+          f"{len(prompts) - ties} equal, {ties} inside the tie band; max "
+          f"|dlogit| {max_dlogit:.4f}")
+    res["three_slot"] = dict(
+        build_s=build_s, captures=eng.stats["captures"],
+        capture_s=eng.stats["capture_s"], wall_s=wall,
+        tokens_per_s=96 / wall, launches=dict(eng.stats["launches"]),
+        forwards=forwards, launches_by_library=by_lib,
+        construction_launches_by_library=built_by_lib,
+        construction_forwards=built_forwards,
+        first_token_ties=ties, max_dlogit=max_dlogit,
+        r5_rom_sha=r5.rom_sha())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a ROM flip in the R5 slot mid-run
+    eng = ServeEngine(c, params, library=dict(libs), verify_rom_every=1,
+                      **kw)
+    _serve_requests(eng, prompts[:3], max_new=8)
+    eng.step(HORIZON)
+    n_cap = eng.stats["captures"]
+    eng.library["R5"] = flip_rom_bit(libs["R5"], seed=3)
+    eng.run()
+    torch.cuda.synchronize()
+    fault = next((f for f in eng.faults if f["reason"] == "rom_integrity"),
+                 None)
+    new = eng.cfg.plan
+    done = {r.rid: len(r.out) for r in eng.finished}
+    print(f"R5 ROM flip mid-run: faults {eng.faults}; degradations "
+          f"{eng.stats['degradations']}; captures {n_cap} -> "
+          f"{eng.stats['captures']}; finished {done}; graph "
+          f"{eng.stats['graph']}")
+    if not (fault and fault["action"] == "slots:R5->exact"
+            and fault["layers"] == ("0",)
+            and eng.stats["degradations"] == {"0": 1}
+            and new.layers[0].uniform_backend == "exact"
+            and all(la.uniform_backend == "interp-fused"
+                    for la in new.layers[1:])
+            and eng.fused and eng.stats["graph"]
+            and eng.stats["captures"] > n_cap
+            and sorted(eng.library) == ["default", "hier"]
+            and done == {0: 8, 1: 8, 2: 8} and not eng.failed):
+        raise AssertionError("the R5 flip did not take layer 0 alone to "
+                             "exact")
+    res["rom_flip"] = dict(faults=eng.faults,
+                           degradations=eng.stats["degradations"],
+                           captures=[n_cap, eng.stats["captures"]])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def divergences(params, cfg, lib, prompts, want, got, dev) -> dict:
+    """``{rid: (step, top-2 gap, tie band)}`` at each stream's first
+    divergence of ``got`` from ``want``: the gap of the kernels' own logits
+    after an exact-length prefill of the shared prefix, beside the tie band
+    2^-5 max|logit|."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import get_numerics
+
+    num = get_numerics(cfg, lib)
+    out = {}
+    with torch.inference_mode():
+        for rid in want:
+            t = next((i for i, (x, y) in enumerate(zip(want[rid], got[rid]))
+                      if x != y), None)
+            if t is None:
+                continue
+            seq = np.concatenate([prompts[rid],
+                                  np.asarray(want[rid][:t], np.int32)])
+            lk, _ = tf.prefill(params, torch.as_tensor(
+                seq, dtype=torch.int64, device=dev)[None], cfg, num,
+                CACHE_LEN)
+            lk = lk[0, -1].float()
+            top2 = torch.topk(lk, 2).values
+            out[rid] = (t, float(top2[0] - top2[1]),
+                        2.0 ** -5 * float(lk.abs().max()))
+    return out
+
+
+AOT_GROUP2 = (40, 48, 56, 64)  # a second group: one bucket (64), one pack
+
+
+def aot_phase(params, cfg, lib, dev, async_host: bool = False) -> dict:
+    """The AOT tier at full width on the loaded weights: the 6 serve
+    requests, then a second group of 4 same-bucket prompts, through the
+    graph-only engine and through ``aot_buckets=True, max_pack=4`` (a
+    CUDA graph per (bucket, pack)) in the same call: capture seconds, peak
+    memory, tokens/s end to end, zero misses, packed requests; each
+    admission's first tokens against the plain ``prefill_padded`` of its
+    packed group (the tie band); Yi-6B's streams against the graph-only
+    engine's (tie band at a first divergence); the busy share of a packed
+    admission replay. With ``async_host``: the same AOT run on the host
+    pipeline (streams bitwise the synchronous AOT run's) and a journaled
+    async run stopped mid-run and resumed to the same streams."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import PlainFusedNumerics
+    from repro_torch.serve import aot
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.journal import load_requests
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in SERVE_LENGTHS]
+    group2 = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+              for n in AOT_GROUP2]
+    allp = prompts + group2
+    kw = dict(slots=SLOTS, cache_len=CACHE_LEN, horizon=HORIZON, device=dev,
+              library=lib)
+    per = per_forward(cfg)
+    res, streams = {}, {}
+
+    def build_engine(name, **extra):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, params, **kw, **extra)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated(dev) - base
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        if not eng.stats["graph"]:
+            raise AssertionError(f"{name}: {eng.stats['graph_reason']}")
+        return eng, dict(build_s=build_s, captures=eng.stats["captures"],
+                         capture_s=eng.stats["capture_s"],
+                         held_bytes=held, peak_build_bytes=peak)
+
+    for name, extra in (("graph", {}),
+                        ("aot", dict(aot_buckets=True, max_pack=4))):
+        eng, info = build_engine(name, **extra)
+        log = []
+        if name == "aot":
+            real = eng._admit_packed
+
+            def logged(sub, bucket, _real=real):
+                log.append(([r.rid for r, _s in sub], bucket))
+                return _real(sub, bucket)
+            eng._admit_packed = logged
+        _serve_requests(eng, prompts)
+        s1, wall1, w1 = _run_timed(eng)
+        st1 = dict(eng.stats)
+        _serve_requests(eng, group2, rid0=len(prompts))
+        s2, wall2, w2 = _run_timed(eng)
+        peak = torch.cuda.max_memory_allocated(dev)
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        expected = {k: n * forwards for k, n in per.items()}
+        eager = eng.stats["prefills"] - eng.stats["admit_replays"]
+        wrappers = {k: w1[k] + w2[k] for k in w1}
+        if (eng.stats["launches"] != expected
+                or wrappers != {k: n * eager for k, n in per.items()}):
+            raise AssertionError(f"{name}: launches {eng.stats['launches']}"
+                                 f" / {wrappers}, expected {expected}")
+        out = {**s1, **s2}
+        if sorted(out) != list(range(len(allp))) or any(
+                len(v) != MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                             for t in v)
+                for v in out.values()):
+            raise AssertionError(f"{name}: bad streams {out}")
+        streams[name] = out
+        info.update(wall_s=wall1, tokens_per_s=96 / wall1,
+                    group2_wall_s=wall2,
+                    group2_tokens_per_s=len(group2) * MAX_NEW / wall2,
+                    peak_bytes=peak, launches=dict(eng.stats["launches"]),
+                    wrapper_launches=wrappers, forwards=forwards,
+                    stats={k: eng.stats[k] for k in (
+                        "aot_compiles", "aot_hits", "aot_misses",
+                        "aot_fallbacks", "packed_admits", "packed_requests",
+                        "admit_dispatches", "admit_replays", "prefills",
+                        "ticks", "decode_steps")},
+                    stats_after_6=({k: st1[k] for k in (
+                        "aot_hits", "aot_misses", "packed_admits",
+                        "packed_requests")} if name == "aot" else None))
+        print(f"{cfg.name} {name} engine: built in {info['build_s']:.2f} s "
+              f"({info['captures']} graphs captured in "
+              f"{info['capture_s']:.2f} s; {info['held_bytes'] / 1e9:.3f} "
+              f"GB held, {info['peak_build_bytes'] / 1e9:.3f} GB peak over "
+              f"the weights during construction); 6 requests "
+              f"{wall1:.3f} s = {96 / wall1:.2f} tokens/s end to end; "
+              f"group of {len(group2)} x bucket 64: {wall2:.3f} s; peak "
+              f"memory {peak / 1e9:.2f} GB; stats {info['stats']}")
+        if name == "aot":
+            s = eng.stats
+            n_cap = aot.compile_count(eng.aot_buckets, 4, SLOTS, HORIZON)
+            if not (s["aot_misses"] == 0 and s["aot_hits"] > 0
+                    and s["aot_compiles"] == n_cap == s["captures"]
+                    and s["packed_requests"] == len(allp)
+                    and s["admit_replays"] == s["packed_admits"]
+                    and any(len(rids) == 4 for rids, _b in log)):
+                raise AssertionError(f"aot counters {s}, groups {log}")
+            info["groups"] = log
+            # first tokens of each packed group against the plain
+            # prefill_padded of that group
+            plain = PlainFusedNumerics(lib)
+            ties, max_dl = 0, 0.0
+            with torch.inference_mode():
+                for rids, bucket in log:
+                    toks = np.zeros((len(rids), bucket), np.int64)
+                    for i, rid in enumerate(rids):
+                        toks[i, :len(allp[rid])] = allp[rid]
+                    lens = [len(allp[rid]) for rid in rids]
+                    lp, _ = tf.prefill_padded(
+                        params, torch.as_tensor(toks, device=dev),
+                        torch.as_tensor(lens, device=dev), cfg, plain,
+                        CACHE_LEN)
+                    lk, _ = tf.prefill_padded(
+                        params, torch.as_tensor(toks, device=dev),
+                        torch.as_tensor(lens, device=dev), cfg,
+                        eng.numerics, CACHE_LEN)
+                    for i, rid in enumerate(rids):
+                        first = out[rid][0]
+                        lpi, lki = lp[i, 0].float(), lk[i, 0].float()
+                        if int(lki.argmax()) != first:
+                            raise AssertionError(
+                                f"aot request {rid}: first token {first} "
+                                f"!= its eager packed prefill")
+                        max_dl = max(max_dl, float((lki - lpi).abs().max()))
+                        gap = float(lpi.max() - lpi[first])
+                        if gap > 0:
+                            ties += 1
+                            if gap > 2.0 ** -5 * float(lpi.abs().max()):
+                                raise AssertionError(f"aot request {rid}: "
+                                                     f"gap {gap}")
+            print(f"packed first tokens vs the plain prefill_padded of "
+                  f"each group {log}: {len(allp) - ties} equal, {ties} in "
+                  f"the tie band; max |dlogit| {max_dl:.4f}")
+            info.update(first_token_ties=ties, max_dlogit=max_dl)
+            # one packed admission, replayed and eager: wall ms on the host
+            # clock (each call ends in its first-token download), device ms
+            # from the profiler, busy = device / wall. The engine is idle:
+            # the admissions write free slots, which are not read again.
+            prof = {}
+            for bucket, pk in ((eng.aot_buckets.buckets[-1], 1), (64, 4)):
+                host = np.zeros(pk * bucket + 2 * pk, np.int64)
+                p_, l_, s_ = eng._admit_views(host, bucket, pk)
+                for i in range(pk):
+                    p_[i] = rng.integers(0, cfg.vocab_size, bucket)
+                    l_[i], s_[i] = bucket, i
+                inp = torch.as_tensor(host, device=dev)
+                firsts = torch.empty(pk, dtype=torch.int64, device=dev)
+
+                def eager(_inp=inp, _f=firsts, _b=bucket, _pk=pk):
+                    with torch.inference_mode():
+                        eng._admit_body(*eng._admit_views(_inp, _b, _pk),
+                                        _f, eng.caches, eng._tok, eng._pos,
+                                        eng._live)
+                    return _f.cpu()
+                for mode, call in (("replay", lambda _fn=eng._packed_fn(
+                        bucket, pk), _h=host: _fn(_h).cpu()),
+                                   ("eager", eager)):
+                    call()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(5):
+                        call()
+                    wall_ms = (time.perf_counter() - t0) * 1e3 / 5
+                    print(f"packed admission, bucket {bucket} x {pk}, "
+                          f"{mode}: {wall_ms:.3f} ms wall per call")
+                    pr = profile_steps(call, n=2)
+                    dev_ms = pr.get("device_ms")
+                    busy = None if dev_ms is None else dev_ms / wall_ms
+                    prof[f"{bucket}x{pk} {mode}"] = dict(
+                        wall_ms=wall_ms, device_ms=dev_ms, busy_share=busy,
+                        profile=pr)
+                    print(f"  busy share {_share(busy)} (device "
+                          f"{_ms(dev_ms)})")
+            info["admit_profile"] = prof
+        res[name] = info
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the AOT engine against the graph-only engine
+    g, a = streams["graph"], streams["aot"]
+    gaps = divergences(params, cfg, lib, allp, g, a, dev)
+    print(f"{cfg.name} AOT vs graph-only streams: {len(g) - len(gaps)} of "
+          f"{len(g)} equal; divergences (step, top-2 gap, tie band) {gaps}; "
+          f"tokens/s {res['aot']['tokens_per_s']:.2f} vs "
+          f"{res['graph']['tokens_per_s']:.2f} "
+          f"({res['aot']['tokens_per_s'] / res['graph']['tokens_per_s']:.2f}"
+          f"x)")
+    if cfg.moe is None and any(gap > band for _t, gap, band in gaps.values()):
+        raise AssertionError(f"AOT streams outside the tie band: {gaps}")
+    res["streams_equal"] = not gaps
+    res["divergences"] = gaps
+    if not async_host:
+        return res
+
+    # the host pipeline on the same AOT engine configuration
+    eng, info = build_engine("aot async", aot_buckets=True, max_pack=4,
+                             async_host=True)
+    _serve_requests(eng, prompts)
+    s1, wall1, _ = _run_timed(eng)
+    _serve_requests(eng, group2, rid0=len(prompts))
+    s2, _, _ = _run_timed(eng)
+    eng.close()
+    out = {**s1, **s2}
+    print(f"{cfg.name} aot + async host: 6 requests {wall1:.3f} s = "
+          f"{96 / wall1:.2f} tokens/s; streams equal to the synchronous AOT "
+          f"run {out == streams['aot']}; async chunks "
+          f"{eng.stats['async_chunks']}, tokens {eng.stats['async_tokens']}")
+    if out != streams["aot"]:
+        raise AssertionError("async host streams differ from the sync run")
+    info.update(wall_s=wall1, tokens_per_s=96 / wall1,
+                async_chunks=eng.stats["async_chunks"],
+                async_tokens=eng.stats["async_tokens"])
+    del eng
+    with tempfile.TemporaryDirectory(dir=OUT) as d:
+        jp = str(pathlib.Path(d) / "serve.jsonl")
+        eng, _ = build_engine("aot async journaled", aot_buckets=True,
+                              max_pack=4, async_host=True, journal=jp)
+        _serve_requests(eng, prompts)
+        for _ in range(3):
+            eng.step(HORIZON)
+        eng.close()
+        del eng
+        pre = {rid: len(st.out) for rid, st in load_requests(jp).items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        res_eng = ServeEngine.resume(jp, cfg, params, **kw,
+                                     aot_buckets=True, max_pack=4,
+                                     async_host=True)
+        res_eng.run()
+        res_eng.close()
+        final = {rid: st.out for rid, st in load_requests(jp).items()}
+    want = {rid: streams["aot"][rid] for rid in range(len(prompts))}
+    # a resumed slot is rebuilt by an exact-length prefill (its packed
+    # group is not in the journal): other GEMM shapes than the packed
+    # admission's, so the continuation is held to the tie band
+    gaps = divergences(params, cfg, lib, prompts, want, final, dev)
+    kept = all(final[rid][:n] == want[rid][:n] for rid, n in pre.items())
+    print(f"async journal stopped after 3 ticks (durable tokens {pre}), "
+          f"resumed ({res_eng.stats['resumed']} in flight): durable "
+          f"prefixes kept {kept}; streams equal to the uninterrupted AOT "
+          f"run {final == want}; divergences {gaps}")
+    if (not kept or not res_eng.stats["resumed"]
+            or any(len(v) != MAX_NEW for v in final.values())
+            or any(gap > band for _t, gap, band in gaps.values())):
+        raise AssertionError(f"async resume: {final} != {want}")
+    info.update(resume=dict(durable=pre, resumed=res_eng.stats["resumed"],
+                            streams_equal=final == want, divergences=gaps))
+    res["async"] = info
+    del res_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def profile_steps(step, n: int = 3) -> dict:
     """Device time of ``n`` calls of ``step`` from torch.profiler (CUPTI):
     busy share of the wall time, the port's kernels' device time per
@@ -2568,6 +3103,47 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def serve_phases(lib, seg_lib, dev) -> list[dict]:
+    """Full-width Yi-6B (with the serial oracle, the fault, plan and AOT /
+    async phases on its weights), then DeepSeekMoE-16B on both libraries
+    (with the AOT phase on the uniform one)."""
+    import torch
+
+    from repro_torch.configs import deepseek_moe_16b, yi_6b
+
+    serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
+                   yi_6b.CONFIG, extra=lambda params, cfg: yi_extra_phases(
+                       params, cfg, lib, seg_lib, dev))
+    gc.collect()  # the Yi-6B weights and cache go before DeepSeekMoE's init
+    torch.cuda.empty_cache()
+    print(f"after freeing yi_6b: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
+          f"GB allocated, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    serves += phase("serve deepseek_moe_16b", serve_phase,
+                    [("uniform", lib), ("segmented", seg_lib)], dev,
+                    deepseek_moe_16b.CONFIG,
+                    extra=lambda params, cfg: {"aot": phase(
+                        "aot deepseek_moe_16b", aot_phase, params, cfg, lib,
+                        dev)})
+    return serves
+
+
+def path_launches(serves) -> dict:
+    """Kernel launches of the plan and AOT paths' own runs, one entry per
+    path (each engine's ``stats["launches"]``, read just after its run: a
+    graph replay adds its capture's launches)."""
+    out: dict = {}
+    for sv in serves:
+        extra = sv.get("extra") or {}
+        runs = {"plan three_slot": extra.get("plans", {}).get("three_slot")}
+        runs.update({f"aot {k}": extra.get("aot", {}).get(k)
+                     for k in ("graph", "aot")})
+        for path, run in runs.items():
+            if run:
+                out[f"{path} {sv['model']}"] = run["launches"]
+    return out
 
 
 def main() -> int:
@@ -2632,21 +3208,10 @@ def main() -> int:
     new_acts = phase("new activations", new_act_phase,
                      [("uniform", lib), ("segmented", seg_lib)], dev)
     tab_rows, pertable = phase("per-table", pertable_phase, lib, dev)
-    from repro_torch.configs import deepseek_moe_16b, yi_6b
-
-    serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
-                   yi_6b.CONFIG, extra=lambda params, cfg: yi_extra_phases(
-                       params, cfg, lib, dev))
-    gc.collect()  # the Yi-6B weights and cache go before DeepSeekMoE's init
-    torch.cuda.empty_cache()
-    print(f"after freeing yi_6b: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
-          f"GB allocated, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    serves += phase("serve deepseek_moe_16b", serve_phase,
-                    [("uniform", lib), ("segmented", seg_lib)], dev,
-                    deepseek_moe_16b.CONFIG)
+    serves = serve_phases(lib, seg_lib, dev)
     launches = {name: sum(sv["launches"][name] for sv in serves)
                 for name in build.LAUNCHES}
+    by_path = path_launches(serves)
     launches.update(gen["launches"])
     launches["rom_eval"] = seg_gen["launches"]["rom_eval"]
     for name in ENVELOPE_KERNELS:
@@ -2702,6 +3267,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": rep,
                         "launches": launches[name],
+                        "launches_by_path": {
+                            path: n[name] for path, n in by_path.items()
+                            if n.get(name)},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
@@ -2714,6 +3282,7 @@ def main() -> int:
                                 + details + seg_details + act_details),
               "new_activations": new_acts,
               "generator": gen, "pertable": pertable, "serve": serves,
+              "launches_by_path": by_path,
               "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES,
               "phase_s": PHASE_S}
     if EVENT_TIMED:

@@ -1,12 +1,14 @@
 """Architecture configuration (twin of ``repro/configs/base.py``): the fields
-the dense GQA decoder and the MoE family read. QKV bias, sliding windows,
-tied embeddings, other norms and activations and per-layer plans port with
-the model families that use them."""
+the dense GQA decoder and the MoE family read, and the per-layer numerics
+plan. QKV bias, sliding windows, tied embeddings, other norms and
+activations port with the model families that use them."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional
+
+from repro_torch.plan.schema import NumericsPlan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +37,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     first_dense_ff: Optional[int] = None  # DeepSeekMoE: dense layer 0 with own d_ff
     numerics: str = "exact"  # exact | interp | interp-fused
+    # per-layer heterogeneous numerics (DESIGN.md §16). When set, the plan
+    # overrides ``numerics``: each layer x op site carries its own backend
+    # and library slot. Frozen and hashable, so the config stays a key.
+    plan: Optional[NumericsPlan] = None
     param_dtype: str = "bfloat16"
 
     @property

@@ -37,6 +37,10 @@ LAUNCHES: dict[str, int] = {
     "dd_max_rows": 0, "library_walk": 0, "rom_eval": 0, "softmax_tab": 0,
     "rmsnorm_tab": 0, "flash_attn_tab": 0, "act_lib": 0}
 
+# the served kernels' launches by the ROM each read, (kernel, ROM address):
+# which slot library a per-layer numerics plan sent each launch to
+LAUNCHES_BY_ROM: dict[tuple[str, int], int] = {}
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "repro_library_eval": (_P, _P, _I, _P, _P, _I, _I, _P, _L, _I, _P),
@@ -71,6 +75,15 @@ BUILD_LOG: dict = {}  # path, seconds and compiler output of this process's buil
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_ROM.clear()
+
+
+def launched(name: str, rom) -> None:
+    """Count one launch of ``name`` that read the ROM tensor ``rom``: in
+    ``LAUNCHES`` and, by the ROM's address, in ``LAUNCHES_BY_ROM``."""
+    LAUNCHES[name] += 1
+    key = (name, rom.data_ptr())
+    LAUNCHES_BY_ROM[key] = LAUNCHES_BY_ROM.get(key, 0) + 1
 
 
 def _nvcc() -> str:

@@ -134,7 +134,7 @@ def flash_attn_lib_cuda(q, k, v, q_pos, kv_pos, library, *,
         -1 if window is None else int(window), float(scale),
         _DTYPES[q.dtype], dev.index or 0, build.stream_of(dev))
     build.check("flash_attn_lib", rc)
-    build.LAUNCHES["flash_attn_lib"] += 1
+    build.launched("flash_attn_lib", rom)
     return out
 
 

@@ -176,7 +176,7 @@ def act_library_cuda(x: torch.Tensor, library, kind: str, *,
         library.walk_rows()[1].data_ptr(), glue, top_is_x, _ACT_BODIES[body],
         dev.index or 0, build.stream_of(dev))
     build.check("act_lib", rc)
-    build.LAUNCHES["act_lib"] += 1
+    build.launched("act_lib", library.coeffs)
     return out
 
 

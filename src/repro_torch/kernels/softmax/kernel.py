@@ -130,7 +130,7 @@ def softmax_lib_cuda(x: torch.Tensor, library, return_e: bool = False, *,
         build.int_array(slot_args(library, "recip")), shape,
         dev.index or 0, build.stream_of(dev))
     build.check("softmax_lib", rc)
-    build.LAUNCHES["softmax_lib"] += 1
+    build.launched("softmax_lib", rom)
     return (out, e) if return_e else out
 
 

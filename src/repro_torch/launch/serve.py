@@ -14,6 +14,19 @@ e.g. one from ``Explorer.compile_segmented()``) instead of the default one,
 ``--save-library PATH`` writes the library the engine serves; either
 implies interp numerics and is refused with ``--numerics exact``.
 
+Per-layer numerics, as the reference's flags: ``--plan PATH`` serves
+under a saved :class:`repro_torch.plan.NumericsPlan` (the snapshot
+envelope either package's ``save_plan`` writes: one backend and library
+slot per layer x op site; one library per slot is compiled at
+construction), ``--save-plan PATH`` writes the plan the engine serves
+(with ``--numerics``, a uniform plan to edit later).
+
+The serving tier, as the reference's flags: ``--aot-buckets B1,B2,...``
+(or ``default``: the built-in table clipped to ``--cache-len``) prepares a
+packed admission per (bucket, pack) at construction, one CUDA graph each
+on the card; ``--max-pack N`` bounds the packed groups; ``--async-host``
+moves detokenize and journal writes to a host worker thread.
+
 The reference's robustness flags, with its defaults: ``--serial`` (the
 per-token oracle instead of the fused tick), ``--deadline-ms N`` (a TTL per
 request; expired work retires with ``deadline_exceeded``), ``--max-queue
@@ -77,6 +90,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve from this saved InterpLibrary (json/npz base)")
     ap.add_argument("--save-library", default=None,
                     help="write the library the engine serves here")
+    ap.add_argument("--plan", default=None,
+                    help="serve under this saved NumericsPlan snapshot "
+                         "(per-layer x per-op-site numerics)")
+    ap.add_argument("--save-plan", default=None,
+                    help="write the served plan (from --plan, or a uniform "
+                         "plan matching --numerics) as a snapshot")
+    ap.add_argument("--aot-buckets", default=None, metavar="B1,B2,...",
+                    help="prepare the decode tick and a packed prefill "
+                         "admission per bucket at construction (CUDA "
+                         "graphs on the card); 'default' uses the built-in "
+                         "table clipped to --cache-len")
+    ap.add_argument("--max-pack", type=int, default=4,
+                    help="max prompts packed into one bucketed prefill "
+                         "admission (power-of-two group sizes)")
+    ap.add_argument("--async-host", action="store_true",
+                    help="detokenize/journal on a background host thread "
+                         "behind a bounded queue")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -89,11 +119,33 @@ def main(argv=None) -> None:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.numerics:
         cfg = cfg.replace(numerics=args.numerics)
+    if args.plan:
+        from repro_torch.plan import load_plan
+
+        plan = load_plan(args.plan)
+        if plan.n_layers != cfg.n_layers:
+            ap.error(f"--plan has {plan.n_layers} layers but {args.arch} "
+                     f"(smoke={args.smoke}) has {cfg.n_layers}")
+        cfg = cfg.replace(plan=plan)
+        if args.library:
+            ap.error("--plan engines compile one library per plan slot; "
+                     "--library cannot override them")
     if args.library or args.save_library:
         if args.numerics == "exact":
             ap.error("--library/--save-library require interp numerics")
-        if cfg.numerics not in INTERP_BACKENDS:
+        if cfg.plan is None and cfg.numerics not in INTERP_BACKENDS:
             cfg = cfg.replace(numerics="interp")  # the flags imply it
+    if args.save_plan:
+        from repro_torch.plan import plan_for, save_plan
+
+        served = cfg.plan if cfg.plan is not None else plan_for(cfg)
+        save_plan(args.save_plan, served, seed=args.seed,
+                  meta_extra={"arch": args.arch, "smoke": args.smoke})
+        print(f"saved plan -> {args.save_plan}")
+    buckets = None
+    if args.aot_buckets:
+        buckets = (True if args.aot_buckets == "default" else
+                   tuple(int(b) for b in args.aot_buckets.split(",")))
 
     dev = resolve(args.device)
     library = (InterpLibrary.load(args.library, device=dev) if args.library
@@ -104,13 +156,20 @@ def main(argv=None) -> None:
               max_queue=args.max_queue,
               deadline_s=(args.deadline_ms / 1e3
                           if args.deadline_ms is not None else None),
+              aot_buckets=buckets, max_pack=args.max_pack,
+              async_host=args.async_host,
               graph=False if args.eager else None, device=dev)
     if args.resume:
         eng = ServeEngine.resume(args.journal, cfg, params, **kw)
     else:
         eng = ServeEngine(cfg, params, journal=args.journal, **kw)
-    if args.save_library:
-        print(f"saved library -> {eng.library.save(args.save_library)}")
+    if args.save_library and eng.library is not None:
+        if isinstance(eng.library, dict):  # plan engine: one per slot
+            for key, lib in sorted(eng.library.items()):
+                print(f"saved library [{key}] -> "
+                      f"{lib.save(f'{args.save_library}.{key}')}")
+        else:
+            print(f"saved library -> {eng.library.save(args.save_library)}")
     if not args.resume:
         rng = np.random.default_rng(args.seed)
         for i in range(args.requests):
@@ -122,6 +181,7 @@ def main(argv=None) -> None:
                 print(f"request {i} rejected ({e.reason})")
     t0 = time.perf_counter()
     done = eng.run()
+    eng.close()  # joins the host worker of --async-host
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -130,9 +190,14 @@ def main(argv=None) -> None:
     for r in eng.failed:
         print(f"request {r.rid} failed: {r.error}")
     n_tok = sum(len(r.out) for r in done)
-    print(json.dumps({"device": str(dev), "numerics": eng.cfg.numerics,
+    lib = eng.library
+    print(json.dumps({"device": str(dev),
+                      "numerics": ("plan" if eng.cfg.plan is not None
+                                   else eng.cfg.numerics),
                       "tokens": n_tok, "seconds": dt,
-                      "rom_sha": eng.library and eng.library.rom_sha(),
+                      "rom_sha": ({k: v.rom_sha() for k, v in lib.items()}
+                                  if isinstance(lib, dict)
+                                  else lib and lib.rom_sha()),
                       "failed": len(eng.failed), "faults": eng.faults,
                       "stats": eng.stats}))
 

@@ -178,19 +178,45 @@ def decode_kv_chunk(cache_len: int) -> int:
     return min(4096, cache_len)
 
 
-def decode_reads_host(cache_len: int, numerics) -> bool:
-    """Whether ``gqa_decode`` on a cache of ``cache_len`` rows reads device
-    values back to the host: the glue path's chunk liveness test
-    (``SKIP_CHUNKS`` or more key chunks), which ``attention_core`` takes
-    where ``numerics`` has no fused attention or the cache is longer than
-    the fused attention takes."""
+def _softmax_backends(numerics) -> list:
+    """The backends whose fused attention decides each layer's attention
+    path: every layer's softmax site under a plan (``for_layer``), else the
+    backend itself."""
+    if hasattr(numerics, "for_layer"):
+        return [getattr(n, "softmax_backend", n)
+                for n in (numerics.for_layer(i)
+                          for i in range(numerics.n_layers))]
+    return [numerics]
+
+
+def attention_reads_host(keys: int, kv_chunk: int, numerics) -> bool:
+    """Whether ``attention_core`` over ``keys`` keys in chunks of
+    ``kv_chunk`` on a CUDA device reads device values back to the host in
+    some layer: the glue path's chunk liveness test (``SKIP_CHUNKS`` or
+    more key chunks), which it takes where a layer's softmax backend has no
+    fused attention or the key axis is longer than the fused attention
+    takes."""
     from repro_torch.numerics.ops import FUSED_ATTN_MAX_KEYS
 
-    if (getattr(numerics, "fused_attention", None) is not None
-            and cache_len <= FUSED_ATTN_MAX_KEYS):
+    if keys <= FUSED_ATTN_MAX_KEYS and all(
+            getattr(b, "fused_attention", None) is not None
+            for b in _softmax_backends(numerics)):
         return False
-    return cache_len // _divisor_chunk(
-        cache_len, decode_kv_chunk(cache_len)) >= SKIP_CHUNKS
+    return keys // _divisor_chunk(keys, kv_chunk) >= SKIP_CHUNKS
+
+
+def decode_reads_host(cache_len: int, numerics) -> bool:
+    """Whether ``gqa_decode`` on a cache of ``cache_len`` rows reads device
+    values back to the host in some layer (:func:`attention_reads_host`
+    with the decode's key chunk)."""
+    return attention_reads_host(cache_len, decode_kv_chunk(cache_len),
+                                numerics)
+
+
+def prefill_reads_host(seq: int, numerics) -> bool:
+    """The same for ``gqa_prefill`` over a ``seq``-token prompt (the
+    default 1024-key chunk)."""
+    return attention_reads_host(seq, 1024, numerics)
 
 
 def _decode_positions(pos, b: int, device):

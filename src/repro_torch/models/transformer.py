@@ -12,7 +12,10 @@ float32 whatever the parameter dtype). The KV cache is the port's own
 layout: one :class:`~repro_torch.models.attention.KVCache` with k/v of
 shape (L, B, KVH, S, D) and pos of shape (L, B, S) over all L layers,
 where the reference keeps one cache per segment. Layers run as a Python
-loop; decode updates the cache in place.
+loop; decode updates the cache in place. Under a per-layer numerics plan
+(``numerics.for_layer``) each layer takes its own numerics and the final
+norm the plan's ``rest``; the loop needs no grouping of equal layers (the
+reference's ``apply_segment`` groups them to scan each run once).
 """
 from __future__ import annotations
 
@@ -153,26 +156,31 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
              caches: attn.KVCache | None = None, cache_len: int = 0,
              pos=None):
     """Run every layer and the final norm. ``mode``: "prefill" (returns the
-    new stacked cache) or "decode" (updates ``caches`` in place)."""
+    new stacked cache) or "decode" (updates ``caches`` in place).
+    ``numerics`` is one backend for every layer, or a plan-resolved object
+    whose ``for_layer(i)`` gives layer ``i``'s (the final norm then runs
+    under the object itself: the plan's ``rest``)."""
+    per_layer = hasattr(numerics, "for_layer")
     new = []
     for i in range(cfg.n_layers):
+        num = numerics.for_layer(i) if per_layer else numerics
         kind, lp = layer_params(p, cfg, i)
-        x = apply_norm(lp["norm1"], h, cfg, numerics)
+        x = apply_norm(lp["norm1"], h, cfg, num)
         if mode == "prefill":
-            y, c = attn.gqa_prefill(lp["mixer"], x, positions, cfg, numerics,
+            y, c = attn.gqa_prefill(lp["mixer"], x, positions, cfg, num,
                                     cache_len)
             new.append(c)
         elif mode == "decode":
             layer = attn.KVCache(*(t[i] for t in caches))
-            y, _ = attn.gqa_decode(lp["mixer"], x, pos, layer, cfg, numerics)
+            y, _ = attn.gqa_decode(lp["mixer"], x, pos, layer, cfg, num)
         else:
             raise ValueError(f"unknown mode {mode!r}")
         h = h + y
-        x2 = apply_norm(lp["norm2"], h, cfg, numerics)
+        x2 = apply_norm(lp["norm2"], h, cfg, num)
         if kind.ffn == "moe":
-            h = h + moe_block(lp["ffn"], x2, cfg, numerics)
+            h = h + moe_block(lp["ffn"], x2, cfg, num)
         else:
-            h = h + apply_mlp(lp["ffn"], x2, cfg, numerics)
+            h = h + apply_mlp(lp["ffn"], x2, cfg, num)
     h = apply_norm(p["final_norm"], h, cfg, numerics)
     if mode == "prefill":
         caches = attn.KVCache(*(torch.stack(t) for t in zip(*new)))
@@ -188,6 +196,86 @@ def prefill(p: dict, tokens: torch.Tensor, cfg, numerics, cache_len: int):
     h, caches = backbone(p, h, positions, cfg, numerics, "prefill",
                          cache_len=cache_len)
     return lm_logits(p["embed"], h[:, -1:]), caches
+
+
+def mask_cache_tail(caches: attn.KVCache, true_lens) -> attn.KVCache:
+    """Mark every cache row at or past each batch row's true length as
+    empty (``pos = -1``, the ``init_cache`` sentinel the attention mask
+    treats as dead).
+
+    A padded (bucketed) prefill writes the pad suffix's K/V rows with live
+    positions; a later decode step would attend to them. The K/V rows
+    themselves stay: with ``pos`` at -1 the mask drops them, and decode
+    overwrites row ``p`` when the sequence reaches position ``p``. The
+    (B, S) validity mask broadcasts over the leading layer axis."""
+    pos = caches.pos
+    lens = torch.as_tensor(true_lens, dtype=torch.int32, device=pos.device)
+    valid = (torch.arange(pos.shape[-1], dtype=torch.int32,
+                          device=pos.device) < lens[:, None])
+    return attn.KVCache(caches.k, caches.v, torch.where(valid, pos, -1))
+
+
+def prefill_padded(p: dict, tokens: torch.Tensor, true_lens, cfg, numerics,
+                   cache_len: int):
+    """Bucketed prefill: ``tokens`` is (B, S_bucket) with each row
+    right-padded to the bucket length and ``true_lens`` (B,) the real
+    prompt lengths (a tensor on the tokens' device, or a sequence).
+    Returns (per-row logits at position ``true_len - 1`` (B, 1, V), the
+    cache with the pad tails masked dead).
+
+    Positions run 0..S_bucket-1 as a full-length prefill's: causality makes
+    every row below its true length compute what an exact-length prefill
+    of that prompt computes, so the gathered logits match the exact path
+    and :func:`mask_cache_tail` is the only repair the cache needs. An MoE
+    layer sizes its expert capacity from the bucket length, as the
+    reference's does, so its padded prefill is not the exact-length one
+    once the two capacities differ. Refused, as the reference refuses:
+    encoder / frontend configs, sliding windows, SSM mixers."""
+    if (getattr(cfg, "encoder", None) is not None
+            or getattr(cfg, "frontend", None) is not None):
+        raise ValueError("prefill_padded: encoder/frontend configs must "
+                         "use exact-length prefill")
+    if getattr(cfg, "sliding_window", None) is not None:
+        raise ValueError("prefill_padded: sliding-window caches wrap; use "
+                         "exact-length prefill")
+    if any(k.mixer == "ssm" for seg in layer_plan(cfg) for k in seg.pattern):
+        raise ValueError("prefill_padded: SSM state is cumulative, a pad "
+                         "suffix corrupts it; use exact-length prefill")
+    b, s = tokens.shape
+    lens = torch.as_tensor(true_lens, dtype=torch.int32,
+                           device=tokens.device)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    h = embed_tokens(p["embed"], tokens)
+    h, caches = backbone(p, h, positions, cfg, numerics, "prefill",
+                         cache_len=cache_len)
+    idx = (lens.to(torch.int64) - 1).reshape(b, 1, 1).expand(b, 1,
+                                                             h.shape[-1])
+    rows = torch.gather(h, 1, idx)
+    return lm_logits(p["embed"], rows), mask_cache_tail(caches, lens)
+
+
+def extract_cache_row(cfg, pool: attn.KVCache, i) -> attn.KVCache:
+    """Batch row ``i`` of a pooled cache, keeping the batch axis (axis 1:
+    axis 0 is the layer stack): the inverse of :func:`splice_cache`. ``i``
+    may be a device index tensor."""
+    if isinstance(i, torch.Tensor):
+        idx = i.reshape(1).to(torch.int64)
+        return attn.KVCache(*(t.index_select(1, idx) for t in pool))
+    return attn.KVCache(*(t[:, i:i + 1] for t in pool))
+
+
+def splice_cache_rows(cfg, pool: attn.KVCache, rows: attn.KVCache,
+                      slots: torch.Tensor) -> attn.KVCache:
+    """Write the P batch rows of ``rows`` into pool slots ``slots`` (a (P,)
+    device index tensor of distinct slots) in place: P of
+    :func:`splice_cache` of :func:`extract_cache_row` in one op per leaf,
+    with the slots read on the device (what a CUDA graph replays for any
+    slot assignment)."""
+    idx = slots.to(torch.int64)
+    for dst, src in zip(pool, rows):
+        dst.index_copy_(1, idx, src.to(dst.dtype))
+    return pool
 
 
 def decode_step(p: dict, token: torch.Tensor, pos, caches: attn.KVCache, cfg,

@@ -427,7 +427,8 @@ BACKENDS = {"exact": ExactNumerics, "interp": InterpNumerics,
 INTERP_BACKENDS = ("interp", "interp-fused", "interp-guarded")
 
 
-def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
+def get_numerics(cfg_or_name="exact", library=None, fused: bool = False,
+                 device=None):
     """A numerics backend instance for a model config (or backend name).
     ``library`` binds the interp backend to a compiled ``InterpLibrary``;
     without one, ``"interp"`` resolves each table through ``get_table``.
@@ -436,10 +437,19 @@ def get_numerics(cfg_or_name="exact", library=None, fused: bool = False):
     backend: the unfused interp datapath behind the
     :class:`~repro_torch.numerics.guard.GuardedNumerics` domain clamp,
     which clamps silently (counting violations costs a host sync per op).
-    Per-layer plans are not ported: a config carrying one raises.
+
+    A config carrying a :class:`repro_torch.plan.NumericsPlan` resolves to a
+    :class:`repro_torch.plan.numerics.PlanNumerics`: per-layer x per-site
+    backends; ``fused`` is then ignored (each site assignment names its own
+    lowering) and ``library`` may be a dict keyed by plan slot. Without
+    one, the slot libraries are compiled on ``device`` (default CUDA).
     """
-    if getattr(cfg_or_name, "plan", None) is not None:
-        raise NotImplementedError("per-layer numerics plans are not ported")
+    plan = getattr(cfg_or_name, "plan", None)
+    if plan is not None:
+        from repro_torch.plan.numerics import plan_numerics
+
+        return plan_numerics(plan, libraries=library,
+                             device=device if device is not None else "cuda")
     name = getattr(cfg_or_name, "numerics", cfg_or_name)
     if name == "exact":
         return ExactNumerics()

@@ -50,9 +50,25 @@ writes the reference's admission / token journal
 (:mod:`repro_torch.serve.journal`), and :meth:`resume` rebuilds an engine
 from one, either package's.
 
-Not in the port: the per-layer rung (``_degrade_slots``, which needs
-numerics plans), ``mesh``, ``aot_buckets`` with packed bucketed prefill,
-``async_host`` (the host pipeline). Their ``stats`` keys stay at 0.
+A config carrying a :class:`repro_torch.plan.NumericsPlan` serves each
+layer under its own numerics (``for_layer``) from a dict of libraries, one
+per plan slot (``compile_plan_libraries`` at construction when none is
+passed); a corrupt slot ROM moves only the layers that read it to exact
+(:meth:`_degrade_slots`), and ``stats["degradations"]`` is then a dict
+keyed by layer label. The graphs are keyed on each slot library's
+identity too: replacing one entry of ``engine.library`` rebinds the
+numerics and recaptures.
+
+``aot_buckets=`` (:mod:`repro_torch.serve.aot`): short prompts pad to the
+smallest bucket holding them and admit several at once through
+``models.transformer.prefill_padded``; on a CUDA device each (bucket,
+pack) admission is one graph, captured at construction in the pool of the
+tick graphs, that prefills, splices every row into its slot and writes the
+greedy first tokens into the static slot state and a static first-token
+buffer. ``async_host=`` (:mod:`repro_torch.serve.pipeline`) moves the
+token download, detokenize and journal writes to a worker thread; the
+main thread keeps the (slots,) sentinel download. ``mesh`` waits for the
+distribution slice.
 """
 from __future__ import annotations
 
@@ -71,17 +87,30 @@ from repro_torch.kernels import build
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tf
 from repro_torch.numerics.ops import INTERP_BACKENDS, get_numerics
+from repro_torch.serve import aot as aot_mod
 from repro_torch.serve.journal import ServeJournal, load_requests
+from repro_torch.serve.pipeline import HostPipeline
 
 
 def _interp(cfg) -> bool:
-    """Does this config's numerics backend read an InterpLibrary?"""
+    """Does this config's numerics read an InterpLibrary? A plan does as
+    long as any site assignment is non-exact."""
+    plan = getattr(cfg, "plan", None)
+    if plan is not None:
+        return plan.uses_interp
     return cfg.numerics in INTERP_BACKENDS
 
 
-def chunk_sizes(horizon: int) -> tuple[int, ...]:
-    """The tick's chunk sizes: the powers of two up to ``horizon``."""
-    return tuple(1 << i for i in range(max(1, int(horizon)).bit_length()))
+def _libraries(library) -> tuple:
+    """The library objects an engine holds: a plan engine's dict values in
+    order, a homogeneous engine's one library, or none."""
+    if library is None:
+        return ()
+    return tuple(library.values()) if isinstance(library, dict) else (library,)
+
+
+# the tick's chunk sizes: the powers of two up to ``horizon``
+chunk_sizes = aot_mod.tick_chunk_sizes
 
 
 class Rejected(ValueError):
@@ -113,7 +142,10 @@ class ServeEngine:
     ``library``: the :class:`InterpLibrary` interp numerics read; ``None``
     builds the default library on ``device``. Exact-numerics engines take
     none. Assigning ``engine.library`` rebinds the numerics to it (the
-    reference's tick reads the library it is handed on every call).
+    reference's tick reads the library it is handed on every call). A plan
+    engine (``cfg.plan``) holds a dict of libraries keyed by plan slot
+    (compiled at construction when ``library`` is None); replacing one of
+    its entries rebinds the numerics too.
 
     ``fused`` (default): one tick per chunk of up to ``horizon`` decode
     steps (a CUDA graph replay on a CUDA device, the eager loop otherwise
@@ -129,21 +161,37 @@ class ServeEngine:
     only), ``journal`` (a path or :class:`ServeJournal`; see
     :meth:`resume`).
 
+    The serving tier's knobs are the reference's too: ``aot_buckets``
+    (``True``: the default bucket table clipped to ``cache_len``; a tuple
+    of prefill lengths or a :class:`BucketTable`; ``None``: exact-length
+    admissions) with ``max_pack`` (packed groups are powers of two up to
+    ``min(max_pack, slots)``); ``async_host`` with ``pipeline_depth`` (the
+    bounded queue of the host worker; ``run()`` / ``close()`` drain it,
+    and while running ``Request.out`` trails the card by up to that
+    depth). Both need the fused engine.
+
     ``stats`` holds the reference's counters (``dispatches`` counts a tick
-    as one, a serial token as two; ``transfers`` the host copies) and the
-    port's: ``prefills``; ``launches``, each kernel's launches made by this
-    engine (per forward times prefills + decode steps + resume replay
-    steps); ``graph`` / ``graph_reason``; ``captures`` and ``capture_s``.
+    as one, a serial token as two; ``transfers`` the host copies;
+    ``aot_*`` / ``packed_*`` / ``admit_dispatches`` / ``async_*``) and the
+    port's: ``prefills`` (prefill forwards: a packed admission is one);
+    ``admit_replays`` (packed admissions replayed from a graph);
+    ``launches``, each kernel's launches made by this engine (per forward
+    times prefills + decode steps + resume replay steps); ``graph`` /
+    ``graph_reason``; ``captures`` (tick and admission graphs) and
+    ``capture_s``.
     """
 
     def __init__(self, cfg, params: dict, slots: int, cache_len: int,
-                 library: InterpLibrary | None = None, fused: bool = True,
-                 horizon: int = 8, max_queue: int | None = 1024,
+                 library: InterpLibrary | dict | None = None,
+                 fused: bool = True, horizon: int = 8,
+                 max_queue: int | None = 1024,
                  deadline_s: float | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  watchdog_limit: int = 2, max_tick_s: float | None = None,
                  verify_rom_every: int = 0,
                  journal: str | ServeJournal | None = None,
+                 aot_buckets=None, max_pack: int = 4,
+                 async_host: bool = False, pipeline_depth: int = 4,
                  graph: bool | None = None,
                  device: str | torch.device = "cuda"):
         self.device = resolve(device)
@@ -167,10 +215,17 @@ class ServeEngine:
             raise ValueError(f"library passed but cfg.numerics="
                              f"{cfg.numerics!r} never reads it")
         if interp and library is None:
-            library = InterpLibrary.default_library(self.device)
-        if library is not None and library.device != self.device:
-            raise ValueError(f"library on {library.device}, engine on "
-                             f"{self.device}")
+            if cfg.plan is not None:
+                from repro_torch.plan.numerics import compile_plan_libraries
+
+                library = compile_plan_libraries(cfg.plan,
+                                                 device=self.device)
+            else:
+                library = InterpLibrary.default_library(self.device)
+        for lib in _libraries(library):
+            if lib.device != self.device:
+                raise ValueError(f"library on {lib.device}, engine on "
+                                 f"{self.device}")
         self.caches = tf.init_cache(cfg, slots, cache_len, self.device)
         dev = self.device
         # device slot state, updated in place (a graph bakes its addresses)
@@ -184,13 +239,19 @@ class ServeEngine:
         self.pos = np.zeros(slots, np.int32)
         self.cur = np.full(slots, -1, np.int32)
         self.req: list[Request | None] = [None] * slots
+        # emitted-token counts owned by the main thread: retirement and
+        # chunk sizing cannot read len(Request.out) once the host pipeline
+        # extends it from its worker
         self._emitted = np.zeros(slots, np.int64)
         self.queue: collections.deque[Request] = collections.deque()
         self.finished: list[Request] = []
         self.failed: list[Request] = []
+        # plan engines count degradations per layer label ("0", "rest", or
+        # "engine" for whole-ladder rungs)
         self.stats = {"dispatches": 0, "transfers": 0, "ticks": 0,
                       "decode_steps": 0, "rejected": 0, "expired": 0,
-                      "watchdog_trips": 0, "degradations": 0,
+                      "watchdog_trips": 0,
+                      "degradations": {} if cfg.plan is not None else 0,
                       "rom_verifies": 0, "rom_faults": 0, "slot_failures": 0,
                       "resumed": 0, "resume_skipped_done": 0,
                       "resume_replay_steps": 0,
@@ -199,7 +260,8 @@ class ServeEngine:
                       "packed_admits": 0, "packed_requests": 0,
                       "admit_dispatches": 0,
                       "async_chunks": 0, "async_tokens": 0,
-                      "prefills": 0, "graph": False, "graph_reason": None,
+                      "prefills": 0, "admit_replays": 0,
+                      "graph": False, "graph_reason": None,
                       "captures": 0, "capture_s": 0.0,
                       "launches": dict.fromkeys(build.LAUNCHES, 0)}
         self.faults: list[dict] = []  # structured fault / degradation log
@@ -207,24 +269,57 @@ class ServeEngine:
         self.journal = (journal if isinstance(journal, (ServeJournal,
                                                         type(None)))
                         else ServeJournal(journal))
+        # bucketed (padded) prefill packing is only sound for pure
+        # attention-cache decoders (prefill_padded refuses the rest)
+        self._packable = (
+            getattr(cfg, "sliding_window", None) is None
+            and getattr(cfg, "encoder", None) is None
+            and getattr(cfg, "frontend", None) is None
+            and not any(k.mixer == "ssm" for seg in tf.layer_plan(cfg)
+                        for k in seg.pattern))
+        if aot_buckets is None:
+            self.aot_buckets = None
+        elif aot_buckets is True:
+            self.aot_buckets = aot_mod.BucketTable.for_cache(cache_len)
+        elif isinstance(aot_buckets, aot_mod.BucketTable):
+            self.aot_buckets = aot_mod.BucketTable.for_cache(
+                cache_len, aot_buckets.buckets)
+        else:
+            self.aot_buckets = aot_mod.BucketTable.for_cache(
+                cache_len, aot_buckets)
+        self._pack_sizes = aot_mod.pack_sizes(max_pack, slots)
+        self._aot: set = set()  # programs prepared at construction
+        if async_host and not self.fused:
+            raise ValueError(
+                "async_host=True requires the fused engine: the serial "
+                "per-op path is the synchronous oracle")
+        self.pipeline = (HostPipeline(
+            journal=self.journal, depth=pipeline_depth,
+            reserve=(self.horizon * slots if self.device.type == "cuda"
+                     else None))
+            if async_host else None)
         self._graphs: dict[int, tuple] = {}  # steps -> (graph, launches)
+        # (bucket, pack) -> (graph, input buffer, firsts, launches)
+        self._admit_graphs: dict[tuple, tuple] = {}
         self._graph_key: tuple | None = None
         self._graph_reason: str | None = None
+        self._bound: tuple = ()
         self._pool = None
         self.library = library  # binds the numerics
+        self._warm_aot()
         # serve-time ROM integrity: the load-time checksum catches a
         # corrupt artifact; this catches the resident copy going bad
         self.verify_library()
-        if self._graph_state() is None:
+        if self._graph_state() is None and not self._graphs:
             self._capture(chunk_sizes(self.horizon))
 
     # -- numerics binding --------------------------------------------------
     @property
-    def library(self) -> InterpLibrary | None:
+    def library(self):
         return self._library
 
     @library.setter
-    def library(self, library: InterpLibrary | None) -> None:
+    def library(self, library) -> None:
         self._library = library
         self._bind()
 
@@ -232,7 +327,9 @@ class ServeEngine:
         """The numerics of the current cfg, library and rung (the graphs
         captured over the old ones go)."""
         self.numerics = get_numerics(
-            self.cfg, self._library, fused=self.fused and _interp(self.cfg))
+            self.cfg, self._library, fused=self.fused and _interp(self.cfg),
+            device=self.device)
+        self._bound = _libraries(self._library)
         self._graph_state()
 
     # -- the tick: one CUDA graph per chunk size, or the eager loop ---------
@@ -249,11 +346,17 @@ class ServeEngine:
         return None
 
     def _graph_state(self) -> str | None:
-        """Why the tick runs eagerly (None: it replays CUDA graphs). Drops
-        graphs captured over other parameters, numerics, library or cache
-        than the engine's current ones."""
-        key = (self.params, self.numerics, self._library, self.caches)
-        if self._graph_key is None or any(
+        """Why the tick runs eagerly (None: it replays CUDA graphs). Rebinds
+        the numerics when a library entry was replaced, and drops graphs
+        captured over other parameters, numerics, libraries or cache than
+        the engine's current ones."""
+        libs = _libraries(self._library)
+        if len(libs) != len(self._bound) or any(
+                a is not b for a, b in zip(libs, self._bound)):
+            self._bind()  # a plan engine's library entry was replaced
+            return self._graph_reason
+        key = (self.params, self.numerics, self._library, self.caches, *libs)
+        if self._graph_key is None or len(key) != len(self._graph_key) or any(
                 a is not b for a, b in zip(key, self._graph_key)):
             self._drop_graphs()
             self._graph_key = key
@@ -267,6 +370,7 @@ class ServeEngine:
         releases a pool with its last graph: a later capture takes a new
         one)."""
         self._graphs.clear()
+        self._admit_graphs.clear()
         self._pool = None
 
     def _decode_chunk(self, steps: int, params, tok, pos, live, caches, ok,
@@ -285,25 +389,31 @@ class ServeEngine:
             pos.copy_(torch.where(live, pos + 1, pos))
             tok.copy_(nxt[:, None])
 
-    def _warm_up(self) -> None:
-        """One eager decode step on a side stream over scratch slot state
-        and a scratch cache: builds what a capture may not create (kernel
-        builds, cuBLAS handles and workspaces, the library's operand rows)
-        and leaves the served state alone."""
+    def _on_side_stream(self, body) -> None:
+        """Run ``body(scratch cache, scratch tok, pos, live, ok, block)``
+        eagerly on a side stream over scratch slot state and a scratch
+        cache: builds what a capture may not create (kernel builds, cuBLAS
+        handles and workspaces, the libraries' operand rows) and leaves the
+        served state alone."""
         scratch = tf.init_cache(self.cfg, self.slots, self.cache_len,
                                 self.device)
         state = [torch.zeros_like(t) for t in (self._tok, self._pos,
-                                               self._live, self._ok)]
-        block = torch.zeros_like(self._block)
+                                               self._live, self._ok,
+                                               self._block)]
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side), torch.inference_mode():
-            tok, pos, live, ok = state
-            self._decode_chunk(1, self.params, tok, pos, live, scratch, ok,
-                               block)
+            body(scratch, *state)
         main.wait_stream(side)
         torch.cuda.synchronize(self.device)
+
+    def _warm_up(self) -> None:
+        """One eager decode step over scratch state (see
+        :meth:`_on_side_stream`)."""
+        self._on_side_stream(
+            lambda cache, tok, pos, live, ok, block: self._decode_chunk(
+                1, self.params, tok, pos, live, cache, ok, block))
 
     def _capture(self, sizes) -> None:
         """Capture one graph per chunk size in ``sizes`` (raises on
@@ -325,12 +435,24 @@ class ServeEngine:
         torch.cuda.synchronize(self.device)
         self.stats["capture_s"] += time.perf_counter() - t0
 
+    def _aot_hit(self, *key) -> None:
+        """Count a lookup of a program in the construction table (the
+        reference's executable-cache hit / miss: a key holds the cfg, so a
+        degraded engine misses)."""
+        if self.aot_buckets is None:
+            return
+        if (key[0], self.cfg, *key[1:]) in self._aot:
+            self.stats["aot_hits"] += 1
+        else:
+            self.stats["aot_misses"] += 1
+
     def _tick_fn(self, steps: int) -> Callable:
         """The tick for a chunk of ``steps`` decode steps:
         ``(params, tok, pos, live, caches) -> (toks, tok, pos, ok,
         caches)``, a graph replay or the eager loop, called with the
         engine's own buffers (a replay reads those it was captured on),
         which it updates in place and returns."""
+        self._aot_hit("tick", steps)
         if self._graph_state() is not None:
             return self._eager_tick(steps)
         if steps not in self._graphs:
@@ -355,6 +477,126 @@ class ServeEngine:
             return self._block[:steps], tok, pos, self._ok, caches
         return tick
 
+    # -- AOT: packed bucketed admission programs -----------------------------
+    def _warm_aot(self) -> None:
+        """Prepare every steady-state program at construction: the tick at
+        each power-of-two chunk size up to ``horizon`` and one packed
+        admission per (bucket, pack) pair. On a graph engine each is a
+        captured graph (the ticks and admissions share one memory pool);
+        otherwise the eager callables. ``stats["aot_compiles"]`` counts
+        them."""
+        if self.aot_buckets is None:
+            return
+        if not self.fused:
+            raise ValueError("aot_buckets requires the fused engine")
+        ticks = aot_mod.tick_chunk_sizes(self.horizon)
+        admits = ([(b, pk) for b in self.aot_buckets.buckets
+                   for pk in self._pack_sizes] if self._packable else [])
+        graphed = self._graph_state() is None
+        if graphed:
+            self._capture([t for t in ticks if t not in self._graphs])
+        for steps in ticks:
+            self._aot.add(("tick", self.cfg, steps))
+        for b, pk in admits:
+            if graphed and self._admit_graphed(b):
+                self._capture_admit(b, pk)
+            self._aot.add(("admit_packed", self.cfg, b, pk))
+        self.stats["aot_compiles"] += len(ticks) + len(admits)
+
+    def _admit_graphed(self, bucket: int) -> bool:
+        """Whether an admission at ``bucket`` replays a graph: the tick
+        does, and the bucket's prefill reads nothing on the host
+        (``models.attention.prefill_reads_host``)."""
+        return (self._graph_state() is None
+                and not attn.prefill_reads_host(bucket, self.numerics))
+
+    def _admit_body(self, prompts, lens, slots, firsts, caches, tok, pos,
+                    live) -> None:
+        """The packed admission (the body an admission graph captures):
+        prefill the right-padded ``prompts`` (P, bucket), splice row i's
+        cache into slot ``slots[i]``, write its greedy first token into
+        ``firsts[i]`` and the slot state (token, position ``lens[i]``,
+        live), all on the device and in place."""
+        logits, rows = tf.prefill_padded(self.params, prompts, lens,
+                                         self.cfg, self.numerics,
+                                         self.cache_len)
+        first = torch.argmax(logits[:, 0], -1)
+        firsts.copy_(first)
+        tf.splice_cache_rows(self.cfg, caches, rows, slots)
+        tok.index_copy_(0, slots, first[:, None])
+        pos.index_copy_(0, slots, lens.to(torch.int32))
+        live.index_fill_(0, slots, True)
+
+    @staticmethod
+    def _admit_views(inp: torch.Tensor, bucket: int, pk: int):
+        """(prompts (P, bucket), lens (P,), slots (P,)) views of one int64
+        input buffer (one host-to-device copy per admission)."""
+        n = pk * bucket
+        return (inp[:n].reshape(pk, bucket), inp[n:n + pk], inp[n + pk:])
+
+    def _capture_admit(self, bucket: int, pk: int) -> None:
+        """Capture the packed admission at (``bucket``, ``pk``) over static
+        input and first-token buffers, after one eager run of it over
+        scratch state."""
+        t0 = time.perf_counter()
+        dev = self.device
+        inp = torch.zeros(pk * bucket + 2 * pk, dtype=torch.int64,
+                          device=dev)
+        prompts, lens, slots = self._admit_views(inp, bucket, pk)
+        lens.fill_(1)
+        slots.copy_(torch.arange(pk, device=dev))
+        firsts = torch.zeros(pk, dtype=torch.int64, device=dev)
+        self._on_side_stream(
+            lambda cache, tok, pos, live, _ok, _block: self._admit_body(
+                prompts, lens, slots, torch.zeros_like(firsts), cache, tok,
+                pos, live))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        g = torch.cuda.CUDAGraph()
+        before = dict(build.LAUNCHES)
+        with torch.inference_mode(), torch.cuda.graph(g, pool=self._pool):
+            self._admit_body(prompts, lens, slots, firsts, self.caches,
+                             self._tok, self._pos, self._live)
+        torch.cuda.synchronize(dev)
+        self._admit_graphs[bucket, pk] = (
+            g, inp, firsts,
+            {k: n - before[k] for k, n in build.LAUNCHES.items()})
+        self.stats["captures"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+
+    def _packed_fn(self, bucket: int, pk: int) -> Callable:
+        """The packed admission at (``bucket``, ``pk``): ``(inputs) ->
+        firsts``, where ``inputs`` is the int64 host array of prompts, true
+        lengths and slots (:meth:`_admit_views`' layout). A graph replay
+        (captured now if the graphs were dropped since construction, as the
+        reference's lazy jit compiles a missed shape) or the eager body."""
+        self._aot_hit("admit_packed", bucket, pk)
+        if self._admit_graphed(bucket):
+            if (bucket, pk) not in self._admit_graphs:
+                self._capture_admit(bucket, pk)
+            g, inp, firsts, launches = self._admit_graphs[bucket, pk]
+
+            def replay(host: np.ndarray) -> torch.Tensor:
+                inp.copy_(torch.from_numpy(host))
+                g.replay()
+                for name, n in launches.items():
+                    self.stats["launches"][name] += n
+                self.stats["admit_replays"] += 1
+                return firsts
+            return replay
+
+        def eager(host: np.ndarray) -> torch.Tensor:
+            inp = torch.from_numpy(host).to(self.device)
+            prompts, lens, slots = self._admit_views(inp, bucket, pk)
+            firsts = torch.empty(pk, dtype=torch.int64, device=self.device)
+            before = dict(build.LAUNCHES)
+            with torch.inference_mode():
+                self._admit_body(prompts, lens, slots, firsts, self.caches,
+                                 self._tok, self._pos, self._live)
+            self._count(before)
+            return firsts
+        return eager
+
     # -- fault handling: integrity, watchdog, degradation ladder ----------
     def _rung(self) -> str:
         """Current rung: fused, then serial (interp numerics only), then
@@ -364,16 +606,42 @@ class ServeEngine:
         return "serial" if _interp(self.cfg) else "exact"
 
     def _record_fault(self, reason: str, detail: str = "",
-                      action: str = "") -> None:
-        self.faults.append({"tick": self.stats["ticks"], "reason": reason,
-                            "detail": detail, "action": action})
+                      action: str = "", layers: tuple | None = None) -> None:
+        entry = {"tick": self.stats["ticks"], "reason": reason,
+                 "detail": detail, "action": action}
+        if layers is not None:
+            entry["layers"] = tuple(layers)
+        self.faults.append(entry)
+
+    def _count_degradation(self, label: str) -> None:
+        d = self.stats["degradations"]
+        if isinstance(d, dict):
+            d[label] = d.get(label, 0) + 1
+        else:
+            self.stats["degradations"] = d + 1
 
     def verify_library(self) -> bool:
-        """Re-checksum the resident ROM; on a mismatch jump straight to
-        exact (both interp rungs would read the corrupt ROM)."""
+        """Re-checksum the resident ROM(s); on a mismatch degrade: a plan
+        engine checks every slot library and moves only the layers reading
+        a corrupt one to exact (:meth:`_degrade_slots`); a homogeneous
+        engine jumps straight to exact (both interp rungs would read the
+        corrupt ROM)."""
         if self._library is None:
             return True
         self.stats["rom_verifies"] += 1
+        if isinstance(self._library, dict):
+            bad: list[tuple[str, str]] = []
+            for key in sorted(self._library):
+                try:
+                    self._library[key].verify_resident()
+                except LibraryIntegrityError as e:
+                    bad.append((key, str(e)))
+            if not bad:
+                return True
+            self.stats["rom_faults"] += len(bad)
+            self._degrade_slots([k for k, _ in bad], "rom_integrity",
+                                detail="; ".join(m for _, m in bad))
+            return False
         try:
             self._library.verify_resident()
             return True
@@ -382,12 +650,40 @@ class ServeEngine:
             self._degrade("rom_integrity", to="exact", detail=str(e))
             return False
 
+    def _degrade_slots(self, slot_keys: list, reason: str,
+                       detail: str = "") -> None:
+        """The per-layer rung (plan engines): every site reading a poisoned
+        slot library drops to exact, in the layers that read it only. The
+        rest of the stack keeps its fused datapath; ``stats
+        ["degradations"]`` and the fault log name the layers."""
+        plan = self.cfg.plan
+        keys = sorted(set(slot_keys))
+        layers: list = []
+        for k in keys:
+            for lab in plan.layers_using_slot(k):
+                if lab not in layers:
+                    layers.append(lab)
+        layers.sort(key=str)
+        self.cfg = self.cfg.replace(plan=plan.degrade_layers(layers, keys))
+        for lab in layers:
+            self._count_degradation(str(lab))
+        self._record_fault(reason, detail=detail,
+                           action=f"slots:{','.join(keys)}->exact",
+                           layers=tuple(str(x) for x in layers))
+        self._trips = 0
+        # rebinds the numerics; the graphs go with the old ones
+        self.library = {k: v for k, v in self._library.items()
+                        if k not in set(keys)} or None
+
     def _degrade(self, reason: str, to: str | None = None,
                  detail: str = "") -> None:
         """Walk one rung down the ladder (or jump to ``to``): fused ->
-        serial swaps in the domain-guarded numerics for interp engines;
-        -> exact drops the library. The KV pool and slot state carry over:
-        in-flight requests keep decoding on the safer datapath."""
+        serial swaps in the domain-guarded numerics for interp engines (a
+        plan engine guards every interp site,
+        :meth:`NumericsPlan.degrade_serial`) and drains and drops the host
+        pipeline; -> exact drops the library (a plan: every site to exact).
+        The KV pool and slot state carry over: in-flight requests keep
+        decoding on the safer datapath."""
         was = self._rung()
         if to is None:
             to = "serial" if was == "fused" else "exact"
@@ -396,16 +692,23 @@ class ServeEngine:
             self._record_fault(reason, detail=detail, action=f"hold:{was}")
             self._trips = 0
             return
+        plan = self.cfg.plan
         if to == "serial":
             self.fused = False
-            if _interp(self.cfg) and self.cfg.numerics != "interp-guarded":
+            # the serial rung is the synchronous oracle
+            self._close_pipeline()
+            if plan is not None:
+                self.cfg = self.cfg.replace(plan=plan.degrade_serial())
+            elif _interp(self.cfg) and self.cfg.numerics != "interp-guarded":
                 self.cfg = self.cfg.replace(numerics="interp-guarded")
         elif to == "exact":
-            if self.cfg.numerics != "exact":
+            if plan is not None:
+                self.cfg = self.cfg.replace(plan=plan.degrade_exact())
+            elif self.cfg.numerics != "exact":
                 self.cfg = self.cfg.replace(numerics="exact")
         else:
             raise ValueError(f"unknown degradation rung {to!r}")
-        self.stats["degradations"] += 1
+        self._count_degradation("engine")
         self._record_fault(reason, detail=detail, action=f"{was}->{to}")
         self._trips = 0
         if to == "exact":
@@ -423,8 +726,15 @@ class ServeEngine:
             self._degrade(f"repeated_{reason}")
 
     def _journal(self, method: str, *args, crash: str | None = None) -> None:
-        """One journal write (fsync'd), then the named crash point."""
+        """One journal write. An async engine routes it through the host
+        pipeline's queue, so it lands after every token emit queued before
+        it (the single-writer order :meth:`resume` depends on); a sync
+        engine writes and fsyncs inline, then hits the named crash
+        point."""
         if self.journal is None:
+            return
+        if self.pipeline is not None:
+            self.pipeline.journal_call(method, *args)
             return
         getattr(self.journal, method)(*args)
         if crash is not None:
@@ -495,6 +805,13 @@ class ServeEngine:
         self._journal("fail", r.rid, r.error)
 
     def _admit(self) -> None:
+        if (self.aot_buckets is not None and self.fused
+                and self._packable):
+            self._admit_bucketed()
+        else:
+            self._admit_legacy()
+
+    def _admit_legacy(self) -> None:
         for s in range(self.slots):
             while self.req[s] is None and self.queue:
                 r = self.queue.popleft()
@@ -531,20 +848,94 @@ class ServeEngine:
 
     @torch.inference_mode()
     def _admit_one(self, r: Request, s: int) -> None:
-        """Prefill + splice into slot ``s`` + greedy first token."""
+        """Exact-length admission of ``r`` into slot ``s``: prefill +
+        splice + greedy first token (also the bucketed path's fallback for
+        prompts longer than every bucket)."""
         self.stats["admit_dispatches"] += 1
         before = dict(build.LAUNCHES)
         first = torch.argmax(self._prefill_into(r, s))
         self._set_slot(s, first, len(r.prompt))
         self._count(before)
-        tok = int(first)
         self.req[s] = r
         self.pos[s] = len(r.prompt)
         self._emitted[s] = 1
+        if self.pipeline is not None:
+            # the first-token download and journal emit happen on the
+            # worker, in order with every other journal write
+            self.pipeline.emit_admit(((0, r),), first.reshape(1))
+            return
+        tok = int(first)
         r.out.append(tok)
         self.cur[s] = tok
         if self.journal is not None:
             self.journal.emit(r.rid, [tok])
+            crashpoint("serve.admit.emitted")
+
+    def _admit_bucketed(self) -> None:
+        """Bucketed admission: drain the queue front into free slots in
+        ascending order exactly as the legacy loop does (the (request,
+        slot) mapping is fixed before grouping, so packing never reorders
+        admissions), then group same-bucket admissions and admit each group
+        as one padded packed prefill."""
+        free = [s for s in range(self.slots) if self.req[s] is None]
+        packed: list[tuple[Request, int, int]] = []
+        while free and self.queue:
+            r = self.queue.popleft()
+            if self._expired(r):
+                self._fail_expired_queued(r)
+                continue
+            s = free.pop(0)
+            if r.out:  # resumed mid-stream: rebuild, emit nothing
+                self._admit_replay(r, s)
+                continue
+            b = self.aot_buckets.bucket_for(len(r.prompt))
+            if b is None:
+                # longer than every bucket: exact-length prefill, counted
+                self.stats["aot_fallbacks"] += 1
+                self._admit_one(r, s)
+                continue
+            packed.append((r, s, b))
+        by_bucket: dict[int, list] = {}
+        for r, s, b in packed:
+            by_bucket.setdefault(b, []).append((r, s))
+        for b in sorted(by_bucket):
+            group = by_bucket[b]
+            while group:
+                pk = max(c for c in self._pack_sizes if c <= len(group))
+                sub, group = group[:pk], group[pk:]
+                self._admit_packed(sub, b)
+
+    def _admit_packed(self, sub: list, bucket: int) -> None:
+        """One padded prefill admitting ``len(sub)`` requests."""
+        pk = len(sub)
+        host = np.zeros(pk * bucket + 2 * pk, np.int64)
+        prompts, lens, slot_ix = self._admit_views(host, bucket, pk)
+        for i, (r, s) in enumerate(sub):
+            n = len(r.prompt)
+            prompts[i, :n] = r.prompt
+            lens[i] = n
+            slot_ix[i] = s
+        firsts = self._packed_fn(bucket, pk)(host)
+        self.stats["admit_dispatches"] += 1
+        self.stats["packed_admits"] += 1
+        self.stats["packed_requests"] += pk
+        self.stats["prefills"] += 1
+        for r, s in sub:
+            self.req[s] = r
+            self.pos[s] = len(r.prompt)
+            self._emitted[s] = 1
+        if self.pipeline is not None:
+            self.pipeline.emit_admit(
+                tuple((i, r) for i, (r, _s) in enumerate(sub)), firsts)
+            return
+        vals = firsts.cpu().numpy()
+        for i, (r, s) in enumerate(sub):
+            tok = int(vals[i])
+            r.out.append(tok)
+            self.cur[s] = tok
+            if self.journal is not None:
+                self.journal.emit(r.rid, [tok])
+        if self.journal is not None:
             crashpoint("serve.admit.emitted")
 
     @torch.inference_mode()
@@ -584,6 +975,8 @@ class ServeEngine:
         for s, r in enumerate(self.req):
             if r is None:
                 continue
+            # the main thread's emitted count, not len(r.out): the host
+            # pipeline extends r.out from its worker
             if self._emitted[s] >= r.max_new:
                 r.done = True
                 self.finished.append(r)
@@ -599,11 +992,17 @@ class ServeEngine:
         (bounded by the smallest remaining budget, rounded down to a power
         of two as the reference does; one step on the serial path),
         retire. Returns False when idle."""
+        if self.pipeline is not None:
+            self.pipeline.check()
+        self._graph_state()  # rebinds after a replaced library entry
         if (self.verify_rom_every
                 and self.stats["ticks"] % self.verify_rom_every == 0):
             self.verify_library()
         self._admit()
         if all(r is None for r in self.req):
+            if self.pipeline is not None:
+                # idle: drain, so callers reading Request.out see it all
+                self._drain_pipeline()
             return False
         if not self.fused:
             return self._step_serial()
@@ -620,6 +1019,12 @@ class ServeEngine:
                                              self.caches)
         self._count(before)
         self.stats["dispatches"] += 1  # the tick
+        if self.pipeline is not None:
+            # async: only the (slots,) sentinel comes down here (poison
+            # detection timing unchanged); the block is staged to the
+            # worker after it
+            return self._finish_tick(None, ok.cpu().numpy(), steps, t0,
+                                     toks)
         # one device-to-host copy: the token block and the sentinel
         host = torch.cat([toks, ok[None].to(toks.dtype)]).cpu().numpy()
         out, ok = host[:-1], host[-1].astype(bool)
@@ -647,19 +1052,28 @@ class ServeEngine:
         self._count(before)
         return self._finish_tick(host[:1], host[1].astype(bool), 1, t0)
 
-    def _finish_tick(self, out: np.ndarray, ok: np.ndarray, steps: int,
-                     t0: float) -> bool:
+    def _finish_tick(self, out: np.ndarray | None, ok: np.ndarray,
+                     steps: int, t0: float, toks=None) -> bool:
         """Host side of a tick: stream the (steps, slots) block ``out`` to
-        the healthy live slots, retire the poisoned ones (their chunk is
-        never streamed or journaled), the watchdog, retirement."""
+        the healthy live slots (async: hand the device block ``toks`` to
+        the host pipeline), retire the poisoned ones (their chunk is never
+        streamed or journaled), the watchdog, retirement."""
         self.stats["transfers"] += 1
         self.stats["ticks"] += 1
         self.stats["decode_steps"] += steps
         tick_s = self.clock() - t0
         poisoned = [s for s, r in enumerate(self.req)
                     if r is not None and not ok[s]]
-        for s, r in enumerate(self.req):
-            if r is not None and s not in poisoned:
+        alive = tuple((s, r) for s, r in enumerate(self.req)
+                      if r is not None and s not in poisoned)
+        if out is None:
+            if alive:
+                self.pipeline.emit_chunk(alive, toks)
+            for s, _r in alive:
+                self._emitted[s] += steps
+                self.pos[s] += steps
+        else:
+            for s, r in alive:
                 fresh = [int(t) for t in out[:, s]]
                 r.out.extend(fresh)
                 self.cur[s] = fresh[-1]
@@ -667,8 +1081,8 @@ class ServeEngine:
                 self._emitted[s] += steps
                 if self.journal is not None:
                     self.journal.emit(r.rid, fresh)
-        if self.journal is not None:
-            crashpoint("serve.tick.emitted")
+            if self.journal is not None:
+                crashpoint("serve.tick.emitted")
         for s in poisoned:
             self._fail_slot(s, "non_finite_output")
         if poisoned:
@@ -686,13 +1100,42 @@ class ServeEngine:
                 and t < max_ticks:
             self.step(self.horizon)
             t += 1
+        self._drain_pipeline()
         return self.finished
 
+    # -- async host pipeline lifecycle -------------------------------------
+    def _drain_pipeline(self) -> None:
+        """Block until the host worker has processed everything queued so
+        far, fold its counters into ``stats`` and surface its exceptions.
+        After this every finished request's ``out`` holds its stream."""
+        if self.pipeline is None:
+            return
+        self.pipeline.flush()
+        got = self.pipeline.drain_stats()
+        self.stats["transfers"] += got.get("transfers", 0)
+        self.stats["async_chunks"] += got.get("chunks", 0)
+        self.stats["async_tokens"] += got.get("tokens", 0)
+
+    def _close_pipeline(self) -> None:
+        """Drain and drop the host pipeline; the engine goes on with
+        synchronous host bookkeeping (the host mirror of each live slot's
+        current token is taken from its stream)."""
+        if self.pipeline is None:
+            return
+        self._drain_pipeline()
+        self.pipeline.close()
+        self.pipeline = None
+        for s, r in enumerate(self.req):
+            if r is not None and r.out:
+                self.cur[s] = r.out[-1]
+
     def close(self) -> None:
-        """Close the journal's file and drop the captured graphs (their
-        memory returns to the allocator). The engine stays usable: the
-        journal reopens at its next record, the graphs are recaptured at
-        the next tick."""
+        """Drain and close the host pipeline, close the journal's file and
+        drop the captured graphs (their memory returns to the allocator).
+        The engine stays usable: host bookkeeping goes on synchronously,
+        the journal reopens at its next record, the graphs are recaptured
+        at the next tick."""
+        self._close_pipeline()
         if self.journal is not None:
             self.journal.close()
         self._drop_graphs()
@@ -703,7 +1146,8 @@ class ServeEngine:
     def resume(cls, journal: str, cfg, params, *, slots: int, cache_len: int,
                **kw) -> "ServeEngine":
         """Reconstruct an engine from its admission / token journal (the
-        reference's or the port's: the records are the same).
+        reference's or the port's, sync or async: the records are the
+        same).
 
         Completed (``done`` / ``fail``) requests are never replayed
         (``stats["resume_skipped_done"]`` counts them). In-flight requests
@@ -728,7 +1172,7 @@ class ServeEngine:
                 eng.finished.append(req)
                 eng.stats["resume_skipped_done"] += 1
                 if eng.journal is not None:
-                    eng.journal.done(st.rid)
+                    eng._journal("done", st.rid)
                 continue
             eng.queue.append(Request(st.rid, st.prompt, st.max_new,
                                      out=list(st.out),

@@ -1758,3 +1758,208 @@ def test_new_activations_through_act_lib(kind, lib, seg_lib, dev):
             assert build.LAUNCHES["act_lib"] == n0 + 1
             want = getattr(PlainFusedNumerics(card), kind)(x)
             assert torch.equal(got, want)
+
+
+# ------------------------------- plans, AOT admission graphs, host pipeline
+
+@pytest.fixture(scope="module")
+def _r5_cpu():
+    """The default manifest at lookup_bits=5 (the R5 plan slot)."""
+    with tempfile.TemporaryDirectory() as d:
+        return Explorer(ExploreConfig(device="cpu", cache_dir=d)
+                        ).compile(lookup_bits=5)
+
+
+def _plan_libs(dev, lib, seg_lib, r5_cpu):
+    return {"default": lib, "hier": seg_lib,
+            "R5": InterpLibrary(r5_cpu.coeffs.to(dev), r5_cpu.metas).seal()}
+
+
+def _three_slot_plan(n_layers):
+    """Layer 0 on the R5 slot, layer 1 on the segmented (hier) slot, every
+    other layer and ``rest`` on the default slot, all interp-fused."""
+    from repro_torch.plan import LayerAssign, NumericsPlan, SiteAssign, SlotSpec
+
+    def la(slot):
+        return LayerAssign(*(SiteAssign("interp-fused", slot),) * 3)
+    rest = la(SlotSpec())
+    return NumericsPlan(
+        layers=(la(SlotSpec(lookup_bits=5)), la(SlotSpec(
+            segmentation="hier"))) + (rest,) * (n_layers - 2), rest=rest)
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_plan_graph_tick_equals_plan_eager_tick(arch, lib, seg_lib, _r5_cpu,
+                                                dev):
+    """A three-slot plan (R5, hier, default) on a graph engine and an eager
+    one: streams and final caches bitwise equal, launches per forward as
+    the homogeneous engine's (every layer reads its own library)."""
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    cfg = cfg.replace(plan=_three_slot_plan(cfg.n_layers))
+    prompts = _prompts_for(cfg)
+    engines = {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=64, horizon=4,
+                          library=_plan_libs(dev, lib, seg_lib, _r5_cpu),
+                          graph=graph, device=dev)
+        assert eng.stats["graph"] is graph
+        engines[graph] = (eng, _serve_on(eng, prompts))
+    (g, out_g), (e, out_e) = engines[True], engines[False]
+    assert out_g == out_e
+    for a, b in zip(g.caches, e.caches):
+        assert torch.equal(a, b)
+    per = _per_forward(cfg)
+    for eng in (g, e):
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        assert eng.stats["launches"] == {k: n * forwards
+                                         for k, n in per.items()}
+
+
+def test_plan_tick_makes_no_host_sync(lib, seg_lib, _r5_cpu, dev):
+    cfg, params = _smoke(dev, "deepseek_moe_16b", "bfloat16")
+    cfg = cfg.replace(plan=_three_slot_plan(cfg.n_layers))
+    eng = ServeEngine(cfg, params, slots=2, cache_len=64, horizon=4,
+                      library=_plan_libs(dev, lib, seg_lib, _r5_cpu),
+                      graph=False, device=dev)
+    for i, p in enumerate(_prompts_for(cfg, (5, 9))):
+        eng.submit(Request(i, p, max_new=20))
+    eng.step(4)
+    tick = eng._tick_fn(4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tick(eng.params, eng._tok, eng._pos, eng._live, eng.caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_packed_admission_makes_no_host_sync(arch, lib, dev):
+    """The packed admission body (prefill_padded, the splice of every row
+    into its slot, the first tokens into the slot state) over device
+    inputs under ``set_sync_debug_mode("error")``: nothing a capture of it
+    replays reads the device from the host."""
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    eng = ServeEngine(cfg, params, slots=4, cache_len=64, library=lib,
+                      graph=False, aot_buckets=(16,), device=dev)
+    host = np.zeros(4 * 16 + 8, np.int64)
+    prompts, lens, slots = eng._admit_views(host, 16, 4)
+    for i, n in enumerate((3, 16, 7, 12)):
+        prompts[i, :n] = np.arange(n) % cfg.vocab_size
+        lens[i], slots[i] = n, 3 - i
+    inp = torch.from_numpy(host).to(dev)
+    views = eng._admit_views(inp, 16, 4)
+    firsts = torch.zeros(4, dtype=torch.int64, device=dev)
+    eng._admit_body(*views, torch.zeros_like(firsts), eng.caches, eng._tok,
+                    eng._pos, eng._live)  # warm: builds, workspaces
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            eng._admit_body(*views, firsts, eng.caches, eng._tok, eng._pos,
+                            eng._live)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eng._live.all() and eng._pos.tolist() == [12, 7, 16, 3]
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+def test_packed_admission_graph_equals_eager(arch, lib, dev):
+    """The same requests through AOT engines with graphs (each packed
+    admission one replay) and without: streams and final caches bitwise,
+    zero misses, one capture per (bucket, pack) plus the ticks, and
+    ``stats["launches"]`` per forward on both (a packed admission is one
+    forward)."""
+    from repro_torch.serve import aot
+
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    prompts = _prompts_for(cfg, (5, 11, 3, 8, 2, 16, 14, 9, 30))
+    engines = {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, params, slots=4, cache_len=64, library=lib,
+                          horizon=4, graph=graph, aot_buckets=(8, 16),
+                          max_pack=4, device=dev)
+        engines[graph] = (eng, _serve_on(eng, prompts))
+    (g, out_g), (e, out_e) = engines[True], engines[False]
+    assert out_g == out_e
+    for a, b in zip(g.caches, e.caches):
+        assert torch.equal(a, b)
+    table = aot.BucketTable((8, 16))
+    assert g.stats["captures"] == aot.compile_count(table, 4, 4, 4)
+    assert g.stats["admit_replays"] == g.stats["packed_admits"] > 0
+    assert g.stats["aot_fallbacks"] == 1  # the 30-token prompt
+    for eng in (g, e):
+        assert eng.stats["aot_misses"] == 0
+        assert eng.stats["packed_requests"] == 8
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        assert eng.stats["launches"] == {
+            k: n * forwards for k, n in _per_forward(cfg).items()}
+
+
+def test_packed_admission_agrees_with_exact_length_in_the_tie_band(lib, dev):
+    """Packed admission (other GEMM row counts than exact-length prefills)
+    against the engine without buckets: first tokens inside the 2^-5
+    max-logit tie band of a plain-version prefill."""
+    cfg, params = _smoke(dev, "yi_6b", "bfloat16")
+    prompts = _prompts_for(cfg, (5, 11, 3, 8))
+    eng = ServeEngine(cfg, params, slots=4, cache_len=64, library=lib,
+                      aot_buckets=(16,), device=dev)
+    got = _serve_on(eng, prompts, 1)
+    plain = PlainFusedNumerics(lib)
+    with torch.inference_mode():
+        for i, p in enumerate(prompts):
+            t = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
+            logits, _ = tf.prefill(params, t, cfg, plain, 64)
+            lg = logits[0, -1].float()
+            gap = float(lg.max() - lg[got[i][0]])
+            assert gap <= 2.0 ** -5 * float(lg.abs().max()), (i, gap)
+
+
+def test_slot_library_swap_recaptures(lib, seg_lib, _r5_cpu, dev):
+    """Replacing one entry of a plan engine's library dict in place drops
+    the graphs (tick and admission) and rebinds the numerics: the next
+    step recaptures over the new ROM and layer 0 reads it."""
+    cfg, params = _smoke(dev, "yi_6b", "bfloat16")
+    cfg = cfg.replace(plan=_three_slot_plan(cfg.n_layers))
+    libs = _plan_libs(dev, lib, seg_lib, _r5_cpu)
+    eng = ServeEngine(cfg, params, slots=2, cache_len=64, horizon=4,
+                      library=libs, aot_buckets=(8,), device=dev)
+    for i, p in enumerate(_prompts_for(cfg, (5, 7))):
+        eng.submit(Request(i, p, max_new=12))
+    eng.step(4)
+    n = eng.stats["captures"]
+    other = InterpLibrary(libs["R5"].coeffs.clone(), libs["R5"].metas).seal()
+    eng.library["R5"] = other
+    eng.step(4)
+    assert eng.stats["captures"] > n
+    assert eng.numerics.for_layer(0).library is other
+    assert any(x is other for x in eng._graph_key)
+    eng.run()
+    assert all(len(r.out) == 12 for r in eng.finished)
+
+
+def test_async_host_on_the_card(lib, dev, tmp_path):
+    """``async_host=True`` with graphs and AOT buckets: the pinned-ring
+    hand-off gives the synchronous engine's streams, and its journal
+    resumes (all done: nothing replayed)."""
+    from repro_torch.serve.journal import load_requests
+
+    cfg, params = _smoke(dev, "yi_6b", "bfloat16")
+    prompts = _prompts_for(cfg, (5, 11, 3, 8, 2, 16))
+    outs = {}
+    for async_host in (False, True):
+        jp = tmp_path / f"j{int(async_host)}.jsonl"
+        eng = ServeEngine(cfg, params, slots=3, cache_len=64, library=lib,
+                          horizon=4, aot_buckets=(8, 16), device=dev,
+                          async_host=async_host, pipeline_depth=2,
+                          journal=str(jp))
+        outs[async_host] = _serve_on(eng, prompts, 9)
+        eng.close()
+        assert {rid: st.out for rid, st in load_requests(jp).items()} == \
+            outs[async_host]
+    assert outs[True] == outs[False]
+    res = ServeEngine.resume(str(tmp_path / "j1.jsonl"), cfg, params,
+                             slots=3, cache_len=64, library=lib, device=dev)
+    assert res.stats["resume_skipped_done"] == len(prompts)

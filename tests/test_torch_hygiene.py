@@ -40,7 +40,13 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             # the serving control layer's
             "repro_torch.numerics.guard", "repro_torch.util",
             "repro_torch.util.journal", "repro_torch.serve.journal",
-            "repro_torch.faults", "repro_torch.faults.inject")
+            "repro_torch.faults", "repro_torch.faults.inject",
+            # the plans / AOT / host pipeline slice's
+            "repro_torch.plan", "repro_torch.plan.schema",
+            "repro_torch.plan.numerics", "repro_torch.plan.assign",
+            "repro_torch.dse", "repro_torch.dse.record",
+            "repro_torch.dse.probe", "repro_torch.serve.aot",
+            "repro_torch.serve.pipeline")
 
 
 @pytest.fixture
@@ -157,6 +163,21 @@ def _explore_segmented_pallas():
     explore_segmented(get_spec("recip", 8), engine="pallas")
 
 
+def _plan_libraries():
+    from repro_torch.plan import NumericsPlan
+    from repro_torch.plan.numerics import compile_plan_libraries
+
+    compile_plan_libraries(NumericsPlan.uniform("interp-fused", 2))
+
+
+def _plan_numerics():
+    from repro_torch.numerics.ops import get_numerics
+    from repro_torch.plan import NumericsPlan
+
+    get_numerics(get_smoke_config("yi_6b").replace(
+        plan=NumericsPlan.uniform("interp-fused", 2)))
+
+
 ENTRY_POINTS = {
     "explore_pallas": _explore_pallas,
     "compile_mesh": _compile_mesh,
@@ -174,6 +195,8 @@ ENTRY_POINTS = {
     "serve_engine": lambda tmp: _engine(),
     "serve_cli": lambda tmp: _serve_cli(),
     "serve_cli_moe": lambda tmp: _serve_cli("deepseek_moe_16b"),
+    "compile_plan_libraries": lambda tmp: _plan_libraries(),
+    "plan_get_numerics": lambda tmp: _plan_numerics(),
 }
 
 

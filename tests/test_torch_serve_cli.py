@@ -80,3 +80,43 @@ def test_cli_serves_the_config_numerics_by_default(numerics, capsys):
     assert report["numerics"] == want and report["tokens"] == 4
     assert (report["rom_sha"] is None) == (want == "exact")
     assert set(report["stats"]["launches"].values()) == {0}
+
+
+TIER = ("plan", "save_plan", "aot_buckets", "max_pack", "async_host")
+
+
+@pytest.mark.parametrize("extra", [[], ["--aot-buckets", "default"],
+                                   ["--aot-buckets", "8,16", "--max-pack",
+                                    "2", "--async-host"],
+                                   ["--plan", "p.json", "--save-plan",
+                                    "q.json"]])
+def test_tier_flags_parse_as_the_reference(extra, reference_parser):
+    """The plan and serving-tier flags parse to the reference's values."""
+    argv = ["--arch", "yi_6b", "--smoke", *extra]
+    got = vars(tserve.build_parser().parse_args(argv))
+    want = vars(reference_parser.parse_args(argv))
+    assert {k: got[k] for k in SHARED + TIER} == \
+        {k: want[k] for k in SHARED + TIER}
+
+
+def test_cli_serves_with_aot_buckets_and_async_host(capsys):
+    """``--aot-buckets 8,16 --async-host`` on the CPU: every request
+    completes through packed admissions, the host worker carries the
+    tokens, and the streams are those of the plain run."""
+    base = ["--arch", "yi_6b", "--smoke", "--device", "cpu", "--requests",
+            "4", "--max-new", "3", "--numerics", "interp"]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        tserve.main(base)
+        plain = capsys.readouterr().out.strip().splitlines()
+        tserve.main(base + ["--aot-buckets", "8,16", "--async-host"])
+        tier = capsys.readouterr().out.strip().splitlines()
+    finally:
+        torch.set_num_threads(n)
+    report = json.loads(tier[-1])
+    stats = report["stats"]
+    assert report["tokens"] == 12 and stats["aot_misses"] == 0
+    assert stats["packed_requests"] == 4 and stats["async_tokens"] > 0
+    assert [ln for ln in tier if ln.startswith("request")] == \
+        [ln for ln in plain if ln.startswith("request")]
