@@ -113,14 +113,32 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    pipeline (``async_host=True``: streams bitwise the synchronous AOT
    run's, a journaled async run stopped mid-run and resumed);
 9. frees Yi-6B and serves (graph and eager) full-width DeepSeekMoE-16B
-   (28 layers, 64 routed experts top-6 + 2 shared, a dense layer 0; the
+   cut to 14 of its 28 layers (64 routed experts top-6 + 2 shared, a
+   dense layer 0; the
    router's softmax through the ``softmax_lib`` kernel), first on the
    uniform library, then on the same weights on the segmented library,
    where the activations and every table read of the fused kernels go
    through the segment decode: the same launches per forward; then its
    AOT phase on the uniform library (first tokens held against the plain
    ``prefill_padded``: an MoE bucket's expert capacity is the bucket's);
-10. prints the throughput, a ``{"kernels": [...]}`` JSON line and, last,
+10. serves the other decoder families at full width on the uniform
+   library (random bf16 weights from a seed), freeing each model before
+   the next: MiniCPM3-4B (62 layers of MLA: Dk 96 / Dv 64 attention over
+   the latent expansion) on a graph and an eager engine with the tick
+   profile, then its AOT phase; Mixtral-8x22B cut to 8 layers (full
+   width, 8 experts top-2, the 4096-token window: a slot cache of 4096
+   rows) on prompts of 4104, 4090, 200 and 17 tokens, graph ≡ eager on the
+   wrapped ring, the tick on 4 wrapped rings, and the first decode tokens
+   past the wrap against a plain-version re-prefill of the grown
+   sequence (the prompts past 4096 keys prefill through the glue path,
+   whose table reads are ``library_eval`` launches); Qwen1.5-110B cut to 4
+   layers (QKV bias) and Minitron-8B (squared ReLU) on a graph engine;
+   before that, the serving kernels at the shapes these models hand them
+   (``family_kernel_phase``: flash at MLA's Dk 96 / Dv 64 with a strided
+   V, on a wrapped window ring and at 64 heads over 8; RMSNorm at 768,
+   256, 2560, 6144 and 8192; the router softmax over 8 experts);
+11. prints the throughput, a ``{"kernels": [...]}`` JSON line (each
+   serving kernel's row with its ``family_shapes``) and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -128,6 +146,7 @@ Any failure raises (non-zero exit) before the last line. Details go to
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -207,6 +226,11 @@ KERNEL_SYMBOLS = {"library_eval": "table_read_kernel<false",
                   "envelopes_parity_batched": "envelopes_parity_kernel",
                   "envelopes_parity_fleet": "envelopes_parity_kernel",
                   "dd_max_rows": "dd_max_rows_kernel"}
+# kernels the main path does not launch, and why; each must launch on its
+# own path (``launches_by_path``)
+OFF_MAIN_PATH = {"library_walk": "the served activations are act_lib "
+                 "launches; the int32 walk runs on the eager chain (the "
+                 "interp backend's activation on the segmented library)"}
 # the kernels a serving profile reads
 SERVE_KERNELS = ("act_lib", "rmsnorm_lib", "flash_attn_lib", "softmax_lib")
 
@@ -1100,12 +1124,8 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flashattn.kernel import kv_splits, query_tile
-    from repro_torch.kernels.flashattn.ops import attention_fused_library
-    from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
     from repro_torch.kernels.interp.ops import library_eval
     from repro_torch.kernels.interp.ref import library_eval_ref
-    from repro_torch.numerics.ops import softmax_ulp_bound
 
     g = torch.Generator(device=dev).manual_seed(1234)
     rows, details = {}, []
@@ -1162,7 +1182,6 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
         rows.setdefault("rmsnorm_lib", row)
 
     # -- flash_attn_lib ----------------------------------------------------
-    sm_bound = softmax_ulp_bound(lib.meta("exp2neg"), lib.meta("recip"))
     d = 128
     # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16 (g = 1);
     # in bf16 (the tensor-core body) and, at Yi-6B's shapes, in float32 (the
@@ -1188,82 +1207,8 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
             kv_pos = torch.arange(sk, device=dev).expand(b, sk)
             q_pos = kv_pos
         q = torch.randn(b, sq, h, d, generator=g, **bf)
-        q_pos, kv_pos = q_pos.to(torch.int32), kv_pos.to(torch.int32)
-        kw = dict(q_pos=q_pos, kv_pos=kv_pos)
-        got = attention_fused_library(q, k, v, lib, **kw).float()
-        want = attention_fused_library_ref(q, k, v, lib, **kw).float()
-        torch.cuda.synchronize()
-        vmax = float(v.float().abs().max())
-        n_tiles = (sk + 63) // 64
-        tol_abs = (n_tiles + 2) * sm_bound * vmax
-        excess = float(((got - want).abs() - tol_abs
-                        - 2.0 ** -7 * (vmax + want.abs())).max())
-        err = float((got - want).abs().max())
-        print(f"flash_attn_lib {mode} {str(dtype)[6:]} B={b} H={h} KVH={kvh} "
-              f"D={d} Sq={sq} Sk={sk}: max_abs_err {err:.3e} (tolerance "
-              f"{tol_abs:.3e} = "
-              f"({n_tiles} tiles + 2) x softmax_ulp_bound {sm_bound:.3e} x "
-              f"max|v|, + 2^-7 (max|v| + |out|) bf16 roundings)")
-        if excess > 0:
-            raise AssertionError(f"flash_attn_lib {mode} differs from plain")
-        tq = query_tile(sq, h // kvh, d)
-        splits = kv_splits(b, kvh, -(-sq // tq), sk)
-        twin = attention_fused_library_ref(q, k, v, lib, block_k=64,
-                                           block_q=tq, kv_splits=splits,
-                                           **kw).float()
-        terr = (got - twin).abs()
-        t_excess = float((terr - sm_bound * vmax - 2.0 ** -8 * twin.abs()
-                          ).max())
-        print(f"  against the tile-by-tile twin (64-key tiles, {tq}-query "
-              f"tiles, {splits} key splits): max_abs_err "
-              f"{float(terr.max()):.3e}, mean {float(terr.mean()):.3e} "
-              f"(tolerance {sm_bound * vmax:.3e} = one table-code flip, + "
-              f"2^-8 |out| one bf16 rounding)")
-        if t_excess > 0:
-            raise AssertionError(f"flash_attn_lib {mode} differs from the "
-                                 f"tile-by-tile twin")
-        # the work this data needs: live (query, key) pairs per head
-        live = ((kv_pos[:, None, :] >= 0)
-                & (kv_pos[:, None, :] <= q_pos[:, :, None]))
-        pairs = int(live.sum())
-        live_rows = int(((kv_pos >= 0) & (kv_pos <= q_pos.max(-1, keepdim=True)
-                                          .values)).sum())
-        es = q.element_size()
-        nbytes = (q.numel() * es + 2 * live_rows * kvh * d * es
-                  + kv_pos.numel() * 4 + q_pos.numel() * 4 + q.numel() * es)
-        b_ms, b_by = bound(nbytes, 4 * d * h * pairs,
-                           BF16_FLOPS if dtype == torch.bfloat16
-                           else F32_FLOPS)
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        if mode == "decode":
-            mask = live[:, None]
-
-            def sdpa():
-                return F.scaled_dot_product_attention(qt, kt, vt, mask,
-                                                      enable_gqa=True)
-        else:
-            def sdpa():
-                return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True,
-                                                      enable_gqa=True)
-        row = dict(name="flash_attn_lib", shape=[b, sq, h, kvh, d, sk],
-                   mode=mode, dtype=str(dtype)[6:], max_abs_err=err,
-                   tolerance=tol_abs,
-                   ms=device_ms(lambda: attention_fused_library(q, k, v, lib,
-                                                                **kw),
-                                label=f"{label} flash {mode} H={h}",
-                                kernel="flash_attn_lib"),
-                   call_ms=timed(lambda: attention_fused_library(q, k, v,
-                                                                 lib, **kw)),
-                   plain_ms=device_ms(lambda: attention_fused_library_ref(
-                       q, k, v, lib, **kw), iters=3,
-                       label=f"{label} plain flash {mode} H={h}"),
-                   library_ms=device_ms(sdpa,
-                                        label=f"{label} sdpa {mode} H={h}"),
-                   bound_ms=b_ms, bound_by=b_by, kv_splits=splits,
-                   **graph_cols(lambda: attention_fused_library(q, k, v, lib,
-                                                                **kw),
-                                sdpa))
+        row = flash_lib_row(lib, q, k, v, q_pos, kv_pos, mode=mode,
+                            label=label)
         details.append(row)
         rows.setdefault("flash_attn_lib", row)
 
@@ -1285,6 +1230,98 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
     return rows, details
 
 
+def flash_lib_row(lib, q, k, v, q_pos, kv_pos, *, mode: str, label: str,
+                  window: int | None = None, tag: str = "") -> dict:
+    """``flash_attn_lib`` on (q, k, v) (the model's layouts: K/V views of
+    the cache or strided slices) against its plain version ((n_tiles + 2)
+    x softmax_ulp_bound x max|v|, + 2^-7 (max|v| + |out|) in bf16) and its
+    tile-by-tile twin with the kernel's query tile and key splits (one
+    table-code flip + 2^-8 |out|), timed beside SDPA on the same inputs
+    and mask. The bound counts the (query, key) pairs this data needs
+    (causal, the window, dead rows) and each live K/V row read once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flashattn.kernel import kv_splits, query_tile
+    from repro_torch.kernels.flashattn.ops import attention_fused_library
+    from repro_torch.kernels.flashattn.ref import attention_fused_library_ref
+    from repro_torch.numerics.ops import softmax_ulp_bound
+
+    sm_bound = softmax_ulp_bound(lib.meta("exp2neg"), lib.meta("recip"))
+    b, sq, h, d = q.shape
+    sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
+    dtype = q.dtype
+    q_pos, kv_pos = q_pos.to(torch.int32), kv_pos.to(torch.int32)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    got = attention_fused_library(q, k, v, lib, **kw).float()
+    want = attention_fused_library_ref(q, k, v, lib, **kw).float()
+    torch.cuda.synchronize()
+    vmax = float(v.float().abs().max())
+    n_tiles = (sk + 63) // 64
+    tol_abs = (n_tiles + 2) * sm_bound * vmax
+    excess = float(((got - want).abs() - tol_abs
+                    - 2.0 ** -7 * (vmax + want.abs())).max())
+    err = float((got - want).abs().max())
+    name = f"{mode}{' ' + tag if tag else ''}"
+    print(f"flash_attn_lib {name} {str(dtype)[6:]} B={b} H={h} KVH={kvh} "
+          f"D={d} Dv={dv} Sq={sq} Sk={sk} window={window}: max_abs_err "
+          f"{err:.3e} (tolerance {tol_abs:.3e} = ({n_tiles} tiles + 2) x "
+          f"softmax_ulp_bound {sm_bound:.3e} x max|v|, + 2^-7 (max|v| + "
+          f"|out|) bf16 roundings)")
+    if excess > 0:
+        raise AssertionError(f"flash_attn_lib {name} differs from plain")
+    tq = query_tile(sq, h // kvh, dv)
+    splits = kv_splits(b, kvh, -(-sq // tq), sk)
+    twin = attention_fused_library_ref(q, k, v, lib, block_k=64, block_q=tq,
+                                       kv_splits=splits, **kw).float()
+    terr = (got - twin).abs()
+    t_excess = float((terr - sm_bound * vmax - 2.0 ** -8 * twin.abs()).max())
+    print(f"  against the tile-by-tile twin (64-key tiles, {tq}-query "
+          f"tiles, {splits} key splits): max_abs_err "
+          f"{float(terr.max()):.3e}, mean {float(terr.mean()):.3e} "
+          f"(tolerance {sm_bound * vmax:.3e} = one table-code flip, + "
+          f"2^-8 |out| one bf16 rounding)")
+    if t_excess > 0:
+        raise AssertionError(f"flash_attn_lib {name} differs from the "
+                             f"tile-by-tile twin")
+    # the work this data needs: live (query, key) pairs per head
+    dpos = q_pos[:, :, None] - kv_pos[:, None, :]
+    live = (kv_pos[:, None, :] >= 0) & (dpos >= 0)
+    if window is not None:
+        live &= dpos < window
+    pairs = int(live.sum())
+    live_rows = int(live.any(1).sum())
+    es = q.element_size()
+    # q read at D, the output written at Dv, the live K / V rows read once
+    nbytes = ((q.numel() + b * sq * h * dv) * es
+              + live_rows * kvh * (d + dv) * es
+              + kv_pos.numel() * 4 + q_pos.numel() * 4)
+    b_ms, b_by = bound(nbytes, 2 * (d + dv) * h * pairs,
+                       BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = live[:, None]
+
+    def sdpa():
+        if mode == "prefill" and window is None:  # no mask tensor
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, mask,
+                                              enable_gqa=True)
+    fn = functools.partial(attention_fused_library, q, k, v, lib, **kw)
+    label_ = f"{label} flash {name} H={h}"
+    return dict(name="flash_attn_lib", shape=[b, sq, h, kvh, d, sk],
+                dv=dv, window=window, mode=name, dtype=str(dtype)[6:],
+                max_abs_err=err, tolerance=tol_abs,
+                ms=device_ms(fn, label=label_, kernel="flash_attn_lib"),
+                call_ms=timed(fn),
+                plain_ms=device_ms(functools.partial(
+                    attention_fused_library_ref, q, k, v, lib, **kw),
+                    iters=3, label=f"plain {label_}"),
+                library_ms=device_ms(sdpa, label=f"sdpa {label_}"),
+                bound_ms=b_ms, bound_by=b_by, kv_splits=splits,
+                **graph_cols(fn, sdpa))
+
+
 # softmax_lib's shapes: DeepSeekMoE's router at decode (4 slots) and in
 # the 511-token prefill (64 experts, float32), a wide bf16 row, and the
 # per-table phase's two large calls (the same body): ragged bf16 rows and a
@@ -1295,7 +1332,7 @@ SOFTMAX_SHAPES = (((4, 64), "float32"), ((511, 64), "float32"),
 SOFTMAX_TPRS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
-def softmax_lib_rows(lib, dev, g, flush, label):
+def softmax_lib_rows(lib, dev, g, flush, label, shapes=SOFTMAX_SHAPES):
     """softmax_lib at ``SOFTMAX_SHAPES`` on ``lib``: e bitwise against the
     plain version's, the output bitwise against the twin with the kernels'
     sum order (``kernel_order_softmax``) for both bodies and within one
@@ -1322,7 +1359,7 @@ def softmax_lib_rows(lib, dev, g, flush, label):
     rb = lib.meta("recip").in_bits
     em, rm = lib_meta(lib, "exp2neg"), lib_meta(lib, "recip")
     out = []
-    for shape, dname in SOFTMAX_SHAPES:
+    for shape, dname in shapes:
         dtype = getattr(torch, dname)
         x = (torch.randn(shape, device=dev, generator=g) * 4).to(dtype)
         n_rows, d = shape
@@ -1437,7 +1474,7 @@ RMS_SHAPES = ((4, 4096), (512, 4096), (4, 2048), (511, 2048))
 RMS_TPRS = (64, 128, 256, 512, 1024)  # the thread counts per row timed
 
 
-def rmsnorm_lib_rows(lib, dev, g, flush, label):
+def rmsnorm_lib_rows(lib, dev, g, flush, label, shapes=RMS_SHAPES):
     """rmsnorm_lib at ``RMS_SHAPES`` on ``lib``: both bodies and both gamma
     dtypes against the plain version (2 rsqrt-table ulps + one bf16
     rounding; bitwise on two rows whose mean(x^2) is exact in any order),
@@ -1450,7 +1487,6 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.configs import deepseek_moe_16b, yi_6b
     from repro_torch.kernels import build
     from repro_torch.kernels.rmsnorm.kernel import (launch_shape,
                                                     rmsnorm_lib_cuda)
@@ -1463,7 +1499,7 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label):
     rs_tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1) + 2.0 ** -7
     pow2 = torch.tensor([-2.0, -1.0, -0.5, 0.5, 1.0, 2.0], device=dev)
     out = []
-    for n_rows, d in RMS_SHAPES:
+    for n_rows, d in shapes:
         x = torch.randn(n_rows, d, device=dev, generator=g) * 2
         x[:2] = pow2[torch.randint(0, 6, (2, d), device=dev, generator=g)]
         x = x.to(torch.bfloat16)
@@ -1496,17 +1532,15 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label):
             raise AssertionError("rmsnorm_lib: bf16 gamma differs from its "
                                  "float32 cast")
         # the served call: apply_norm on the model's (B, S, D) layout
-        cfg = yi_6b.CONFIG if d == yi_6b.CONFIG.d_model else \
-            deepseek_moe_16b.CONFIG
         x3 = x.reshape(4, 1, d) if n_rows == 4 else x.reshape(1, n_rows, d)
         p = {"scale": g16}
         n0 = dict(build.LAUNCHES)
-        served = apply_norm(p, x3, cfg, num)
+        served = apply_norm(p, x3, None, num)
         torch.cuda.synchronize()
         launched = {k: v - n0[k] for k, v in build.LAUNCHES.items()
                     if v != n0[k]}
-        ops = device_ops(lambda: apply_norm(p, x3, cfg, num))
-        nodes = graph_ops(lambda: apply_norm(p, x3, cfg, num))
+        ops = device_ops(lambda: apply_norm(p, x3, None, num))
+        nodes = graph_ops(lambda: apply_norm(p, x3, None, num))
         cast_nodes = graph_ops(lambda: num.rmsnorm(x3, g16.float()))
         same = torch.equal(served.reshape(n_rows, d), fn())
         print(f"  apply_norm {tuple(x3.shape)} bf16 scale ({label} "
@@ -1566,6 +1600,84 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label):
               + (f"; cold L2 {row['cold_ms']:.5f} ms" if "cold_ms" in row
                  else ""))
         out.append(row)
+    return out
+
+
+# the new families' kernel shapes: MLA's norms (q_norm 768, kv_norm 256) and
+# the residual norms of MiniCPM3 (2560), Mixtral (6144) and Qwen (8192) at
+# decode; Mixtral's router (8 experts) over a tick's 4 x 16 rows
+FAMILY_RMS_SHAPES = ((4, 768), (4, 256), (4, 2560), (4, 6144), (4, 8192))
+FAMILY_SOFTMAX_SHAPES = (((4 * 16, 8), "float32"),)
+
+
+def family_kernel_phase(lib, dev) -> list[dict]:
+    """The serving kernels at the shapes the new families hand them, each
+    against its plain version (the tolerances of ``kernel_phases``) and
+    timed beside its yardstick: ``flash_attn_lib`` at MiniCPM3's MLA decode
+    (4 slots, 1024 cache rows, 40 heads over 40, Dk 96 against Dv 64, V
+    the strided second half of the latent expansion) and prefill (511
+    tokens), at Mixtral's decode on a wrapped 4096-row window ring (48
+    heads over 8; the slots' rings rotated by 0, 1, 4095 and 105 rows, so
+    that positions are not ordered along the rows) and at Qwen's decode
+    (64 heads over 8); ``rmsnorm_lib`` at ``FAMILY_RMS_SHAPES`` and
+    ``softmax_lib`` at ``FAMILY_SOFTMAX_SHAPES``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(2424)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    flush = l2_flush(dev)
+    out = []
+    lens = torch.tensor([17, 300, 1000, 600], device=dev)
+
+    def cache_rows(b, sk):
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk).clone()
+        kv_pos[kv_pos >= lens[:, None]] = -1
+        return kv_pos, (lens - 1)[:, None]
+
+    # MiniCPM3's MLA: K (nope + rope) and V sliced out of the expansion
+    for mode, b, sq, sk in (("decode", 4, 1, 1024), ("prefill", 1, 511, 511)):
+        kvb = torch.randn(b, sk, 40, 128, generator=g, **bf)
+        k = torch.cat([kvb[..., :64], torch.randn(b, sk, 1, 32, generator=g,
+                                                  **bf).expand(b, sk, 40,
+                                                               32)], -1)
+        v = kvb[..., 64:]
+        if mode == "decode":
+            kv_pos, q_pos = cache_rows(b, sk)
+        else:
+            kv_pos = q_pos = torch.arange(sk, device=dev).expand(b, sk)
+        q = torch.randn(b, sq, 40, 96, generator=g, **bf)
+        out.append(flash_lib_row(lib, q, k, v, q_pos, kv_pos, mode=mode,
+                                 label="uniform", tag="mla"))
+    # Mixtral's wrapped ring: row r holds the position p with p % 4096 == r
+    b, sk = 4, 4096
+    kc = torch.randn(b, 8, sk, 128, generator=g, **bf)
+    vc = torch.randn(b, 8, sk, 128, generator=g, **bf)
+    last = torch.tensor([8191, 8192, 12286, 4200], device=dev)
+    kv_pos = last[:, None] - torch.remainder(
+        last[:, None] - torch.arange(sk, device=dev), sk)
+    q = torch.randn(b, 1, 48, 128, generator=g, **bf)
+    out.append(flash_lib_row(lib, q, kc.transpose(1, 2), vc.transpose(1, 2),
+                             last[:, None], kv_pos, mode="decode",
+                             label="uniform", window=4096, tag="ring"))
+    # Qwen1.5-110B: 64 query heads over 8 at decode
+    kc = torch.randn(b, 8, 1024, 128, generator=g, **bf)
+    vc = torch.randn(b, 8, 1024, 128, generator=g, **bf)
+    kv_pos, q_pos = cache_rows(b, 1024)
+    q = torch.randn(b, 1, 64, 128, generator=g, **bf)
+    out.append(flash_lib_row(lib, q, kc.transpose(1, 2), vc.transpose(1, 2),
+                             q_pos, kv_pos, mode="decode", label="uniform",
+                             tag="h64"))
+    out += rmsnorm_lib_rows(lib, dev, g, flush, "uniform",
+                            shapes=FAMILY_RMS_SHAPES)
+    out += softmax_lib_rows(lib, dev, g, flush, "uniform",
+                            shapes=FAMILY_SOFTMAX_SHAPES)
+    for r in out:
+        r.setdefault("library", "uniform")
+        print(f"  device time {r['name']} {r['shape']} {r.get('mode', '')}"
+              f": graph {_ms(r['graph_ms'])}, yardstick "
+              f"{_ms(r['library_graph_ms'])}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), plain {r['plain_ms']:.5f} ms, "
+              f"max_abs_err {r['max_abs_err']:.3e}")
     return out
 
 
@@ -2089,28 +2201,34 @@ def pertable_phase(lib, dev):
 def per_forward(cfg) -> dict:
     """Kernel launches of one forward pass of ``cfg`` on the main path: an
     rmsnorm before attention and before the FFN of every layer plus the
-    final one; one attention per layer; one silu per dense MLP and per
-    expert group of an MoE layer (routed, shared); one router softmax per
-    MoE layer. An activation is one ``act_lib`` launch on either library
-    (a segmented slot adds no launch)."""
+    final one, and MLA's q_norm and kv_norm; one attention per layer; one
+    activation per SwiGLU MLP and per expert group of an MoE layer
+    (routed, shared; a squared-ReLU MLP reads no table); one router softmax
+    per MoE layer. An activation is one ``act_lib`` launch on either
+    library (a segmented slot adds no launch). A prefill whose attention
+    passes ``FUSED_ATTN_MAX_KEYS`` keys takes the glue path instead of
+    ``flash_attn_lib`` (``glue_prefill_launches``)."""
+    from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
 
-    n_moe = sum(slot[-1].ffn == "moe" for slot in tf.layer_slots(cfg))
+    kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
+    n_moe = sum(k.ffn == "moe" for k in kinds)
+    n_mlp = 0 if cfg.act == "relu2" else len(kinds) - n_moe
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
-    from repro_torch.kernels import build
-
+    norms = 4 if cfg.mla is not None else 2
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            "act_lib": cfg.n_layers + n_moe * shared,
-            "rmsnorm_lib": 2 * cfg.n_layers + 1,
+            "act_lib": n_mlp + n_moe * (1 + shared),
+            "rmsnorm_lib": norms * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
 
-def serve_phase(libs, dev, config, extra=None) -> list[dict]:
+def serve_phase(libs, dev, config, extra=None, **serve_kw) -> list[dict]:
     """``config`` at full width through the engine, once per ``(label,
-    library)`` of ``libs`` on the same weights; returns one result per
-    library for the report. ``extra(params, cfg)`` runs on the same weights
-    after the serve runs (its result under ``"extra"`` of the first). The
-    parameters are freed when this returns."""
+    library)`` of ``libs`` on the same weights (``serve_one`` with
+    ``serve_kw``); returns one result per library for the report.
+    ``extra(params, cfg, result)`` runs on the same weights after the serve
+    runs (its result under ``"extra"`` of the first). The parameters are
+    freed when this returns."""
     import torch
 
     from repro_torch.models import transformer as tf
@@ -2130,7 +2248,7 @@ def serve_phase(libs, dev, config, extra=None) -> list[dict]:
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     out = []
     for label, lib in libs:
-        res = serve_one(params, cfg, lib, label, dev)
+        res = serve_one(params, cfg, lib, label, dev, **serve_kw)
         res.update(n_params=n_params, n_bytes=n_bytes)
         out.append(res)
         gc.collect()  # this engine's cache goes before the next one's
@@ -2145,7 +2263,7 @@ def serve_phase(libs, dev, config, extra=None) -> list[dict]:
             print(f"{cfg.name} on the {res['library']} library: "
                   f"{res['per_forward']} per forward, as the uniform run")
     if extra is not None:
-        out[0]["extra"] = extra(params, cfg)
+        out[0]["extra"] = extra(params, cfg, out[0])
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -2177,9 +2295,10 @@ def _run_timed(eng) -> tuple[dict, float, dict]:
 TICK_PROMPTS = (300, 400, 500, 600)
 
 
-def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2) -> dict:
-    """The engine's tick at ``SLOTS`` live slots (prompts of
-    ``TICK_PROMPTS`` tokens): wall ms per decode step over ``n`` ticks of
+def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2,
+                 lengths=TICK_PROMPTS) -> dict:
+    """The engine's tick at ``SLOTS`` live slots (prompts of ``lengths``
+    tokens): wall ms per decode step over ``n`` ticks of
     ``HORIZON`` steps on the host clock (each tick ends in its download),
     then device ms per step and the busy share from torch.profiler over
     ``n_prof`` more ticks (after one warm tick); ``busy_share`` is the
@@ -2188,7 +2307,7 @@ def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2) -> dict:
 
     rng = np.random.default_rng(1)
     _serve_requests(eng, [rng.integers(0, cfg.vocab_size, k).astype(np.int32)
-                          for k in TICK_PROMPTS],
+                          for k in lengths],
                     max_new=1 + HORIZON * (n + n_prof + 4), rid0=1000)
     eng.step(HORIZON)  # admits all four, one tick
     if sum(r is not None for r in eng.req) != SLOTS:
@@ -2211,35 +2330,68 @@ def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2) -> dict:
                 profile=prof)
 
 
-def serve_one(params, cfg, lib, label, dev) -> dict:
-    """6 requests through the engine on ``lib``, on a graph engine (the
-    main path: one CUDA graph replay per tick) and on an eager one
+def glue_prefill_launches(params, cfg, num, n: int, cache_len: int,
+                          dev) -> dict:
+    """Kernel launches of one prefill of an ``n``-token prompt: a prompt
+    past ``FUSED_ATTN_MAX_KEYS`` keys takes ``attention_core``'s glue path
+    (``exp_neg`` / ``recip_pos`` through ``library_eval``) instead of
+    ``flash_attn_lib``; counted on one prefill of a random prompt (the
+    glue's launches do not depend on the tokens below ``SKIP_CHUNKS`` key
+    chunks)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+
+    toks = torch.zeros((1, n), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    with torch.inference_mode():
+        tf.prefill(params, toks, cfg, num, cache_len)
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in build.LAUNCHES.items()}
+
+
+def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
+              cache_len=CACHE_LEN, tick_lengths=TICK_PROMPTS,
+              modes=("graph", "eager")) -> dict:
+    """Requests of ``lengths`` tokens through the engine on ``lib`` (slot
+    cache ``cache_len``), on a graph engine (the main path: one CUDA graph
+    replay per tick) and, where ``modes`` has it, on an eager one
     (``graph=False``): completion, launch counts (the graph engine's
     ``stats["launches"]``, which adds each graph's launches on every
     replay; the eager engine's global counters too), token streams and
     final caches bitwise equal between the two, tokens/s, the tick's wall
-    ms per step and busy share for both, the decode step's time and
-    profile, and first tokens against a plain-version prefill on the same
-    library."""
+    ms per step and busy share at 4 live slots (prompts of
+    ``tick_lengths``), the decode step's time and profile, and first
+    tokens against a plain-version prefill on the same library."""
     import numpy as np
     import torch
 
     from repro_torch.models import transformer as tf
-    from repro_torch.numerics.ops import PlainFusedNumerics
+    from repro_torch.numerics.ops import (FUSED_ATTN_MAX_KEYS,
+                                          PlainFusedNumerics)
     from repro_torch.serve.engine import ServeEngine, chunk_sizes
 
     print(f"-- {cfg.name} on the {label} library {lib.rom_sha()} "
           f"{tuple(lib.coeffs.shape)}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in SERVE_LENGTHS]
+               for n in lengths]
     per = per_forward(cfg)
     engines, streams, walls = {}, {}, {}
-    for mode in ("graph", "eager"):
+    for mode in modes:
         t0 = time.perf_counter()
-        eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
+        eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=cache_len,
                           library=lib, horizon=HORIZON,
                           graph=mode == "graph", device=dev)
+        if mode == modes[0]:  # each prompt's prefill launches
+            pre = {k: 0 for k in per}
+            for n in lengths:
+                one = (per if n <= FUSED_ATTN_MAX_KEYS else
+                       glue_prefill_launches(params, cfg, eng.numerics, n,
+                                             cache_len, dev))
+                pre = {k: pre[k] + one[k] for k in per}
         build_s = time.perf_counter() - t0
         if eng.stats["graph"] != (mode == "graph"):
             raise AssertionError(f"{mode} engine: stats {eng.stats}")
@@ -2254,11 +2406,11 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
                 raise AssertionError(f"{mode} request {rid}: bad stream "
                                      f"{out}")
         forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
-        expected = {k: n * forwards for k, n in per.items()}
+        expected = {k: n * eng.stats["decode_steps"] + pre[k]
+                    for k, n in per.items()}
         # a replay runs no Python wrapper: the global counters see the
         # graph engine's prefills only
-        wrappers = (expected if mode == "eager" else
-                    {k: n * eng.stats["prefills"] for k, n in per.items()})
+        wrappers = expected if mode == "eager" else pre
         print(f"{cfg.name} {mode} engine (built in {build_s:.2f} s, "
               f"{eng.stats['captures']} graphs captured in "
               f"{eng.stats['capture_s']:.2f} s): {eng.stats['prefills']} "
@@ -2277,20 +2429,26 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
                         stats=json.loads(json.dumps(eng.stats)))
             if eng.stats["captures"] != len(chunk_sizes(HORIZON)):
                 raise AssertionError("one graph per chunk size expected")
-    if streams["graph"] != streams["eager"]:
-        raise AssertionError(f"graph and eager streams differ: {streams}")
-    same_cache = [bool(torch.equal(a, b)) for a, b in
-                  zip(engines["graph"].caches, engines["eager"].caches)]
-    print(f"graph vs eager: token streams equal (6 x {MAX_NEW}); caches "
-          f"k, v, pos equal {same_cache}")
-    if not all(same_cache):
-        raise AssertionError("graph and eager caches differ")
+    same_cache = None
+    if "eager" in streams:
+        if streams["graph"] != streams["eager"]:
+            raise AssertionError(f"graph and eager streams differ: "
+                                 f"{streams}")
+        same_cache = [bool(torch.equal(a, b)) for a, b in
+                      zip(engines["graph"].caches, engines["eager"].caches)]
+        print(f"graph vs eager: token streams equal ({len(prompts)} x "
+              f"{MAX_NEW}); caches k, v, pos equal {same_cache}")
+        if not all(same_cache):
+            raise AssertionError("graph and eager caches differ")
     n_tok = sum(len(v) for v in streams["graph"].values())
     ticks = {}
     for mode, eng in engines.items():
-        # an eager tick's trace holds ~27k device ops a tick: one is read
+        # an eager tick's trace holds ~27k device ops a tick and its wall
+        # is the host's: one tick is timed and one read
+        graph = mode == "graph"
         ticks[mode] = phase(f"tick profile ({mode})", tick_profile, eng, cfg,
-                            n_prof=2 if mode == "graph" else 1)
+                            n=3 if graph else 1, n_prof=2 if graph else 1,
+                            lengths=tick_lengths)
         t = ticks[mode]
         print(f"{mode} tick at {SLOTS} live slots: {n_tok / walls[mode]:.2f} "
               f"tokens/s end to end (prefills included); tick wall "
@@ -2300,7 +2458,7 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
               f"{_share(t['busy_share'])} (profiled "
               f"{_share(t['profiled_busy_share'])})")
     eng = engines["graph"]
-    del engines["eager"]
+    engines.pop("eager", None)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2308,23 +2466,24 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
     num = eng.numerics
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     tok = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
-    pos = torch.tensor([300, 400, 500, 600], dtype=torch.int32, device=dev)
+    pos = torch.tensor(tick_lengths, dtype=torch.int32, device=dev)
     with torch.inference_mode():
         step_ms = timed(lambda: tf.decode_step(params, tok, pos, eng.caches,
                                                cfg, num), iters=10)
     weight_ms = n_bytes / HBM_BPS * 1e3
-    print(f"decode step (4 slots, positions 300-600, cache {CACHE_LEN}): "
+    print(f"decode step (4 slots, positions {tick_lengths}, cache "
+          f"{cache_len}): "
           f"{step_ms:.3f} ms; weight-streaming bound {weight_ms:.3f} ms "
           f"({n_bytes / 1e9:.2f} GB / {HBM_BPS / 1e12:.2f} TB/s)")
     with torch.inference_mode():
         prof = profile_steps(lambda: tf.decode_step(params, tok, pos,
                                                     eng.caches, cfg, num))
-        longest = int(np.argmax(SERVE_LENGTHS))
+        longest = int(np.argmax(lengths))
         long_prompt = torch.as_tensor(prompts[longest], dtype=torch.int64,
                                       device=dev)[None]
-        print(f"prefill of the {SERVE_LENGTHS[longest]}-token prompt:")
+        print(f"prefill of the {lengths[longest]}-token prompt:")
         prof_pre = profile_steps(lambda: tf.prefill(params, long_prompt, cfg,
-                                                    num, CACHE_LEN), n=1)
+                                                    num, cache_len), n=1)
 
     # first tokens against a plain-version prefill on the card
     plain = PlainFusedNumerics(lib)
@@ -2334,8 +2493,8 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
         for rid, p in enumerate(prompts):
             first = streams["graph"][rid][0]
             t = torch.as_tensor(p, dtype=torch.int64, device=dev)[None]
-            lp, _ = tf.prefill(params, t, cfg, plain, CACHE_LEN)
-            lk, _ = tf.prefill(params, t, cfg, num, CACHE_LEN)
+            lp, _ = tf.prefill(params, t, cfg, plain, cache_len)
+            lk, _ = tf.prefill(params, t, cfg, num, cache_len)
             lp, lk = lp[0, -1].float(), lk[0, -1].float()
             if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
                 raise AssertionError(f"request {rid}: non-finite logits")
@@ -2360,8 +2519,11 @@ def serve_one(params, cfg, lib, label, dev) -> dict:
     return dict(model=cfg.name, library=label, rom_sha=lib.rom_sha(),
                 wall_s=walls["graph"], tokens=n_tok,
                 tokens_per_s=n_tok / walls["graph"],
-                eager_wall_s=walls["eager"],
-                eager_tokens_per_s=n_tok / walls["eager"], ticks=ticks,
+                eager_wall_s=walls.get("eager"),
+                eager_tokens_per_s=(n_tok / walls["eager"] if "eager" in walls
+                                    else None), ticks=ticks,
+                n_layers=cfg.n_layers, cache_len=cache_len,
+                lengths=list(lengths),
                 decode_step_ms=step_ms, weight_bound_ms=weight_ms,
                 decode_profile=prof, prefill_profile=prof_pre,
                 per_forward=per, **main, peak_bytes=peak,
@@ -3105,37 +3267,224 @@ def _leaves(tree):
         yield tree
 
 
-def serve_phases(lib, seg_lib, dev) -> list[dict]:
-    """Full-width Yi-6B (with the serial oracle, the fault, plan and AOT /
-    async phases on its weights), then DeepSeekMoE-16B on both libraries
-    (with the AOT phase on the uniform one)."""
+# Mixtral-8x22B's run: the slot cache is its 4096-token window; two prompts
+# past or near it (decode wraps the ring), two short ones; the tick at 4
+# live slots on rings that have wrapped
+MIXTRAL_LENGTHS = (4104, 4090, 200, 17)
+MIXTRAL_TICK = (4104, 4200, 4300, 4500)
+# depth cuts: full width, fewer layers, so the weights fit one 80 GB card
+# beside the rest of the run (PERF.md §4)
+MIXTRAL_LAYERS, QWEN_LAYERS = 8, 4
+# DeepSeekMoE's dense layer 0 and 13 of its 27 MoE layers (full width): a
+# depth cut that keeps the whole run inside half its time limit
+DEEPSEEK_LAYERS = 14
+
+
+def wrapped_decode_phase(params, cfg, lib, res, dev, steps: int = 2) -> dict:
+    """Decode tokens past the wrap of Mixtral's ring (positions >= the
+    window) for the prompts of 4104 (wrapped at prefill) and 4090 tokens,
+    ``steps`` of each, held two ways, each within the 2^-5 max|logit| tie
+    band:
+
+    - the engine's token against the plain versions of the same
+      computation: a plain prefill of the prompt into one slot's ring, then
+      plain decodes teacher-forced with the engine's tokens;
+    - the ring against no ring: the kernels' decode on one slot's ring
+      (teacher-forced likewise) against a plain re-prefill of the grown
+      sequence (prompt + the tokens before the step), which masks by window
+      with no ring at all. Both with expert capacity for every token copy:
+      a prefill drops the copies past an expert's capacity, last tokens
+      first (``models.moe``), a decode never does, so at the configured
+      capacity a re-prefill is not the function the decode computes.
+
+    The re-prefill passes 4096 keys, so it takes ``attention_core``'s glue
+    path (1024-key chunks, the last one shorter)."""
     import torch
 
-    from repro_torch.configs import deepseek_moe_16b, yi_6b
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import FusedInterpNumerics, PlainFusedNumerics
+
+    w, m = cfg.sliding_window, cfg.moe
+    no_drop = cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in res["lengths"]]
+    streams = res["streams"]
+    plain, kern = PlainFusedNumerics(lib), FusedInterpNumerics(lib)
+    cache_len = res["cache_len"]
+
+    def gap(logits, tok):
+        lf = logits.float()
+        if not torch.isfinite(lf).all():
+            raise AssertionError("non-finite logits")
+        return float(lf.max() - lf[tok]), 2.0 ** -5 * float(lf.abs().max())
+
+    checked = []
+    with torch.inference_mode():
+        for rid, p in enumerate(prompts):
+            if len(p) + MAX_NEW - 1 <= w:
+                continue
+            first = max(1, w - len(p) + 1)  # decode step t runs at L + t - 1
+            held = list(range(first, MAX_NEW))[:steps]
+            toks = streams[rid]
+            ring = {}  # (run, step) -> logits of one slot's ring decode
+            for run, c, num in (("plain", cfg, plain),
+                                ("kernels, no drop", no_drop, kern)):
+                _, cache = tf.prefill(params, torch.as_tensor(
+                    p, dtype=torch.int64, device=dev)[None], c, num,
+                    cache_len)
+                for t in range(1, held[-1] + 1):
+                    lg, cache = tf.decode_step(
+                        params, torch.tensor([[toks[t - 1]]], device=dev),
+                        torch.tensor([len(p) + t - 1], device=dev), cache,
+                        c, num)
+                    ring[run, t] = lg[0, -1]
+            for t in held:
+                seq = np.concatenate([p, np.asarray(toks[:t], np.int32)])
+                lp, _ = tf.prefill(params, torch.as_tensor(
+                    seq, dtype=torch.int64, device=dev)[None], no_drop,
+                    plain, cache_len)
+                g1, b1 = gap(ring["plain", t], toks[t])
+                g2, b2 = gap(lp[0, -1], int(ring["kernels, no drop",
+                                                 t].argmax()))
+                row = dict(rid=rid, step=t, position=len(seq) - 1,
+                           ring_row=(len(seq) - 1) % w, engine_gap=g1,
+                           engine_band=b1, ring_gap=g2, ring_band=b2)
+                checked.append(row)
+                if g1 > b1 or g2 > b2:
+                    raise AssertionError(f"wrapped decode {row}")
+    print(f"{cfg.name} wrapped decode: engine tokens vs the plain ring "
+          f"decode, and the kernels' ring decode vs the plain re-prefill of "
+          f"the grown sequence (capacity for every copy): "
+          f"{sum(r['engine_gap'] == 0 for r in checked)} / "
+          f"{sum(r['ring_gap'] == 0 for r in checked)} of {len(checked)} "
+          f"equal, the rest in the tie band: {checked}")
+    if len(checked) < 2 * steps:
+        raise AssertionError("fewer wrapped decode steps than asked")
+    return dict(checked=checked)
+
+
+# a prime-length prompt past Mixtral's window beside MIXTRAL_LENGTHS' 4104
+LONG_PREFILLS = (4099, 4104)
+
+
+def long_prefill_phase(params, cfg, lib, cache_len: int, dev) -> dict:
+    """One prefill into Mixtral's window ring on the kernels at each of
+    ``LONG_PREFILLS``: past ``FUSED_ATTN_MAX_KEYS`` keys its attention runs
+    ``attention_core``'s glue path, whose chunks are 1024 keys with a
+    shorter last one, so a prime length costs what its neighbours do. Per
+    length: ms per prefill on CUDA events (the eager glue's host gaps
+    included) and the device ms of its kernels (torch.profiler), finite
+    logits, and the greedy token against the plain versions' prefill of
+    the same prompt within the 2^-5 max|logit| tie band."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import FusedInterpNumerics, PlainFusedNumerics
+
+    rng = np.random.default_rng(2)
+    kern, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+    rows = []
+    with torch.inference_mode():
+        for n in LONG_PREFILLS:
+            ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                  dtype=torch.int64, device=dev)[None]
+
+            def run(num=kern):
+                return tf.prefill(params, ids, cfg, num, cache_len)[0][0, -1]
+            got, want = run().float(), run(plain).float()
+            if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+                raise AssertionError(f"{n}-token prefill: non-finite logits")
+            tok = int(got.argmax())
+            gap = float(want.max() - want[tok])
+            band = 2.0 ** -5 * float(want.abs().max())
+            row = dict(tokens=n, ms=timed(run, iters=2, warmup=0),
+                       device_ms=device_ms(run, iters=1,
+                                           label=f"prefill {n}"),
+                       token_gap=gap, band=band)
+            print(f"{cfg.name} {n}-token prefill on the kernels: {row}")
+            if gap > band:
+                raise AssertionError(f"{n}-token prefill: greedy token out "
+                                     f"of the tie band {row}")
+            rows.append(row)
+    return dict(rows=rows)
+
+
+def serve_phases(lib, seg_lib, dev) -> list[dict]:
+    """Full-width Yi-6B (with the serial oracle, the fault, plan and AOT /
+    async phases on its weights), DeepSeekMoE-16B at ``DEEPSEEK_LAYERS``
+    layers on both libraries (with the AOT phase on the uniform one), then
+    the other decoder families on
+    the uniform library: MiniCPM3-4B (MLA; graph, eager and AOT engines),
+    Mixtral-8x22B at ``MIXTRAL_LAYERS`` layers (graph and eager on its
+    window ring, the wrapped decode against the plain re-prefill, a
+    prime-length prefill), Qwen1.5-110B at ``QWEN_LAYERS`` layers and
+    Minitron-8B (graph engines)."""
+    from repro_torch.configs import (deepseek_moe_16b, minicpm3_4b,
+                                     minitron_8b, mixtral_8x22b, qwen1_5_110b,
+                                     yi_6b)
 
     serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
-                   yi_6b.CONFIG, extra=lambda params, cfg: yi_extra_phases(
-                       params, cfg, lib, seg_lib, dev))
-    gc.collect()  # the Yi-6B weights and cache go before DeepSeekMoE's init
-    torch.cuda.empty_cache()
-    print(f"after freeing yi_6b: {torch.cuda.memory_allocated(dev) / 1e9:.2f} "
-          f"GB allocated, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+                   yi_6b.CONFIG, extra=lambda params, cfg, _r:
+                   yi_extra_phases(params, cfg, lib, seg_lib, dev))
+    freed(dev, "yi_6b")
     serves += phase("serve deepseek_moe_16b", serve_phase,
                     [("uniform", lib), ("segmented", seg_lib)], dev,
-                    deepseek_moe_16b.CONFIG,
-                    extra=lambda params, cfg: {"aot": phase(
+                    deepseek_moe_16b.CONFIG.replace(n_layers=DEEPSEEK_LAYERS),
+                    extra=lambda params, cfg, _r: {"aot": phase(
                         "aot deepseek_moe_16b", aot_phase, params, cfg, lib,
                         dev)})
+    freed(dev, "deepseek_moe_16b")
+    serves += phase("serve minicpm3_4b", serve_phase, [("uniform", lib)],
+                    dev, minicpm3_4b.CONFIG, extra=lambda params, cfg, _r: {
+                        "aot": phase("aot minicpm3_4b", aot_phase, params,
+                                     cfg, lib, dev)})
+    freed(dev, "minicpm3_4b")
+    mixtral = mixtral_8x22b.CONFIG
+    serves += phase(
+        "serve mixtral_8x22b", serve_phase, [("uniform", lib)], dev,
+        mixtral.replace(n_layers=MIXTRAL_LAYERS),
+        extra=lambda params, cfg, r: {
+            "wrap": phase("mixtral wrapped decode", wrapped_decode_phase,
+                          params, cfg, lib, r, dev),
+            "long_prefill": phase("mixtral prime-length prefill",
+                                  long_prefill_phase, params, cfg, lib,
+                                  r["cache_len"], dev)},
+        lengths=MIXTRAL_LENGTHS, cache_len=mixtral.sliding_window,
+        tick_lengths=MIXTRAL_TICK)
+    freed(dev, "mixtral_8x22b")
+    serves += phase("serve qwen1_5_110b", serve_phase, [("uniform", lib)],
+                    dev, qwen1_5_110b.CONFIG.replace(n_layers=QWEN_LAYERS),
+                    modes=("graph",))
+    freed(dev, "qwen1_5_110b")
+    serves += phase("serve minitron_8b", serve_phase, [("uniform", lib)],
+                    dev, minitron_8b.CONFIG, modes=("graph",))
     return serves
 
 
+def freed(dev, name: str) -> None:
+    """Free what the last serve run left (its weights and cache go before
+    the next init) and print what stays allocated."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after freeing {name}: "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, "
+          f"max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+
 def path_launches(serves) -> dict:
-    """Kernel launches of the plan and AOT paths' own runs, one entry per
-    path (each engine's ``stats["launches"]``, read just after its run: a
-    graph replay adds its capture's launches)."""
+    """Kernel launches of each serve run's graph engine (the main path; the
+    kernels line's ``launches`` is their sum) and of the plan and AOT
+    paths' own runs, one entry per run (each engine's
+    ``stats["launches"]``, read just after its run: a graph replay adds
+    its capture's launches)."""
     out: dict = {}
     for sv in serves:
+        out[f"serve {sv['model']} {sv['library']}"] = sv["launches"]
         extra = sv.get("extra") or {}
         runs = {"plan three_slot": extra.get("plans", {}).get("three_slot")}
         runs.update({f"aot {k}": extra.get("aot", {}).get(k)
@@ -3201,6 +3550,8 @@ def main() -> int:
     walk_rows, walk_details = phase("walk", walk_phase, seg_lib, seg_designs,
                                     lib, designs, dev, silu_codes)
     rows, details = phase("kernels", kernel_phases, lib, dev, silu_codes)
+    family_rows = phase("family kernel shapes", family_kernel_phase, lib,
+                        dev)
     _, seg_details = phase("kernels", kernel_phases, seg_lib, dev,
                            silu_codes, "segmented")
     act_rows, act_details, act_launches = phase(
@@ -3217,12 +3568,17 @@ def main() -> int:
     for name in ENVELOPE_KERNELS:
         launches[name] += seg_gen["launches"][name]
     launches.update(pertable["launches"])
-    # the int32 table reads run on the eager chain (act_phase), not in
-    # serving, whose activations are act_lib launches
-    launches.update(act_launches)
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel never launched on the paths: "
-                             f"{launches}")
+    # the eager chain (the interp backend's activation, act_phase) has its
+    # own entry; ``launches`` keeps the main path's counts
+    by_path["eager chain"] = act_launches
+    idle = [name for name, n in launches.items()
+            if not n and name not in OFF_MAIN_PATH]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{idle} ({launches})")
+    for name in OFF_MAIN_PATH:
+        if not act_launches[name]:
+            raise AssertionError(f"{name} never launched on the eager chain")
 
     kernels = []
     replaces = {
@@ -3262,11 +3618,19 @@ def main() -> int:
     }
     rows = {**rows, **dspace_rows, **walk_rows, **tab_rows, **act_rows,
             "interp_eval": ie_row}
+    family = {}  # the new families' shapes of each serving kernel
+    for r in family_rows:
+        family.setdefault(r["name"], []).append(
+            {k: r.get(k) for k in ("shape", "mode", "dv", "window",
+                                   "max_abs_err", "graph_ms", "bound_ms",
+                                   "bound_by", "library_graph_ms")})
     for name, (source, rep) in replaces.items():
         r = rows[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": rep,
                         "launches": launches[name],
+                        **({"off_main_path": OFF_MAIN_PATH[name]}
+                           if name in OFF_MAIN_PATH else {}),
                         "launches_by_path": {
                             path: n[name] for path, n in by_path.items()
                             if n.get(name)},
@@ -3275,11 +3639,13 @@ def main() -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         "graph_ms": r["graph_ms"],
-                        "library_graph_ms": r["library_graph_ms"]})
+                        "library_graph_ms": r["library_graph_ms"],
+                        "family_shapes": family.get(name, [])})
     report = {"device": smi[0], "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build.BUILD_LOG["seconds"],
               "kernel_phases": (dspace_details + ie_details + walk_details
-                                + details + seg_details + act_details),
+                                + details + seg_details + act_details
+                                + family_rows),
               "new_activations": new_acts,
               "generator": gen, "pertable": pertable, "serve": serves,
               "launches_by_path": by_path,

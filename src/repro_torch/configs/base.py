@@ -1,7 +1,9 @@
 """Architecture configuration (twin of ``repro/configs/base.py``): the fields
-the dense GQA decoder and the MoE family read, and the per-layer numerics
-plan. QKV bias, sliding windows, tied embeddings, other norms and
-activations port with the model families that use them."""
+the decoder-only families read (GQA with QKV bias and sliding windows, MLA,
+MoE, SwiGLU / GELU / squared-ReLU MLPs, tied embeddings) and the per-layer
+numerics plan. ``SSMConfig``, ``EncoderConfig``, the frontend and norm
+fields, ``ShapeConfig`` and ``cell_is_runnable`` port with the SSM,
+encoder-decoder and VLM families."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +25,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str  # this port serves "dense" and "moe"
@@ -33,9 +44,14 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None
+    attn_bias: bool = False  # Qwen-style QKV bias
+    sliding_window: Optional[int] = None  # Mixtral SWA: a ring cache
+    mla: Optional[MLAConfig] = None
     rope_theta: float = 1e4
     moe: Optional[MoEConfig] = None
     first_dense_ff: Optional[int] = None  # DeepSeekMoE: dense layer 0 with own d_ff
+    act: str = "silu"  # silu (SwiGLU) | gelu | relu2
+    tie_embeddings: bool = False
     numerics: str = "exact"  # exact | interp | interp-fused
     # per-layer heterogeneous numerics (DESIGN.md §16). When set, the plan
     # overrides ``numerics``: each layer x op site carries its own backend
@@ -48,11 +64,19 @@ class ModelConfig:
         return self.head_dim if self.head_dim is not None else \
             self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts? (SSM/hybrid state or
+        SWA)"""
+        return (self.family in ("ssm", "hybrid")
+                or self.sliding_window is not None)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
 
-ARCH_IDS = ["deepseek_moe_16b", "yi_6b"]
+ARCH_IDS = ["mixtral_8x22b", "deepseek_moe_16b", "qwen1_5_110b",
+            "minicpm3_4b", "minitron_8b", "yi_6b"]
 
 
 def get_config(arch: str) -> ModelConfig:

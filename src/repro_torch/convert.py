@@ -5,7 +5,10 @@ i.e. ``jax.tree.map(np.asarray, repro.models.transformer.init_params(key,
 cfg))`` (``segments/seg<i>/0/...``: stacked over layers where a segment
 repeats, unstacked for a one-layer segment), and returns the port's
 parameter dict, so that both packages compute the same function. Every
-leaf must have the port's shape and dtype for ``cfg``; nothing is cast.
+leaf must have the port's shape and dtype for ``cfg``; nothing is cast. A
+reference leaf that the port's tree does not name is refused too: a
+dropped leaf (a QKV bias, say) would otherwise show only as a logit
+difference.
 """
 from __future__ import annotations
 
@@ -29,6 +32,11 @@ def params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"
     dev = resolve(device)
 
     def walk(shapes: dict, src: dict, path: str) -> dict:
+        extra = sorted(set(src) - set(shapes))
+        if extra:
+            raise KeyError(f"reference leaves {[path + e for e in extra]} "
+                           f"have no place in the port's tree for "
+                           f"{cfg.name}")
         out = {}
         for name, sp in shapes.items():
             if name not in src:

@@ -3,9 +3,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
         --numerics interp --requests 6 --slots 4 --prompt-len 64 --max-new 16
 
-runs the full-width model (``--arch yi_6b`` or ``deepseek_moe_16b``) on the
-CUDA card; ``--smoke --device cpu`` runs the reduced config on the CPU
-through the kernels' plain versions. The flags and defaults are the
+runs the full-width model on the CUDA card; ``--arch`` takes the served
+ids of ``configs.base.ARCH_IDS``: ``yi_6b``, ``deepseek_moe_16b``,
+``minicpm3_4b`` (MLA), ``mixtral_8x22b`` (sliding-window MoE: a
+``--cache-len`` of at least its 4096-token window), ``qwen1_5_110b`` (QKV
+bias) and ``minitron_8b`` (squared ReLU). ``--smoke --device cpu`` runs
+the reduced config on the CPU through the kernels' plain versions. The flags and defaults are the
 reference launcher's: ``--numerics exact|interp`` (``interp-fused`` names
 the same engine: interp numerics always serve through the library-bound
 kernels here), default the config's own numerics; 8 requests of 12 new

@@ -1,11 +1,16 @@
-"""Grouped-query attention with a KV cache (twin of
-``repro/models/attention.py``, the GQA path).
+"""Attention with a KV cache (twin of ``repro/models/attention.py``): GQA
+with QKV bias and sliding windows, and MLA (multi-head latent attention).
 
 ``attention_core`` takes the numerics backend's fused attention hook when it
 has one (the ``flash_attn_lib`` kernel on a CUDA device) and otherwise the
 reference's chunked online-softmax glue, every exponential and reciprocal
 through the backend. Decode writes the new K/V rows into the cache in
-place.
+place. A windowed GQA cache is a ring of ``min(cache_len, window)`` rows:
+row r holds the position p with p % rows == r. An MLA cache holds the
+compressed latent (``k``) and the shared rope key (``v``); decode expands
+the whole cache through ``wkv_b`` every step, as the reference does.
+``mla_train``, ``gqa_train`` and cross attention port with training and the
+encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ _F32 = torch.float32
 
 
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (..., B, KV, S, D)
-    v: torch.Tensor  # (..., B, KV, S, D)
+    k: torch.Tensor  # (..., B, KV, S, D)  [MLA: (..., B, S, kv_lora)]
+    v: torch.Tensor  # (..., B, KV, S, D)  [MLA: (..., B, S, rope_dim)]
     pos: torch.Tensor  # (..., B, S) int32 positions per slot, -1 = empty
 
 
@@ -41,11 +46,11 @@ def _mask(q_pos, kv_pos, causal: bool, window: Optional[int]):
     return ok
 
 
-def _divisor_chunk(n: int, target: int) -> int:
-    c = min(target, n)
-    while n % c:
-        c -= 1
-    return c
+def n_chunks(n: int, chunk: int) -> int:
+    """The chunks ``attention_core``'s glue path cuts an axis of ``n`` into:
+    ``min(chunk, n)`` wide, the last one shorter where ``chunk`` does not
+    divide ``n``."""
+    return -(-n // min(chunk, n))
 
 
 def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
@@ -65,9 +70,11 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
             return out
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(d)
     q = q.reshape(b, sq, kvh, g, d)
-    q_chunk = _divisor_chunk(sq, q_chunk)
-    kv_chunk = _divisor_chunk(sk, kv_chunk)
-    nq, nk = sq // q_chunk, sk // kv_chunk
+    # the reference cuts at the largest divisor (its scan needs equal
+    # chunks); this loop takes a shorter last chunk, so a prime length
+    # is not cut into one-key chunks
+    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
+    nq, nk = n_chunks(sq, q_chunk), n_chunks(sk, kv_chunk)
 
     def scores(qb, kb):
         return torch.einsum("bqkgd,bskd->bkgqs", qb.to(_F32),
@@ -135,10 +142,15 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
 
 def gqa_shapes(cfg) -> dict:
     d, hd, dt = cfg.d_model, cfg.head_size, pdtype(cfg)
-    return {"wq": spec((d, cfg.n_heads * hd), dt),
-            "wk": spec((d, cfg.n_kv_heads * hd), dt),
-            "wv": spec((d, cfg.n_kv_heads * hd), dt),
-            "wo": spec((cfg.n_heads * hd, d), dt)}
+    out = {"wq": spec((d, cfg.n_heads * hd), dt),
+           "wk": spec((d, cfg.n_kv_heads * hd), dt),
+           "wv": spec((d, cfg.n_kv_heads * hd), dt),
+           "wo": spec((cfg.n_heads * hd, d), dt)}
+    if cfg.attn_bias:
+        out.update({"bq": spec((cfg.n_heads * hd,), dt),
+                    "bk": spec((cfg.n_kv_heads * hd,), dt),
+                    "bv": spec((cfg.n_kv_heads * hd,), dt)})
+    return out
 
 
 def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
@@ -147,6 +159,8 @@ def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
@@ -154,23 +168,48 @@ def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def cache_rows(cfg, cache_len: int) -> int:
+    """Rows of one sequence's cache: a windowed GQA cache keeps
+    ``min(cache_len, window)`` (the reference's ``s_eff``)."""
+    w = cfg.sliding_window
+    return cache_len if w is None else min(cache_len, w)
+
+
 def gqa_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
-    """Prompt pass that also emits a right-padded KV cache."""
+    """Prompt pass that also emits a right-padded KV cache. A windowed cache
+    keeps the prompt's last ``s_eff`` rows, rotated so that row r holds the
+    position p with p % s_eff == r (the slot decode writes p to); a prompt
+    longer than an unwindowed cache is refused."""
     b, s, _ = x.shape
-    if s > cache_len:
+    s_eff = cache_rows(cfg, cache_len)
+    if s > s_eff and cfg.sliding_window is None:
         raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
     q, k, v = _gqa_qkv(p, x, positions, cfg)
-    o = attention_core(q, k, v, positions, positions, numerics, causal=True)
+    o = attention_core(q, k, v, positions, positions, numerics, causal=True,
+                       window=cfg.sliding_window)
     y = o.reshape(b, s, -1) @ p["wo"]
-    kc = torch.zeros((b, cfg.n_kv_heads, cache_len, cfg.head_size),
+    kc = torch.zeros((b, cfg.n_kv_heads, s_eff, cfg.head_size),
                      dtype=k.dtype, device=x.device)
     vc = torch.zeros_like(kc)
-    pos_buf = torch.full((b, cache_len), -1, dtype=torch.int32,
-                         device=x.device)
-    kc[:, :, :s] = k.transpose(1, 2)
-    vc[:, :, :s] = v.transpose(1, 2)
-    pos_buf[:, :s] = positions.to(torch.int32)
+    pos_buf = torch.full((b, s_eff), -1, dtype=torch.int32, device=x.device)
+    if s > s_eff:  # windowed: the last s_eff rows, rolled into their slots
+        k, v, positions = k[:, -s_eff:], v[:, -s_eff:], positions[:, -s_eff:]
+    n = k.shape[1]
+    kc[:, :, :n] = k.transpose(1, 2)
+    vc[:, :, :n] = v.transpose(1, 2)
+    pos_buf[:, :n] = positions.to(torch.int32)
+    if s > s_eff and s % s_eff:
+        shift = s % s_eff
+        kc, vc = torch.roll(kc, shift, 2), torch.roll(vc, shift, 2)
+        pos_buf = torch.roll(pos_buf, shift, 1)
     return y, KVCache(kc, vc, pos_buf)
+
+
+def gqa_cache_specs(cfg, b: int, s: int, dtype) -> KVCache:
+    s_eff = cache_rows(cfg, s)
+    return KVCache(k=spec((b, cfg.n_kv_heads, s_eff, cfg.head_size), dtype),
+                   v=spec((b, cfg.n_kv_heads, s_eff, cfg.head_size), dtype),
+                   pos=spec((b, s_eff), torch.int32))
 
 
 def decode_kv_chunk(cache_len: int) -> int:
@@ -202,15 +241,15 @@ def attention_reads_host(keys: int, kv_chunk: int, numerics) -> bool:
             getattr(b, "fused_attention", None) is not None
             for b in _softmax_backends(numerics)):
         return False
-    return keys // _divisor_chunk(keys, kv_chunk) >= SKIP_CHUNKS
+    return n_chunks(keys, kv_chunk) >= SKIP_CHUNKS
 
 
-def decode_reads_host(cache_len: int, numerics) -> bool:
-    """Whether ``gqa_decode`` on a cache of ``cache_len`` rows reads device
-    values back to the host in some layer (:func:`attention_reads_host`
-    with the decode's key chunk)."""
-    return attention_reads_host(cache_len, decode_kv_chunk(cache_len),
-                                numerics)
+def decode_reads_host(rows: int, numerics) -> bool:
+    """Whether ``gqa_decode`` / ``mla_decode`` on a cache of ``rows`` rows
+    (a windowed cache's :func:`cache_rows`) reads device values back to
+    the host in some layer (:func:`attention_reads_host` with the decode's
+    key chunk)."""
+    return attention_reads_host(rows, decode_kv_chunk(rows), numerics)
 
 
 def prefill_reads_host(seq: int, numerics) -> bool:
@@ -228,6 +267,16 @@ def _decode_positions(pos, b: int, device):
     return pos, positions.to(torch.int32)
 
 
+def _write_slot(cfg, positions, s_max: int):
+    """The cache row each batch row's new K/V goes to: ``pos % rows`` in a
+    windowed ring, else ``pos`` clamped as the reference's
+    ``dynamic_update_slice`` clamps its start index. Computed on the
+    device, so a captured tick replays it for any position."""
+    if cfg.sliding_window is not None:
+        return torch.remainder(positions[:, 0], s_max)
+    return torch.clamp(positions[:, 0], 0, s_max - 1)
+
+
 def gqa_decode(p: dict, x, pos, cache: KVCache, cfg, numerics):
     """x: (B, 1, d); pos: scalar or (B,) per-slot positions; ``cache`` is
     one layer's (B, KV, S, D) view, updated in place and returned."""
@@ -235,14 +284,122 @@ def gqa_decode(p: dict, x, pos, cache: KVCache, cfg, numerics):
     pos, positions = _decode_positions(pos, b, x.device)
     q, k, v = _gqa_qkv(p, x, positions, cfg)
     s_max = cache.k.shape[2]
-    # the reference's dynamic_update_slice clamps the write index
-    slot = torch.clamp(positions[:, 0], 0, s_max - 1)
+    slot = _write_slot(cfg, positions, s_max)
     rows = torch.arange(b, device=x.device)
     cache.k[rows, :, slot] = k[:, 0]
     cache.v[rows, :, slot] = v[:, 0]
     cache.pos[rows, slot] = positions[:, 0]
     o = attention_core(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
                        positions, cache.pos, numerics, causal=True,
+                       window=cfg.sliding_window,
                        kv_chunk=decode_kv_chunk(s_max))
     y = o.reshape(b, 1, -1) @ p["wo"]
     return y, cache
+
+
+def mla_shapes(cfg) -> dict:
+    m, d, dt = cfg.mla, cfg.d_model, pdtype(cfg)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": spec((d, m.q_lora_rank), dt),
+        "q_norm": {"scale": spec((m.q_lora_rank,), dt)},
+        "wq_b": spec((m.q_lora_rank, cfg.n_heads * qk), dt),
+        "wkv_a": spec((d, m.kv_lora_rank + m.qk_rope_head_dim), dt),
+        "kv_norm": {"scale": spec((m.kv_lora_rank,), dt)},
+        "wkv_b": spec((m.kv_lora_rank,
+                       cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)),
+                      dt),
+        "wo": spec((cfg.n_heads * m.v_head_dim, d), dt),
+    }
+
+
+def _mla_q(p, x, positions, cfg, numerics):
+    """Queries (B, S, H, nope + rope): the low-rank path through
+    ``q_norm`` (the layer's rmsnorm, its scale as stored, as
+    ``layers.apply_norm``), RoPE on the rope part."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    ql = numerics.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"]).to(x.dtype)
+    q = (ql @ p["wq_b"]).reshape(b, s, cfg.n_heads, qk)
+    qn, qr = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return torch.cat([qn, apply_rope(qr, cos, sin)], -1)
+
+
+def _mla_kv_latent(p, x, positions, cfg, numerics):
+    """The cached latents: (B, S, kv_lora) through ``kv_norm`` and the
+    shared rope key (B, S, rope)."""
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    ckv, kr = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    ckv = numerics.rmsnorm(ckv, p["kv_norm"]["scale"]).to(x.dtype)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    kr = apply_rope(kr[:, :, None, :], cos, sin)[:, :, 0, :]
+    return ckv, kr
+
+
+def _mla_expand(p, ckv, kr, cfg):
+    """Latents -> per-head K (nope + rope) and V, V a view of the
+    expansion."""
+    m = cfg.mla
+    b, s, _ = ckv.shape
+    kvb = (ckv @ p["wkv_b"]).reshape(b, s, cfg.n_heads,
+                                     m.qk_nope_head_dim + m.v_head_dim)
+    kn, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
+    kr_b = kr[:, :, None, :].expand(b, s, cfg.n_heads, m.qk_rope_head_dim)
+    return torch.cat([kn, kr_b], -1), v
+
+
+def mla_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
+    """The reference's ``mla_train`` forward (latents expanded, causal
+    attention over the prompt), and the latent cache right-padded to
+    ``cache_len`` rows. The reference computes the latents twice (once
+    inside ``mla_train``); the same function once here."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    if s > cache_len:
+        raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
+    q = _mla_q(p, x, positions, cfg, numerics)
+    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics)
+    k, v = _mla_expand(p, ckv, kr, cfg)
+    o = attention_core(q, k, v, positions, positions, numerics, causal=True)
+    y = o.reshape(b, s, -1) @ p["wo"]
+    ck = torch.zeros((b, cache_len, m.kv_lora_rank), dtype=ckv.dtype,
+                     device=x.device)
+    krb = torch.zeros((b, cache_len, m.qk_rope_head_dim), dtype=kr.dtype,
+                      device=x.device)
+    pos_buf = torch.full((b, cache_len), -1, dtype=torch.int32,
+                         device=x.device)
+    ck[:, :s] = ckv
+    krb[:, :s] = kr
+    pos_buf[:, :s] = positions.to(torch.int32)
+    return y, KVCache(ck, krb, pos_buf)
+
+
+def mla_decode(p: dict, x, pos, cache: KVCache, cfg, numerics):
+    """x: (B, 1, d); pos: scalar or (B,) per-slot positions; ``cache`` is
+    one layer's latent view (k (B, S, kv_lora), v (B, S, rope), pos (B,
+    S)), updated in place and returned."""
+    b = x.shape[0]
+    pos, positions = _decode_positions(pos, b, x.device)
+    q = _mla_q(p, x, positions, cfg, numerics)
+    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics)
+    s_max = cache.k.shape[1]
+    slot = _write_slot(cfg, positions, s_max)
+    rows = torch.arange(b, device=x.device)
+    cache.k[rows, slot] = ckv[:, 0]
+    cache.v[rows, slot] = kr[:, 0]
+    cache.pos[rows, slot] = positions[:, 0]
+    k, v = _mla_expand(p, cache.k, cache.v, cfg)
+    o = attention_core(q, k, v, positions, cache.pos, numerics, causal=True,
+                       kv_chunk=decode_kv_chunk(s_max))
+    y = o.reshape(b, 1, -1) @ p["wo"]
+    return y, cache
+
+
+def mla_cache_specs(cfg, b: int, s: int, dtype) -> KVCache:
+    m = cfg.mla
+    return KVCache(k=spec((b, s, m.kv_lora_rank), dtype),
+                   v=spec((b, s, m.qk_rope_head_dim), dtype),
+                   pos=spec((b, s), torch.int32))

@@ -1,6 +1,6 @@
 """Shared model layers (twin of ``repro/models/layers.py``, the subset the
-dense and MoE decoders use): shape specs, rmsnorm, RoPE, the SwiGLU MLP,
-embeddings, LM head.
+decoder-only families use): shape specs, rmsnorm, RoPE, the MLP (SwiGLU,
+GELU or squared ReLU), embeddings, the LM head (tied or not).
 
 Parameters are plain nested dicts of tensors in the reference's layout:
 weights are (in, out) and apply as ``x @ W``. A shape tree is a nested dict
@@ -49,16 +49,21 @@ def norm_shapes(cfg) -> dict:
 
 
 def mlp_shapes(cfg, d_ff: int | None = None) -> dict:
-    """SwiGLU gate + up, then down; ``d_ff`` overrides ``cfg.d_ff`` (the
-    dense layer 0 of DeepSeekMoE takes ``first_dense_ff``)."""
+    """SwiGLU (``act="silu"``): gate + up, then down; other activations one
+    up projection. ``d_ff`` overrides ``cfg.d_ff`` (the dense layer 0 of
+    DeepSeekMoE takes ``first_dense_ff``)."""
     d, dt, f = cfg.d_model, pdtype(cfg), d_ff or cfg.d_ff
-    return {"wi": spec((d, 2 * f), dt), "wo": spec((f, d), dt)}
+    if cfg.act == "silu":
+        return {"wi": spec((d, 2 * f), dt), "wo": spec((f, d), dt)}
+    return {"wi": spec((d, f), dt), "wo": spec((f, d), dt)}
 
 
 def embed_shapes(cfg) -> dict:
     dt = pdtype(cfg)
-    return {"tok": spec((cfg.vocab_size, cfg.d_model), dt),
-            "head": spec((cfg.d_model, cfg.vocab_size), dt)}
+    out = {"tok": spec((cfg.vocab_size, cfg.d_model), dt)}
+    if not cfg.tie_embeddings:
+        out["head"] = spec((cfg.d_model, cfg.vocab_size), dt)
+    return out
 
 
 def apply_norm(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
@@ -88,8 +93,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def apply_mlp(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
-    gate, up = torch.chunk(x @ p["wi"], 2, dim=-1)  # SwiGLU
-    return (numerics.silu(gate) * up) @ p["wo"]
+    h = x @ p["wi"]
+    if cfg.act == "silu":
+        gate, up = torch.chunk(h, 2, dim=-1)  # SwiGLU
+        h = numerics.silu(gate) * up
+    elif cfg.act == "gelu":
+        h = numerics.gelu(h)
+    elif cfg.act == "relu2":
+        h = torch.square(torch.relu(h))
+    else:
+        raise ValueError(cfg.act)
+    return h @ p["wo"]
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -97,4 +111,5 @@ def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def lm_logits(p: dict, h: torch.Tensor) -> torch.Tensor:
-    return h @ p["head"]
+    w = p["head"] if "head" in p else p["tok"].T
+    return h @ w

@@ -1,5 +1,6 @@
-"""Model assembly for the dense and MoE decoders (twin of
-``repro/models/transformer.py``).
+"""Model assembly for the decoder-only dense and MoE families (twin of
+``repro/models/transformer.py``): GQA (QKV bias, sliding windows) or MLA
+mixers, dense or MoE FFNs.
 
 ``layer_plan`` groups the layers into segments of one layer kind, as the
 reference does: one segment of dense-MLP layers for the dense family; a
@@ -10,8 +11,11 @@ a leading layer axis when the segment repeats (unstacked for a one-layer
 segment), and ``final_norm``; each leaf has its own dtype (the router is
 float32 whatever the parameter dtype). The KV cache is the port's own
 layout: one :class:`~repro_torch.models.attention.KVCache` with k/v of
-shape (L, B, KVH, S, D) and pos of shape (L, B, S) over all L layers,
-where the reference keeps one cache per segment. Layers run as a Python
+shape (L, B, KVH, S, D) and pos of shape (L, B, S) over all L layers
+(MLA: k (L, B, S, kv_lora), v (L, B, S, rope); a windowed cache holds
+``attention.cache_rows`` rows), where the reference keeps one cache per
+segment. The batch axis is axis 1 and the sequence axis the last of
+``pos`` in every layout. Layers run as a Python
 loop; decode updates the cache in place. Under a per-layer numerics plan
 (``numerics.for_layer``) each layer takes its own numerics and the final
 norm the plan's ``rest``; the loop needs no grouping of equal layers (the
@@ -36,7 +40,7 @@ from repro_torch.models.moe import moe_block, moe_shapes
 
 @dataclasses.dataclass(frozen=True)
 class LayerKind:
-    mixer: str  # attn (MLA and SSM mixers port with their families)
+    mixer: str  # attn | mla (the SSM mixer ports with its family)
     ffn: str | None  # mlp | moe
     mlp_ff: int = 0  # dense MLP hidden size when ffn == "mlp"
 
@@ -48,21 +52,24 @@ class Segment:
 
 
 def layer_plan(cfg) -> list[Segment]:
+    mixer = "mla" if cfg.mla is not None else "attn"
     if cfg.family == "moe":
         segs, n = [], cfg.n_layers
         if cfg.first_dense_ff:
-            segs.append(Segment((LayerKind("attn", "mlp",
+            segs.append(Segment((LayerKind(mixer, "mlp",
                                            cfg.first_dense_ff),), 1))
             n -= 1
-        segs.append(Segment((LayerKind("attn", "moe"),), n))
+        segs.append(Segment((LayerKind(mixer, "moe"),), n))
         return segs
     if cfg.family == "dense":
-        return [Segment((LayerKind("attn", "mlp", cfg.d_ff),), cfg.n_layers)]
+        return [Segment((LayerKind(mixer, "mlp", cfg.d_ff),), cfg.n_layers)]
     raise NotImplementedError(f"model family {cfg.family!r} is not ported")
 
 
 def block_shapes(kind: LayerKind, cfg) -> dict:
-    return {"norm1": norm_shapes(cfg), "mixer": attn.gqa_shapes(cfg),
+    mixer = (attn.mla_shapes(cfg) if kind.mixer == "mla"
+             else attn.gqa_shapes(cfg))
+    return {"norm1": norm_shapes(cfg), "mixer": mixer,
             "norm2": norm_shapes(cfg),
             "ffn": (moe_shapes(cfg) if kind.ffn == "moe"
                     else mlp_shapes(cfg, kind.mlp_ff))}
@@ -74,8 +81,8 @@ def segment_shapes(seg: Segment, cfg) -> dict:
 
 
 def param_shapes(cfg) -> dict:
-    """The reference's ``model_shapes`` for the dense and MoE families: a
-    tree of :class:`~repro_torch.models.layers.Spec` leaves."""
+    """The reference's ``model_shapes`` for the decoder-only dense and MoE
+    families: a tree of :class:`~repro_torch.models.layers.Spec` leaves."""
     return {"embed": embed_shapes(cfg),
             "segments": {f"seg{i}": segment_shapes(seg, cfg)
                          for i, seg in enumerate(layer_plan(cfg))},
@@ -131,15 +138,23 @@ def layer_params(p: dict, cfg, i: int):
     return kind, (tree if r is None else map_tree(lambda _n, t: t[r], tree))
 
 
+def cache_specs(cfg, b: int, cache_len: int) -> attn.KVCache:
+    """One layer's cache leaves (every layer of a ported family has the
+    same mixer): ``gqa_cache_specs`` (a windowed ring of
+    ``attention.cache_rows`` rows) or ``mla_cache_specs``."""
+    fn = (attn.mla_cache_specs if cfg.mla is not None
+          else attn.gqa_cache_specs)
+    return fn(cfg, b, cache_len, pdtype(cfg))
+
+
 def init_cache(cfg, b: int, cache_len: int,
                device: str | torch.device = "cuda") -> attn.KVCache:
+    """The empty stacked cache: zeros, positions -1, a layer axis first."""
     dev = resolve(device)
-    shape = (cfg.n_layers, b, cfg.n_kv_heads, cache_len, cfg.head_size)
-    return attn.KVCache(
-        torch.zeros(shape, dtype=pdtype(cfg), device=dev),
-        torch.zeros(shape, dtype=pdtype(cfg), device=dev),
-        torch.full((cfg.n_layers, b, cache_len), -1, dtype=torch.int32,
-                   device=dev))
+    return attn.KVCache(*(
+        torch.full((cfg.n_layers, *sp.shape), -1 if sp.dtype == torch.int32
+                   else 0, dtype=sp.dtype, device=dev)
+        for sp in cache_specs(cfg, b, cache_len)))
 
 
 def splice_cache(cfg, pool: attn.KVCache, one: attn.KVCache,
@@ -166,13 +181,15 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
         num = numerics.for_layer(i) if per_layer else numerics
         kind, lp = layer_params(p, cfg, i)
         x = apply_norm(lp["norm1"], h, cfg, num)
+        mla = kind.mixer == "mla"
         if mode == "prefill":
-            y, c = attn.gqa_prefill(lp["mixer"], x, positions, cfg, num,
-                                    cache_len)
+            y, c = (attn.mla_prefill if mla else attn.gqa_prefill)(
+                lp["mixer"], x, positions, cfg, num, cache_len)
             new.append(c)
         elif mode == "decode":
             layer = attn.KVCache(*(t[i] for t in caches))
-            y, _ = attn.gqa_decode(lp["mixer"], x, pos, layer, cfg, num)
+            y, _ = (attn.mla_decode if mla else attn.gqa_decode)(
+                lp["mixer"], x, pos, layer, cfg, num)
         else:
             raise ValueError(f"unknown mode {mode!r}")
         h = h + y

@@ -33,6 +33,11 @@ _F32 = torch.float32
 # the longest key axis the fused attention takes; longer ones run the
 # chunked glue path (``models.attention.attention_core``)
 FUSED_ATTN_MAX_KEYS = 4096
+# the most (query, key) pairs the plain fused attention takes: it forms the
+# whole score block, so past this it runs the chunked glue path too
+FUSED_ATTN_MAX_PAIRS = 1 << 22
+# elements per slice of a plain table read (PlainFusedNumerics)
+PLAIN_SLICE = 1 << 24
 
 
 # The reference's name for one design's exact integer evaluation on int32
@@ -362,15 +367,15 @@ class FusedInterpNumerics(InterpNumerics):
                         scale):
         """The ``attention_core`` fast path; None sends the caller to the
         chunked glue path (the reference's routing: Sk >
-        ``FUSED_ATTN_MAX_KEYS`` always, and Sq * Sk > 2^22 where the plain
-        version would form the whole score block, which here means on the
-        CPU)."""
+        ``FUSED_ATTN_MAX_KEYS`` always, and Sq * Sk >
+        ``FUSED_ATTN_MAX_PAIRS`` where the plain version would form the
+        whole score block, which here means on the CPU)."""
         h, kvh = q.shape[2], k.shape[2]
         if h % kvh:
             return None
         if k.shape[1] > FUSED_ATTN_MAX_KEYS:
             return None
-        if q.shape[1] * k.shape[1] > (1 << 22) and not q.is_cuda:
+        if q.shape[1] * k.shape[1] > FUSED_ATTN_MAX_PAIRS and not q.is_cuda:
             return None
         return self._attention(q, k, v, causal=causal, window=window,
                                scale=scale, q_pos=q_pos, kv_pos=kv_pos)
@@ -392,16 +397,34 @@ class PlainFusedNumerics(FusedInterpNumerics):
         lib = self.library
         fid = lib.func_id(kind)
 
-        def ev(codes):
+        def one(codes):
             fids = torch.full_like(codes, fid, dtype=torch.int32)
             if lib.segmented_kinds:
                 return library_walk_ref(codes, fids, lib.coeffs,
                                         *lib.walk_rows())
             return library_eval_ref(codes, fids, lib.coeffs, lib.meta_rows())
+
+        def ev(codes):
+            # elementwise, so a large call reads its codes in slices: the
+            # plain version's int64 temporaries are ~40 bytes an element
+            if codes.numel() <= PLAIN_SLICE:
+                return one(codes)
+            return torch.cat([one(c) for c in codes.reshape(-1).split(
+                PLAIN_SLICE)]).reshape(codes.shape)
         return ev
 
     # the glue around the plain table read on every device
     _act = InterpNumerics._act
+
+    def fused_attention(self, q, k, v, q_pos, kv_pos, *, causal, window,
+                        scale):
+        """As the kernel path, but past ``FUSED_ATTN_MAX_PAIRS`` the chunked
+        glue path on every device: the plain version forms the whole score
+        block (the CPU routing of :class:`FusedInterpNumerics`)."""
+        if q.shape[1] * k.shape[1] > FUSED_ATTN_MAX_PAIRS:
+            return None
+        return super().fused_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                       window=window, scale=scale)
 
     def _softmax(self, x):
         from repro_torch.kernels.softmax.ref import approx_softmax_library_ref

@@ -9,7 +9,10 @@ feed back -> position bump -> NaN/Inf sentinel, on the device, with one
 device-to-host copy of the (steps, slots) token block and the (slots,)
 sentinel per tick. Each slot decodes at its own next position; dead slots
 keep decoding at a frozen position (their rows are overwritten at the next
-admission). With interp numerics the decode runs through the library-bound
+admission). A sliding-window config's slots are rings of
+``min(cache_len, window)`` rows (``cache_len`` below the window is
+refused): prompts and decodes past the window wrap, so ``submit`` checks
+no overflow there. With interp numerics the decode runs through the library-bound
 kernels.
 
 The tick is the reference's one-dispatch ``lax.scan``: on a CUDA device
@@ -210,6 +213,13 @@ class ServeEngine:
         self.max_tick_s = max_tick_s
         self.verify_rom_every = max(0, int(verify_rom_every))
         self.graph = bool(graph)
+        if cfg.sliding_window is not None and cache_len < cfg.sliding_window:
+            # the wrapped decode slot (pos % cache) would overwrite KV rows
+            # that are still inside the attention window
+            raise ValueError(
+                f"cache_len {cache_len} < sliding_window "
+                f"{cfg.sliding_window}: a windowed engine must retain the "
+                f"full attention window")
         interp = _interp(cfg)
         if not interp and library is not None:
             raise ValueError(f"library passed but cfg.numerics="
@@ -339,10 +349,11 @@ class ServeEngine:
         if not self.graph:
             return ("eager: no CUDA device" if self.device.type != "cuda"
                     else "eager: graph=False")
-        if attn.decode_reads_host(self.cache_len, self.numerics):
-            return (f"eager: decode attention over {self.cache_len} cache "
-                    f"rows takes the glue path's chunk liveness test, a "
-                    f"host read (models.attention.decode_reads_host)")
+        rows = self.caches.pos.shape[-1]  # a windowed ring's s_eff
+        if attn.decode_reads_host(rows, self.numerics):
+            return (f"eager: decode attention over {rows} cache rows takes "
+                    f"the glue path's chunk liveness test, a host read "
+                    f"(models.attention.decode_reads_host)")
         return None
 
     def _graph_state(self) -> str | None:
@@ -764,9 +775,10 @@ class ServeEngine:
         raise Rejected(reason, message)
 
     def submit(self, req: Request) -> None:
-        """Enqueue a request, or raise :class:`Rejected`: decode writes KV
-        rows at absolute positions up to len(prompt) + max_new - 2, which
-        must fit the slot cache; a request past its deadline is refused."""
+        """Enqueue a request, or raise :class:`Rejected`: without a sliding
+        window, decode writes KV rows at absolute positions up to
+        len(prompt) + max_new - 2, which must fit the slot cache (a
+        windowed ring wraps); a request past its deadline is refused."""
         if self.max_queue is not None and len(self.queue) >= self.max_queue:
             self._reject("queue_full", f"request {req.rid}: queue full "
                          f"({len(self.queue)} >= max_queue {self.max_queue})")
@@ -777,14 +789,15 @@ class ServeEngine:
             self._reject("bad_prompt", f"request {req.rid}: token id "
                          f"{pmin if pmin < 0 else pmax} outside vocab "
                          f"[0, {self.cfg.vocab_size})")
-        if len(req.prompt) > self.cache_len:
-            self._reject("prompt_overflow", f"request {req.rid}: prompt "
-                         f"length {len(req.prompt)} exceeds cache_len "
-                         f"{self.cache_len}")
-        if len(req.prompt) + req.max_new - 1 > self.cache_len:
-            self._reject("decode_overflow", f"request {req.rid}: prompt "
-                         f"({len(req.prompt)}) + max_new ({req.max_new}) "
-                         f"overflows cache_len {self.cache_len}")
+        if self.cfg.sliding_window is None:  # a windowed ring wraps
+            if len(req.prompt) > self.cache_len:
+                self._reject("prompt_overflow", f"request {req.rid}: prompt "
+                             f"length {len(req.prompt)} exceeds cache_len "
+                             f"{self.cache_len}")
+            if len(req.prompt) + req.max_new - 1 > self.cache_len:
+                self._reject("decode_overflow", f"request {req.rid}: prompt "
+                             f"({len(req.prompt)}) + max_new ({req.max_new}) "
+                             f"overflows cache_len {self.cache_len}")
         if req.deadline is None and self.deadline_s is not None:
             req.deadline = self.clock() + self.deadline_s
         if req.deadline is not None and self.clock() > req.deadline:

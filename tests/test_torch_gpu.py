@@ -451,6 +451,10 @@ DECODE = {"decode": (1024, (17, 300, 1000, 600), None),
           "decode_dead": (1024, (1, 65, 200, 1024), 128)}
 
 
+# Mixtral's ring at decode: the window each case masks with
+RING = {"ring": 4096, "ring_w3000": 3000}
+
+
 def _flash_case(mode, dev, dtype):
     g = torch.Generator(device=dev).manual_seed(1)
     kw = dict(device=dev, dtype=dtype)
@@ -482,6 +486,47 @@ def _flash_case(mode, dev, dtype):
         v = torch.randn(b, sk, kvh, d, generator=g, **kw)
         kv_pos = torch.arange(sk, device=dev).expand(b, sk)
         q_pos = torch.arange(sk - sq, sk, device=dev).expand(b, sq)
+        window = None
+    elif mode in ("mla_decode", "mla_prefill"):
+        # MiniCPM3-4B's MLA: 40 heads over 40 (g = 1), Dk 96 (nope 64 +
+        # rope 32) against Dv 64; V the strided second half of the latent
+        # expansion (B, S, H, 64 + 64), as the model hands it
+        h = kvh = 40
+        b, sq, sk = (4, 1, 1024) if mode == "mla_decode" else (1, 511, 511)
+        k = torch.randn(b, sk, h, 96, generator=g, **kw)
+        v = torch.randn(b, sk, h, 128, generator=g, **kw)[..., 64:]
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk).clone()
+        if mode == "mla_decode":
+            lens = torch.tensor((17, 300, 1000, 600), device=dev)
+            kv_pos[kv_pos >= lens[:, None]] = -1
+            q_pos = (lens - 1)[:, None]
+        else:
+            q_pos = kv_pos
+        q = torch.randn(b, sq, h, 96, generator=g, **kw)
+        return q, k, v, q_pos.to(torch.int32), kv_pos.to(torch.int32), None
+    elif mode in RING:
+        # Mixtral's 4096-row window ring at decode: 4 slots of 48 query
+        # heads over 8, row r holding the position p with p % 4096 == r;
+        # the slots' latest positions rotate the ring by 0, 1, 4095 and
+        # 105 rows (row 0 is not the oldest)
+        window = RING[mode]
+        b, sq, sk, h, kvh, d = 4, 1, 4096, 48, 8, 128
+        kc = torch.randn(b, kvh, sk, d, generator=g, **kw)
+        vc = torch.randn(b, kvh, sk, d, generator=g, **kw)
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        last = torch.tensor((8191, 8192, 12286, 4200), device=dev)
+        r = torch.arange(sk, device=dev)
+        kv_pos = last[:, None] - torch.remainder(last[:, None] - r, sk)
+        q_pos = last[:, None]
+    elif mode == "qwen_decode":  # Qwen1.5-110B: 64 query heads over 8
+        b, sq, sk, h, kvh, d = 4, 1, 1024, 64, 8, 128
+        kc = torch.randn(b, kvh, sk, d, generator=g, **kw)
+        vc = torch.randn(b, kvh, sk, d, generator=g, **kw)
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        lens = torch.tensor((17, 300, 1000, 600), device=dev)
+        kv_pos = torch.arange(sk, device=dev).expand(b, sk).clone()
+        kv_pos[kv_pos >= lens[:, None]] = -1
+        q_pos = (lens - 1)[:, None]
         window = None
     else:  # small GQA with a window, padded query rows, ragged last tile
         b, sq, sk, h, kvh, d = 2, 37, 100, 6, 2, 16
@@ -557,16 +602,19 @@ def _smoke(dev, arch, dtype="float32"):
 
 def _per_forward(cfg) -> dict:
     """Kernel launches of one forward pass: an rmsnorm before attention and
-    before the FFN of every layer plus the final one; one attention per
-    layer; one silu (``act_lib``: the glue and the table read in one
-    kernel) per dense MLP and per expert group (routed, shared); one router
+    before the FFN of every layer plus the final one, and MLA's q_norm and
+    kv_norm; one attention per layer; one activation (``act_lib``: the
+    glue and the table read in one kernel) per SwiGLU or GELU MLP (squared
+    ReLU reads no table) and per expert group (routed, shared); one router
     softmax per MoE layer."""
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
+    n_mlp = 0 if cfg.act == "relu2" else len(kinds) - n_moe
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
+    norms = 4 if cfg.mla is not None else 2
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            "act_lib": cfg.n_layers + n_moe * shared,
-            "rmsnorm_lib": 2 * cfg.n_layers + 1,
+            "act_lib": n_mlp + n_moe * (1 + shared),
+            "rmsnorm_lib": norms * cfg.n_layers + 1,
             "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
 
 
@@ -1613,7 +1661,8 @@ def test_graph_tick_equals_eager_tick_bitwise(arch, lib, dev):
     assert g.stats["dispatches"] == g.stats["ticks"]
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b",
+                                  "minicpm3_4b", "mixtral_8x22b"])
 def test_fused_tick_makes_no_host_sync(arch, lib, dev):
     """A warm eager tick over live slots under
     ``torch.cuda.set_sync_debug_mode("error")``: no operation of the decode
@@ -1834,7 +1883,8 @@ def test_plan_tick_makes_no_host_sync(lib, seg_lib, _r5_cpu, dev):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b",
+                                  "minicpm3_4b"])
 def test_packed_admission_makes_no_host_sync(arch, lib, dev):
     """The packed admission body (prefill_padded, the splice of every row
     into its slot, the first tokens into the slot state) over device
@@ -1865,7 +1915,8 @@ def test_packed_admission_makes_no_host_sync(arch, lib, dev):
     assert eng._live.all() and eng._pos.tolist() == [12, 7, 16, 3]
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b",
+                                  "minicpm3_4b"])
 def test_packed_admission_graph_equals_eager(arch, lib, dev):
     """The same requests through AOT engines with graphs (each packed
     admission one replay) and without: streams and final caches bitwise,
@@ -1963,3 +2014,88 @@ def test_async_host_on_the_card(lib, dev, tmp_path):
     res = ServeEngine.resume(str(tmp_path / "j1.jsonl"), cfg, params,
                              slots=3, cache_len=64, library=lib, device=dev)
     assert res.stats["resume_skipped_done"] == len(prompts)
+
+
+# ------------------------------------------- the decoder families' shapes
+
+FAMILIES = ["minicpm3_4b", "mixtral_8x22b", "qwen1_5_110b", "minitron_8b"]
+
+
+@pytest.mark.parametrize("mode", ["mla_decode", "mla_prefill", "ring",
+                                  "ring_w3000", "qwen_decode"])
+def test_flash_kernel_at_family_shapes(mode, lib, dev):
+    """flash_attn_lib where the new families take it: MLA's Dk 96 / Dv 64
+    with g = 1 over 40 heads and V a strided view (decode with key splits,
+    a 511-token prefill), Mixtral's wrapped window ring (rows not ordered
+    by position; windows 4096 and 3000; key splits cut rows), Qwen's 64
+    heads over 8; the tolerances of ``test_flash_kernel_matches_plain``."""
+    q, k, v, *_ = _flash_case(mode, dev, torch.bfloat16)
+    if mode.startswith("mla"):
+        assert not v.is_contiguous() and v.data_ptr() % 16 == 0
+    if mode != "mla_prefill":
+        assert _tiles(q, k, v)[1] > 1 or mode == "mla_decode"
+    _check_flash(mode, torch.bfloat16, lib, dev)
+
+
+@pytest.mark.parametrize("gdtype", GAMMA_DTYPES)
+@pytest.mark.parametrize("rows,d", [(4, 768), (4, 256), (511, 768),
+                                    (511, 256), (4, 2560), (4, 6144),
+                                    (4, 8192)])
+def test_rmsnorm_kernel_at_family_widths(rows, d, gdtype, lib, dev):
+    """MLA's q_norm (768) and kv_norm (256) at decode and prefill, and the
+    residual norms of MiniCPM3 (2560), Mixtral (6144) and Qwen (8192)."""
+    _check_rmsnorm(rows, d, torch.bfloat16, lib, dev, gdtype)
+
+
+@pytest.mark.parametrize("rows", [4, 64, 4104])
+def test_softmax_kernel_router_rows_of_8(rows, lib, dev):
+    """Mixtral's router: rows of 8 experts in float32 (decode, a tick's
+    rows, a windowed prefill)."""
+    _check_softmax(rows, 8, torch.float32, lib, dev)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_smoke_prefill_through_kernels_matches_plain(arch, lib, dev):
+    cfg, params = _smoke(dev, arch)
+    n = cfg.sliding_window + 8 if cfg.sliding_window else 33
+    toks = torch.randint(0, cfg.vocab_size, (2, n), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    build.reset_launches()
+    got, cache = tf.prefill(params, toks, cfg, FusedInterpNumerics(lib), 64)
+    assert build.LAUNCHES == _per_forward(cfg)
+    want, want_cache = tf.prefill(params, toks, cfg, PlainFusedNumerics(lib),
+                                  64)
+    tol = 4 * 2.0 ** -12 * want.abs().max()
+    assert torch.all((got - want).abs() <= tol)
+    assert torch.equal(cache.pos, want_cache.pos)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_graph_tick_equals_eager_tick_bitwise(arch, lib, dev):
+    """``test_graph_tick_equals_eager_tick_bitwise`` on the new families in
+    bf16 (Mixtral's smoke prompts pass its 32-token window and decode past
+    the wrap): streams and caches bitwise, per-forward launches."""
+    cfg, params = _smoke(dev, arch, "bfloat16")
+    w = cfg.sliding_window
+    prompts = _prompts_for(cfg, (w + 8, 11, w - 2) if w else (5, 11, 3))
+    out, engines = {}, {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=64, library=lib,
+                          horizon=4, graph=graph, device=dev)
+        out[graph] = _serve_on(eng, prompts, max_new=9)
+        engines[graph] = eng
+    g, e = engines[True], engines[False]
+    assert out[True] == out[False] and g.stats["graph"] is True
+    for a, b in zip(g.caches, e.caches):
+        assert torch.equal(a, b)
+    if w:
+        assert g.caches.pos.shape[-1] == w
+    per = _per_forward(cfg)
+    for eng in engines.values():
+        forwards = eng.stats["prefills"] + eng.stats["decode_steps"]
+        assert eng.stats["launches"] == {k: n * forwards
+                                         for k, n in per.items()}
+    for i, p in enumerate(prompts):  # batching invisible on the card
+        solo = ServeEngine(cfg, params, slots=1, cache_len=64, library=lib,
+                           horizon=4, device=dev)
+        assert _serve_on(solo, [p], max_new=9)[0] == out[True][i]

@@ -46,7 +46,14 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.plan.numerics", "repro_torch.plan.assign",
             "repro_torch.dse", "repro_torch.dse.record",
             "repro_torch.dse.probe", "repro_torch.serve.aot",
-            "repro_torch.serve.pipeline")
+            "repro_torch.serve.pipeline",
+            # the decoder families' (MLA, sliding window, QKV bias, relu2)
+            "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.qwen1_5_110b",
+            "repro_torch.configs.minitron_8b",
+            "repro_torch.models.attention", "repro_torch.models.layers",
+            "repro_torch.models.transformer", "repro_torch.convert")
 
 
 @pytest.fixture

@@ -368,9 +368,11 @@ def test_decode_reads_host_decides_per_layer():
         # glue path, which every layer takes past 4096 keys
         assert attn.prefill_reads_host(8192, num) is True
         assert attn.prefill_reads_host(4096, num) is False
-        # 5003 keys (a prime) divide only into one-key chunks on the glue
-        # path, which every layer takes past 4096 keys: a host read
-        assert attn.decode_reads_host(5003, num) is True
+        # the glue path's last chunk is shorter: 5003 keys (a prime) are two
+        # decode chunks, and 7169 prefill keys the eighth 1024-key chunk
+        assert attn.decode_reads_host(5003, num) is False
+        assert attn.prefill_reads_host(7168, num) is False
+        assert attn.prefill_reads_host(7169, num) is True
 
 
 def test_uniform_plan_is_the_homogeneous_backend_bitwise():
