@@ -133,10 +133,20 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    sequence (the prompts past 4096 keys prefill through the glue path,
    whose table reads are ``library_eval`` launches); Qwen1.5-110B cut to 4
    layers (QKV bias) and Minitron-8B (squared ReLU) on a graph engine;
-   before that, the serving kernels at the shapes these models hand them
+   Mamba2-130M whole (24 SSD layers) on a graph and an eager engine with
+   the serial oracle, and Jamba-v0.1 cut to 8 of its 32 layers (one
+   period: 7 Mamba layers, 1 attention layer, 4 MoE and 4 dense MLP
+   layers) on a graph and an eager engine, both on prompts of 17 / 64 /
+   200 / 512 / 33 / 128 tokens (a prompt past the 256-token SSD chunk
+   must be whole chunks) and the tick on 256 / 512-token prompts, graph ≡
+   eager with the conv windows and recurrent states; before that, the
+   serving kernels at the shapes these models hand them
    (``family_kernel_phase``: flash at MLA's Dk 96 / Dv 64 with a strided
-   V, on a wrapped window ring and at 64 heads over 8; RMSNorm at 768,
-   256, 2560, 6144 and 8192; the router softmax over 8 experts);
+   V, on a wrapped window ring, at 64 heads over 8 and at Jamba's 32 over
+   8; RMSNorm at 768, 256, 2560, 6144 and 8192; the router softmax over 8
+   and 16 experts; ``ssm_kernel_rows``: the gated norm's float32 gamma,
+   the mixer's silu and float32 softplus, the exp_neg table reads of a
+   decode step and of a 512-token prefill);
 11. prints the throughput, a ``{"kernels": [...]}`` JSON line (each
    serving kernel's row with its ``family_shapes``) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -1607,7 +1617,9 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label, shapes=RMS_SHAPES):
 # the residual norms of MiniCPM3 (2560), Mixtral (6144) and Qwen (8192) at
 # decode; Mixtral's router (8 experts) over a tick's 4 x 16 rows
 FAMILY_RMS_SHAPES = ((4, 768), (4, 256), (4, 2560), (4, 6144), (4, 8192))
-FAMILY_SOFTMAX_SHAPES = (((4 * 16, 8), "float32"),)
+# Mixtral's router (8 experts) and Jamba's (16) over a tick's 4 x 16 rows
+FAMILY_SOFTMAX_SHAPES = (((4 * 16, 8), "float32"),
+                         ((4 * 16, 16), "float32"))
 
 
 def family_kernel_phase(lib, dev) -> list[dict]:
@@ -1667,10 +1679,18 @@ def family_kernel_phase(lib, dev) -> list[dict]:
     out.append(flash_lib_row(lib, q, kc.transpose(1, 2), vc.transpose(1, 2),
                              q_pos, kv_pos, mode="decode", label="uniform",
                              tag="h64"))
+    # Jamba's attention layer: 32 query heads over 8 at decode
+    kc = torch.randn(b, 8, 1024, 128, generator=g, **bf)
+    vc = torch.randn(b, 8, 1024, 128, generator=g, **bf)
+    q = torch.randn(b, 1, 32, 128, generator=g, **bf)
+    out.append(flash_lib_row(lib, q, kc.transpose(1, 2), vc.transpose(1, 2),
+                             q_pos, kv_pos, mode="decode", label="uniform",
+                             tag="jamba"))
     out += rmsnorm_lib_rows(lib, dev, g, flush, "uniform",
                             shapes=FAMILY_RMS_SHAPES)
     out += softmax_lib_rows(lib, dev, g, flush, "uniform",
                             shapes=FAMILY_SOFTMAX_SHAPES)
+    out += ssm_kernel_rows(lib, dev, g)
     for r in out:
         r.setdefault("library", "uniform")
         print(f"  device time {r['name']} {r['shape']} {r.get('mode', '')}"
@@ -1678,6 +1698,128 @@ def family_kernel_phase(lib, dev) -> list[dict]:
               f"{_ms(r['library_graph_ms'])}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), plain {r['plain_ms']:.5f} ms, "
               f"max_abs_err {r['max_abs_err']:.3e}")
+    return out
+
+
+# the SSM mixer's widths: (d_inner, conv_dim, in_proj width, heads) of
+# Mamba2-130M and Jamba-v0.1, and the SSD chunk (models/ssm.py)
+SSM_WIDTHS = {"mamba2": (1536, 1792, 3352, 24), "jamba": (8192, 8224, 16544,
+                                                         128)}
+SSD_CHUNK = 256
+
+
+def ssm_kernel_rows(lib, dev, g) -> list[dict]:
+    """The serving kernels at the shapes the SSM mixer hands them, each
+    against its plain version and timed beside its yardstick:
+    ``rmsnorm_lib`` on the gated norm (4 slots, d_inner 1536 / 8192, bf16
+    x, float32 gamma as the mixer passes it: 2 rsqrt-table ulps + one bf16
+    rounding), ``act_lib`` (bitwise) on the conv output's silu (4 x
+    conv_dim, bf16), on the gate z's silu (a strided view of the (4,
+    in_proj) projection, bf16) and on dt's softplus (4 x heads, float32),
+    and ``library_eval`` (bitwise) on the exp_neg codes of a decode step's
+    decay (4 x heads) and of a 512-token prefill's masked intra-chunk
+    decay (2 chunks x 256 x 256 x heads) beside ``torch.exp``; each
+    exp_neg row also times the whole ``exp_neg`` (glue and kernel,
+    ``glue_graph_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.interp.ops import library_eval
+    from repro_torch.kernels.interp.ref import LOG2E, library_eval_ref
+    from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
+    from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+    from repro_torch.numerics.ops import (FusedInterpNumerics,
+                                          PlainFusedNumerics, _quantize)
+
+    fused, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+    rs_tol = 2 * 2.0 ** -(lib.meta("rsqrt").out_bits - 1) + 2.0 ** -7
+    out = []
+
+    def row(name, shape, tag, fn, plain_fn, yard, nbytes, flops, err, tol):
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        r = dict(name=name, shape=list(shape), mode=tag, max_abs_err=err,
+                 tolerance=tol, bound_ms=b_ms, bound_by=b_by,
+                 ms=device_ms(fn, label=f"{name} {tag} {shape}",
+                              kernel=name),
+                 plain_ms=device_ms(plain_fn, iters=3,
+                                    label=f"plain {name} {tag} {shape}"),
+                 library_ms=device_ms(yard, label=f"yardstick {tag} {shape}"),
+                 **graph_cols(fn, yard))
+        out.append(r)
+        return r
+
+    for model, (d_inner, conv_dim, width, heads) in SSM_WIDTHS.items():
+        # the gated norm: bf16 x, the float32 scale
+        x = (torch.randn(4, d_inner, device=dev, generator=g) * 2
+             ).to(torch.bfloat16)
+        g32 = torch.rand(d_inner, device=dev, generator=g) + 0.5
+        got = approx_rmsnorm_library(x, g32, lib)
+        want = approx_rmsnorm_library_ref(x, g32, lib)
+        gf, wf = got.float(), want.float()
+        rel = float(((gf - wf).abs() / wf.abs().clamp_min(1e-30)).max())
+        print(f"rmsnorm_lib {model} gated norm (4, {d_inner}) bf16, f32 "
+              f"gamma: max rel {rel:.3e} (tolerance {rs_tol:.3e})")
+        if rel > rs_tol:
+            raise AssertionError(f"rmsnorm_lib gated norm {model} differs")
+        row("rmsnorm_lib", (4, d_inner), f"{model} gated, f32 gamma",
+            functools.partial(approx_rmsnorm_library, x, g32, lib),
+            functools.partial(approx_rmsnorm_library_ref, x, g32, lib),
+            lambda x=x, g32=g32: F.rms_norm(x.float(), (d_inner,), g32,
+                                            1e-6).to(torch.bfloat16),
+            4 * x.numel() + 4 * d_inner, 4 * x.numel(),
+            float((gf - wf).abs().max()), rs_tol)
+        # the activations, at the mixer's decode layouts
+        proj = (torch.randn(4, 1, width, device=dev, generator=g) * 4
+                ).to(torch.bfloat16)
+        conv = (torch.randn(4, conv_dim, device=dev, generator=g) * 4
+                ).to(torch.bfloat16)
+        dt = torch.randn(4, heads, device=dev, generator=g) * 3
+        for kind, a, tag in (("silu", conv, f"{model} conv"),
+                             ("silu", proj[..., :d_inner], f"{model} z view"),
+                             ("softplus", dt, f"{model} dt f32")):
+            got = getattr(fused, kind)(a)
+            same = torch.equal(got, getattr(plain, kind)(a))
+            print(f"act_lib {kind} {tag} {tuple(a.shape)} {a.dtype}: bitwise "
+                  f"the plain version {same} (tolerance 0)")
+            if not same:
+                raise AssertionError(f"act_lib {kind} {tag} differs")
+            yard = F.silu if kind == "silu" else F.softplus
+            row("act_lib", tuple(a.shape), tag,
+                functools.partial(getattr(fused, kind), a),
+                functools.partial(getattr(plain, kind), a),
+                functools.partial(yard, a), 2 * a.numel() * a.element_size(),
+                12 * a.numel(), 0.0, 0)
+        # the exp_neg table reads: a decode step's decay, a 512-token
+        # prefill's masked intra-chunk decay (arguments <= 0)
+        fid = lib.func_id("exp2neg")
+        m = lib.meta("exp2neg")
+        meta = lib.meta_rows()
+        cum = -torch.cumsum(torch.rand(1, 2, SSD_CHUNK, heads, device=dev,
+                                       generator=g) * 0.05, 2)
+        for tag, arg in (
+                (f"{model} decode decay", -torch.rand(
+                    4, heads, device=dev, generator=g) * 3),
+                (f"{model} prefill masked decay", torch.clamp(
+                    cum[..., :, None, :] - cum[..., None, :, :], max=0.0))):
+            t = torch.clamp(torch.clamp(-arg, min=0.0) * LOG2E, max=126.0)
+            codes = _quantize(t - torch.floor(t), m.in_bits)
+            got = library_eval(codes, fid, lib.coeffs, meta)
+            fids = torch.full_like(codes, fid)
+            want = library_eval_ref(codes, fids, lib.coeffs, meta)
+            err = int((got - want).abs().max())
+            print(f"library_eval {tag} {tuple(codes.shape)}: max_abs_err "
+                  f"{err} (tolerance 0)")
+            if err:
+                raise AssertionError(f"library_eval {tag} differs")
+            r = row("library_eval", tuple(codes.shape), tag,
+                    functools.partial(library_eval, codes, fid, lib.coeffs,
+                                      meta),
+                    functools.partial(library_eval_ref, codes, fids,
+                                      lib.coeffs, meta),
+                    functools.partial(torch.exp, arg), 8 * codes.numel(),
+                    12 * codes.numel(), float(err), 0)
+            r["glue_graph_ms"] = graph_ms(functools.partial(fused.exp_neg,
+                                                            arg))[0]
     return out
 
 
@@ -2198,28 +2340,36 @@ def pertable_phase(lib, dev):
                       launches={k: launches[k] for k in TAB_KERNELS})
 
 
-def per_forward(cfg) -> dict:
-    """Kernel launches of one forward pass of ``cfg`` on the main path: an
-    rmsnorm before attention and before the FFN of every layer plus the
-    final one, and MLA's q_norm and kv_norm; one attention per layer; one
-    activation per SwiGLU MLP and per expert group of an MoE layer
-    (routed, shared; a squared-ReLU MLP reads no table); one router softmax
-    per MoE layer. An activation is one ``act_lib`` launch on either
-    library (a segmented slot adds no launch). A prefill whose attention
-    passes ``FUSED_ATTN_MAX_KEYS`` keys takes the glue path instead of
-    ``flash_attn_lib`` (``glue_prefill_launches``)."""
+def per_forward(cfg, mode: str = "decode") -> dict:
+    """Kernel launches of one forward pass of ``cfg`` on the main path (a
+    "prefill" or a "decode"): an rmsnorm before the mixer of every layer,
+    before the FFN of every layer that has one, the final one, MLA's
+    q_norm and kv_norm and the SSM mixer's gated norm; one attention per
+    attention layer; one activation per SwiGLU MLP and per expert group of
+    an MoE layer (routed, shared; a squared-ReLU MLP reads no table) and
+    three per SSM layer (the conv output's silu, dt's softplus, the gate's
+    silu); one router softmax per MoE layer; the SSM recurrence's exp_neg
+    table reads (``library_eval``: the masked intra-chunk decay,
+    ``to_end``, ``chunk_decay`` and ``from_start`` in a prefill, the
+    step's decay in a decode). An activation is one ``act_lib`` launch on
+    either library (a segmented slot adds no launch). A prefill whose
+    attention passes ``FUSED_ATTN_MAX_KEYS`` keys takes the glue path
+    instead of ``flash_attn_lib`` (``glue_prefill_launches``)."""
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
 
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
-    n_mlp = 0 if cfg.act == "relu2" else len(kinds) - n_moe
+    n_mlp = 0 if cfg.act == "relu2" else sum(k.ffn == "mlp" for k in kinds)
+    n_ssm = sum(k.mixer == "ssm" for k in kinds)
+    n_ffn = sum(k.ffn is not None for k in kinds)
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
-    norms = 4 if cfg.mla is not None else 2
+    mla = 2 * (cfg.n_layers - n_ssm) if cfg.mla is not None else 0
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            "act_lib": n_mlp + n_moe * (1 + shared),
-            "rmsnorm_lib": norms * cfg.n_layers + 1,
-            "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
+            "act_lib": n_mlp + n_moe * (1 + shared) + 3 * n_ssm,
+            "rmsnorm_lib": cfg.n_layers + n_ffn + mla + n_ssm + 1,
+            "flash_attn_lib": cfg.n_layers - n_ssm, "softmax_lib": n_moe,
+            "library_eval": (4 if mode == "prefill" else 1) * n_ssm}
 
 
 def serve_phase(libs, dev, config, extra=None, **serve_kw) -> list[dict]:
@@ -2379,6 +2529,7 @@ def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lengths]
     per = per_forward(cfg)
+    per_prefill = per_forward(cfg, "prefill")
     engines, streams, walls = {}, {}, {}
     for mode in modes:
         t0 = time.perf_counter()
@@ -2388,7 +2539,7 @@ def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
         if mode == modes[0]:  # each prompt's prefill launches
             pre = {k: 0 for k in per}
             for n in lengths:
-                one = (per if n <= FUSED_ATTN_MAX_KEYS else
+                one = (per_prefill if n <= FUSED_ATTN_MAX_KEYS else
                        glue_prefill_launches(params, cfg, eng.numerics, n,
                                              cache_len, dev))
                 pre = {k: pre[k] + one[k] for k in per}
@@ -2434,10 +2585,12 @@ def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
         if streams["graph"] != streams["eager"]:
             raise AssertionError(f"graph and eager streams differ: "
                                  f"{streams}")
-        same_cache = [bool(torch.equal(a, b)) for a, b in
-                      zip(engines["graph"].caches, engines["eager"].caches)]
+        same_cache = [bool(torch.equal(a, b)) for a, b in zip(
+            tf.cache_leaves(engines["graph"].caches),
+            tf.cache_leaves(engines["eager"].caches))]
         print(f"graph vs eager: token streams equal ({len(prompts)} x "
-              f"{MAX_NEW}); caches k, v, pos equal {same_cache}")
+              f"{MAX_NEW}); cache leaves (k, v, pos; SSM conv, ssm) equal "
+              f"{same_cache}")
         if not all(same_cache):
             raise AssertionError("graph and eager caches differ")
     n_tok = sum(len(v) for v in streams["graph"].values())
@@ -2526,7 +2679,8 @@ def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
                 lengths=list(lengths),
                 decode_step_ms=step_ms, weight_bound_ms=weight_ms,
                 decode_profile=prof, prefill_profile=prof_pre,
-                per_forward=per, **main, peak_bytes=peak,
+                per_forward=per, per_prefill=per_prefill, **main,
+                peak_bytes=peak,
                 max_dlogit=max_dlogit,
                 first_token_ties=ties, caches_equal=same_cache,
                 streams=streams["graph"])
@@ -2544,10 +2698,10 @@ def yi_extra_phases(params, cfg, lib, seg_lib, dev) -> dict:
                          async_host=True)}
 
 
-def serial_oracle_phase(params, cfg, dev) -> dict:
+def serial_oracle_phase(params, cfg, dev, lengths=SERVE_LENGTHS) -> dict:
     """The serial path (one decode forward and a host argmax per token)
     against the graph tick, both with exact numerics, on the 6 serve
-    requests: bitwise equal streams."""
+    requests (prompts of ``lengths`` tokens): bitwise equal streams."""
     import torch
 
     from repro_torch.serve.engine import ServeEngine
@@ -2555,7 +2709,7 @@ def serial_oracle_phase(params, cfg, dev) -> dict:
     cfg = cfg.replace(numerics="exact")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
-               for n in SERVE_LENGTHS]
+               for n in lengths]
     out, walls, stats = {}, {}, {}
     for fused in (True, False):
         eng = ServeEngine(cfg, params, slots=SLOTS, cache_len=CACHE_LEN,
@@ -3278,6 +3432,15 @@ MIXTRAL_LAYERS, QWEN_LAYERS = 8, 4
 # DeepSeekMoE's dense layer 0 and 13 of its 27 MoE layers (full width): a
 # depth cut that keeps the whole run inside half its time limit
 DEEPSEEK_LAYERS = 14
+# the SSM runs: a prompt longer than the 256-token SSD chunk must be a
+# whole number of chunks (the reference's contract), so 512 stands for
+# SERVE_LENGTHS' 511 and the tick's prompts are 256 / 512
+SSM_LENGTHS = (17, 64, 200, 512, 33, 128)
+SSM_TICK = (256, 512, 256, 512)
+# Jamba at full width, one period of its 32 layers (7 Mamba, 1 attention,
+# 4 MoE, 4 dense MLP): the whole model (~103 GB of bf16) does not fit one
+# card
+JAMBA_LAYERS = 8
 
 
 def wrapped_decode_phase(params, cfg, lib, res, dev, steps: int = 2) -> dict:
@@ -3420,10 +3583,12 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
     Mixtral-8x22B at ``MIXTRAL_LAYERS`` layers (graph and eager on its
     window ring, the wrapped decode against the plain re-prefill, a
     prime-length prefill), Qwen1.5-110B at ``QWEN_LAYERS`` layers and
-    Minitron-8B (graph engines)."""
-    from repro_torch.configs import (deepseek_moe_16b, minicpm3_4b,
-                                     minitron_8b, mixtral_8x22b, qwen1_5_110b,
-                                     yi_6b)
+    Minitron-8B (graph engines), then the SSM families: Mamba2-130M whole
+    (graph and eager engines, the serial oracle) and Jamba-v0.1 at
+    ``JAMBA_LAYERS`` layers (graph and eager), both on ``SSM_LENGTHS``."""
+    from repro_torch.configs import (deepseek_moe_16b, jamba_v0_1_52b,
+                                     mamba2_130m, minicpm3_4b, minitron_8b,
+                                     mixtral_8x22b, qwen1_5_110b, yi_6b)
 
     serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
                    yi_6b.CONFIG, extra=lambda params, cfg, _r:
@@ -3460,6 +3625,17 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
     freed(dev, "qwen1_5_110b")
     serves += phase("serve minitron_8b", serve_phase, [("uniform", lib)],
                     dev, minitron_8b.CONFIG, modes=("graph",))
+    freed(dev, "minitron_8b")
+    serves += phase("serve mamba2_130m", serve_phase, [("uniform", lib)],
+                    dev, mamba2_130m.CONFIG, extra=lambda params, cfg, _r: {
+                        "serial_oracle": phase(
+                            "serial oracle mamba2_130m", serial_oracle_phase,
+                            params, cfg, dev, lengths=SSM_LENGTHS)},
+                    lengths=SSM_LENGTHS, tick_lengths=SSM_TICK)
+    freed(dev, "mamba2_130m")
+    serves += phase("serve jamba_v0_1_52b", serve_phase, [("uniform", lib)],
+                    dev, jamba_v0_1_52b.CONFIG.replace(n_layers=JAMBA_LAYERS),
+                    lengths=SSM_LENGTHS, tick_lengths=SSM_TICK)
     return serves
 
 

@@ -1,9 +1,10 @@
 """Architecture configuration (twin of ``repro/configs/base.py``): the fields
 the decoder-only families read (GQA with QKV bias and sliding windows, MLA,
-MoE, SwiGLU / GELU / squared-ReLU MLPs, tied embeddings) and the per-layer
-numerics plan. ``SSMConfig``, ``EncoderConfig``, the frontend and norm
-fields, ``ShapeConfig`` and ``cell_is_runnable`` port with the SSM,
-encoder-decoder and VLM families."""
+MoE, SwiGLU / GELU / squared-ReLU MLPs, tied embeddings), the Mamba2 mixer
+and the hybrid period (``SSMConfig``, ``ssm``, ``attn_period``) and the
+per-layer numerics plan. ``EncoderConfig``, the frontend / norm /
+learned-position fields, ``ShapeConfig`` and ``cell_is_runnable`` port
+with the encoder-decoder and VLM families and with training."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,9 +35,19 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256  # SSD chunk length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # this port serves "dense" and "moe"
+    family: str  # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -50,6 +61,8 @@ class ModelConfig:
     rope_theta: float = 1e4
     moe: Optional[MoEConfig] = None
     first_dense_ff: Optional[int] = None  # DeepSeekMoE: dense layer 0 with own d_ff
+    ssm: Optional[SSMConfig] = None
+    attn_period: int = 0  # hybrid: 1 attention layer per this many (Jamba: 8)
     act: str = "silu"  # silu (SwiGLU) | gelu | relu2
     tie_embeddings: bool = False
     numerics: str = "exact"  # exact | interp | interp-fused
@@ -76,7 +89,8 @@ class ModelConfig:
 
 
 ARCH_IDS = ["mixtral_8x22b", "deepseek_moe_16b", "qwen1_5_110b",
-            "minicpm3_4b", "minitron_8b", "yi_6b"]
+            "minicpm3_4b", "minitron_8b", "yi_6b", "mamba2_130m",
+            "jamba_v0_1_52b"]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -2,9 +2,12 @@
 
 ``params_from_jax`` takes the reference's parameter tree as numpy arrays,
 i.e. ``jax.tree.map(np.asarray, repro.models.transformer.init_params(key,
-cfg))`` (``segments/seg<i>/0/...``: stacked over layers where a segment
-repeats, unstacked for a one-layer segment), and returns the port's
-parameter dict, so that both packages compute the same function. Every
+cfg))`` (``segments/seg<i>/<j>/...``: stacked over layers where a segment
+repeats, unstacked for a one-step segment; Jamba's step is its period of
+sub-layers ``0`` .. ``attn_period - 1``), and returns the port's
+parameter dict, so that both packages compute the same function. The SSM
+mixer's ``a_log``, ``dt_bias`` and ``d_skip`` are float32 in both trees,
+its other leaves in the parameter dtype. Every
 leaf must have the port's shape and dtype for ``cfg``; nothing is cast. A
 reference leaf that the port's tree does not name is refused too: a
 dropped leaf (a QKV bias, say) would otherwise show only as a logit

@@ -7,7 +7,11 @@ runs the full-width model on the CUDA card; ``--arch`` takes the served
 ids of ``configs.base.ARCH_IDS``: ``yi_6b``, ``deepseek_moe_16b``,
 ``minicpm3_4b`` (MLA), ``mixtral_8x22b`` (sliding-window MoE: a
 ``--cache-len`` of at least its 4096-token window), ``qwen1_5_110b`` (QKV
-bias) and ``minitron_8b`` (squared ReLU). ``--smoke --device cpu`` runs
+bias), ``minitron_8b`` (squared ReLU), ``mamba2_130m`` (the Mamba2 SSD
+mixer) and ``jamba_v0_1_52b`` (the attention / Mamba / MoE hybrid; the
+whole model does not fit one card). An SSM config's prompt longer than its
+SSD chunk (256 tokens) must be a whole number of chunks, as in the
+reference. ``--smoke --device cpu`` runs
 the reduced config on the CPU through the kernels' plain versions. The flags and defaults are the
 reference launcher's: ``--numerics exact|interp`` (``interp-fused`` names
 the same engine: interp numerics always serve through the library-bound

@@ -1,31 +1,41 @@
-"""Model assembly for the decoder-only dense and MoE families (twin of
-``repro/models/transformer.py``): GQA (QKV bias, sliding windows) or MLA
-mixers, dense or MoE FFNs.
+"""Model assembly for the decoder-only families (twin of
+``repro/models/transformer.py``): GQA (QKV bias, sliding windows), MLA or
+Mamba2 (SSD) mixers, dense or MoE FFNs, and the Jamba hybrid.
 
 ``layer_plan`` groups the layers into segments of one layer kind, as the
 reference does: one segment of dense-MLP layers for the dense family; a
-dense layer 0 (``first_dense_ff``) and then the MoE layers for DeepSeekMoE.
-Parameters keep the reference's tree: ``embed/{tok,head}``,
-``segments/seg<i>/0/{norm1,mixer,norm2,ffn}`` with every leaf stacked over
-a leading layer axis when the segment repeats (unstacked for a one-layer
-segment), and ``final_norm``; each leaf has its own dtype (the router is
-float32 whatever the parameter dtype). The KV cache is the port's own
-layout: one :class:`~repro_torch.models.attention.KVCache` with k/v of
-shape (L, B, KVH, S, D) and pos of shape (L, B, S) over all L layers
-(MLA: k (L, B, S, kv_lora), v (L, B, S, rope); a windowed cache holds
-``attention.cache_rows`` rows), where the reference keeps one cache per
-segment. The batch axis is axis 1 and the sequence axis the last of
-``pos`` in every layout. Layers run as a Python
-loop; decode updates the cache in place. Under a per-layer numerics plan
-(``numerics.for_layer``) each layer takes its own numerics and the final
-norm the plan's ``rest``; the loop needs no grouping of equal layers (the
-reference's ``apply_segment`` groups them to scan each run once).
+dense layer 0 (``first_dense_ff``) and then the MoE layers for DeepSeekMoE;
+one segment of FFN-less SSM layers for Mamba2; for the hybrid one segment
+whose step is the ``attn_period``-layer period (attention at the middle
+layer, MoE on every ``moe.every``-th). Parameters keep the reference's
+tree: ``embed/{tok,head}``, ``segments/seg<i>/<j>/{norm1,mixer,norm2,ffn}``
+(no ``norm2`` / ``ffn`` where the layer has no FFN) with every leaf
+stacked over a leading layer axis when the segment repeats (unstacked for
+a one-step segment), and ``final_norm``; each leaf has its own dtype (the
+router and the SSM's ``a_log`` / ``dt_bias`` / ``d_skip`` are float32
+whatever the parameter dtype).
+
+The cache is the port's own layout, where the reference keeps one cache
+per segment. A config without SSM layers has one
+:class:`~repro_torch.models.attention.KVCache` with k/v of shape (L, B,
+KVH, S, D) and pos of shape (L, B, S) over all L layers (MLA: k (L, B, S,
+kv_lora), v (L, B, S, rope); a windowed cache holds
+``attention.cache_rows`` rows). A config with SSM layers has a
+:class:`MixedCache`: the KVCache stacked over its attention layers only
+(``None`` for Mamba2) and an :class:`~repro_torch.models.ssm.SSMState`
+stacked over its SSM layers; ``layer_slots`` gives each layer's index in
+its own stack. The batch axis is axis 1 of every leaf. Layers run as a
+Python loop; decode updates the cache in place. Under a per-layer numerics
+plan (``numerics.for_layer``) each layer takes its own numerics and the
+final norm the plan's ``rest``; the loop needs no grouping of equal layers
+(the reference's ``apply_segment`` groups them to scan each run once).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -35,13 +45,14 @@ from repro_torch.models.layers import (apply_mlp, apply_norm, embed_shapes,
                                        embed_tokens, lm_logits, map_tree,
                                        mlp_shapes, norm_shapes, pdtype,
                                        stack_specs)
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import moe_block, moe_shapes
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerKind:
-    mixer: str  # attn | mla (the SSM mixer ports with its family)
-    ffn: str | None  # mlp | moe
+    mixer: str  # attn | mla | ssm
+    ffn: str | None  # mlp | moe | None
     mlp_ff: int = 0  # dense MLP hidden size when ffn == "mlp"
 
 
@@ -52,6 +63,20 @@ class Segment:
 
 
 def layer_plan(cfg) -> list[Segment]:
+    if cfg.family == "ssm":
+        return [Segment((LayerKind("ssm", None),), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        if period <= 0 or cfg.n_layers % period:
+            raise ValueError(f"hybrid config {cfg.name}: n_layers "
+                             f"{cfg.n_layers} is not a whole number of "
+                             f"{period}-layer periods")
+        pattern = tuple(
+            LayerKind("attn" if i == period // 2 else "ssm",
+                      "moe" if (cfg.moe and i % cfg.moe.every == 1)
+                      else "mlp", cfg.d_ff)
+            for i in range(period))
+        return [Segment(pattern, cfg.n_layers // period)]
     mixer = "mla" if cfg.mla is not None else "attn"
     if cfg.family == "moe":
         segs, n = [], cfg.n_layers
@@ -67,12 +92,15 @@ def layer_plan(cfg) -> list[Segment]:
 
 
 def block_shapes(kind: LayerKind, cfg) -> dict:
-    mixer = (attn.mla_shapes(cfg) if kind.mixer == "mla"
+    mixer = (ssm_mod.ssm_shapes(cfg) if kind.mixer == "ssm"
+             else attn.mla_shapes(cfg) if kind.mixer == "mla"
              else attn.gqa_shapes(cfg))
-    return {"norm1": norm_shapes(cfg), "mixer": mixer,
-            "norm2": norm_shapes(cfg),
-            "ffn": (moe_shapes(cfg) if kind.ffn == "moe"
-                    else mlp_shapes(cfg, kind.mlp_ff))}
+    out = {"norm1": norm_shapes(cfg), "mixer": mixer}
+    if kind.ffn is not None:
+        out["norm2"] = norm_shapes(cfg)
+        out["ffn"] = (moe_shapes(cfg) if kind.ffn == "moe"
+                      else mlp_shapes(cfg, kind.mlp_ff))
+    return out
 
 
 def segment_shapes(seg: Segment, cfg) -> dict:
@@ -81,31 +109,58 @@ def segment_shapes(seg: Segment, cfg) -> dict:
 
 
 def param_shapes(cfg) -> dict:
-    """The reference's ``model_shapes`` for the decoder-only dense and MoE
-    families: a tree of :class:`~repro_torch.models.layers.Spec` leaves."""
+    """The reference's ``model_shapes`` for the decoder-only families: a
+    tree of :class:`~repro_torch.models.layers.Spec` leaves."""
     return {"embed": embed_shapes(cfg),
             "segments": {f"seg{i}": segment_shapes(seg, cfg)
                          for i, seg in enumerate(layer_plan(cfg))},
             "final_norm": norm_shapes(cfg)}
 
 
+def init_rule(name: str, shape: tuple):
+    """The reference's ``init_tree`` rule for the leaf at path ``name`` of
+    ``shape``: ``"ones"`` (norm scales, ``d_skip``), ``"zeros"`` (``bias``,
+    ``b``, ``conv_b``, ``dt_bias``), ``"a_log"`` (log(1..H) along the last
+    axis: A = -exp(a_log) spans the heads' decay rates), or the std of a
+    truncated-normal(-2, 2) draw, 1/sqrt(fan_in) with fan_in the
+    second-to-last dim (the only dim of a 1-D leaf). Matched on the leaf's
+    own name: the reference's suffix test also catches MLA's ``wq_b`` /
+    ``wkv_b``, which the port draws (zero up-projections would void MLA's
+    attention)."""
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf == "a_log":
+        return "a_log"
+    if leaf in ("d_skip", "scale", "gamma"):
+        return "ones"
+    if leaf in ("bias", "b", "conv_b", "dt_bias"):
+        return "zeros"
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
 def init_params(cfg, seed: int = 0, device: str | torch.device = "cuda"
                 ) -> dict:
-    """Random parameters with the reference's init rules (``init_tree``):
-    truncated-normal(-2, 2) scaled by 1/sqrt(fan_in) (fan_in = the
-    second-to-last dim), unit norm scales, each leaf in its own dtype;
-    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``.
-    A leaf of rank >= 3 is drawn one slice of its leading (layer or expert)
-    axis at a time, so no float32 draw holds more than one layer."""
+    """Random parameters with the reference's init rules (``init_tree``,
+    :func:`init_rule`), each leaf in its own dtype, drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``. A leaf of rank
+    >= 3 is drawn one slice of its leading (layer or expert) axis at a
+    time, so no float32 draw holds more than one layer."""
     dev = resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
     def one(name: str, sp) -> torch.Tensor:
         shape, dt = sp
-        if name.endswith("scale"):
+        rule = init_rule(name, shape)
+        if rule == "ones":
             return torch.ones(shape, dtype=dt, device=dev)
-        std = 1.0 / math.sqrt(max(shape[-2], 1))
+        if rule == "zeros":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        if rule == "a_log":
+            row = torch.log(torch.arange(1, shape[-1] + 1,
+                                         dtype=torch.float32, device=dev))
+            return row.expand(shape).to(dt).contiguous()
+        std = rule
         out = torch.empty(shape, dtype=dt, device=dev)
         for sl in (out if len(shape) >= 3 else (out,)):
             w = torch.empty(sl.shape, dtype=torch.float32, device=dev)
@@ -120,87 +175,174 @@ def init_params(cfg, seed: int = 0, device: str | torch.device = "cuda"
 @functools.lru_cache(maxsize=None)
 def layer_slots(cfg) -> tuple:
     """Per global layer index: (segment name, pattern key, index in the
-    segment's stack or None for an unstacked segment, LayerKind)."""
-    out = []
+    segment's stack or None for an unstacked segment, index in its cache
+    stack, LayerKind). The cache stack is the whole layer stack for a
+    config without SSM layers; with them, SSM layers index the
+    :class:`MixedCache`'s ``ssm`` stack and attention layers its ``kv``
+    stack, each in layer order."""
+    out, seen = [], {}
+    ssm = has_ssm(cfg)
     for s, seg in enumerate(layer_plan(cfg)):
         for r in range(seg.repeat):
             for j, kind in enumerate(seg.pattern):
+                key = kind.mixer == "ssm" if ssm else None
+                ci = seen[key] = seen.get(key, -1) + 1
                 out.append((f"seg{s}", str(j),
-                            r if seg.repeat > 1 else None, kind))
+                            r if seg.repeat > 1 else None, ci, kind))
     return tuple(out)
+
+
+def has_ssm(cfg) -> bool:
+    """Whether any layer of ``cfg`` has the SSM mixer."""
+    return any(k.mixer == "ssm" for seg in layer_plan(cfg)
+               for k in seg.pattern)
 
 
 def layer_params(p: dict, cfg, i: int):
     """Layer ``i``'s kind and parameters (views into its segment's
     stack)."""
-    seg, j, r, kind = layer_slots(cfg)[i]
+    seg, j, r, _, kind = layer_slots(cfg)[i]
     tree = p["segments"][seg][j]
     return kind, (tree if r is None else map_tree(lambda _n, t: t[r], tree))
 
 
+class MixedCache(NamedTuple):
+    """The cache of a config with SSM layers: the attention layers' K/V
+    stacked over those layers (None where there are none: Mamba2) and the
+    SSM layers' state stacked over those; batch axis 1 on every leaf."""
+
+    kv: attn.KVCache | None
+    ssm: ssm_mod.SSMState
+
+
+def cache_leaves(caches) -> tuple:
+    """Every tensor of a cache of either form, in a fixed order (k, v, pos,
+    then conv, ssm)."""
+    if isinstance(caches, MixedCache):
+        return (*(caches.kv or ()), *caches.ssm)
+    return tuple(caches)
+
+
+def _map_cache(fn, caches):
+    """The same form of cache with ``fn`` applied to every leaf."""
+    if isinstance(caches, MixedCache):
+        kv = None if caches.kv is None else attn.KVCache(*map(fn, caches.kv))
+        return MixedCache(kv, ssm_mod.SSMState(*map(fn, caches.ssm)))
+    return attn.KVCache(*map(fn, caches))
+
+
+def _kv(caches) -> attn.KVCache | None:
+    return caches.kv if isinstance(caches, MixedCache) else caches
+
+
+def kv_rows(caches) -> int | None:
+    """The key rows of each slot's attention cache (a windowed ring's
+    ``s_eff``), or None for a cache without attention layers."""
+    kv = _kv(caches)
+    return None if kv is None else kv.pos.shape[-1]
+
+
 def cache_specs(cfg, b: int, cache_len: int) -> attn.KVCache:
-    """One layer's cache leaves (every layer of a ported family has the
-    same mixer): ``gqa_cache_specs`` (a windowed ring of
-    ``attention.cache_rows`` rows) or ``mla_cache_specs``."""
+    """One attention layer's cache leaves (every attention layer of a
+    ported family has the same mixer): ``gqa_cache_specs`` (a windowed
+    ring of ``attention.cache_rows`` rows) or ``mla_cache_specs``."""
     fn = (attn.mla_cache_specs if cfg.mla is not None
           else attn.gqa_cache_specs)
     return fn(cfg, b, cache_len, pdtype(cfg))
 
 
 def init_cache(cfg, b: int, cache_len: int,
-               device: str | torch.device = "cuda") -> attn.KVCache:
-    """The empty stacked cache: zeros, positions -1, a layer axis first."""
+               device: str | torch.device = "cuda"):
+    """The empty stacked cache: zeros, positions -1, a layer axis first; a
+    :class:`MixedCache` for a config with SSM layers."""
     dev = resolve(device)
-    return attn.KVCache(*(
-        torch.full((cfg.n_layers, *sp.shape), -1 if sp.dtype == torch.int32
-                   else 0, dtype=sp.dtype, device=dev)
-        for sp in cache_specs(cfg, b, cache_len)))
+
+    def stack(specs, n: int) -> list:
+        return [torch.full((n, *sp.shape), -1 if sp.dtype == torch.int32
+                           else 0, dtype=sp.dtype, device=dev)
+                for sp in specs]
+
+    if not has_ssm(cfg):
+        return attn.KVCache(*stack(cache_specs(cfg, b, cache_len),
+                                   cfg.n_layers))
+    n_ssm = sum(slot[-1].mixer == "ssm" for slot in layer_slots(cfg))
+    n_kv = cfg.n_layers - n_ssm
+    kv = (attn.KVCache(*stack(cache_specs(cfg, b, cache_len), n_kv))
+          if n_kv else None)
+    return MixedCache(kv, ssm_mod.SSMState(*stack(
+        ssm_mod.ssm_state_specs(cfg, b, pdtype(cfg)), n_ssm)))
 
 
-def splice_cache(cfg, pool: attn.KVCache, one: attn.KVCache,
-                 slot: int) -> attn.KVCache:
+def splice_cache(cfg, pool, one, slot: int):
     """Write one request's prefilled cache (batch size 1) into ``slot`` of
     the pool along the *batch* axis (axis 1: axis 0 is the layer stack),
-    in place."""
-    for dst, src in zip(pool, one):
+    in place, leaf by leaf."""
+    for dst, src in zip(cache_leaves(pool), cache_leaves(one)):
         dst[:, slot] = src[:, 0].to(dst.dtype)
     return pool
 
 
+def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
+                mode: str, cache=None, cache_len: int = 0, pos=None):
+    """One layer (the reference's ``apply_block`` in its serving modes):
+    norm, mixer, residual, then norm, FFN, residual where the layer has an
+    FFN. Returns (h, cache): in "prefill" the layer's new cache (a KVCache
+    or an SSMState), in "decode" ``cache``, one layer's view of the pool,
+    updated in place."""
+    x = apply_norm(lp["norm1"], h, cfg, numerics)
+    if kind.mixer == "ssm":
+        if mode == "prefill":
+            y, cache = ssm_mod.ssm_prefill(lp["mixer"], x, cfg, numerics)
+        else:
+            y, cache = ssm_mod.ssm_decode(lp["mixer"], x, cache, cfg,
+                                          numerics)
+    else:
+        mla = kind.mixer == "mla"
+        if mode == "prefill":
+            y, cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
+                lp["mixer"], x, positions, cfg, numerics, cache_len)
+        else:
+            y, cache = (attn.mla_decode if mla else attn.gqa_decode)(
+                lp["mixer"], x, pos, cache, cfg, numerics)
+    h = h + y
+    if kind.ffn is not None:
+        x2 = apply_norm(lp["norm2"], h, cfg, numerics)
+        ffn = moe_block if kind.ffn == "moe" else apply_mlp
+        h = h + ffn(lp["ffn"], x2, cfg, numerics)
+    return h, cache
+
+
 def backbone(p: dict, h, positions, cfg, numerics, mode: str,
-             caches: attn.KVCache | None = None, cache_len: int = 0,
-             pos=None):
+             caches=None, cache_len: int = 0, pos=None):
     """Run every layer and the final norm. ``mode``: "prefill" (returns the
     new stacked cache) or "decode" (updates ``caches`` in place).
     ``numerics`` is one backend for every layer, or a plan-resolved object
     whose ``for_layer(i)`` gives layer ``i``'s (the final norm then runs
     under the object itself: the plan's ``rest``)."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     per_layer = hasattr(numerics, "for_layer")
-    new = []
+    slots = layer_slots(cfg)
+    new_kv, new_ssm = [], []
     for i in range(cfg.n_layers):
         num = numerics.for_layer(i) if per_layer else numerics
         kind, lp = layer_params(p, cfg, i)
-        x = apply_norm(lp["norm1"], h, cfg, num)
-        mla = kind.mixer == "mla"
+        ssm = kind.mixer == "ssm"
+        layer = None
+        if mode == "decode":
+            ci = slots[i][3]
+            layer = (ssm_mod.SSMState(*(t[ci] for t in caches.ssm)) if ssm
+                     else attn.KVCache(*(t[ci] for t in _kv(caches))))
+        h, c = apply_layer(lp, kind, h, positions, cfg, num, mode, layer,
+                           cache_len, pos)
         if mode == "prefill":
-            y, c = (attn.mla_prefill if mla else attn.gqa_prefill)(
-                lp["mixer"], x, positions, cfg, num, cache_len)
-            new.append(c)
-        elif mode == "decode":
-            layer = attn.KVCache(*(t[i] for t in caches))
-            y, _ = (attn.mla_decode if mla else attn.gqa_decode)(
-                lp["mixer"], x, pos, layer, cfg, num)
-        else:
-            raise ValueError(f"unknown mode {mode!r}")
-        h = h + y
-        x2 = apply_norm(lp["norm2"], h, cfg, num)
-        if kind.ffn == "moe":
-            h = h + moe_block(lp["ffn"], x2, cfg, num)
-        else:
-            h = h + apply_mlp(lp["ffn"], x2, cfg, num)
+            (new_ssm if ssm else new_kv).append(c)
     h = apply_norm(p["final_norm"], h, cfg, numerics)
     if mode == "prefill":
-        caches = attn.KVCache(*(torch.stack(t) for t in zip(*new)))
+        kv = (attn.KVCache(*(torch.stack(t) for t in zip(*new_kv)))
+              if new_kv else None)
+        caches = (MixedCache(kv, ssm_mod.SSMState(
+            *(torch.stack(t) for t in zip(*new_ssm)))) if new_ssm else kv)
     return h, caches
 
 
@@ -215,7 +357,7 @@ def prefill(p: dict, tokens: torch.Tensor, cfg, numerics, cache_len: int):
     return lm_logits(p["embed"], h[:, -1:]), caches
 
 
-def mask_cache_tail(caches: attn.KVCache, true_lens) -> attn.KVCache:
+def mask_cache_tail(caches, true_lens) -> attn.KVCache:
     """Mark every cache row at or past each batch row's true length as
     empty (``pos = -1``, the ``init_cache`` sentinel the attention mask
     treats as dead).
@@ -224,7 +366,12 @@ def mask_cache_tail(caches: attn.KVCache, true_lens) -> attn.KVCache:
     positions; a later decode step would attend to them. The K/V rows
     themselves stay: with ``pos`` at -1 the mask drops them, and decode
     overwrites row ``p`` when the sequence reaches position ``p``. The
-    (B, S) validity mask broadcasts over the leading layer axis."""
+    (B, S) validity mask broadcasts over the leading layer axis. SSM state
+    is not positional and cannot be masked: a :class:`MixedCache` is
+    refused."""
+    if isinstance(caches, MixedCache):
+        raise ValueError("mask_cache_tail: SSM state is cumulative, a pad "
+                         "suffix cannot be masked out of it")
     pos = caches.pos
     lens = torch.as_tensor(true_lens, dtype=torch.int32, device=pos.device)
     valid = (torch.arange(pos.shape[-1], dtype=torch.int32,
@@ -255,7 +402,7 @@ def prefill_padded(p: dict, tokens: torch.Tensor, true_lens, cfg, numerics,
     if getattr(cfg, "sliding_window", None) is not None:
         raise ValueError("prefill_padded: sliding-window caches wrap; use "
                          "exact-length prefill")
-    if any(k.mixer == "ssm" for seg in layer_plan(cfg) for k in seg.pattern):
+    if has_ssm(cfg):
         raise ValueError("prefill_padded: SSM state is cumulative, a pad "
                          "suffix corrupts it; use exact-length prefill")
     b, s = tokens.shape
@@ -272,31 +419,29 @@ def prefill_padded(p: dict, tokens: torch.Tensor, true_lens, cfg, numerics,
     return lm_logits(p["embed"], rows), mask_cache_tail(caches, lens)
 
 
-def extract_cache_row(cfg, pool: attn.KVCache, i) -> attn.KVCache:
-    """Batch row ``i`` of a pooled cache, keeping the batch axis (axis 1:
-    axis 0 is the layer stack): the inverse of :func:`splice_cache`. ``i``
-    may be a device index tensor."""
+def extract_cache_row(cfg, pool, i):
+    """Batch row ``i`` of a pooled cache of either form, keeping the batch
+    axis (axis 1: axis 0 is the layer stack): the inverse of
+    :func:`splice_cache`. ``i`` may be a device index tensor."""
     if isinstance(i, torch.Tensor):
         idx = i.reshape(1).to(torch.int64)
-        return attn.KVCache(*(t.index_select(1, idx) for t in pool))
-    return attn.KVCache(*(t[:, i:i + 1] for t in pool))
+        return _map_cache(lambda t: t.index_select(1, idx), pool)
+    return _map_cache(lambda t: t[:, i:i + 1], pool)
 
 
-def splice_cache_rows(cfg, pool: attn.KVCache, rows: attn.KVCache,
-                      slots: torch.Tensor) -> attn.KVCache:
+def splice_cache_rows(cfg, pool, rows, slots: torch.Tensor):
     """Write the P batch rows of ``rows`` into pool slots ``slots`` (a (P,)
     device index tensor of distinct slots) in place: P of
     :func:`splice_cache` of :func:`extract_cache_row` in one op per leaf,
     with the slots read on the device (what a CUDA graph replays for any
     slot assignment)."""
     idx = slots.to(torch.int64)
-    for dst, src in zip(pool, rows):
+    for dst, src in zip(cache_leaves(pool), cache_leaves(rows)):
         dst.index_copy_(1, idx, src.to(dst.dtype))
     return pool
 
 
-def decode_step(p: dict, token: torch.Tensor, pos, caches: attn.KVCache, cfg,
-                numerics):
+def decode_step(p: dict, token: torch.Tensor, pos, caches, cfg, numerics):
     """token: (B, 1) int; pos: scalar or (B,) per-slot positions. Returns
     (logits (B, 1, V), caches updated in place)."""
     b = token.shape[0]

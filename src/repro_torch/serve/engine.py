@@ -9,7 +9,11 @@ feed back -> position bump -> NaN/Inf sentinel, on the device, with one
 device-to-host copy of the (steps, slots) token block and the (slots,)
 sentinel per tick. Each slot decodes at its own next position; dead slots
 keep decoding at a frozen position (their rows are overwritten at the next
-admission). A sliding-window config's slots are rings of
+admission). A config with SSM layers (Mamba2, the Jamba hybrid) holds a
+``models.transformer.MixedCache``: each slot's conv window and recurrent
+state beside the attention layers' K/V rows, all updated in place by the
+decode; such configs admit exact-length prompts only (no bucketed packing:
+a pad suffix would enter the state). A sliding-window config's slots are rings of
 ``min(cache_len, window)`` rows (``cache_len`` below the window is
 refused): prompts and decodes past the window wrap, so ``submit`` checks
 no overflow there. With interp numerics the decode runs through the library-bound
@@ -19,8 +23,9 @@ The tick is the reference's one-dispatch ``lax.scan``: on a CUDA device
 ``_tick_fn(steps)`` replays one captured ``torch.cuda.CUDAGraph`` per
 power-of-two chunk size up to ``horizon``, captured at construction over
 static slot-state buffers (``_tok``, ``_pos``, ``_live``, the sentinel
-``_ok`` and the token block ``_block``, all updated in place) and the KV
-pool (updated in place by ``gqa_decode``). Before a capture one eager
+``_ok`` and the token block ``_block``, all updated in place) and the
+cache pool (updated in place by ``gqa_decode`` / ``mla_decode`` /
+``ssm_decode``). Before a capture one eager
 decode step runs on a side stream over scratch slot state and a scratch
 cache, so lazily built operands (kernel builds, cuBLAS workspaces, the
 library's operand rows) exist before capture without touching the served
@@ -285,8 +290,7 @@ class ServeEngine:
             getattr(cfg, "sliding_window", None) is None
             and getattr(cfg, "encoder", None) is None
             and getattr(cfg, "frontend", None) is None
-            and not any(k.mixer == "ssm" for seg in tf.layer_plan(cfg)
-                        for k in seg.pattern))
+            and not tf.has_ssm(cfg))
         if aot_buckets is None:
             self.aot_buckets = None
         elif aot_buckets is True:
@@ -349,8 +353,8 @@ class ServeEngine:
         if not self.graph:
             return ("eager: no CUDA device" if self.device.type != "cuda"
                     else "eager: graph=False")
-        rows = self.caches.pos.shape[-1]  # a windowed ring's s_eff
-        if attn.decode_reads_host(rows, self.numerics):
+        rows = tf.kv_rows(self.caches)  # a windowed ring's s_eff
+        if rows is not None and attn.decode_reads_host(rows, self.numerics):
             return (f"eager: decode attention over {rows} cache rows takes "
                     f"the glue path's chunk liveness test, a host read "
                     f"(models.attention.decode_reads_host)")
@@ -962,19 +966,29 @@ class ServeEngine:
         the whole pool, as the original steps did, so that the rebuilt rows
         come from the same batch shape (a GEMM of another row count may sum
         in another order). The other slots are fed their current token at
-        their next position, which writes the rows their next step writes
-        anyway (dead slots: row 0, overwritten at admission)."""
+        their next position. For a K/V row that is harmless: the step
+        writes the row their next step writes anyway (dead slots: row 0,
+        overwritten at admission). SSM state is cumulative instead: a
+        forced step would advance every other slot's conv window and
+        recurrent state by one token, so each step's SSM leaves are saved
+        before it and every slot but ``s`` is restored after it."""
         before = dict(build.LAUNCHES)
         self._prefill_into(r, s)
         start = len(r.prompt)
         tok = np.maximum(self.cur, 0).astype(np.int64)
         pos = self.pos.copy()
+        ssm = (tuple(self.caches.ssm)
+               if isinstance(self.caches, tf.MixedCache) else ())
         for i, t in enumerate(r.out[:-1]):
             tok[s], pos[s] = t, start + i
+            saved = [leaf.clone() for leaf in ssm]
             tf.decode_step(self.params,
                            torch.as_tensor(tok[:, None], device=self.device),
                            torch.as_tensor(pos, device=self.device),
                            self.caches, self.cfg, self.numerics)
+            for leaf, old in zip(ssm, saved):
+                old[:, s] = leaf[:, s]
+                leaf.copy_(old)
             self.stats["resume_replay_steps"] += 1
         self._set_slot(s, int(r.out[-1]), start + len(r.out) - 1)
         self._count(before)

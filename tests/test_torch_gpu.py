@@ -600,22 +600,29 @@ def _smoke(dev, arch, dtype="float32"):
     return cfg, tf.init_params(cfg, seed=0, device=dev)
 
 
-def _per_forward(cfg) -> dict:
-    """Kernel launches of one forward pass: an rmsnorm before attention and
-    before the FFN of every layer plus the final one, and MLA's q_norm and
-    kv_norm; one attention per layer; one activation (``act_lib``: the
-    glue and the table read in one kernel) per SwiGLU or GELU MLP (squared
-    ReLU reads no table) and per expert group (routed, shared); one router
-    softmax per MoE layer."""
+def _per_forward(cfg, mode: str = "decode") -> dict:
+    """Kernel launches of one forward pass (a "prefill" or a "decode"): an
+    rmsnorm before the mixer of every layer, before the FFN of every layer
+    that has one, the final one, MLA's q_norm and kv_norm and the SSM
+    mixer's gated norm; one attention per attention layer; one activation
+    (``act_lib``: the glue and the table read in one kernel) per SwiGLU or
+    GELU MLP (squared ReLU reads no table), per expert group (routed,
+    shared) and three per SSM layer (conv output, dt's softplus, the
+    gate); one router softmax per MoE layer; the SSM recurrence's exp_neg
+    table reads (``library_eval``), four per SSM layer in a prefill and
+    one in a decode."""
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
-    n_mlp = 0 if cfg.act == "relu2" else len(kinds) - n_moe
+    n_mlp = 0 if cfg.act == "relu2" else sum(k.ffn == "mlp" for k in kinds)
+    n_ssm = sum(k.mixer == "ssm" for k in kinds)
+    n_ffn = sum(k.ffn is not None for k in kinds)
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
-    norms = 4 if cfg.mla is not None else 2
+    mla = 2 * (cfg.n_layers - n_ssm) if cfg.mla is not None else 0
     return {**dict.fromkeys(build.LAUNCHES, 0),
-            "act_lib": n_mlp + n_moe * (1 + shared),
-            "rmsnorm_lib": norms * cfg.n_layers + 1,
-            "flash_attn_lib": cfg.n_layers, "softmax_lib": n_moe}
+            "act_lib": n_mlp + n_moe * (1 + shared) + 3 * n_ssm,
+            "rmsnorm_lib": cfg.n_layers + n_ffn + mla + n_ssm + 1,
+            "flash_attn_lib": cfg.n_layers - n_ssm, "softmax_lib": n_moe,
+            "library_eval": (4 if mode == "prefill" else 1) * n_ssm}
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b"])
@@ -2099,3 +2106,102 @@ def test_family_graph_tick_equals_eager_tick_bitwise(arch, lib, dev):
         solo = ServeEngine(cfg, params, slots=1, cache_len=64, library=lib,
                            horizon=4, device=dev)
         assert _serve_on(solo, [p], max_new=9)[0] == out[True][i]
+
+
+# ------------------------------------------------ the SSM mixer and hybrid
+
+SSM_ARCHS = ["mamba2_130m", "jamba_v0_1_52b"]
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_prefill_and_decode_through_kernels_match_plain(arch, lib, dev):
+    """A two-chunk prefill (64 tokens at the smoke chunk of 32) and one
+    decode step through the kernels against ``PlainFusedNumerics``: the
+    logits within 4 * 2^-12 * max|logit|, the SSM state (conv window and
+    recurrent state) within 4 * 2^-12 of its largest magnitude, the
+    launches of each forward (``library_eval`` for the recurrence's
+    exp_neg: four in the prefill, one in the decode)."""
+    cfg, params = _smoke(dev, arch)
+    toks = torch.randint(0, cfg.vocab_size, (2, 2 * cfg.ssm.chunk),
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+    fused, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+    build.reset_launches()
+    got, cache = tf.prefill(params, toks, cfg, fused, 96)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == _per_forward(cfg, "prefill")
+    want, want_cache = tf.prefill(params, toks, cfg, plain, 96)
+
+    def close(a, b):
+        assert torch.all((a - b).abs() <= 4 * 2.0 ** -12 * b.abs().max())
+
+    close(got, want)
+    for a, b in zip(tf.cache_leaves(cache), tf.cache_leaves(want_cache)):
+        if a.dtype == torch.int32:
+            assert torch.equal(a, b)
+        else:
+            close(a, b)
+    tok = want[:, -1].argmax(-1)[:, None]
+    pos = torch.full((2,), toks.shape[1], dtype=torch.int32, device=dev)
+    build.reset_launches()
+    got, _ = tf.decode_step(params, tok, pos, cache, cfg, fused)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == _per_forward(cfg, "decode")
+    want, _ = tf.decode_step(params, tok, pos, want_cache, cfg, plain)
+    close(got, want)
+    close(cache.ssm.ssm, want_cache.ssm.ssm)
+
+
+def test_ssm_graph_tick_equals_eager_tick_bitwise(lib, dev):
+    """Mamba2's smoke config in bf16 on a graph engine and an eager one:
+    the decode reads nothing on the host (no K/V rows to read), so it
+    captures; streams and every cache leaf (the conv windows and the
+    float32 recurrent states) bitwise equal; per-forward launches, the
+    prefills' and the decodes' apart."""
+    cfg, params = _smoke(dev, "mamba2_130m", "bfloat16")
+    prompts = _prompts_for(cfg, (5, 32, 3, 11))
+    out, engines = {}, {}
+    for graph in (True, False):
+        eng = ServeEngine(cfg, params, slots=2, cache_len=64, library=lib,
+                          horizon=4, graph=graph, device=dev)
+        out[graph] = _serve_on(eng, prompts, max_new=9)
+        engines[graph] = eng
+    g, e = engines[True], engines[False]
+    assert out[True] == out[False]
+    assert g.stats["graph"] is True and g.stats["graph_reason"] is None
+    assert g.caches.kv is None and g.stats["captures"] == 3
+    for a, b in zip(tf.cache_leaves(g.caches), tf.cache_leaves(e.caches)):
+        assert torch.equal(a, b)
+    pre, dec = _per_forward(cfg, "prefill"), _per_forward(cfg)
+    for eng in engines.values():
+        assert eng.stats["launches"] == {
+            k: pre[k] * eng.stats["prefills"]
+            + dec[k] * eng.stats["decode_steps"] for k in dec}
+
+
+@pytest.mark.parametrize("d", [1536, 8192])
+def test_rmsnorm_kernel_gated_norm_f32_gamma(d, lib, dev):
+    """The SSM mixer's gated norm: bf16 rows of d_inner (Mamba2 1536,
+    Jamba 8192) with the float32 scale the mixer passes, at decode and at
+    a 512-token prefill."""
+    for rows in (4, 512):
+        _check_rmsnorm(rows, d, torch.bfloat16, lib, dev, torch.float32)
+
+
+@pytest.mark.parametrize("shape,dtype,kind", [
+    ((4, 24), torch.float32, "softplus"), ((4, 128), torch.float32,
+                                           "softplus"),
+    ((1, 512, 24), torch.float32, "softplus"),
+    ((4, 1792), torch.bfloat16, "silu"), ((4, 8224), torch.bfloat16,
+                                          "silu")])
+def test_act_lib_at_ssm_shapes(shape, dtype, kind, lib, dev):
+    """``act_lib`` where the SSM mixer takes it: dt's softplus in float32
+    (heads wide: Mamba2 24, Jamba 128) and the conv output's silu in bf16
+    (conv_dim wide: 1792, 8224), bitwise the plain version, one launch."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(shape, device=dev, generator=g) * 4).to(dtype)
+    n0 = build.LAUNCHES["act_lib"]
+    got = getattr(FusedInterpNumerics(lib), kind)(x)
+    assert build.LAUNCHES["act_lib"] == n0 + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, getattr(PlainFusedNumerics(lib), kind)(x))
