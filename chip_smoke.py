@@ -139,14 +139,28 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    layers) on a graph and an eager engine, both on prompts of 17 / 64 /
    200 / 512 / 33 / 128 tokens (a prompt past the 256-token SSD chunk
    must be whole chunks) and the tick on 256 / 512-token prompts, graph ≡
-   eager with the conv windows and recurrent states; before that, the
+   eager with the conv windows and recurrent states; InternVL2-2B whole
+   (24 layers, 16 heads over 8) on a graph and an eager engine, served as
+   a text decoder as the reference serves it, then through its model
+   entry with 256 float32 patch embeddings from a seed projected into the
+   first rows of a 300-token prompt and 16 greedy decodes, every token
+   held against the plain versions; Whisper-tiny whole (4 + 4 layers,
+   LayerNorm, learned positions) through its model entry, which the
+   engine refuses: the encoder over (4, 1500, 384) float32 frames, a
+   4-token prefill with the encoder output as ``cross`` into a 448-row
+   cache and 64 greedy decode steps, the encoder output and every token
+   held against the plain versions, the decode step timed against its
+   bound; before that, the
    serving kernels at the shapes these models hand them
    (``family_kernel_phase``: flash at MLA's Dk 96 / Dv 64 with a strided
    V, on a wrapped window ring, at 64 heads over 8 and at Jamba's 32 over
    8; RMSNorm at 768, 256, 2560, 6144 and 8192; the router softmax over 8
    and 16 experts; ``ssm_kernel_rows``: the gated norm's float32 gamma,
    the mixer's silu and float32 softplus, the exp_neg table reads of a
-   decode step and of a 512-token prefill);
+   decode step and of a 512-token prefill; ``encdec_kernel_rows``: flash
+   without the causal mask over Whisper's 1500 frames, in its cross
+   attention (every position 0) and at InternVL's decode, gelu at
+   Whisper's and InternVL's widths);
 11. prints the throughput, a ``{"kernels": [...]}`` JSON line (each
    serving kernel's row with its ``family_shapes``) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -1241,9 +1255,11 @@ def kernel_phases(lib, dev, silu_codes, label="uniform"):
 
 
 def flash_lib_row(lib, q, k, v, q_pos, kv_pos, *, mode: str, label: str,
-                  window: int | None = None, tag: str = "") -> dict:
+                  window: int | None = None, tag: str = "",
+                  causal: bool = True) -> dict:
     """``flash_attn_lib`` on (q, k, v) (the model's layouts: K/V views of
-    the cache or strided slices) against its plain version ((n_tiles + 2)
+    the cache or strided slices; ``causal=False`` for Whisper's encoder and
+    cross attention) against its plain version ((n_tiles + 2)
     x softmax_ulp_bound x max|v|, + 2^-7 (max|v| + |out|) in bf16) and its
     tile-by-tile twin with the kernel's query tile and key splits (one
     table-code flip + 2^-8 |out|), timed beside SDPA on the same inputs
@@ -1262,7 +1278,7 @@ def flash_lib_row(lib, q, k, v, q_pos, kv_pos, *, mode: str, label: str,
     sk, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
     dtype = q.dtype
     q_pos, kv_pos = q_pos.to(torch.int32), kv_pos.to(torch.int32)
-    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window, causal=causal)
     got = attention_fused_library(q, k, v, lib, **kw).float()
     want = attention_fused_library_ref(q, k, v, lib, **kw).float()
     torch.cuda.synchronize()
@@ -1296,7 +1312,7 @@ def flash_lib_row(lib, q, k, v, q_pos, kv_pos, *, mode: str, label: str,
                              f"tile-by-tile twin")
     # the work this data needs: live (query, key) pairs per head
     dpos = q_pos[:, :, None] - kv_pos[:, None, :]
-    live = (kv_pos[:, None, :] >= 0) & (dpos >= 0)
+    live = (kv_pos[:, None, :] >= 0) & ((dpos >= 0) | (not causal))
     if window is not None:
         live &= dpos < window
     pairs = int(live.sum())
@@ -1311,7 +1327,12 @@ def flash_lib_row(lib, q, k, v, q_pos, kv_pos, *, mode: str, label: str,
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     mask = live[:, None]
 
+    every = bool(live.all())
+
     def sdpa():
+        if not causal and every:  # every key live: no mask tensor
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True)
         if mode == "prefill" and window is None:  # no mask tensor
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                   enable_gqa=True)
@@ -1320,7 +1341,8 @@ def flash_lib_row(lib, q, k, v, q_pos, kv_pos, *, mode: str, label: str,
     fn = functools.partial(attention_fused_library, q, k, v, lib, **kw)
     label_ = f"{label} flash {name} H={h}"
     return dict(name="flash_attn_lib", shape=[b, sq, h, kvh, d, sk],
-                dv=dv, window=window, mode=name, dtype=str(dtype)[6:],
+                dv=dv, window=window, causal=causal, mode=name,
+                dtype=str(dtype)[6:],
                 max_abs_err=err, tolerance=tol_abs,
                 ms=device_ms(fn, label=label_, kernel="flash_attn_lib"),
                 call_ms=timed(fn),
@@ -1502,6 +1524,7 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label, shapes=RMS_SHAPES):
                                                     rmsnorm_lib_cuda)
     from repro_torch.kernels.rmsnorm.ops import approx_rmsnorm_library
     from repro_torch.kernels.rmsnorm.ref import approx_rmsnorm_library_ref
+    from repro_torch.configs.yi_6b import CONFIG as rms_cfg
     from repro_torch.models.layers import apply_norm
     from repro_torch.numerics.ops import FusedInterpNumerics
 
@@ -1545,12 +1568,12 @@ def rmsnorm_lib_rows(lib, dev, g, flush, label, shapes=RMS_SHAPES):
         x3 = x.reshape(4, 1, d) if n_rows == 4 else x.reshape(1, n_rows, d)
         p = {"scale": g16}
         n0 = dict(build.LAUNCHES)
-        served = apply_norm(p, x3, None, num)
+        served = apply_norm(p, x3, rms_cfg, num)
         torch.cuda.synchronize()
         launched = {k: v - n0[k] for k, v in build.LAUNCHES.items()
                     if v != n0[k]}
-        ops = device_ops(lambda: apply_norm(p, x3, None, num))
-        nodes = graph_ops(lambda: apply_norm(p, x3, None, num))
+        ops = device_ops(lambda: apply_norm(p, x3, rms_cfg, num))
+        nodes = graph_ops(lambda: apply_norm(p, x3, rms_cfg, num))
         cast_nodes = graph_ops(lambda: num.rmsnorm(x3, g16.float()))
         same = torch.equal(served.reshape(n_rows, d), fn())
         print(f"  apply_norm {tuple(x3.shape)} bf16 scale ({label} "
@@ -1691,6 +1714,7 @@ def family_kernel_phase(lib, dev) -> list[dict]:
     out += softmax_lib_rows(lib, dev, g, flush, "uniform",
                             shapes=FAMILY_SOFTMAX_SHAPES)
     out += ssm_kernel_rows(lib, dev, g)
+    out += encdec_kernel_rows(lib, dev, g)
     for r in out:
         r.setdefault("library", "uniform")
         print(f"  device time {r['name']} {r['shape']} {r.get('mode', '')}"
@@ -1698,6 +1722,81 @@ def family_kernel_phase(lib, dev) -> list[dict]:
               f"{_ms(r['library_graph_ms'])}, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), plain {r['plain_ms']:.5f} ms, "
               f"max_abs_err {r['max_abs_err']:.3e}")
+    return out
+
+
+# Whisper-tiny's attention (6 heads over 6, D 64) over its 1500 source
+# frames, 4 slots; the 4-token prompt of its run
+WHISPER_FRAMES, WHISPER_PROMPT = 1500, 4
+# gelu where Whisper's MLP (1536 wide: a 1500-frame encoder layer, a decode
+# step) and InternVL's projector (256 patches, 2048 wide, float32) take it
+GELU_SHAPES = (((4, 1500, 1536), "bfloat16"), ((4, 1, 1536), "bfloat16"),
+               ((1, 256, 2048), "float32"))
+
+
+def encdec_kernel_rows(lib, dev, g) -> list[dict]:
+    """The serving kernels where the encoder-decoder and the VLM take them:
+    ``flash_attn_lib`` without the causal mask over Whisper's 1500 frames
+    (the encoder: B 4, 1500 x 1500, 6 heads over 6, D 64, against SDPA with
+    no mask), in cross attention (every query and key position 0: one
+    query row at decode, the 4-token prompt at prefill, 1500 keys) and at
+    InternVL's decode (16 heads over 8, D 128, 1024 cache rows);
+    ``act_lib`` gelu at ``GELU_SHAPES``, bitwise the plain version, timed
+    beside ``F.gelu(approximate="tanh")``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.numerics.ops import FusedInterpNumerics, PlainFusedNumerics
+
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    b, s = SLOTS, WHISPER_FRAMES
+    out = []
+    k = torch.randn(b, s, 6, 64, generator=g, **bf)
+    v = torch.randn(b, s, 6, 64, generator=g, **bf)
+    frames = torch.arange(s, device=dev).expand(b, s)
+    out.append(flash_lib_row(
+        lib, torch.randn(b, s, 6, 64, generator=g, **bf), k, v, frames,
+        frames, mode="prefill", label="uniform", tag="whisper encoder",
+        causal=False))
+    zeros = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    for mode, sq in (("decode", 1), ("prefill", WHISPER_PROMPT)):
+        q = torch.randn(b, sq, 6, 64, generator=g, **bf)
+        out.append(flash_lib_row(
+            lib, q, k, v, zeros[:, :sq], zeros, mode=mode, label="uniform",
+            tag="whisper cross", causal=False))
+    # InternVL2-2B: 16 query heads over 8 at decode on 4 slots' cache rows
+    lens = torch.tensor([17, 300, 1000, 600], device=dev)
+    kv_pos = torch.arange(CACHE_LEN, device=dev).expand(b, CACHE_LEN).clone()
+    kv_pos[kv_pos >= lens[:, None]] = -1
+    kc = torch.randn(b, 8, CACHE_LEN, 128, generator=g, **bf)
+    vc = torch.randn(b, 8, CACHE_LEN, 128, generator=g, **bf)
+    out.append(flash_lib_row(
+        lib, torch.randn(b, 1, 16, 128, generator=g, **bf),
+        kc.transpose(1, 2), vc.transpose(1, 2), (lens - 1)[:, None], kv_pos,
+        mode="decode", label="uniform", tag="internvl"))
+    fused, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+    for shape, dt in GELU_SHAPES:
+        x = (torch.randn(shape, device=dev, generator=g) * 4).to(
+            getattr(torch, dt))
+        got = fused.gelu(x)
+        same = torch.equal(got, plain.gelu(x))
+        print(f"act_lib gelu {shape} {dt}: bitwise the plain version {same} "
+              f"(tolerance 0)")
+        if not same:
+            raise AssertionError(f"act_lib gelu {shape} differs")
+        b_ms, b_by = bound(2 * x.numel() * x.element_size(), 12 * x.numel(),
+                           F32_FLOPS)
+        fn = functools.partial(fused.gelu, x)
+        yard = functools.partial(F.gelu, x, approximate="tanh")
+        label = f"act_lib gelu {shape}"
+        out.append(dict(name="act_lib", shape=list(shape), mode="gelu " + dt,
+                        max_abs_err=0.0, tolerance=0, bound_ms=b_ms,
+                        bound_by=b_by,
+                        ms=device_ms(fn, label=label, kernel="act_lib"),
+                        plain_ms=device_ms(functools.partial(plain.gelu, x),
+                                           iters=3, label=f"plain {label}"),
+                        library_ms=device_ms(yard, label=f"F.gelu {shape}"),
+                        **graph_cols(fn, yard)))
     return out
 
 
@@ -2354,10 +2453,17 @@ def per_forward(cfg, mode: str = "decode") -> dict:
     step's decay in a decode). An activation is one ``act_lib`` launch on
     either library (a segmented slot adds no launch). A prefill whose
     attention passes ``FUSED_ATTN_MAX_KEYS`` keys takes the glue path
-    instead of ``flash_attn_lib`` (``glue_prefill_launches``)."""
+    instead of ``flash_attn_lib`` (``glue_prefill_launches``). An
+    encoder-decoder adds one cross attention per layer, and its LayerNorms
+    read no table; ``mode="encoder"`` counts ``encoder_forward``: one
+    attention and one gelu per encoder layer."""
     from repro_torch.kernels import build
     from repro_torch.models import transformer as tf
 
+    if mode == "encoder":
+        n = cfg.encoder.n_layers
+        return {**dict.fromkeys(build.LAUNCHES, 0), "flash_attn_lib": n,
+                "act_lib": n}
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
     n_mlp = 0 if cfg.act == "relu2" else sum(k.ffn == "mlp" for k in kinds)
@@ -2365,10 +2471,14 @@ def per_forward(cfg, mode: str = "decode") -> dict:
     n_ffn = sum(k.ffn is not None for k in kinds)
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
     mla = 2 * (cfg.n_layers - n_ssm) if cfg.mla is not None else 0
+    norms = (0 if cfg.norm == "layernorm"
+             else cfg.n_layers + n_ffn + mla + n_ssm + 1)
+    cross = cfg.n_layers if cfg.encoder is not None else 0
     return {**dict.fromkeys(build.LAUNCHES, 0),
             "act_lib": n_mlp + n_moe * (1 + shared) + 3 * n_ssm,
-            "rmsnorm_lib": cfg.n_layers + n_ffn + mla + n_ssm + 1,
-            "flash_attn_lib": cfg.n_layers - n_ssm, "softmax_lib": n_moe,
+            "rmsnorm_lib": norms,
+            "flash_attn_lib": cfg.n_layers - n_ssm + cross,
+            "softmax_lib": n_moe,
             "library_eval": (4 if mode == "prefill" else 1) * n_ssm}
 
 
@@ -3443,6 +3553,17 @@ SSM_TICK = (256, 512, 256, 512)
 JAMBA_LAYERS = 8
 
 
+def _gap(logits, tok: int) -> tuple[float, float]:
+    """How far ``tok`` trails the argmax of one row of plain-version
+    logits, and the 2^-5 max|logit| tie band it must stay inside."""
+    import torch
+
+    lf = logits.float()
+    if not torch.isfinite(lf).all():
+        raise AssertionError("non-finite logits")
+    return float(lf.max() - lf[tok]), 2.0 ** -5 * float(lf.abs().max())
+
+
 def wrapped_decode_phase(params, cfg, lib, res, dev, steps: int = 2) -> dict:
     """Decode tokens past the wrap of Mixtral's ring (positions >= the
     window) for the prompts of 4104 (wrapped at prefill) and 4090 tokens,
@@ -3477,12 +3598,6 @@ def wrapped_decode_phase(params, cfg, lib, res, dev, steps: int = 2) -> dict:
     plain, kern = PlainFusedNumerics(lib), FusedInterpNumerics(lib)
     cache_len = res["cache_len"]
 
-    def gap(logits, tok):
-        lf = logits.float()
-        if not torch.isfinite(lf).all():
-            raise AssertionError("non-finite logits")
-        return float(lf.max() - lf[tok]), 2.0 ** -5 * float(lf.abs().max())
-
     checked = []
     with torch.inference_mode():
         for rid, p in enumerate(prompts):
@@ -3508,9 +3623,9 @@ def wrapped_decode_phase(params, cfg, lib, res, dev, steps: int = 2) -> dict:
                 lp, _ = tf.prefill(params, torch.as_tensor(
                     seq, dtype=torch.int64, device=dev)[None], no_drop,
                     plain, cache_len)
-                g1, b1 = gap(ring["plain", t], toks[t])
-                g2, b2 = gap(lp[0, -1], int(ring["kernels, no drop",
-                                                 t].argmax()))
+                g1, b1 = _gap(ring["plain", t], toks[t])
+                g2, b2 = _gap(lp[0, -1], int(ring["kernels, no drop",
+                                                  t].argmax()))
                 row = dict(rid=rid, step=t, position=len(seq) - 1,
                            ring_row=(len(seq) - 1) % w, engine_gap=g1,
                            engine_band=b1, ring_gap=g2, ring_band=b2)
@@ -3574,6 +3689,252 @@ def long_prefill_phase(params, cfg, lib, cache_len: int, dev) -> dict:
     return dict(rows=rows)
 
 
+def _greedy(params, cfg, num, ids, cache_len, steps, forced=None, **kw):
+    """Prefill ``ids`` (with ``kw``: ``frontend_emb`` or ``cross``, which
+    every decode step takes too), then ``steps`` greedy decodes, or decodes
+    teacher-forced with ``forced`` ((steps + 1, B) tokens). Returns the
+    last-position logits of the prefill and of each step ((steps + 1, B,
+    V)) and the greedy tokens ((steps + 1, B))."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    b, s = ids.shape
+    logits, cache = tf.prefill(params, ids, cfg, num, cache_len, **kw)
+    step_kw = {k: v for k, v in kw.items() if k == "cross"}
+    rows = [logits[:, -1]]
+    toks = [rows[-1].argmax(-1)]
+    for t in range(steps):
+        tok = (toks[-1] if forced is None else forced[t])[:, None]
+        pos = torch.full((b,), s + t, dtype=torch.int32, device=ids.device)
+        logits, cache = tf.decode_step(params, tok, pos, cache, cfg, num,
+                                       **step_kw)
+        rows.append(logits[:, -1])
+        toks.append(rows[-1].argmax(-1))
+    return torch.stack(rows), torch.stack(toks)
+
+
+def _hold_tokens(label, toks, plain_rows) -> dict:
+    """Each greedy token of the kernels' run against the plain versions'
+    logits at the same step (teacher-forced with those tokens): equal, or
+    inside the 2^-5 max|logit| tie band."""
+    ties, worst = 0, 0.0
+    for t in range(toks.shape[0]):
+        for i in range(toks.shape[1]):
+            gap, band = _gap(plain_rows[t, i], int(toks[t, i]))
+            worst = max(worst, gap / band)
+            if gap > 0:
+                ties += 1
+                if gap > band:
+                    raise AssertionError(
+                        f"{label} step {t} row {i}: token {int(toks[t, i])} "
+                        f"trails the plain argmax by {gap} > {band}")
+    n = toks.numel()
+    print(f"{label}: {n - ties} of {n} tokens equal to the plain versions' "
+          f"argmax, {ties} inside the tie band (worst gap / band "
+          f"{worst:.3f})")
+    return dict(tokens=n, equal=n - ties, ties=ties, worst_gap_share=worst)
+
+
+# InternVL2-2B's frontend run: one prompt of this many tokens, its first
+# frontend_len (256) rows the projected patches
+FRONTEND_PROMPT = 300
+
+
+def frontend_phase(params, cfg, lib, dev) -> dict:
+    """InternVL2-2B's model entry with its patches: one 300-token prompt
+    whose first 256 rows are the projector's output for (1, 256, 1024)
+    float32 patch embeddings from a seed, then ``MAX_NEW`` greedy decodes,
+    through the kernels (the launch counts set to 0 just before and read
+    just after: one prefill with one more ``act_lib`` for the projector's
+    gelu, then the decodes), every token held against the plain versions
+    teacher-forced with the kernels' tokens (``_hold_tokens``); the patches
+    move the first token's logits; the prefill with patches and the
+    projector alone timed."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import FusedInterpNumerics, PlainFusedNumerics
+
+    kern, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+    g = torch.Generator(device=dev).manual_seed(26)
+    emb = torch.randn(1, cfg.frontend_len, cfg.frontend_dim, device=dev,
+                      generator=g)
+    ids = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, FRONTEND_PROMPT), dtype=torch.int64,
+        device=dev)[None]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        build.reset_launches()
+        rows, toks = _greedy(params, cfg, kern, ids, CACHE_LEN, MAX_NEW,
+                             frontend_emb=emb)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        pre, dec = per_forward(cfg, "prefill"), per_forward(cfg)
+        want = {k: pre[k] + MAX_NEW * dec[k] + (k == "act_lib")
+                for k in dec}
+        print(f"{cfg.name} with {cfg.frontend_len} patches: launches "
+              f"{launches}, expected {want}")
+        if launches != want:
+            raise AssertionError("frontend run: launch counts differ")
+        plain_rows, _ = _greedy(params, cfg, plain, ids, CACHE_LEN, MAX_NEW,
+                                forced=toks, frontend_emb=emb)
+        held = _hold_tokens(f"{cfg.name} frontend run", toks, plain_rows)
+        text, _ = tf.prefill(params, ids, cfg, kern, CACHE_LEN)
+        moved = float((text[0, -1].float() - rows[0, 0].float()).abs().max())
+        if not moved > 0:
+            raise AssertionError("the patches did not move the logits")
+        prefill_ms = timed(lambda: tf.prefill(params, ids, cfg, kern,
+                                              CACHE_LEN, frontend_emb=emb),
+                           iters=3, warmup=1)
+        proj_ms = timed(lambda: tf._project_frontend(params, emb, cfg,
+                                                     kern), iters=10)
+    print(f"{cfg.name} prefill with patches {prefill_ms:.3f} ms, projector "
+          f"{proj_ms:.3f} ms; patches move the first logits by {moved:.4f}")
+    return dict(launches=launches, prompt=FRONTEND_PROMPT,
+                patches=list(emb.shape), held=held, prefill_ms=prefill_ms,
+                projector_ms=proj_ms, patch_logit_shift=moved,
+                tokens=toks[:, 0].tolist())
+
+
+# Whisper-tiny's run: 4 slots, 1500 frames, a 4-token prompt, the decoder's
+# published 448-token text context as the cache, 64 greedy decode steps
+WHISPER_CACHE, WHISPER_STEPS = 448, 64
+
+
+def whisper_phase(lib, dev) -> dict:
+    """Whisper-tiny at full width and depth (4 + 4 layers, bf16 weights
+    from a seed) through its model entry, on the uniform library: the
+    engine refuses an encoder-decoder (a request carries no frames), so
+    the run is ``encoder_forward`` over (4, 1500, 384) float32 frames from
+    a seed, ``prefill`` of a 4-token prompt with the encoder output as
+    ``cross`` into a 448-row cache, and ``WHISPER_STEPS`` greedy
+    ``decode_step``s with ``cross`` in an eager loop, the launch counts
+    set to 0 just before and read just after (per forward: the encoder's
+    4 attentions and 4 gelus, then 8 attentions (self and cross) and 4
+    gelus per decoder forward; LayerNorm reads no table). Held against the
+    plain versions: the encoder output within 2^-5 of its largest
+    magnitude, every token teacher-forced (``_hold_tokens``). Timed: the
+    encoder, the prefill and one decode step (eager on CUDA events, as one
+    CUDA graph, and under the profiler: device ms, device ops, busy
+    share) against the step's bound: the decoder's weights and the LM
+    head, the cross rows and the live cache rows read once, the logits
+    written once; its operations the per-step cross K / V re-projection
+    (2 x 4 layers x 2 * 4 * 1500 * 384^2, which the reference recomputes
+    every step too) and the decoder's products, at the bf16 rate."""
+    import torch
+
+    from repro_torch.configs import whisper_tiny
+    from repro_torch.kernels import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import FusedInterpNumerics, PlainFusedNumerics
+
+    cfg = whisper_tiny.CONFIG.replace(numerics="interp-fused")
+    params = tf.init_params(cfg, seed=0, device=dev)
+    leaves = list(_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"{cfg.name} params: "
+          f"{sum(t.numel() for t in leaves) / 1e6:.2f} M ({n_bytes / 1e9:.3f} "
+          f"GB, {cfg.param_dtype}, the {cfg.max_pos}-row position table "
+          f"included)")
+    kern, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+    g = torch.Generator(device=dev).manual_seed(26)
+    frames = torch.randn(SLOTS, cfg.encoder.source_len, cfg.d_model,
+                         device=dev, generator=g)
+    ids = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SLOTS, WHISPER_PROMPT)), dtype=torch.int64,
+        device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        build.reset_launches()
+        cross = tf.encoder_forward(params["encoder"], frames, cfg, kern)
+        rows, toks = _greedy(params, cfg, kern, ids, WHISPER_CACHE,
+                             WHISPER_STEPS, cross=cross)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        enc, pre, dec = (per_forward(cfg, m) for m in ("encoder", "prefill",
+                                                       "decode"))
+        want = {k: enc[k] + pre[k] + WHISPER_STEPS * dec[k] for k in dec}
+        print(f"{cfg.name}: encoder + prefill + {WHISPER_STEPS} decodes, "
+              f"launches {launches}, expected {want}")
+        if launches != want:
+            raise AssertionError("whisper run: launch counts differ")
+        if not (torch.isfinite(cross).all() and rows.shape == (
+                WHISPER_STEPS + 1, SLOTS, cfg.vocab_size)):
+            raise AssertionError("whisper run: bad encoder output or logits")
+        cross_p = tf.encoder_forward(params["encoder"], frames, cfg, plain)
+        enc_err = float((cross.float() - cross_p.float()).abs().max())
+        enc_band = 2.0 ** -5 * float(cross_p.float().abs().max())
+        print(f"{cfg.name} encoder output {tuple(cross.shape)} against the "
+              f"plain versions: max_abs_err {enc_err:.4f} (band "
+              f"{enc_band:.4f} = 2^-5 max|x|)")
+        if enc_err > enc_band:
+            raise AssertionError("whisper encoder output differs from plain")
+        plain_rows, _ = _greedy(params, cfg, plain, ids, WHISPER_CACHE,
+                                WHISPER_STEPS, forced=toks, cross=cross_p)
+        held = _hold_tokens(f"{cfg.name} run", toks, plain_rows)
+        first_dlogit = float((rows[0].float() - plain_rows[0].float()
+                              ).abs().max())
+
+        encoder_ms = timed(lambda: tf.encoder_forward(
+            params["encoder"], frames, cfg, kern), iters=5)
+        prefill_ms = timed(lambda: tf.prefill(
+            params, ids, cfg, kern, WHISPER_CACHE, cross=cross), iters=5)
+        _, cache = tf.prefill(params, ids, cfg, kern, WHISPER_CACHE,
+                              cross=cross)
+        tok = toks[0][:, None]
+        pos = torch.full((SLOTS,), WHISPER_PROMPT, dtype=torch.int32,
+                         device=dev)
+
+        def step():
+            return tf.decode_step(params, tok, pos, cache, cfg, kern,
+                                  cross=cross)
+        step_ms = timed(step, iters=20)
+        step_graph_ms, why = graph_ms(step)
+        prof = profile_steps(step)
+    # the step's bound: weights the decoder reads (not the encoder's, of the
+    # embedding and position tables only the rows of this step's tokens)
+    dec_bytes = n_bytes - sum(
+        t.numel() * t.element_size()
+        for t in (*_leaves(params["encoder"]), params["pos"],
+                  params["embed"]["tok"]))
+    es = 2
+    d, v, n_l = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    src = cfg.encoder.source_len
+    nbytes = (dec_bytes + 2 * SLOTS * d * es
+              + SLOTS * src * d * es
+              + n_l * 2 * SLOTS * cfg.n_kv_heads * (WHISPER_PROMPT + 1)
+              * cfg.head_size * es + SLOTS * v * es)
+    cross_flops = 2 * n_l * 2 * SLOTS * src * d * d
+    dec_params = (dec_bytes - sum(t.numel() * t.element_size() for t in (
+        params["final_norm"]["scale"], params["final_norm"]["bias"]))) / es
+    flops = cross_flops + 2 * SLOTS * dec_params
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    busy = (None if prof.get("device_ms") is None
+            else prof["device_ms"] / step_ms)
+    print(f"{cfg.name} decode step (4 slots, 1500 frames): {step_ms:.3f} ms "
+          f"eager, {_ms(step_graph_ms)} as one CUDA graph, device "
+          f"{_ms(prof.get('device_ms'))} over {prof.get('device_ops')} "
+          f"device ops, busy share {_share(busy)}; bound {b_ms:.4f} ms "
+          f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP of which "
+          f"{cross_flops / 1e9:.2f} the cross K/V re-projection); encoder "
+          f"{encoder_ms:.3f} ms, prefill {prefill_ms:.3f} ms")
+    return dict(model=cfg.name, library="uniform",
+                path=f"whisper {cfg.name} uniform", launches=launches,
+                per_forward=dec, per_prefill=pre, per_encoder=enc,
+                n_bytes=n_bytes, frames=list(frames.shape),
+                prompt=WHISPER_PROMPT, cache_len=WHISPER_CACHE,
+                steps=WHISPER_STEPS, encoder_max_abs_err=enc_err,
+                encoder_band=enc_band, first_max_dlogit=first_dlogit,
+                held=held, encoder_ms=encoder_ms, prefill_ms=prefill_ms,
+                decode_step_ms=step_ms, decode_step_graph_ms=step_graph_ms,
+                decode_step_graph_null=why, decode_profile=prof,
+                busy_share=busy, step_bound_ms=b_ms, step_bound_by=b_by,
+                step_bytes=nbytes, step_flops=flops,
+                cross_kv_flops=cross_flops, tokens=toks.T.tolist())
+
+
 def serve_phases(lib, seg_lib, dev) -> list[dict]:
     """Full-width Yi-6B (with the serial oracle, the fault, plan and AOT /
     async phases on its weights), DeepSeekMoE-16B at ``DEEPSEEK_LAYERS``
@@ -3585,9 +3946,14 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
     prime-length prefill), Qwen1.5-110B at ``QWEN_LAYERS`` layers and
     Minitron-8B (graph engines), then the SSM families: Mamba2-130M whole
     (graph and eager engines, the serial oracle) and Jamba-v0.1 at
-    ``JAMBA_LAYERS`` layers (graph and eager), both on ``SSM_LENGTHS``."""
-    from repro_torch.configs import (deepseek_moe_16b, jamba_v0_1_52b,
-                                     mamba2_130m, minicpm3_4b, minitron_8b,
+    ``JAMBA_LAYERS`` layers (graph and eager), both on ``SSM_LENGTHS``;
+    then InternVL2-2B whole (graph and eager engines: a text decoder, as
+    the reference serves it; then its patches through the model entry,
+    ``frontend_phase``) and Whisper-tiny whole through its model entry
+    (``whisper_phase``: the engine refuses an encoder-decoder)."""
+    from repro_torch.configs import (deepseek_moe_16b, internvl2_2b,
+                                     jamba_v0_1_52b, mamba2_130m,
+                                     minicpm3_4b, minitron_8b,
                                      mixtral_8x22b, qwen1_5_110b, yi_6b)
 
     serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
@@ -3636,6 +4002,14 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
     serves += phase("serve jamba_v0_1_52b", serve_phase, [("uniform", lib)],
                     dev, jamba_v0_1_52b.CONFIG.replace(n_layers=JAMBA_LAYERS),
                     lengths=SSM_LENGTHS, tick_lengths=SSM_TICK)
+    freed(dev, "jamba_v0_1_52b")
+    serves += phase("serve internvl2_2b", serve_phase, [("uniform", lib)],
+                    dev, internvl2_2b.CONFIG, extra=lambda params, cfg, _r: {
+                        "frontend": phase("frontend internvl2_2b",
+                                          frontend_phase, params, cfg, lib,
+                                          dev)})
+    freed(dev, "internvl2_2b")
+    serves.append(phase("whisper_tiny", whisper_phase, lib, dev))
     return serves
 
 
@@ -3660,9 +4034,11 @@ def path_launches(serves) -> dict:
     its capture's launches)."""
     out: dict = {}
     for sv in serves:
-        out[f"serve {sv['model']} {sv['library']}"] = sv["launches"]
+        out[sv.get("path", f"serve {sv['model']} {sv['library']}")] = \
+            sv["launches"]
         extra = sv.get("extra") or {}
-        runs = {"plan three_slot": extra.get("plans", {}).get("three_slot")}
+        runs = {"plan three_slot": extra.get("plans", {}).get("three_slot"),
+                "frontend": extra.get("frontend")}
         runs.update({f"aot {k}": extra.get("aot", {}).get(k)
                      for k in ("graph", "aot")})
         for path, run in runs.items():

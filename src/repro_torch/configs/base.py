@@ -1,10 +1,10 @@
 """Architecture configuration (twin of ``repro/configs/base.py``): the fields
-the decoder-only families read (GQA with QKV bias and sliding windows, MLA,
+the decoder families read (GQA with QKV bias and sliding windows, MLA,
 MoE, SwiGLU / GELU / squared-ReLU MLPs, tied embeddings), the Mamba2 mixer
-and the hybrid period (``SSMConfig``, ``ssm``, ``attn_period``) and the
-per-layer numerics plan. ``EncoderConfig``, the frontend / norm /
-learned-position fields, ``ShapeConfig`` and ``cell_is_runnable`` port
-with the encoder-decoder and VLM families and with training."""
+and the hybrid period (``SSMConfig``, ``ssm``, ``attn_period``), the
+encoder-decoder and VLM fields (``EncoderConfig``, ``encoder``, the
+frontend stub, LayerNorm, learned positions) and the per-layer numerics
+plan. ``ShapeConfig`` and ``cell_is_runnable`` port with training."""
 from __future__ import annotations
 
 import dataclasses
@@ -45,9 +45,15 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    n_layers: int
+    source_len: int  # frozen source length (Whisper: 1500 frames)
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -63,7 +69,14 @@ class ModelConfig:
     first_dense_ff: Optional[int] = None  # DeepSeekMoE: dense layer 0 with own d_ff
     ssm: Optional[SSMConfig] = None
     attn_period: int = 0  # hybrid: 1 attention layer per this many (Jamba: 8)
+    encoder: Optional[EncoderConfig] = None
+    frontend: Optional[str] = None  # audio_stub | vision_stub
+    frontend_dim: int = 0  # stub embedding dim (projector input)
+    frontend_len: int = 0  # number of prepended frontend tokens
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
     act: str = "silu"  # silu (SwiGLU) | gelu | relu2
+    learned_pos: bool = False  # Whisper: learned positions instead of RoPE
+    max_pos: int = 32768  # learned-position table height (learned_pos only)
     tie_embeddings: bool = False
     numerics: str = "exact"  # exact | interp | interp-fused
     # per-layer heterogeneous numerics (DESIGN.md §16). When set, the plan
@@ -90,7 +103,7 @@ class ModelConfig:
 
 ARCH_IDS = ["mixtral_8x22b", "deepseek_moe_16b", "qwen1_5_110b",
             "minicpm3_4b", "minitron_8b", "yi_6b", "mamba2_130m",
-            "jamba_v0_1_52b"]
+            "jamba_v0_1_52b", "whisper_tiny", "internvl2_2b"]
 
 
 def get_config(arch: str) -> ModelConfig:

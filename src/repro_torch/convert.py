@@ -4,7 +4,9 @@
 i.e. ``jax.tree.map(np.asarray, repro.models.transformer.init_params(key,
 cfg))`` (``segments/seg<i>/<j>/...``: stacked over layers where a segment
 repeats, unstacked for a one-step segment; Jamba's step is its period of
-sub-layers ``0`` .. ``attn_period - 1``), and returns the port's
+sub-layers ``0`` .. ``attn_period - 1``; Whisper's ``pos``, ``encoder``
+and per-layer ``norm_x`` / ``cross``, LayerNorm ``bias`` leaves,
+InternVL's ``projector``), and returns the port's
 parameter dict, so that both packages compute the same function. The SSM
 mixer's ``a_log``, ``dt_bias`` and ``d_skip`` are float32 in both trees,
 its other leaves in the parameter dtype. Every

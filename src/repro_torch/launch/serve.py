@@ -3,13 +3,16 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \
         --numerics interp --requests 6 --slots 4 --prompt-len 64 --max-new 16
 
-runs the full-width model on the CUDA card; ``--arch`` takes the served
-ids of ``configs.base.ARCH_IDS``: ``yi_6b``, ``deepseek_moe_16b``,
+runs the full-width model on the CUDA card; ``--arch`` takes the ids of
+``configs.base.ARCH_IDS``: ``yi_6b``, ``deepseek_moe_16b``,
 ``minicpm3_4b`` (MLA), ``mixtral_8x22b`` (sliding-window MoE: a
 ``--cache-len`` of at least its 4096-token window), ``qwen1_5_110b`` (QKV
 bias), ``minitron_8b`` (squared ReLU), ``mamba2_130m`` (the Mamba2 SSD
-mixer) and ``jamba_v0_1_52b`` (the attention / Mamba / MoE hybrid; the
-whole model does not fit one card). An SSM config's prompt longer than its
+mixer), ``jamba_v0_1_52b`` (the attention / Mamba / MoE hybrid; the
+whole model does not fit one card) and ``internvl2_2b`` (served as a text
+decoder: a request carries no patches, as in the reference);
+``whisper_tiny`` exits with the engine's refusal (a request carries no
+encoder frames). An SSM config's prompt longer than its
 SSD chunk (256 tokens) must be a whole number of chunks, as in the
 reference. ``--smoke --device cpu`` runs
 the reduced config on the CPU through the kernels' plain versions. The flags and defaults are the
@@ -166,10 +169,13 @@ def main(argv=None) -> None:
               aot_buckets=buckets, max_pack=args.max_pack,
               async_host=args.async_host,
               graph=False if args.eager else None, device=dev)
-    if args.resume:
-        eng = ServeEngine.resume(args.journal, cfg, params, **kw)
-    else:
-        eng = ServeEngine(cfg, params, journal=args.journal, **kw)
+    try:
+        if args.resume:
+            eng = ServeEngine.resume(args.journal, cfg, params, **kw)
+        else:
+            eng = ServeEngine(cfg, params, journal=args.journal, **kw)
+    except ValueError as e:  # a config or flags the engine refuses
+        ap.exit(2, f"{ap.prog}: error: {e}\n")
     if args.save_library and eng.library is not None:
         if isinstance(eng.library, dict):  # plan engine: one per slot
             for key, lib in sorted(eng.library.items()):

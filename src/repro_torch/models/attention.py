@@ -9,8 +9,11 @@ place. A windowed GQA cache is a ring of ``min(cache_len, window)`` rows:
 row r holds the position p with p % rows == r. An MLA cache holds the
 compressed latent (``k``) and the shared rope key (``v``); decode expands
 the whole cache through ``wkv_b`` every step, as the reference does.
-``mla_train``, ``gqa_train`` and cross attention port with training and the
-encoder-decoder family.
+``gqa_train`` is the forward the encoder runs (non-causal over the frames);
+cross attention (``cross_kv`` / ``cross_apply``) attends from the decoder
+to the encoder's output with every query and key position 0, so every key
+is live. Under ``cfg.learned_pos`` no RoPE is applied. ``mla_train`` and
+the backward passes port with training.
 """
 from __future__ import annotations
 
@@ -164,8 +167,21 @@ def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.learned_pos:  # positions were added to the embeddings
+        return q, k, v
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def gqa_train(p: dict, x, positions, cfg, numerics,
+              causal: bool = True) -> torch.Tensor:
+    """The reference's training-shaped forward with no cache: attention of
+    the sequence over itself (the encoder passes ``causal=False``)."""
+    b, s, _ = x.shape
+    q, k, v = _gqa_qkv(p, x, positions, cfg)
+    o = attention_core(q, k, v, positions, positions, numerics,
+                       causal=causal, window=cfg.sliding_window)
+    return o.reshape(b, s, -1) @ p["wo"]
 
 
 def cache_rows(cfg, cache_len: int) -> int:
@@ -403,3 +419,34 @@ def mla_cache_specs(cfg, b: int, s: int, dtype) -> KVCache:
     return KVCache(k=spec((b, s, m.kv_lora_rank), dtype),
                    v=spec((b, s, m.qk_rope_head_dim), dtype),
                    pos=spec((b, s), torch.int32))
+
+
+def cross_shapes(cfg) -> dict:
+    d, hd, dt = cfg.d_model, cfg.head_size, pdtype(cfg)
+    return {"wq": spec((d, cfg.n_heads * hd), dt),
+            "wk": spec((d, cfg.n_kv_heads * hd), dt),
+            "wv": spec((d, cfg.n_kv_heads * hd), dt),
+            "wo": spec((cfg.n_heads * hd, d), dt)}
+
+
+def cross_kv(p: dict, enc: torch.Tensor, cfg):
+    """One layer's cross K / V (B, S_src, KV, D) from the encoder output
+    (B, S_src, d): projected on every call, as the reference does."""
+    b, s, _ = enc.shape
+    hd = cfg.head_size
+    k = (enc @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (enc @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    return k, v
+
+
+def cross_apply(p: dict, x: torch.Tensor, kv, cfg, numerics) -> torch.Tensor:
+    """Attention from the decoder rows x (B, S, d) to the encoder's K / V:
+    query and key positions all 0 and non-causal, so every key is live."""
+    b, s, _ = x.shape
+    hd = cfg.head_size
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k, v = kv
+    qp = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kp = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    o = attention_core(q, k, v, qp, kp, numerics, causal=False)
+    return o.reshape(b, s, -1) @ p["wo"]

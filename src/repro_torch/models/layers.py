@@ -1,6 +1,6 @@
 """Shared model layers (twin of ``repro/models/layers.py``, the subset the
-decoder-only families use): shape specs, rmsnorm, RoPE, the MLP (SwiGLU,
-GELU or squared ReLU), embeddings, the LM head (tied or not).
+serving path uses): shape specs, RMSNorm and LayerNorm, RoPE, the MLP
+(SwiGLU, GELU or squared ReLU), embeddings, the LM head (tied or not).
 
 Parameters are plain nested dicts of tensors in the reference's layout:
 weights are (in, out) and apply as ``x @ W``. A shape tree is a nested dict
@@ -45,6 +45,9 @@ def stack_specs(tree: dict, n: int) -> dict:
 
 
 def norm_shapes(cfg) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": spec((cfg.d_model,), pdtype(cfg)),
+                "bias": spec((cfg.d_model,), pdtype(cfg))}
     return {"scale": spec((cfg.d_model,), pdtype(cfg))}
 
 
@@ -66,11 +69,26 @@ def embed_shapes(cfg) -> dict:
     return out
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in float32 with plain ``torch.rsqrt`` (eps 1e-5), cast
+    back to x's dtype: the reference computes ``jax.lax.rsqrt`` under every
+    numerics backend, so no backend's table is read here."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, -1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + 1e-5)
+    return (y * scale + bias).to(x.dtype)
+
+
 def apply_norm(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
-    """RMSNorm with the scale as stored: the reference casts it to float32
-    first, and every backend promotes it to float32 itself (bf16 -> f32 is
-    exact, so the result is bitwise the same); the fused kernel reads it in
-    its own dtype, so the served norm is one device op."""
+    """LayerNorm (:func:`layer_norm`) under ``cfg.norm == "layernorm"``;
+    else RMSNorm with the scale as stored: the reference casts it to
+    float32 first, and every backend promotes it to float32 itself (bf16
+    -> f32 is exact, so the result is bitwise the same); the fused kernel
+    reads it in its own dtype, so the served norm is one device op."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
     return numerics.rmsnorm(x, p["scale"]).to(x.dtype)
 
 

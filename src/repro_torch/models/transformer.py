@@ -1,17 +1,25 @@
-"""Model assembly for the decoder-only families (twin of
-``repro/models/transformer.py``): GQA (QKV bias, sliding windows), MLA or
-Mamba2 (SSD) mixers, dense or MoE FFNs, and the Jamba hybrid.
+"""Model assembly (twin of ``repro/models/transformer.py``): GQA (QKV bias,
+sliding windows), MLA or Mamba2 (SSD) mixers, dense or MoE FFNs, the Jamba
+hybrid, the encoder-decoder (Whisper: an encoder over stub frame
+embeddings, cross attention in every decoder layer, LayerNorm, learned
+positions) and the VLM frontend (InternVL: stub patch embeddings through
+an MLP projector in place of the first prompt rows).
 
 ``layer_plan`` groups the layers into segments of one layer kind, as the
-reference does: one segment of dense-MLP layers for the dense family; a
-dense layer 0 (``first_dense_ff``) and then the MoE layers for DeepSeekMoE;
-one segment of FFN-less SSM layers for Mamba2; for the hybrid one segment
+reference does: one segment of dense-MLP layers for the dense family and
+for the decoders of the encoder-decoder and VLM families; a dense layer
+0 (``first_dense_ff``) and then the MoE layers for DeepSeekMoE; one
+segment of FFN-less SSM layers for Mamba2; for the hybrid one segment
 whose step is the ``attn_period``-layer period (attention at the middle
 layer, MoE on every ``moe.every``-th). Parameters keep the reference's
 tree: ``embed/{tok,head}``, ``segments/seg<i>/<j>/{norm1,mixer,norm2,ffn}``
-(no ``norm2`` / ``ffn`` where the layer has no FFN) with every leaf
+(no ``norm2`` / ``ffn`` where the layer has no FFN; ``norm_x`` and
+``cross`` besides in an encoder-decoder) with every leaf
 stacked over a leading layer axis when the segment repeats (unstacked for
-a one-step segment), and ``final_norm``; each leaf has its own dtype (the
+a one-step segment), ``final_norm``, and where the config has them the
+learned positions ``pos`` (``max_pos`` rows), ``encoder/{pos, layers,
+final_norm}`` (layers always stacked) and ``projector``; each leaf has its
+own dtype (the
 router and the SSM's ``a_log`` / ``dt_bias`` / ``d_skip`` are float32
 whatever the parameter dtype).
 
@@ -29,6 +37,13 @@ Python loop; decode updates the cache in place. Under a per-layer numerics
 plan (``numerics.for_layer``) each layer takes its own numerics and the
 final norm the plan's ``rest``; the loop needs no grouping of equal layers
 (the reference's ``apply_segment`` groups them to scan each run once).
+
+The encoder-decoder's decoder takes the encoder's output as ``cross=``
+(:func:`encoder_forward` computes it once per prompt) in :func:`prefill`
+and every :func:`decode_step`; each layer projects its cross K / V from
+it on every call, as the reference does. The reference's ``prefill``
+takes the frames and returns ``cross`` as a third value; this one returns
+(logits, cache) for every family.
 """
 from __future__ import annotations
 
@@ -42,9 +57,9 @@ import torch
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_shapes,
-                                       embed_tokens, lm_logits, map_tree,
-                                       mlp_shapes, norm_shapes, pdtype,
-                                       stack_specs)
+                                       embed_tokens, layer_norm, lm_logits,
+                                       map_tree, mlp_shapes, norm_shapes,
+                                       pdtype, spec, stack_specs)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import moe_block, moe_shapes
 
@@ -86,16 +101,19 @@ def layer_plan(cfg) -> list[Segment]:
             n -= 1
         segs.append(Segment((LayerKind(mixer, "moe"),), n))
         return segs
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "encdec"):  # the last two: decoders
         return [Segment((LayerKind(mixer, "mlp", cfg.d_ff),), cfg.n_layers)]
     raise NotImplementedError(f"model family {cfg.family!r} is not ported")
 
 
-def block_shapes(kind: LayerKind, cfg) -> dict:
+def block_shapes(kind: LayerKind, cfg, cross: bool = False) -> dict:
     mixer = (ssm_mod.ssm_shapes(cfg) if kind.mixer == "ssm"
              else attn.mla_shapes(cfg) if kind.mixer == "mla"
              else attn.gqa_shapes(cfg))
     out = {"norm1": norm_shapes(cfg), "mixer": mixer}
+    if cross:
+        out["norm_x"] = norm_shapes(cfg)
+        out["cross"] = attn.cross_shapes(cfg)
     if kind.ffn is not None:
         out["norm2"] = norm_shapes(cfg)
         out["ffn"] = (moe_shapes(cfg) if kind.ffn == "moe"
@@ -103,18 +121,43 @@ def block_shapes(kind: LayerKind, cfg) -> dict:
     return out
 
 
-def segment_shapes(seg: Segment, cfg) -> dict:
-    inner = {str(i): block_shapes(k, cfg) for i, k in enumerate(seg.pattern)}
+def segment_shapes(seg: Segment, cfg, cross: bool = False) -> dict:
+    inner = {str(i): block_shapes(k, cfg, cross)
+             for i, k in enumerate(seg.pattern)}
     return stack_specs(inner, seg.repeat) if seg.repeat > 1 else inner
 
 
-def param_shapes(cfg) -> dict:
-    """The reference's ``model_shapes`` for the decoder-only families: a
-    tree of :class:`~repro_torch.models.layers.Spec` leaves."""
-    return {"embed": embed_shapes(cfg),
-            "segments": {f"seg{i}": segment_shapes(seg, cfg)
-                         for i, seg in enumerate(layer_plan(cfg))},
+def encoder_shapes(cfg) -> dict:
+    """The encoder's tree: its own learned positions (``source_len``
+    rows), ``n_layers`` GQA + MLP layers stacked (even one), the final
+    norm."""
+    layer = {"norm1": norm_shapes(cfg), "mixer": attn.gqa_shapes(cfg),
+             "norm2": norm_shapes(cfg), "ffn": mlp_shapes(cfg, cfg.d_ff)}
+    return {"pos": spec((cfg.encoder.source_len, cfg.d_model), pdtype(cfg)),
+            "layers": stack_specs(layer, cfg.encoder.n_layers),
             "final_norm": norm_shapes(cfg)}
+
+
+def param_shapes(cfg) -> dict:
+    """The reference's ``model_shapes``: a tree of
+    :class:`~repro_torch.models.layers.Spec` leaves."""
+    dt = pdtype(cfg)
+    cross = cfg.family == "encdec"
+    out = {"embed": embed_shapes(cfg),
+           "segments": {f"seg{i}": segment_shapes(seg, cfg, cross)
+                        for i, seg in enumerate(layer_plan(cfg))},
+           "final_norm": norm_shapes(cfg)}
+    if cfg.learned_pos:
+        out["pos"] = spec((cfg.max_pos, cfg.d_model), dt)
+    if cfg.encoder is not None:
+        out["encoder"] = encoder_shapes(cfg)
+    if cfg.frontend == "vision_stub":
+        f, d = cfg.frontend_dim, cfg.d_model
+        out["projector"] = {
+            "norm": {"scale": spec((f,), dt), "bias": spec((f,), dt)},
+            "w1": spec((f, d), dt), "b1": spec((d,), dt),
+            "w2": spec((d, d), dt), "b2": spec((d,), dt)}
+    return out
 
 
 def init_rule(name: str, shape: tuple):
@@ -123,10 +166,12 @@ def init_rule(name: str, shape: tuple):
     ``b``, ``conv_b``, ``dt_bias``), ``"a_log"`` (log(1..H) along the last
     axis: A = -exp(a_log) spans the heads' decay rates), or the std of a
     truncated-normal(-2, 2) draw, 1/sqrt(fan_in) with fan_in the
-    second-to-last dim (the only dim of a 1-D leaf). Matched on the leaf's
-    own name: the reference's suffix test also catches MLA's ``wq_b`` /
-    ``wkv_b``, which the port draws (zero up-projections would void MLA's
-    attention)."""
+    second-to-last dim (the only dim of a 1-D leaf: the projector's ``b1``
+    / ``b2`` are drawn, as the reference's suffix test draws them; the
+    learned ``pos`` table's fan-in is its ``max_pos`` rows). Matched on the
+    leaf's own name: the reference's suffix test also catches MLA's
+    ``wq_b`` / ``wkv_b``, which the port draws (zero up-projections would
+    void MLA's attention)."""
     leaf = name.rsplit("/", 1)[-1]
     if leaf == "a_log":
         return "a_log"
@@ -283,9 +328,11 @@ def splice_cache(cfg, pool, one, slot: int):
 
 
 def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
-                mode: str, cache=None, cache_len: int = 0, pos=None):
+                mode: str, cache=None, cache_len: int = 0, pos=None,
+                cross=None):
     """One layer (the reference's ``apply_block`` in its serving modes):
-    norm, mixer, residual, then norm, FFN, residual where the layer has an
+    norm, mixer, residual; with ``cross`` (the encoder output) norm, cross
+    attention, residual; then norm, FFN, residual where the layer has an
     FFN. Returns (h, cache): in "prefill" the layer's new cache (a KVCache
     or an SSMState), in "decode" ``cache``, one layer's view of the pool,
     updated in place."""
@@ -305,6 +352,10 @@ def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
             y, cache = (attn.mla_decode if mla else attn.gqa_decode)(
                 lp["mixer"], x, pos, cache, cfg, numerics)
     h = h + y
+    if cross is not None:
+        xc = apply_norm(lp["norm_x"], h, cfg, numerics)
+        kv = attn.cross_kv(lp["cross"], cross, cfg)
+        h = h + attn.cross_apply(lp["cross"], xc, kv, cfg, numerics)
     if kind.ffn is not None:
         x2 = apply_norm(lp["norm2"], h, cfg, numerics)
         ffn = moe_block if kind.ffn == "moe" else apply_mlp
@@ -313,9 +364,10 @@ def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
 
 
 def backbone(p: dict, h, positions, cfg, numerics, mode: str,
-             caches=None, cache_len: int = 0, pos=None):
+             caches=None, cache_len: int = 0, pos=None, cross=None):
     """Run every layer and the final norm. ``mode``: "prefill" (returns the
-    new stacked cache) or "decode" (updates ``caches`` in place).
+    new stacked cache) or "decode" (updates ``caches`` in place); ``cross``
+    is the encoder output every layer's cross attention reads.
     ``numerics`` is one backend for every layer, or a plan-resolved object
     whose ``for_layer(i)`` gives layer ``i``'s (the final norm then runs
     under the object itself: the plan's ``rest``)."""
@@ -334,7 +386,7 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
             layer = (ssm_mod.SSMState(*(t[ci] for t in caches.ssm)) if ssm
                      else attn.KVCache(*(t[ci] for t in _kv(caches))))
         h, c = apply_layer(lp, kind, h, positions, cfg, num, mode, layer,
-                           cache_len, pos)
+                           cache_len, pos, cross)
         if mode == "prefill":
             (new_ssm if ssm else new_kv).append(c)
     h = apply_norm(p["final_norm"], h, cfg, numerics)
@@ -346,14 +398,99 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
     return h, caches
 
 
-def prefill(p: dict, tokens: torch.Tensor, cfg, numerics, cache_len: int):
-    """Process the prompt; returns (last-position logits (B, 1, V), cache)."""
+def encoder_forward(p: dict, frames: torch.Tensor, cfg,
+                    numerics) -> torch.Tensor:
+    """The encoder over stub frame embeddings: ``p`` is the tree's
+    ``encoder`` subtree, frames (B, S_src, d) (float32 from the stub, cast
+    to the parameter dtype) plus the first S_src learned positions, then
+    non-causal GQA + MLP layers and the final norm. Returns the encoder
+    output (B, S_src, d) that :func:`prefill` and :func:`decode_step` take
+    as ``cross``."""
+    b, s, _ = frames.shape
+    h = frames.to(pdtype(cfg))
+    h = h + p["pos"][:s].to(h.dtype)
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=frames.device).expand(b, s)
+    for i in range(cfg.encoder.n_layers):
+        lp = map_tree(lambda _n, t: t[i], p["layers"])
+        x = apply_norm(lp["norm1"], h, cfg, numerics)
+        h = h + attn.gqa_train(lp["mixer"], x, positions, cfg, numerics,
+                               causal=False)
+        x2 = apply_norm(lp["norm2"], h, cfg, numerics)
+        h = h + apply_mlp(lp["ffn"], x2, cfg, numerics)
+    return apply_norm(p["final_norm"], h, cfg, numerics)
+
+
+def _project_frontend(p: dict, emb: torch.Tensor, cfg,
+                      numerics) -> torch.Tensor:
+    """The InternVL MLP projector: stub patch embeddings (B, n,
+    frontend_dim) -> (B, n, d) in emb's dtype. A float32 LayerNorm, then
+    ``numerics.gelu(x @ w1 + b1) @ w2 + b2``, each product in the promoted
+    dtype of its operands, as the reference's ``jnp`` promotes them
+    (float32 patches against bf16 weights: float32)."""
+    pr = p["projector"]
+    x = layer_norm(emb, pr["norm"]["scale"], pr["norm"]["bias"])
+    dt = torch.promote_types(x.dtype, pr["w1"].dtype)
+    h = numerics.gelu(x.to(dt) @ pr["w1"].to(dt) + pr["b1"].to(dt))
+    return (h @ pr["w2"].to(dt) + pr["b2"].to(dt)).to(emb.dtype)
+
+
+def _embed_inputs(p: dict, tokens, positions, cfg, numerics,
+                  frontend_emb=None) -> torch.Tensor:
+    """Token embeddings; under the vision stub the projected patches in
+    place of the first n rows; under ``learned_pos`` plus the positions'
+    rows of ``pos`` (clamped to the table, as the reference's gather
+    clamps)."""
+    h = embed_tokens(p["embed"], tokens)
+    if frontend_emb is not None and cfg.frontend == "vision_stub":
+        patches = _project_frontend(p, frontend_emb, cfg, numerics)
+        n = patches.shape[1]
+        h = torch.cat([patches.to(h.dtype), h[:, n:]], 1)
+    if cfg.learned_pos:
+        idx = torch.clamp(positions, max=cfg.max_pos - 1).to(torch.int64)
+        h = h + p["pos"][idx].to(h.dtype)
+    return h
+
+
+def _check_inputs(cfg, cross, lengths: dict, frontend_emb=None) -> None:
+    """The inputs the reference fails on, refused before any launch:
+    ``cross`` missing for an encoder-decoder or given to a config without
+    an encoder; under ``learned_pos`` a prompt or cache longer than the
+    ``max_pos``-row table (the reference's gather clamps; a CUDA gather
+    past it is a device-side assert); patches for more rows than the
+    prompt has."""
+    if cfg.encoder is not None and cross is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: pass cross= "
+                         f"the encoder output (encoder_forward)")
+    if cfg.encoder is None and cross is not None:
+        raise ValueError(f"{cfg.name} has no encoder: cross= must be None")
+    if cfg.learned_pos:
+        for what, n in lengths.items():
+            if n > cfg.max_pos:
+                raise ValueError(f"{what} {n} exceeds the {cfg.max_pos} "
+                                 f"learned positions of {cfg.name}")
+    if frontend_emb is not None and cfg.frontend == "vision_stub":
+        n, s = frontend_emb.shape[1], lengths["prompt length"]
+        if n > s:
+            raise ValueError(f"{n} patch embeddings for a {s}-token prompt: "
+                             f"the patches take the prompt's first rows")
+
+
+def prefill(p: dict, tokens: torch.Tensor, cfg, numerics, cache_len: int,
+            frontend_emb=None, cross=None):
+    """Process the prompt; returns (last-position logits (B, 1, V), cache).
+    ``frontend_emb`` (B, n, frontend_dim): the vision stub's patches, which
+    take the first n <= S prompt rows; ``cross``: the encoder output
+    (:func:`encoder_forward`), which an encoder-decoder needs and any other
+    config refuses."""
     b, s = tokens.shape
+    _check_inputs(cfg, cross, {"prompt length": s, "cache_len": cache_len},
+                  frontend_emb)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    h = embed_tokens(p["embed"], tokens)
+    h = _embed_inputs(p, tokens, positions, cfg, numerics, frontend_emb)
     h, caches = backbone(p, h, positions, cfg, numerics, "prefill",
-                         cache_len=cache_len)
+                         cache_len=cache_len, cross=cross)
     return lm_logits(p["embed"], h[:, -1:]), caches
 
 
@@ -441,12 +578,15 @@ def splice_cache_rows(cfg, pool, rows, slots: torch.Tensor):
     return pool
 
 
-def decode_step(p: dict, token: torch.Tensor, pos, caches, cfg, numerics):
-    """token: (B, 1) int; pos: scalar or (B,) per-slot positions. Returns
-    (logits (B, 1, V), caches updated in place)."""
+def decode_step(p: dict, token: torch.Tensor, pos, caches, cfg, numerics,
+                cross=None):
+    """token: (B, 1) int; pos: scalar or (B,) per-slot positions; ``cross``
+    the encoder output of an encoder-decoder (as in :func:`prefill`).
+    Returns (logits (B, 1, V), caches updated in place)."""
     b = token.shape[0]
-    pos, _ = attn._decode_positions(pos, b, token.device)
-    h = embed_tokens(p["embed"], token)
+    _check_inputs(cfg, cross, {"cache_len": kv_rows(caches) or 0})
+    pos, positions = attn._decode_positions(pos, b, token.device)
+    h = _embed_inputs(p, token, positions, cfg, numerics)
     h, caches = backbone(p, h, None, cfg, numerics, "decode", caches=caches,
-                         pos=pos)
+                         pos=pos, cross=cross)
     return lm_logits(p["embed"], h), caches

@@ -17,7 +17,10 @@ a pad suffix would enter the state). A sliding-window config's slots are rings o
 ``min(cache_len, window)`` rows (``cache_len`` below the window is
 refused): prompts and decodes past the window wrap, so ``submit`` checks
 no overflow there. With interp numerics the decode runs through the library-bound
-kernels.
+kernels. A VLM config (InternVL) serves as a text decoder, as the
+reference's does: a ``Request`` carries no patches. An encoder-decoder
+config (Whisper) is refused at construction: a ``Request`` carries no
+frames either.
 
 The tick is the reference's one-dispatch ``lax.scan``: on a CUDA device
 ``_tick_fn(steps)`` replays one captured ``torch.cuda.CUDAGraph`` per
@@ -218,6 +221,14 @@ class ServeEngine:
         self.max_tick_s = max_tick_s
         self.verify_rom_every = max(0, int(verify_rom_every))
         self.graph = bool(graph)
+        if getattr(cfg, "encoder", None) is not None:
+            # the reference's engine takes such a config and fails inside
+            # run(), where its prefill meets no frames
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: a Request carries no "
+                f"encoder frames, so the engine cannot serve it; run "
+                f"models.transformer.encoder_forward, prefill(cross=) and "
+                f"decode_step(cross=) directly")
         if cfg.sliding_window is not None and cache_len < cfg.sliding_window:
             # the wrapped decode slot (pos % cache) would overwrite KV rows
             # that are still inside the attention window

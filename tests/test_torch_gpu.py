@@ -454,10 +454,29 @@ DECODE = {"decode": (1024, (17, 300, 1000, 600), None),
 # Mixtral's ring at decode: the window each case masks with
 RING = {"ring": 4096, "ring_w3000": 3000}
 
+# Whisper's non-causal attention: (B, Sq, Sk) of the encoder over its frames
+# (positions arange) and of cross attention (every position 0); 100 keys is
+# a ragged last tile (64 + 36), 1500 = 23 x 64 + 28 the served source length
+NONCAUSAL = {"encoder": (2, 100, 100), "cross": (2, 4, 100),
+             "cross_decode": (4, 1, 1500), "cross_prefill": (4, 4, 1500)}
+
 
 def _flash_case(mode, dev, dtype):
     g = torch.Generator(device=dev).manual_seed(1)
     kw = dict(device=dev, dtype=dtype)
+    if mode in NONCAUSAL:  # Whisper: 6 heads over 6, D 64
+        b, sq, sk = NONCAUSAL[mode]
+        h = kvh = 6
+        k = torch.randn(b, sk, kvh, 64, generator=g, **kw)
+        v = torch.randn(b, sk, kvh, 64, generator=g, **kw)
+        q = torch.randn(b, sq, h, 64, generator=g, **kw)
+        if mode == "encoder":
+            kv_pos = torch.arange(sk, device=dev).expand(b, sk)
+            q_pos = kv_pos
+        else:
+            kv_pos = torch.zeros((b, sk), dtype=torch.int32, device=dev)
+            q_pos = torch.zeros((b, sq), dtype=torch.int32, device=dev)
+        return q, k, v, q_pos.to(torch.int32), kv_pos.to(torch.int32), None
     if mode in DECODE:  # 4 slots against a cache view, dead rows
         # Yi-6B: 32 query heads over 4 KV heads; DeepSeekMoE: 16 over 16
         sk, lens, window = DECODE[mode]
@@ -567,7 +586,8 @@ def test_flash_kernel_matches_plain(mode, dtype, lib, dev):
 
 def _check_flash(mode, dtype, lib, dev):
     q, k, v, q_pos, kv_pos, window = _flash_case(mode, dev, dtype)
-    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window)
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, window=window,
+              causal=mode not in NONCAUSAL)
     n0 = build.LAUNCHES["flash_attn_lib"]
     got = attention_fused_library(q, k, v, lib, **kw).float()
     want = attention_fused_library_ref(q, k, v, lib, **kw).float()
@@ -610,7 +630,14 @@ def _per_forward(cfg, mode: str = "decode") -> dict:
     shared) and three per SSM layer (conv output, dt's softplus, the
     gate); one router softmax per MoE layer; the SSM recurrence's exp_neg
     table reads (``library_eval``), four per SSM layer in a prefill and
-    one in a decode."""
+    one in a decode. An encoder-decoder adds one cross attention per
+    layer, and its LayerNorms read no table; ``mode="encoder"`` counts
+    ``encoder_forward``: one attention and one activation per encoder
+    layer."""
+    if mode == "encoder":
+        n = cfg.encoder.n_layers
+        return {**dict.fromkeys(build.LAUNCHES, 0), "flash_attn_lib": n,
+                "act_lib": n}
     kinds = [slot[-1] for slot in tf.layer_slots(cfg)]
     n_moe = sum(k.ffn == "moe" for k in kinds)
     n_mlp = 0 if cfg.act == "relu2" else sum(k.ffn == "mlp" for k in kinds)
@@ -618,10 +645,14 @@ def _per_forward(cfg, mode: str = "decode") -> dict:
     n_ffn = sum(k.ffn is not None for k in kinds)
     shared = int(bool(cfg.moe and cfg.moe.n_shared))
     mla = 2 * (cfg.n_layers - n_ssm) if cfg.mla is not None else 0
+    norms = (0 if cfg.norm == "layernorm"
+             else cfg.n_layers + n_ffn + mla + n_ssm + 1)
+    cross = cfg.n_layers if cfg.encoder is not None else 0
     return {**dict.fromkeys(build.LAUNCHES, 0),
             "act_lib": n_mlp + n_moe * (1 + shared) + 3 * n_ssm,
-            "rmsnorm_lib": cfg.n_layers + n_ffn + mla + n_ssm + 1,
-            "flash_attn_lib": cfg.n_layers - n_ssm, "softmax_lib": n_moe,
+            "rmsnorm_lib": norms,
+            "flash_attn_lib": cfg.n_layers - n_ssm + cross,
+            "softmax_lib": n_moe,
             "library_eval": (4 if mode == "prefill" else 1) * n_ssm}
 
 
@@ -2025,7 +2056,8 @@ def test_async_host_on_the_card(lib, dev, tmp_path):
 
 # ------------------------------------------- the decoder families' shapes
 
-FAMILIES = ["minicpm3_4b", "mixtral_8x22b", "qwen1_5_110b", "minitron_8b"]
+FAMILIES = ["minicpm3_4b", "mixtral_8x22b", "qwen1_5_110b", "minitron_8b",
+            "internvl2_2b"]
 
 
 @pytest.mark.parametrize("mode", ["mla_decode", "mla_prefill", "ring",
@@ -2205,3 +2237,96 @@ def test_act_lib_at_ssm_shapes(shape, dtype, kind, lib, dev):
     assert build.LAUNCHES["act_lib"] == n0 + 1
     assert got.dtype == dtype
     assert torch.equal(got, getattr(PlainFusedNumerics(lib), kind)(x))
+
+
+# ------------------------------------ the encoder-decoder and VLM frontend
+
+@pytest.mark.parametrize("mode", list(NONCAUSAL))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_non_causal_and_cross(mode, dtype, lib, dev):
+    """flash_attn_lib without the causal mask, where Whisper takes it: the
+    encoder's self-attention over 100 keys (a ragged last tile of 36) and
+    cross attention with every query and key position 0, at 100 keys and
+    at the served 1500 (23 x 64 + 28) for one query row (key splits) and
+    four; the tolerances of ``test_flash_kernel_matches_plain``."""
+    _check_flash(mode, dtype, lib, dev)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 1536), (4, 1500, 1536),
+                                   (1, 256, 2048)])
+def test_act_lib_gelu_at_encdec_and_vlm_shapes(shape, lib, dev):
+    """``act_lib`` gelu where Whisper's MLP (1536 wide: a decode step, the
+    encoder over 1500 frames) and InternVL's projector (256 patches, 2048
+    wide, float32) take it: one launch, bitwise the plain version."""
+    dtype = torch.float32 if shape[-1] == 2048 else torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (torch.randn(shape, device=dev, generator=g) * 4).to(dtype)
+    n0 = build.LAUNCHES["act_lib"]
+    got = FusedInterpNumerics(lib).gelu(x)
+    assert build.LAUNCHES["act_lib"] == n0 + 1
+    assert got.dtype == dtype
+    assert torch.equal(got, PlainFusedNumerics(lib).gelu(x))
+
+
+def test_whisper_smoke_encode_prefill_decode_match_plain(lib, dev):
+    """The Whisper smoke config through the kernels against
+    ``PlainFusedNumerics``: the encoder over (2, 64, 64) frames, a
+    13-token prefill with its output as ``cross`` and one decode step, each
+    within 4 * 2^-12 of its largest magnitude, the positions bitwise, the
+    launches of each forward (no rmsnorm: LayerNorm reads no table)."""
+    cfg, params = _smoke(dev, "whisper_tiny")
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn(2, cfg.encoder.source_len, cfg.d_model,
+                         device=dev, generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 13), device=dev,
+                         generator=g)
+    fused, plain = FusedInterpNumerics(lib), PlainFusedNumerics(lib)
+
+    def close(a, b):
+        assert torch.all((a - b).abs() <= 4 * 2.0 ** -12 * b.abs().max())
+
+    build.reset_launches()
+    cross = tf.encoder_forward(params["encoder"], frames, cfg, fused)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == _per_forward(cfg, "encoder")
+    want_cross = tf.encoder_forward(params["encoder"], frames, cfg, plain)
+    close(cross, want_cross)
+    build.reset_launches()
+    got, cache = tf.prefill(params, toks, cfg, fused, 64, cross=cross)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == _per_forward(cfg, "prefill")
+    want, want_cache = tf.prefill(params, toks, cfg, plain, 64,
+                                  cross=want_cross)
+    close(got, want)
+    assert torch.equal(cache.pos, want_cache.pos)
+    tok = want[:, -1].argmax(-1)[:, None]
+    pos = torch.full((2,), 13, dtype=torch.int32, device=dev)
+    build.reset_launches()
+    got, _ = tf.decode_step(params, tok, pos, cache, cfg, fused, cross=cross)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES == _per_forward(cfg, "decode")
+    want, _ = tf.decode_step(params, tok, pos, want_cache, cfg, plain,
+                             cross=want_cross)
+    close(got, want)
+    assert torch.equal(cache.pos, want_cache.pos)
+
+
+def test_internvl_smoke_prefill_with_patches_matches_plain(lib, dev):
+    """The InternVL smoke config through the kernels with its 16 patches
+    (float32, projected by a gelu ``act_lib`` launch) against
+    ``PlainFusedNumerics``."""
+    cfg, params = _smoke(dev, "internvl2_2b")
+    g = torch.Generator(device=dev).manual_seed(0)
+    emb = torch.randn(2, cfg.frontend_len, cfg.frontend_dim, device=dev,
+                      generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=dev, generator=g)
+    build.reset_launches()
+    got, _ = tf.prefill(params, toks, cfg, FusedInterpNumerics(lib), 64,
+                        frontend_emb=emb)
+    torch.cuda.synchronize()
+    per = _per_forward(cfg, "prefill")
+    assert build.LAUNCHES == dict(per, act_lib=per["act_lib"] + 1)
+    want, _ = tf.prefill(params, toks, cfg, PlainFusedNumerics(lib), 64,
+                         frontend_emb=emb)
+    assert torch.all((got - want).abs() <= 4 * 2.0 ** -12
+                     * want.abs().max())
