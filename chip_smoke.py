@@ -161,8 +161,21 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    without the causal mask over Whisper's 1500 frames, in its cross
    attention (every position 0) and at InternVL's decode, gelu at
    Whisper's and InternVL's widths);
-11. prints the throughput, a ``{"kernels": [...]}`` JSON line (each
-   serving kernel's row with its ``family_shapes``) and, last,
+11. trains (``train_phase``): full-width Yi-6B cut to 8 of its 32 layers
+   (bf16, ``remat="block"``, 4 x 2048 tokens a step in 2 microbatches)
+   through ``make_train_step``, 6 steps under exact numerics (ms per step
+   on CUDA events, tokens/s, peak memory, the model-FLOPs share, the busy
+   share of one more step) and 3 from the same initial state under interp
+   numerics bound to the uniform library (the unfused glue: every table
+   read a ``library_eval`` launch, counted from 0 over the run), the
+   step-0 loss within the reference's bound of the exact one and bitwise
+   the plain evaluator's (``library_eval_ref``) on the same card; then
+   Mamba2-130M whole through the ``Trainer`` (8 x 512 tokens, a
+   checkpoint every 2 steps), a run cut after step 3 and resumed from
+   its checkpoint within rtol 1e-5 of the straight run;
+12. prints the throughput, a ``{"kernels": [...]}`` JSON line (each
+   serving kernel's row with its ``family_shapes``; ``library_eval``'s
+   launches include the interp train run's) and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises (non-zero exit) before the last line. Details go to
@@ -4013,6 +4026,225 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
     return serves
 
 
+# the train runs: Yi-6B at full width, cut to TRAIN_LAYERS of its 32
+# layers (~1.90 B parameters, ~30 GB of train state), a global batch of
+# TRAIN_BATCH sequences of TRAIN_SEQ tokens in TRAIN_MICRO microbatches;
+# Mamba2-130M whole through the Trainer, with a checkpoint every 2 steps
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 2048, 4, 2
+TRAIN_EXACT_STEPS, TRAIN_INTERP_STEPS = 6, 3
+MAMBA_TRAIN = dict(seq_len=512, global_batch=8, steps=6, every=2, cut=4)
+
+
+def _timed_steps(step, state, data, steps: int, first: int = 0):
+    """``steps`` train steps from ``first`` on CUDA events; returns (state,
+    [metrics as floats], [ms per step])."""
+    import torch
+
+    hist, ms = [], []
+    for i in range(first, first + steps):
+        batch = data.batch_at(i)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, m = step(state, batch, i)
+        t1.record()
+        torch.cuda.synchronize()
+        ms.append(t0.elapsed_time(t1))
+        hist.append({k: float(v) for k, v in m.items()})
+    return state, hist, ms
+
+
+def _train_figures(label, cfg, n_params, hist, ms, smi) -> dict:
+    """ms per step (the median past the first step, which warms up),
+    tokens/s and the model-FLOPs share 6 N tokens / (s x 989 TFLOP/s)."""
+    warm = sorted(ms[1:]) or ms
+    step_ms = warm[len(warm) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"ms_per_step": step_ms, "ms": ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "mfu": 6 * n_params * tokens / (step_ms / 1e3 * BF16_FLOPS),
+           "losses": [h["loss"] for h in hist],
+           "grad_norms": [h["grad_norm"] for h in hist]}
+    print(f"train {label} [{smi}]: {step_ms:.1f} ms/step (CUDA events, "
+          f"median of steps 1..{len(ms) - 1}), {out['tokens_per_s']:.0f} "
+          f"tokens/s, model-FLOPs share {out['mfu']:.3f} (6 N tokens over "
+          f"989 TFLOP/s, N = {n_params / 1e9:.3f} B); losses "
+          f"{[round(x, 4) for x in out['losses']]}")
+    return out
+
+
+def train_phase(lib, dev) -> dict:
+    """The train path (``repro_torch.train``) on the card.
+
+    (a) Yi-6B at full width (d 4096, 32 / 4 heads, d_ff 11008, vocab
+    64000), cut to ``TRAIN_LAYERS`` layers, bf16 random weights from a
+    seed, ``remat="block"``, sequences of ``TRAIN_SEQ`` tokens, a global
+    batch of ``TRAIN_BATCH`` in ``TRAIN_MICRO`` microbatches, through
+    ``make_train_step`` (the Trainer would checkpoint the ~30 GB state at
+    step 0): ``TRAIN_EXACT_STEPS`` steps under exact numerics (losses
+    finite, the last at least 0.2 below the first; ms per step on CUDA
+    events, tokens/s, ``max_memory_allocated``, the model-FLOPs share, the busy
+    share of one more step under torch.profiler), then from the same
+    initial state ``TRAIN_INTERP_STEPS`` steps under interp numerics bound
+    to ``lib`` (the unfused glue: every table read one ``library_eval``
+    launch), the launch counts set to 0 just before and read just after.
+    Held: the interp step-0 loss within the reference's 0.15 * max(1,
+    |exact|) of the exact one, and bitwise equal to the same loss with
+    the plain evaluator (``library_eval_ref`` in the same glue) on the
+    same card, its grad_norm within 1e-5 relative (autograd's index
+    backward accumulates in no fixed order).
+
+    (b) Mamba2-130M whole through ``Trainer`` (exact numerics): 6 steps of
+    8 x 512 tokens with a checkpoint every 2 steps into a temporary
+    directory, against a run cut after step 3 and resumed from its step-2
+    checkpoint by a new Trainer: the final losses within rtol 1e-5."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data import dataset_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import count_params
+    from repro_torch.kernels import build
+    from repro_torch.numerics.ops import InterpNumerics, PlainFusedNumerics
+    from repro_torch.optim import global_norm
+    from repro_torch.train import (StepConfig, Trainer, TrainerConfig,
+                                   make_train_step, train_state_init)
+    from repro_torch.train.step import batch_to, loss_and_grads
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {"card": smi}
+    cfg = get_config("yi_6b").replace(n_layers=TRAIN_LAYERS, remat="block")
+    n_params = count_params(tf.param_shapes(cfg))
+    # with a warmup of 2, a peak of 1e-4 spikes the loss at step 4 on the
+    # card; torch.optim.AdamW on the same gradients and float32 weights
+    # spike alike, and a warmup of 20 does not (tools/train_lr_probe.py,
+    # PERF.md): the run takes 2e-5
+    sc = StepConfig(microbatches=TRAIN_MICRO, peak_lr=2e-5, warmup=2,
+                    total_steps=TRAIN_EXACT_STEPS)
+    data = dataset_for(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = train_state_init(cfg, sc, seed=0, device=dev)
+    step = make_train_step(cfg, sc, donate=True)
+    state, hist, ms = _timed_steps(step, state, data, TRAIN_EXACT_STEPS)
+    exact = _train_figures("yi_6b exact", cfg, n_params, hist, ms, smi)
+    exact["max_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    nxt = [TRAIN_EXACT_STEPS]
+
+    def one_more():
+        nonlocal state
+        state, _ = step(state, data.batch_at(nxt[0]), nxt[0])
+        nxt[0] += 1
+
+    exact["profile"] = profile_steps(one_more, n=1)
+    losses = exact["losses"]
+    # the step must move the model: 11.454 -> 10.620 on an H100 (700 W)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] - 0.2:
+        raise AssertionError(f"exact train losses {losses}")
+    print(f"train yi_6b exact [{smi}]: max_memory_allocated "
+          f"{exact['max_memory_gb']:.2f} GB; busy share "
+          f"{exact['profile'].get('device_busy_share')}")
+    out["yi_6b_exact"] = exact
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # interp numerics bound to the uniform library, from the same state
+    icfg = cfg.replace(numerics="interp")
+
+    class PlainInterpNumerics(InterpNumerics):
+        """The unfused glue around the plain evaluator
+        (``library_eval_ref``) on any device."""
+
+        _eval = PlainFusedNumerics._eval
+
+    state = train_state_init(icfg, sc, seed=0, device=dev)
+    b0 = batch_to(data.batch_at(0), dev)
+    p_loss, _, p_grads = loss_and_grads(state.params, b0, icfg,
+                                        PlainInterpNumerics(lib), TRAIN_MICRO)
+    p_loss, p_gnorm = float(p_loss), float(global_norm(p_grads))
+    del p_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_train_step(icfg, sc, lib, donate=True)
+    build.reset_launches()
+    state, hist, ms = _timed_steps(step, state, data, TRAIN_INTERP_STEPS)
+    launches = dict(build.LAUNCHES)
+    interp = _train_figures("yi_6b interp", icfg, n_params, hist, ms, smi)
+    interp["max_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    interp["launches"] = launches
+    interp["library_eval_per_step"] = (launches["library_eval"]
+                                       / TRAIN_INTERP_STEPS)
+    others = {k: v for k, v in launches.items() if v and k != "library_eval"}
+    if not launches["library_eval"] or others:
+        raise AssertionError(f"interp train launches {launches}")
+    il, el = interp["losses"][0], exact["losses"][0]
+    interp.update(exact_step0=el, plain_loss=p_loss, plain_grad_norm=p_gnorm,
+                  grad_norm_rel=abs(interp["grad_norms"][0] - p_gnorm)
+                  / p_gnorm)
+    print(f"train yi_6b interp [{smi}]: {interp['library_eval_per_step']:.0f}"
+          f" library_eval launches per step; step-0 loss {il!r} (plain "
+          f"evaluator {p_loss!r}, exact {el!r}); grad_norm "
+          f"{interp['grad_norms'][0]!r} (plain {p_gnorm!r}, rel "
+          f"{interp['grad_norm_rel']:.2e}); max_memory_allocated "
+          f"{interp['max_memory_gb']:.2f} GB")
+    if not all(np.isfinite(interp["losses"])):
+        raise AssertionError(f"interp train losses {interp['losses']}")
+    if abs(il - el) > 0.15 * max(1.0, abs(el)):
+        raise AssertionError(f"interp step-0 loss {il} vs exact {el}")
+    if il != p_loss or interp["grad_norm_rel"] > 1e-5:
+        raise AssertionError(f"kernel vs plain evaluator: loss {il!r} vs "
+                             f"{p_loss!r}, grad_norm rel "
+                             f"{interp['grad_norm_rel']}")
+    out["yi_6b_interp"] = interp
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Mamba2-130M whole through the Trainer: straight against cut + resume
+    mcfg = get_config("mamba2_130m")
+    mt = MAMBA_TRAIN
+    with tempfile.TemporaryDirectory() as tmp:
+        def tc(sub, steps):
+            return TrainerConfig(
+                steps=steps, ckpt_dir=f"{tmp}/{sub}", ckpt_every=mt["every"],
+                log_every=100, seq_len=mt["seq_len"],
+                global_batch=mt["global_batch"],
+                step=StepConfig(total_steps=mt["steps"], warmup=2,
+                                peak_lr=1e-3))
+
+        t0 = time.perf_counter()
+        straight = Trainer(mcfg, tc("a", mt["steps"]), device=dev).run()
+        straight_s = time.perf_counter() - t0
+        Trainer(mcfg, tc("b", mt["cut"]), device=dev).run()
+        t3 = Trainer(mcfg, tc("b", mt["steps"]), device=dev)
+        if t3.start_step != mt["cut"] - 1:
+            raise AssertionError(f"resumed at {t3.start_step}")
+        resumed = t3.run()
+    a, b = straight[-1]["loss"], resumed[-1]["loss"]
+    rel = abs(a - b) / abs(a)
+    mamba = {"losses": [h["loss"] for h in straight],
+             "resumed_losses": [h["loss"] for h in resumed],
+             "wall_s": [h["wall_s"] for h in straight],
+             "straight_s": straight_s, "resume_rel": rel,
+             "n_params": count_params(tf.param_shapes(mcfg))}
+    print(f"train mamba2_130m [{smi}]: straight {straight_s:.1f} s for "
+          f"{mt['steps']} steps with {len(range(0, mt['steps'], mt['every']))}"
+          f" checkpoints; final loss {a!r}, resumed from step "
+          f"{mt['cut'] - 2} {b!r} (rel {rel:.2e})")
+    if not all(np.isfinite(mamba["losses"])) or rel > 1e-5:
+        raise AssertionError(f"mamba2 resume: {a!r} vs {b!r}")
+    out["mamba2_130m"] = mamba
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def freed(dev, name: str) -> None:
     """Free what the last serve run left (its weights and cache go before
     the next init) and print what stays allocated."""
@@ -4112,9 +4344,12 @@ def main() -> int:
                      [("uniform", lib), ("segmented", seg_lib)], dev)
     tab_rows, pertable = phase("per-table", pertable_phase, lib, dev)
     serves = serve_phases(lib, seg_lib, dev)
+    train = phase("train", train_phase, lib, dev)
+    train_launches = train["yi_6b_interp"]["launches"]
     launches = {name: sum(sv["launches"][name] for sv in serves)
-                for name in build.LAUNCHES}
+                + train_launches[name] for name in build.LAUNCHES}
     by_path = path_launches(serves)
+    by_path["train yi_6b interp"] = train_launches
     launches.update(gen["launches"])
     launches["rom_eval"] = seg_gen["launches"]["rom_eval"]
     for name in ENVELOPE_KERNELS:
@@ -4200,6 +4435,7 @@ def main() -> int:
                                 + family_rows),
               "new_activations": new_acts,
               "generator": gen, "pertable": pertable, "serve": serves,
+              "train": train,
               "launches_by_path": by_path,
               "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES,
               "phase_s": PHASE_S}

@@ -4,7 +4,8 @@ MoE, SwiGLU / GELU / squared-ReLU MLPs, tied embeddings), the Mamba2 mixer
 and the hybrid period (``SSMConfig``, ``ssm``, ``attn_period``), the
 encoder-decoder and VLM fields (``EncoderConfig``, ``encoder``, the
 frontend stub, LayerNorm, learned positions) and the per-layer numerics
-plan. ``ShapeConfig`` and ``cell_is_runnable`` port with training."""
+plan, and the train path's ``remat``. ``ShapeConfig`` and
+``cell_is_runnable`` belong to the dry run and port with it."""
 from __future__ import annotations
 
 import dataclasses
@@ -84,6 +85,9 @@ class ModelConfig:
     # and library slot. Frozen and hashable, so the config stays a key.
     plan: Optional[NumericsPlan] = None
     param_dtype: str = "bfloat16"
+    # activation checkpointing of the train path, per layer: none | block
+    # (matmul outputs saved, the rest recomputed) | full
+    remat: str = "block"
 
     @property
     def head_size(self) -> int:

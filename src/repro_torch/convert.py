@@ -1,4 +1,5 @@
-"""Carry the reference's parameters into the port.
+"""Carry the reference's parameters and train states into the port, and
+the port's back out as numpy.
 
 ``params_from_jax`` takes the reference's parameter tree as numpy arrays,
 i.e. ``jax.tree.map(np.asarray, repro.models.transformer.init_params(key,
@@ -14,6 +15,15 @@ leaf must have the port's shape and dtype for ``cfg``; nothing is cast. A
 reference leaf that the port's tree does not name is refused too: a
 dropped leaf (a QKV bias, say) would otherwise show only as a logit
 difference.
+
+``train_state_from_jax`` takes a reference ``TrainState`` as numpy
+(``jax.tree.map(np.asarray, state)``: params, the AdamW ``step`` /
+``master`` / ``mu`` / ``nu``, the compression ``residual`` or None) and
+returns the port's :class:`~repro_torch.train.step.TrainState`.
+``to_numpy`` is the inverse direction for any of the port's trees: the
+same structure with numpy leaves, bf16 as numpy's ``bfloat16`` type
+(registered by ``ml_dtypes``, which the reference loads). Both packages'
+checkpoints carry states too (``repro_torch.checkpoint``).
 """
 from __future__ import annotations
 
@@ -21,7 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
+from repro_torch.models.layers import Spec, map_tree
 from repro_torch.models.transformer import param_shapes
+from repro_torch.util.tree import tree_map
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -34,14 +46,20 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"
                     ) -> dict:
-    dev = resolve(device)
+    return _from_tree(tree, param_shapes(cfg), resolve(device), cfg.name)
+
+
+def _from_tree(tree: dict, shapes: dict, dev: torch.device,
+               arch: str) -> dict:
+    """``tree``'s numpy leaves as tensors on ``dev`` in the structure of
+    the :class:`Spec` tree ``shapes``, each checked against its spec."""
 
     def walk(shapes: dict, src: dict, path: str) -> dict:
         extra = sorted(set(src) - set(shapes))
         if extra:
             raise KeyError(f"reference leaves {[path + e for e in extra]} "
                            f"have no place in the port's tree for "
-                           f"{cfg.name}")
+                           f"{arch}")
         out = {}
         for name, sp in shapes.items():
             if name not in src:
@@ -59,4 +77,45 @@ def params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"
             out[name] = t.to(dev)
         return out
 
-    return walk(param_shapes(cfg), tree, "")
+    return walk(shapes, tree, "")
+
+
+def train_state_from_jax(state, cfg, device: str | torch.device = "cuda"):
+    """The port's ``TrainState`` from the reference's, as numpy; every leaf
+    must have the port's shape and dtype (float32 optimizer state, an
+    int32 step)."""
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.step import TrainState
+
+    dev = resolve(device)
+    shapes = param_shapes(cfg)
+    f32 = map_tree(lambda _n, sp: Spec(sp.shape, torch.float32), shapes)
+    opt = state.opt
+    step = _tensor(np.asarray(opt.step))
+    if step.shape != () or step.dtype != torch.int32:
+        raise TypeError(f"opt/step: {step.dtype}{tuple(step.shape)}, want "
+                        f"a 0-dim int32")
+    res = state.residual
+    return TrainState(
+        params_from_jax(state.params, cfg, dev),
+        AdamWState(step.to(dev), *(_from_tree(t, f32, dev, cfg.name)
+                                   for t in (opt.master, opt.mu, opt.nu))),
+        None if res is None else _from_tree(res, f32, dev, cfg.name))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().contiguous().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError as e:
+        raise TypeError("numpy has no bfloat16 type until ml_dtypes is "
+                        "imported (jax imports it)") from e
+    return t.view(torch.int16).numpy().view(bf16)
+
+
+def to_numpy(tree):
+    """``tree`` (a parameter dict, a ``TrainState``, ...) with every tensor
+    leaf a numpy array on the host, bf16 as numpy's ``bfloat16``."""
+    return tree_map(_numpy, tree)

@@ -12,8 +12,13 @@ the whole cache through ``wkv_b`` every step, as the reference does.
 ``gqa_train`` is the forward the encoder runs (non-causal over the frames);
 cross attention (``cross_kv`` / ``cross_apply``) attends from the decoder
 to the encoder's output with every query and key position 0, so every key
-is live. Under ``cfg.learned_pos`` no RoPE is applied. ``mla_train`` and
-the backward passes port with training.
+is live. Under ``cfg.learned_pos`` no RoPE is applied.
+
+``gqa_train`` / ``mla_train`` are the train path's forwards (no cache),
+differentiated by autograd: the running max of the glue path is detached
+where the reference stops its gradient, and nothing autograd saves is
+written in place. A fused attention hook has no backward: the train step
+refuses a fused backend for CUDA parameters before any launch.
 """
 from __future__ import annotations
 
@@ -87,7 +92,8 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
         s = scores(q, k)
         m = _mask(q_pos, kv_pos, causal, window)[:, None, None]
         s = torch.where(m, s, NEG)
-        mx = torch.clamp(s.amax(-1, keepdim=True), min=M_FLOOR)
+        # the reference's stop_gradient: the max only shifts the exponent
+        mx = torch.clamp(s.amax(-1, keepdim=True).detach(), min=M_FLOOR)
         p = numerics.exp_neg(s - mx)
         l = p.sum(-1, keepdim=True)
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).to(_F32),
@@ -126,7 +132,8 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
             if masked:
                 s = torch.where(_mask(qpb, kpb, causal, window)[:, None, None],
                                 s, NEG)
-            m_new = torch.clamp(torch.maximum(m_i, s.amax(-1)), min=M_FLOOR)
+            m_new = torch.clamp(torch.maximum(m_i, s.amax(-1).detach()),
+                                min=M_FLOOR)
             p = numerics.exp_neg(s - m_new[..., None])
             corr = numerics.exp_neg(torch.clamp(m_i - m_new, max=0.0))
             l_i = l_i * corr + p.sum(-1)
@@ -367,20 +374,34 @@ def _mla_expand(p, ckv, kr, cfg):
     return torch.cat([kn, kr_b], -1), v
 
 
+def _mla_forward(p: dict, x, positions, cfg, numerics, causal: bool):
+    """Queries, latents expanded, attention over the sequence: (y, the
+    latents (B, S, kv_lora), the rope keys (B, S, rope))."""
+    b, s, _ = x.shape
+    q = _mla_q(p, x, positions, cfg, numerics)
+    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics)
+    k, v = _mla_expand(p, ckv, kr, cfg)
+    o = attention_core(q, k, v, positions, positions, numerics,
+                       causal=causal)
+    return o.reshape(b, s, -1) @ p["wo"], ckv, kr
+
+
+def mla_train(p: dict, x, positions, cfg, numerics,
+              causal: bool = True) -> torch.Tensor:
+    """The training-shaped MLA forward with no cache."""
+    return _mla_forward(p, x, positions, cfg, numerics, causal)[0]
+
+
 def mla_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
-    """The reference's ``mla_train`` forward (latents expanded, causal
-    attention over the prompt), and the latent cache right-padded to
-    ``cache_len`` rows. The reference computes the latents twice (once
-    inside ``mla_train``); the same function once here."""
+    """:func:`mla_train`'s forward (latents expanded, causal attention over
+    the prompt), and the latent cache right-padded to ``cache_len`` rows.
+    The reference computes the latents twice (once inside ``mla_train``);
+    the same function once here."""
     m = cfg.mla
     b, s, _ = x.shape
     if s > cache_len:
         raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
-    q = _mla_q(p, x, positions, cfg, numerics)
-    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics)
-    k, v = _mla_expand(p, ckv, kr, cfg)
-    o = attention_core(q, k, v, positions, positions, numerics, causal=True)
-    y = o.reshape(b, s, -1) @ p["wo"]
+    y, ckv, kr = _mla_forward(p, x, positions, cfg, numerics, causal=True)
     ck = torch.zeros((b, cache_len, m.kv_lora_rank), dtype=ckv.dtype,
                      device=x.device)
     krb = torch.zeros((b, cache_len, m.qk_rope_head_dim), dtype=kr.dtype,

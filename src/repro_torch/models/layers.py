@@ -1,6 +1,7 @@
-"""Shared model layers (twin of ``repro/models/layers.py``, the subset the
-serving path uses): shape specs, RMSNorm and LayerNorm, RoPE, the MLP
-(SwiGLU, GELU or squared ReLU), embeddings, the LM head (tied or not).
+"""Shared model layers (twin of ``repro/models/layers.py``): shape specs,
+their parameter count and initialization (``count_params``, ``init_tree``),
+RMSNorm and LayerNorm, RoPE, the MLP (SwiGLU, GELU or squared ReLU),
+embeddings, the LM head (tied or not).
 
 Parameters are plain nested dicts of tensors in the reference's layout:
 weights are (in, out) and apply as ``x @ W``. A shape tree is a nested dict
@@ -13,6 +14,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.device import resolve
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,6 +45,75 @@ def map_tree(fn, tree: dict, path: tuple = ()) -> dict:
 def stack_specs(tree: dict, n: int) -> dict:
     """Prepend a layer dimension to every leaf (stacked layer segments)."""
     return map_tree(lambda _n, s: spec((n, *s.shape), s.dtype), tree)
+
+
+def count_params(shapes: dict) -> int:
+    """Elements over every leaf of a :class:`Spec` tree."""
+    n = 0
+
+    def add(_name, sp):
+        nonlocal n
+        n += math.prod(sp.shape)
+    map_tree(add, shapes)
+    return n
+
+
+def init_rule(name: str, shape: tuple):
+    """The reference's ``init_tree`` rule for the leaf at path ``name`` of
+    ``shape``: ``"ones"`` (norm scales, ``d_skip``), ``"zeros"`` (``bias``,
+    ``b``, ``conv_b``, ``dt_bias``), ``"a_log"`` (log(1..H) along the last
+    axis: A = -exp(a_log) spans the heads' decay rates), or the std of a
+    truncated-normal(-2, 2) draw, 1/sqrt(fan_in) with fan_in the
+    second-to-last dim (the only dim of a 1-D leaf: the projector's ``b1``
+    / ``b2`` are drawn, as the reference's suffix test draws them; the
+    learned ``pos`` table's fan-in is its ``max_pos`` rows). Matched on the
+    leaf's own name: the reference's suffix test also catches MLA's
+    ``wq_b`` / ``wkv_b``, which the port draws (zero up-projections would
+    void MLA's attention)."""
+    leaf = name.rsplit("/", 1)[-1]
+    if leaf == "a_log":
+        return "a_log"
+    if leaf in ("d_skip", "scale", "gamma"):
+        return "ones"
+    if leaf in ("bias", "b", "conv_b", "dt_bias"):
+        return "zeros"
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    return 1.0 / math.sqrt(max(fan_in, 1))
+
+
+def init_tree(shapes: dict, seed: int = 0,
+              device: str | torch.device = "cuda") -> dict:
+    """Materialize a :class:`Spec` tree by :func:`init_rule`, each leaf in
+    its own dtype, drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (so the draws are the port's own, not the reference's; tests
+    carry the reference's over with ``convert.params_from_jax``). A leaf of
+    rank >= 3 is drawn one slice of its leading (layer or expert) axis at a
+    time, so no float32 draw holds more than one layer."""
+    dev = resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def one(name: str, sp: Spec) -> torch.Tensor:
+        shape, dt = sp
+        rule = init_rule(name, shape)
+        if rule == "ones":
+            return torch.ones(shape, dtype=dt, device=dev)
+        if rule == "zeros":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        if rule == "a_log":
+            row = torch.log(torch.arange(1, shape[-1] + 1,
+                                         dtype=torch.float32, device=dev))
+            return row.expand(shape).to(dt).contiguous()
+        std = rule
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for sl in (out if len(shape) >= 3 else (out,)):
+            w = torch.empty(sl.shape, dtype=torch.float32, device=dev)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            sl.copy_(w.mul_(std))
+            del w  # freed before the next slice's draw is allocated
+        return out
+
+    return map_tree(one, shapes)
 
 
 def norm_shapes(cfg) -> dict:

@@ -12,7 +12,8 @@ weights are read once per call. On the CPU in float32 this computes what the
 reference computes; in bf16 on the card the expert products round their
 outputs to bf16 where the reference keeps float32.
 
-``load_balance_loss_from_probs`` belongs to the training slice.
+``load_balance_loss_from_probs`` is the training path's Switch-style aux
+loss from the same routing pass's probabilities.
 """
 from __future__ import annotations
 
@@ -106,3 +107,15 @@ def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
     if return_probs:
         return y, probs
     return y
+
+
+def load_balance_loss_from_probs(probs: torch.Tensor, cfg) -> torch.Tensor:
+    """Switch-style load-balance aux loss from the routing pass's probs (B,
+    S, E): E * sum_e (mean prob of e) * (mean top-k count of e). The top-k
+    is :func:`top_k`'s stable descending sort, as the routing takes it."""
+    m = cfg.moe
+    pe = probs.reshape(-1, m.n_experts)
+    me = pe.mean(0)
+    _, idx = top_k(pe, m.top_k)
+    ce = torch.mean(F.one_hot(idx, m.n_experts).to(torch.float32).sum(1), 0)
+    return m.n_experts * torch.sum(me * ce)

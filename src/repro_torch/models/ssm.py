@@ -10,8 +10,9 @@ float32 here, on upcast operands. The recurrent state ``ssm`` is float32,
 the ``conv`` shift register has the parameter dtype. The inter-chunk
 recurrence (the reference's ``lax.scan``) is a Python loop over chunks.
 ``ssm_decode`` writes the new state into the state it is handed, in place,
-from fresh tensors: what a captured decode graph replays. ``ssm_train``
-ports with training.
+from fresh tensors: what a captured decode graph replays. ``ssm_train`` is
+the train path's forward: the prefill's body without its state, every
+tensor autograd saves left as it was written.
 """
 from __future__ import annotations
 
@@ -161,6 +162,12 @@ def _ssm_forward(p: dict, x: torch.Tensor, cfg, numerics, h0=None):
                             numerics, h0)
     y = _gated_norm(p, y.reshape(bsz, seq, d_inner), z, numerics)
     return y @ p["out_proj"], h_last, xbc_in
+
+
+def ssm_train(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), no state kept; S longer than one chunk
+    must be whole chunks, as in prefill."""
+    return _ssm_forward(p, x, cfg, numerics)[0]
 
 
 def ssm_prefill(p: dict, x: torch.Tensor, cfg, numerics):

@@ -44,24 +44,43 @@ and every :func:`decode_step`; each layer projects its cross K / V from
 it on every call, as the reference does. The reference's ``prefill``
 takes the frames and returns ``cross`` as a third value; this one returns
 (logits, cache) for every family.
+
+Training: ``backbone(..., "train")`` runs ``gqa_train`` / ``mla_train`` /
+``ssm_train`` and returns (h, the MoE load-balance aux summed over the
+layers); under ``cfg.remat`` each layer is checkpointed
+(``torch.utils.checkpoint``, non-reentrant): ``"full"`` recomputes the whole
+layer in the backward pass, ``"block"`` saves the matmul outputs (``mm`` /
+``addmm``: the reference's ``dots_with_no_batch_dims_saveable``) and
+recomputes the rest. :func:`loss_fn` is the mean token cross entropy
+(:func:`chunked_ce_loss`, ``LOSS_CHUNK`` positions at a time, each chunk
+recomputed in the backward pass so no (B, S, V) float32 buffer forms) plus
+``AUX_WEIGHT`` times the aux; it computes an encoder-decoder's encoder
+output from ``batch["enc_frames"]`` itself, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import resolve
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_shapes,
-                                       embed_tokens, layer_norm, lm_logits,
-                                       map_tree, mlp_shapes, norm_shapes,
-                                       pdtype, spec, stack_specs)
+                                       embed_tokens, init_tree, layer_norm,
+                                       lm_logits, map_tree, mlp_shapes,
+                                       norm_shapes, pdtype, spec, stack_specs)
+from repro_torch.models.layers import init_rule  # noqa: F401  (re-export)
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.moe import moe_block, moe_shapes
+from repro_torch.models.moe import (load_balance_loss_from_probs, moe_block,
+                                    moe_shapes)
+
+LOSS_CHUNK = 512
+AUX_WEIGHT = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,61 +179,17 @@ def param_shapes(cfg) -> dict:
     return out
 
 
-def init_rule(name: str, shape: tuple):
-    """The reference's ``init_tree`` rule for the leaf at path ``name`` of
-    ``shape``: ``"ones"`` (norm scales, ``d_skip``), ``"zeros"`` (``bias``,
-    ``b``, ``conv_b``, ``dt_bias``), ``"a_log"`` (log(1..H) along the last
-    axis: A = -exp(a_log) spans the heads' decay rates), or the std of a
-    truncated-normal(-2, 2) draw, 1/sqrt(fan_in) with fan_in the
-    second-to-last dim (the only dim of a 1-D leaf: the projector's ``b1``
-    / ``b2`` are drawn, as the reference's suffix test draws them; the
-    learned ``pos`` table's fan-in is its ``max_pos`` rows). Matched on the
-    leaf's own name: the reference's suffix test also catches MLA's
-    ``wq_b`` / ``wkv_b``, which the port draws (zero up-projections would
-    void MLA's attention)."""
-    leaf = name.rsplit("/", 1)[-1]
-    if leaf == "a_log":
-        return "a_log"
-    if leaf in ("d_skip", "scale", "gamma"):
-        return "ones"
-    if leaf in ("bias", "b", "conv_b", "dt_bias"):
-        return "zeros"
-    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return 1.0 / math.sqrt(max(fan_in, 1))
+def model_shapes(cfg) -> dict:
+    """The reference's name for :func:`param_shapes`."""
+    return param_shapes(cfg)
 
 
 def init_params(cfg, seed: int = 0, device: str | torch.device = "cuda"
                 ) -> dict:
-    """Random parameters with the reference's init rules (``init_tree``,
-    :func:`init_rule`), each leaf in its own dtype, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``. A leaf of rank
-    >= 3 is drawn one slice of its leading (layer or expert) axis at a
-    time, so no float32 draw holds more than one layer."""
-    dev = resolve(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-
-    def one(name: str, sp) -> torch.Tensor:
-        shape, dt = sp
-        rule = init_rule(name, shape)
-        if rule == "ones":
-            return torch.ones(shape, dtype=dt, device=dev)
-        if rule == "zeros":
-            return torch.zeros(shape, dtype=dt, device=dev)
-        if rule == "a_log":
-            row = torch.log(torch.arange(1, shape[-1] + 1,
-                                         dtype=torch.float32, device=dev))
-            return row.expand(shape).to(dt).contiguous()
-        std = rule
-        out = torch.empty(shape, dtype=dt, device=dev)
-        for sl in (out if len(shape) >= 3 else (out,)):
-            w = torch.empty(sl.shape, dtype=torch.float32, device=dev)
-            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            sl.copy_(w.mul_(std))
-            del w  # freed before the next slice's draw is allocated
-        return out
-
-    return map_tree(one, param_shapes(cfg))
+    """Random parameters of ``cfg``: :func:`~repro_torch.models.layers.
+    init_tree` of :func:`param_shapes` (the reference's ``init_tree``
+    rules, :func:`~repro_torch.models.layers.init_rule`)."""
+    return init_tree(param_shapes(cfg), seed, device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,22 +305,27 @@ def splice_cache(cfg, pool, one, slot: int):
 def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
                 mode: str, cache=None, cache_len: int = 0, pos=None,
                 cross=None):
-    """One layer (the reference's ``apply_block`` in its serving modes):
-    norm, mixer, residual; with ``cross`` (the encoder output) norm, cross
-    attention, residual; then norm, FFN, residual where the layer has an
-    FFN. Returns (h, cache): in "prefill" the layer's new cache (a KVCache
-    or an SSMState), in "decode" ``cache``, one layer's view of the pool,
-    updated in place."""
+    """One layer (the reference's ``apply_block``): norm, mixer, residual;
+    with ``cross`` (the encoder output) norm, cross attention, residual;
+    then norm, FFN, residual where the layer has an FFN. Returns (h, x):
+    in "prefill" x is the layer's new cache (a KVCache or an SSMState), in
+    "decode" ``cache``, one layer's view of the pool, updated in place; in
+    "train" the layer's MoE load-balance aux (None without an MoE FFN)."""
     x = apply_norm(lp["norm1"], h, cfg, numerics)
     if kind.mixer == "ssm":
-        if mode == "prefill":
+        if mode == "train":
+            y = ssm_mod.ssm_train(lp["mixer"], x, cfg, numerics)
+        elif mode == "prefill":
             y, cache = ssm_mod.ssm_prefill(lp["mixer"], x, cfg, numerics)
         else:
             y, cache = ssm_mod.ssm_decode(lp["mixer"], x, cache, cfg,
                                           numerics)
     else:
         mla = kind.mixer == "mla"
-        if mode == "prefill":
+        if mode == "train":
+            y = (attn.mla_train if mla else attn.gqa_train)(
+                lp["mixer"], x, positions, cfg, numerics)
+        elif mode == "prefill":
             y, cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
                 lp["mixer"], x, positions, cfg, numerics, cache_len)
         else:
@@ -356,30 +336,73 @@ def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
         xc = apply_norm(lp["norm_x"], h, cfg, numerics)
         kv = attn.cross_kv(lp["cross"], cross, cfg)
         h = h + attn.cross_apply(lp["cross"], xc, kv, cfg, numerics)
+    aux = None
     if kind.ffn is not None:
         x2 = apply_norm(lp["norm2"], h, cfg, numerics)
-        ffn = moe_block if kind.ffn == "moe" else apply_mlp
-        h = h + ffn(lp["ffn"], x2, cfg, numerics)
-    return h, cache
+        if kind.ffn == "moe":
+            y2, probs = moe_block(lp["ffn"], x2, cfg, numerics,
+                                  return_probs=True)
+            if mode == "train":
+                aux = load_balance_loss_from_probs(probs, cfg)
+        else:
+            y2 = apply_mlp(lp["ffn"], x2, cfg, numerics)
+        h = h + y2
+    return h, (aux if mode == "train" else cache)
+
+
+# ops whose outputs "block" remat keeps: products without a batch axis
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(_ctx, op, *_args, **_kw):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat``: as it is ("none"), or checkpointed,
+    non-reentrant, recomputing everything ("full") or all but the matmul
+    outputs ("block") in the backward pass."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "block":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_matmuls))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
 
 def backbone(p: dict, h, positions, cfg, numerics, mode: str,
              caches=None, cache_len: int = 0, pos=None, cross=None):
-    """Run every layer and the final norm. ``mode``: "prefill" (returns the
-    new stacked cache) or "decode" (updates ``caches`` in place); ``cross``
-    is the encoder output every layer's cross attention reads.
-    ``numerics`` is one backend for every layer, or a plan-resolved object
-    whose ``for_layer(i)`` gives layer ``i``'s (the final norm then runs
-    under the object itself: the plan's ``rest``)."""
-    if mode not in ("prefill", "decode"):
+    """Run every layer and the final norm. ``mode``: "prefill" (returns
+    (h, the new stacked cache)), "decode" (updates ``caches`` in place;
+    returns (h, caches)) or "train" (returns (h, the MoE aux summed over
+    the layers), each layer under ``cfg.remat``); ``cross`` is the encoder
+    output every layer's cross attention reads. ``numerics`` is one
+    backend for every layer, or a plan-resolved object whose
+    ``for_layer(i)`` gives layer ``i``'s (the final norm then runs under
+    the object itself: the plan's ``rest``)."""
+    if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     per_layer = hasattr(numerics, "for_layer")
     slots = layer_slots(cfg)
     new_kv, new_ssm = [], []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
         num = numerics.for_layer(i) if per_layer else numerics
         kind, lp = layer_params(p, cfg, i)
         ssm = kind.mixer == "ssm"
+        if mode == "train":
+            def layer(h_in, lp=lp, kind=kind, num=num):
+                return apply_layer(lp, kind, h_in, positions, cfg, num,
+                                   "train", cross=cross)
+            h, a = _remat(layer, cfg)(h)
+            if a is not None:
+                aux = aux + a
+            continue
         layer = None
         if mode == "decode":
             ci = slots[i][3]
@@ -390,6 +413,8 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
         if mode == "prefill":
             (new_ssm if ssm else new_kv).append(c)
     h = apply_norm(p["final_norm"], h, cfg, numerics)
+    if mode == "train":
+        return h, aux
     if mode == "prefill":
         kv = (attn.KVCache(*(torch.stack(t) for t in zip(*new_kv)))
               if new_kv else None)
@@ -450,6 +475,74 @@ def _embed_inputs(p: dict, tokens, positions, cfg, numerics,
         idx = torch.clamp(positions, max=cfg.max_pos - 1).to(torch.int64)
         h = h + p["pos"][idx].to(h.dtype)
     return h
+
+
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(p: dict, tokens: torch.Tensor, cfg, numerics, frontend_emb=None,
+            enc_frames=None) -> torch.Tensor:
+    """The training-shaped forward -> logits (B, S, V). An
+    encoder-decoder runs its encoder over ``enc_frames`` where they are
+    given (else the decoder skips cross attention, as the reference's
+    does). For a large vocabulary take :func:`loss_fn` instead, whose
+    chunked CE never forms (B, S, V)."""
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    cross = (encoder_forward(p["encoder"], enc_frames, cfg, numerics)
+             if enc_frames is not None else None)
+    h = _embed_inputs(p, tokens, positions, cfg, numerics, frontend_emb)
+    h, _ = backbone(p, h, positions, cfg, numerics, "train", cross=cross)
+    return lm_logits(p["embed"], h)
+
+
+def _ce_chunk(p_embed: dict, hc, lc, mc) -> torch.Tensor:
+    """Masked CE summed over one (B, chunk) slice; logits in float32."""
+    logits = lm_logits(p_embed, hc).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
+    return torch.sum((lse - gold) * mc)
+
+
+def chunked_ce_loss(p_embed: dict, h: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Mean CE over the masked tokens. The logits form ``LOSS_CHUNK``
+    sequence positions at a time (the sequence padded with mask 0 to whole
+    chunks), each chunk checkpointed: its (B, chunk, V) float32 logits are
+    recomputed in the backward pass, never kept."""
+    b, s, _ = h.shape
+    chunk = min(LOSS_CHUNK, s)
+    pad = (-s) % chunk
+    mask = mask.to(torch.float32)
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(h.shape[1] // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_ce_chunk, p_embed, h[:, sl],
+                                   labels[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(p: dict, batch: dict, cfg, numerics):
+    """batch: tokens (B, S) int, labels (B, S) int, mask (B, S), plus
+    ``frontend_emb`` (VLM) or ``enc_frames`` (encoder-decoder), tensors on
+    the parameters' device. Returns (CE + ``AUX_WEIGHT`` * aux, {"ce",
+    "aux"})."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = _positions(b, s, tokens.device)
+    cross = (encoder_forward(p["encoder"], batch["enc_frames"], cfg,
+                             numerics) if cfg.encoder is not None else None)
+    h = _embed_inputs(p, tokens, positions, cfg, numerics,
+                      batch.get("frontend_emb"))
+    h, aux = backbone(p, h, positions, cfg, numerics, "train", cross=cross)
+    ce = chunked_ce_loss(p["embed"], h, batch["labels"], batch["mask"])
+    return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
 def _check_inputs(cfg, cross, lengths: dict, frontend_emb=None) -> None:

@@ -145,7 +145,7 @@ class GuardedNumerics:
     # -- guarded composites ------------------------------------------------
     def softmax(self, x, axis: int = -1):
         xf = x.to(_F32)
-        m = torch.amax(xf, dim=axis, keepdim=True)
+        m = torch.amax(xf, dim=axis, keepdim=True).detach()  # stop_gradient
         e = self.exp_neg(xf - m)
         s = torch.sum(e, dim=axis, keepdim=True)
         return (e * self.recip_pos(s)).to(x.dtype)

@@ -181,7 +181,7 @@ def approx_softmax(x, axis: int = -1, exp_design: TableDesign | None = None,
     """Softmax with the table-backed exponential and normalization
     reciprocal (the unfused glue: ``frexp`` split for 1/sum)."""
     xf = x.to(_F32)
-    m = torch.amax(xf, dim=axis, keepdim=True)
+    m = torch.amax(xf, dim=axis, keepdim=True).detach()  # stop_gradient
     e = approx_exp_neg(xf - m, exp_design)
     s = torch.sum(e, dim=axis, keepdim=True)
     return (e * approx_recip_pos(s, recip_design)).to(x.dtype)
@@ -300,7 +300,7 @@ class InterpNumerics:
 
     def softmax(self, x, axis: int = -1):
         xf = x.to(_F32)
-        m = torch.amax(xf, dim=axis, keepdim=True)
+        m = torch.amax(xf, dim=axis, keepdim=True).detach()  # stop_gradient
         e = self.exp_neg(xf - m)
         s = torch.sum(e, dim=axis, keepdim=True)
         return (e * self.recip_pos(s)).to(x.dtype)

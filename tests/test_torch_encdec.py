@@ -129,8 +129,8 @@ def test_arch_ids_equal_reference():
 @pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_2b"])
 def test_configs_match_reference_figure_for_figure(arch):
     """Every field of the port's config is the reference's, full width and
-    smoke (the encoder's too); the reference's fields the port lacks are
-    its training policy (``remat``) alone."""
+    smoke (the encoder's too); the two configs have the same fields (the
+    training policy ``remat`` among them)."""
     for get, jget in ((base.get_config, jbase.get_config),
                       (base.get_smoke_config, jbase.get_smoke_config)):
         cfg, jcfg = get(arch), jget(arch)
@@ -143,7 +143,7 @@ def test_configs_match_reference_figure_for_figure(arch):
         assert cfg.sub_quadratic == jcfg.sub_quadratic
     names = {f.name for f in dataclasses.fields(base.ModelConfig)}
     jnames = {f.name for f in dataclasses.fields(jbase.ModelConfig)}
-    assert jnames - names == {"remat"} and names <= jnames
+    assert names == jnames
 
 
 @pytest.mark.parametrize("arch", ["whisper_tiny", "internvl2_2b"])

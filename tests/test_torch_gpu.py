@@ -2330,3 +2330,110 @@ def test_internvl_smoke_prefill_with_patches_matches_plain(lib, dev):
                          frontend_emb=emb)
     assert torch.all((got - want).abs() <= 4 * 2.0 ** -12
                      * want.abs().max())
+
+
+# ---- the train path (training and checkpoints slice) ---------------------
+
+def _train_setup(dev, numerics="interp"):
+    from repro_torch.data import make_batch
+
+    cfg = get_smoke_config("yi_6b").replace(numerics=numerics)
+    params = tf.init_params(cfg, 0, "cpu")
+    batch = make_batch(cfg, 32, 4)
+    return cfg, params, batch
+
+
+def test_train_step_cuda_kernels_match_cpu_plain(dev):
+    """The smoke Yi-6B train step under interp numerics bound to the
+    default library: on the card (every table read a ``library_eval``
+    launch) against the same step on the CPU (the plain versions): loss
+    within 1e-5 relative, grad_norm within 1e-4, from one state and one
+    batch; the step launched ``library_eval`` and nothing fused."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepConfig, TrainState, make_train_step
+    from repro_torch.util.tree import tree_map
+
+    cfg, params, batch = _train_setup(dev)
+    sc = StepConfig(microbatches=2, peak_lr=1e-3, warmup=0)
+    out = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where), params)
+        state = TrainState(p, adamw_init(p), None)
+        step = make_train_step(cfg, sc, InterpLibrary.default_library(where))
+        n0 = dict(build.LAUNCHES)
+        _, m = step(state, batch, 0)
+        out[str(where)] = {k: float(v) for k, v in m.items()}
+        out[str(where) + " launches"] = {
+            k: v - n0[k] for k, v in build.LAUNCHES.items() if v != n0[k]}
+    cpu, cuda = out["cpu"], out[str(dev)]
+    assert out["cpu launches"] == {}
+    assert set(out[str(dev) + " launches"]) == {"library_eval"}
+    np.testing.assert_allclose(cuda["loss"], cpu["loss"], rtol=1e-5)
+    np.testing.assert_allclose(cuda["grad_norm"], cpu["grad_norm"],
+                               rtol=1e-4)
+    assert np.isfinite(cuda["loss"]) and cuda["lr"] == cpu["lr"]
+
+
+def test_train_step_refuses_fused_on_cuda(dev):
+    """A fused backend has no backward: the step raises ``ValueError``
+    for CUDA parameters before any kernel launches."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepConfig, TrainState, make_train_step
+    from repro_torch.util.tree import tree_map
+
+    cfg, params, batch = _train_setup(dev, "interp-fused")
+    p = tree_map(lambda t: t.to(dev), params)
+    step = make_train_step(cfg, StepConfig(), InterpLibrary.default_library(
+        dev))
+    n0 = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="no backward"):
+        step(TrainState(p, adamw_init(p), None), batch, 0)
+    assert build.LAUNCHES == n0
+
+
+def test_checkpoint_of_cuda_state_bitwise(dev, tmp_path):
+    """A train state on the card saves and restores onto the card, every
+    leaf bitwise (bf16 parameters through their uint16 bits)."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.train import train_state_init
+    from repro_torch.util.tree import leaves_with_paths
+
+    cfg = get_smoke_config("yi_6b").replace(param_dtype="bfloat16")
+    state = train_state_init(cfg, None, 0, dev)
+    save(tmp_path, 0, state)
+    got, _ = restore(tmp_path, 0, state)
+    for (n, a), (_, b) in zip(leaves_with_paths(got),
+                              leaves_with_paths(state)):
+        assert a.device == b.device and a.dtype == b.dtype, n
+        assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mamba2_130m",
+                                  "minicpm3_4b", "whisper_tiny"])
+def test_train_step_families_on_cuda(arch, dev):
+    """The other families' train paths run their backward on the card
+    (the MoE dispatch's index_put and combine gather, the SSD chunk loop,
+    MLA, the encoder and cross attention) under ``remat="block"`` and
+    interp numerics through ``library_eval``: loss and grad_norm finite
+    and within 1e-3 of the CPU plain versions' (float32 products in
+    another order can move a table code)."""
+    from repro_torch.data import make_batch
+    from repro_torch.optim import global_norm
+    from repro_torch.train.step import batch_to, loss_and_grads
+    from repro_torch.numerics.ops import get_numerics
+    from repro_torch.util.tree import tree_map
+
+    cfg = get_smoke_config(arch).replace(numerics="interp")
+    params = tf.init_params(cfg, 0, "cpu")
+    batch = make_batch(cfg, 64, 2)
+    out = {}
+    for where in ("cpu", dev):
+        num = get_numerics(cfg, InterpLibrary.default_library(where))
+        loss, _, grads = loss_and_grads(tree_map(lambda t: t.to(where),
+                                                 params),
+                                        batch_to(batch, where), cfg, num, 2)
+        out[str(where)] = (float(loss), float(global_norm(grads)))
+    (lc, gc_), (lg, gg) = out["cpu"], out[str(dev)]
+    assert np.isfinite([lg, gg]).all() and gg > 0
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    np.testing.assert_allclose(gg, gc_, rtol=1e-3)

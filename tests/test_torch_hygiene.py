@@ -53,7 +53,15 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.configs.qwen1_5_110b",
             "repro_torch.configs.minitron_8b",
             "repro_torch.models.attention", "repro_torch.models.layers",
-            "repro_torch.models.transformer", "repro_torch.convert")
+            "repro_torch.models.transformer", "repro_torch.convert",
+            # the training and checkpoint slice's
+            "repro_torch.data", "repro_torch.data.synthetic",
+            "repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.schedule", "repro_torch.optim.compress",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+            "repro_torch.train", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.launch.train",
+            "repro_torch.util.tree")
 
 
 @pytest.fixture
@@ -185,6 +193,25 @@ def _plan_numerics():
         plan=NumericsPlan.uniform("interp-fused", 2)))
 
 
+def _train_state_init():
+    from repro_torch.train import train_state_init
+
+    train_state_init(get_smoke_config("yi_6b"))
+
+
+def _trainer(tmp):
+    from repro_torch.train import Trainer, TrainerConfig
+
+    Trainer(get_smoke_config("yi_6b"), TrainerConfig(ckpt_dir=str(tmp)))
+
+
+def _train_cli(tmp):
+    from repro_torch.launch.train import main
+
+    main(["--arch", "yi_6b", "--smoke", "--steps", "1", "--ckpt-dir",
+          str(tmp)])
+
+
 ENTRY_POINTS = {
     "explore_pallas": _explore_pallas,
     "compile_mesh": _compile_mesh,
@@ -204,6 +231,9 @@ ENTRY_POINTS = {
     "serve_cli_moe": lambda tmp: _serve_cli("deepseek_moe_16b"),
     "compile_plan_libraries": lambda tmp: _plan_libraries(),
     "plan_get_numerics": lambda tmp: _plan_numerics(),
+    "train_state_init": lambda tmp: _train_state_init(),
+    "trainer": _trainer,
+    "train_cli": _train_cli,
 }
 
 
