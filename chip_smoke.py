@@ -34,6 +34,19 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    exact engine; every slot evaluates through the ``rom_eval`` kernel (the
    in-kernel read every fused kernel inlines) equal to its design's int64
    ``eval_int``; the v2 artifact is saved and loaded back unchanged;
+   then runs the persistent DSE on the card (``dse_phase``, studies in a
+   temporary directory): the committed ``artifacts/dse/study9`` replayed
+   from a copy (0 executed, 120 replayed, its frontier FRONTIER_10.json's
+   bytes outside ``meta``, the committed files unchanged), the full
+   default space fresh under the modeled serve probe (600 trials, 48
+   infeasible, frontier groups 3 / 4 / 5, the reference frontier's
+   sha256 outside ``meta``, the first 120 records the journal's, a resume
+   executing 0), the same 120 trials under ``engine="pallas"`` (the
+   envelope and ``dd_max_rows`` kernels per (spec, R)) equal to the
+   journal, the smoke preset under the wall probe (each serving shape's
+   wall tokens/s; the smoke Yi-6B's engines read the library through
+   ``library_eval``) and ``launch.dse plan --arch yi_6b --smoke``; its
+   launches stand under ``launches_by_path["dse"]``;
 5. holds ``interp_eval``, ``library_walk``, ``rom_eval`` and the four
    serving kernels against their plain versions on the card (raising on a
    mismatch beyond the stated tolerance; the activation kernel at every
@@ -904,6 +917,219 @@ def segmented_generator_phase(dev) -> dict:
           f"{out['launches']}")
     check_front_half_launches(out["launches"], "segmented generator phase")
     return out, lib, designs
+
+
+# the committed DSE artifacts the DSE phase holds the port to
+STUDY9 = ROOT / "artifacts" / "dse" / "study9"
+FRONTIER_10 = ROOT / "artifacts" / "dse" / "FRONTIER_10.json"
+# sha256 of the reference's full default-space frontier without ``meta``,
+# as ``save_frontier`` serializes it (600 trials, 48 infeasible)
+DEFAULT_FRONTIER_SHA = ("85cb0a67f7567a1f758c9c52c3dfbbb8"
+                        "8e85612b3a2c568666ea9085cc5f5f04")
+DEFAULT_FRONTIER_GROUPS = {"asic": 3, "fpga-lut": 4, "pallas-tpu": 5}
+# a trial's table metrics (the probe adds the throughput ones)
+TABLE_M = ("area", "delay", "accuracy_margin", "degree", "k")
+
+
+def _frontier_bytes(doc: dict) -> str:
+    """A frontier document as ``save_frontier`` writes it, ``meta`` removed
+    (the port stamps ``"torch"`` and its device there)."""
+    return json.dumps({k: v for k, v in doc.items() if k != "meta"},
+                      indent=1, sort_keys=True)
+
+
+def _held_records(records: dict, want: list[dict], label: str,
+                  engine: str) -> None:
+    """Each record in ``records`` (in order) against the journal record
+    ``want`` of the same position: params (``engine`` aside), status,
+    metrics and objectives equal."""
+    got = [r.to_dict() for r in records.values()][:len(want)]
+    bad = [(w["key"], g["status"], g["metrics"], w["metrics"])
+           for g, w in zip(got, want)
+           if g["params"] != {**w["params"], "engine": engine}
+           or any(g[f] != w[f] for f in ("status", "metrics", "objectives"))]
+    if len(got) != len(want) or bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(want)} records "
+                             f"differ from the committed journal: {bad[:3]}")
+
+
+def dse_phase(dev) -> dict:
+    """The persistent DSE on the card through its entry points: every
+    Explorer (``engine="batched"`` and ``"pallas"``), the serve probe's
+    smoke Yi-6B engines and the plan CLI on ``dev``. Studies live in a
+    temporary directory (the committed study9 is replayed from a copy, its
+    files held unchanged), and the default Explorer is a fresh one on the
+    card over a temporary table cache. Launch counts are set to 0 at the
+    start and read at the end: the envelope kernels' from the counters,
+    the probe engines' from their ``stats["launches"]`` (graph replays
+    included) in place of their host-side counts."""
+    import hashlib
+    import shutil
+
+    import torch
+
+    from repro_torch.api import (Explorer, ExploreConfig, default_explorer,
+                                 set_default_explorer)
+    from repro_torch.dse import Study, compare_frontiers, load_frontier
+    from repro_torch.dse.space import PRESETS, default_space
+    from repro_torch.kernels import build
+    from repro_torch.launch import dse as dse_cli
+
+    out: dict = {}
+    journal = [json.loads(line) for line in
+               (STUDY9 / "journal.jsonl").read_text().splitlines()]
+    digests = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+               for p in STUDY9.iterdir() if p.is_file()}
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="dse_"))
+    old = default_explorer()
+    set_default_explorer(Explorer(ExploreConfig(
+        device=str(dev), cache_dir=str(tmp / "tables"))))
+    probe_eager = dict.fromkeys(build.LAUNCHES, 0)
+    probe_served = dict.fromkeys(build.LAUNCHES, 0)
+    graph_reasons = set()
+
+    def study(root, space=None, **kw):
+        """A Study on the card whose probe's host-side launch counts are
+        kept apart (its engines' own counts replace them)."""
+        st = Study(tmp / root, space, device=dev, **kw)
+        real = st.probe._serve_once
+
+        def serve_once(p):
+            before = dict(build.LAUNCHES)
+            try:
+                dt, stats, tokens = real(p)
+            finally:
+                for k, n in build.LAUNCHES.items():
+                    probe_eager[k] += n - before[k]
+            for k, n in stats.get("launches", {}).items():
+                probe_served[k] += n
+            graph_reasons.add(stats.get("graph_reason"))
+            return dt, stats, tokens
+
+        st.probe._serve_once = serve_once
+        return st
+
+    def timed_run(st, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = st.run(**kw)
+        torch.cuda.synchronize()
+        return recs, time.perf_counter() - t0
+
+    build.reset_launches()
+    try:
+        # 1. the committed study9, replayed from a copy
+        shutil.copytree(STUDY9, tmp / "study9")
+        with study("study9") as st:
+            recs, _ = timed_run(st, max_trials=0)
+            replay = dict(st.stats)
+            fresh = load_frontier(st.write_frontier(recs))
+        if replay != {"executed": 0, "replayed": 120, "infeasible": 0}:
+            raise AssertionError(f"study9 replay: {replay}")
+        committed = load_frontier(FRONTIER_10)
+        if _frontier_bytes(fresh) != _frontier_bytes(committed) or \
+                compare_frontiers(fresh, committed):
+            raise AssertionError("study9 replay: frontier != FRONTIER_10")
+        out["study9_replay"] = {**replay, "frontier_equal": True}
+
+        # 2. the full default space, fresh, under the modeled probe
+        with study("default", default_space(), measure="modeled") as st:
+            recs, wall = timed_run(st)
+            row = st.summary()
+            front = st.frontier(recs)
+        sha = hashlib.sha256(_frontier_bytes(front).encode()).hexdigest()
+        groups = {t: len(p) for t, p in front["groups"].items()}
+        _held_records(recs, journal, "default space (batched)", "batched")
+        table = {}  # (kind, R, target) -> the table metrics, from this run
+        for r in recs.values():
+            if r.ok:
+                table[(r.params.kind, r.params.lookup_bits,
+                       r.params.target)] = {k: r.metrics[k] for k in TABLE_M}
+        if (front["trials"] != {"completed": 552, "infeasible": 48}
+                or groups != DEFAULT_FRONTIER_GROUPS
+                or sha != DEFAULT_FRONTIER_SHA):
+            raise AssertionError(f"default space: {front['trials']}, "
+                                 f"{groups}, sha256 {sha}")
+        with study("default") as st:
+            _, t_resume = timed_run(st)
+            resumed = dict(st.stats)
+        if resumed["executed"] or resumed["replayed"] != 600:
+            raise AssertionError(f"default space resume: {resumed}")
+        eval_s = [r.timing.get("eval_s", 0.0) for r in recs.values()]
+        out["default_space"] = {
+            "trials": len(recs), "wall_s": wall,
+            "trials_per_s": len(recs) / wall,
+            "mean_eval_s": float(np.mean(eval_s)),
+            "probe_runs": row["probe_runs"],
+            "probe_cache_hits": row["probe_cache_hits"],
+            "frontier": front["trials"], "groups": groups,
+            "frontier_sha256": sha, "first_120_equal_journal": True,
+            "resume": resumed, "resume_s": t_resume}
+        print(f"  default space: {len(recs)} trials in {wall:.1f} s "
+              f"({len(recs) / wall:.2f} trials/s), frontier {groups}, "
+              f"sha {sha[:12]}; resume executed 0 in {t_resume:.2f} s")
+
+        # 3. the study9 prefix under engine="pallas": the envelope and
+        # dd_max_rows kernels per (spec, R) on the card
+        env0 = {k: build.LAUNCHES[k] for k in ENVELOPE_KERNELS}
+        space = dataclasses.replace(default_space(), engines=("pallas",))
+        with study("pallas", space, measure="modeled") as st:
+            recs, wall = timed_run(st, max_trials=120)
+        _held_records(recs, journal, "study9 prefix (pallas)", "pallas")
+        out["pallas_prefix"] = {
+            "trials": len(recs), "wall_s": wall, "equal_journal": True,
+            "launches": {k: build.LAUNCHES[k] - env0[k]
+                         for k in ENVELOPE_KERNELS}}
+        print(f"  study9 prefix under pallas: {len(recs)} trials in "
+              f"{wall:.1f} s, {out['pallas_prefix']['launches']}")
+
+        # 4. the smoke preset under the wall probe: the served kernels at
+        # each shape, the library compiled at each trial's R
+        with study("wall", PRESETS["smoke"](), measure="wall") as st:
+            recs, wall = timed_run(st)
+        bad = {key: r.metrics for key, r in
+               (((r.params.kind, r.params.lookup_bits, r.params.target), r)
+                for r in recs.values())
+               if {k: r.metrics[k] for k in TABLE_M} != table[key]}
+        if bad or len(recs) != 16:
+            raise AssertionError(f"smoke preset (wall): {len(recs)} trials; "
+                                 f"table metrics unlike the default "
+                                 f"space's: {bad}")
+        shapes = {}
+        for r in recs.values():
+            p = r.params
+            shapes[f"fused={p.fused} R={p.lookup_bits} batch={p.batch} "
+                   f"horizon={p.horizon}"] = r.timing["wall_tokens_per_s"]
+        out["smoke_wall"] = {"trials": len(recs), "wall_s": wall,
+                             "wall_tokens_per_s": shapes}
+        print(f"  smoke preset under wall: {len(recs)} trials in "
+              f"{wall:.1f} s; wall tokens/s {shapes}")
+
+        # 5. the plan CLI on the card
+        t0 = time.perf_counter()
+        rc = dse_cli.main(["plan", "--arch", "yi_6b", "--smoke", "--budget",
+                           "0.05", "--device", str(dev), "--save-plan",
+                           str(tmp / "plan.json")])
+        if rc:
+            raise AssertionError(f"launch.dse plan exited {rc}")
+        out["plan"] = {"rc": rc, "wall_s": time.perf_counter() - t0}
+        torch.cuda.synchronize()
+    finally:
+        set_default_explorer(old)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: n - probe_eager[k] + probe_served[k]
+                for k, n in build.LAUNCHES.items()}
+    if not (launches["library_eval"] and launches["envelopes_parity_batched"]
+            and launches["dd_max_rows"]):
+        raise AssertionError(f"dse: kernels not launched: {launches}")
+    if digests != {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                   for p in STUDY9.iterdir() if p.is_file()}:
+        raise AssertionError("the committed study9 changed")
+    out["launches"] = launches
+    out["probe_graph_reasons"] = sorted(map(str, graph_reasons))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def walk_phase(seg_lib, seg_designs, uni_lib, uni_designs, dev, silu_codes):
@@ -4322,6 +4548,7 @@ def main() -> int:
     seg_gen, seg_lib, seg_designs = phase("segmented generator",
                                           segmented_generator_phase, dev)
     gen["segmented"] = seg_gen
+    dse = phase("dse", dse_phase, dev)
     m = lib.meta("silu")
 
     def silu_codes(gate):
@@ -4350,6 +4577,9 @@ def main() -> int:
                 + train_launches[name] for name in build.LAUNCHES}
     by_path = path_launches(serves)
     by_path["train yi_6b interp"] = train_launches
+    # every launch of the DSE phase: its studies' envelope kernels and
+    # probe engines, and the plan CLI
+    by_path["dse"] = dse.pop("launches")
     launches.update(gen["launches"])
     launches["rom_eval"] = seg_gen["launches"]["rom_eval"]
     for name in ENVELOPE_KERNELS:
@@ -4435,7 +4665,7 @@ def main() -> int:
                                 + family_rows),
               "new_activations": new_acts,
               "generator": gen, "pertable": pertable, "serve": serves,
-              "train": train,
+              "train": train, "dse": dse,
               "launches_by_path": by_path,
               "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES,
               "phase_s": PHASE_S}

@@ -2437,3 +2437,34 @@ def test_train_step_families_on_cuda(arch, dev):
     assert np.isfinite([lg, gg]).all() and gg > 0
     np.testing.assert_allclose(lg, lc, rtol=1e-3)
     np.testing.assert_allclose(gg, gc_, rtol=1e-3)
+
+
+def test_dse_pallas_trials_equal_batched(dev, tmp_path):
+    """The 8-bit recip DSE space (``tests/dse/test_study.py``) under
+    ``engines=("pallas",)`` on the card (each (spec, R) one
+    ``envelopes_parity_batched`` and one ``dd_max_rows`` launch) journals
+    the metrics and verdicts of the exact engine's study."""
+    import dataclasses
+
+    from repro_torch.dse import SearchSpace, Study
+
+    space = SearchSpace(kinds=("recip",), lookup_bits=(3, 4, 5, 6),
+                        targets=("asic", "pallas-tpu"), bits=(8,),
+                        fused=(True,), horizons=(4,), batches=(2,))
+    got = {}
+    for engine in ("batched", "pallas"):
+        before = dict(build.LAUNCHES)
+        with Study(tmp_path / engine, dataclasses.replace(
+                space, engines=(engine,)), measure="none",
+                device=dev) as study:
+            records = study.run()
+        launched = {k: n - before[k] for k, n in build.LAUNCHES.items()
+                    if n != before[k]}
+        got[engine] = [(r.status, r.metrics, r.objectives)
+                       for r in records.values()]
+        if engine == "pallas":
+            assert launched.get("envelopes_parity_batched", 0) >= 4
+            assert launched["dd_max_rows"] >= 4
+        else:
+            assert not launched
+    assert got["pallas"] == got["batched"]

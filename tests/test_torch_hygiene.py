@@ -61,7 +61,12 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
             "repro_torch.train", "repro_torch.train.step",
             "repro_torch.train.trainer", "repro_torch.launch.train",
-            "repro_torch.util.tree")
+            "repro_torch.util.tree",
+            # the DSE slice's, with the legacy shims and the Remez baseline
+            "repro_torch.dse.trial", "repro_torch.dse.space",
+            "repro_torch.dse.store", "repro_torch.dse.frontier",
+            "repro_torch.dse.study", "repro_torch.launch.dse",
+            "repro_torch.core.generate", "repro_torch.core.remez")
 
 
 @pytest.fixture
@@ -212,6 +217,30 @@ def _train_cli(tmp):
           str(tmp)])
 
 
+def _study(tmp):
+    from repro_torch.dse import Study, smoke_space
+
+    Study(tmp / "study", smoke_space())
+
+
+def _serve_probe():
+    from repro_torch.dse import ServeProbe
+
+    ServeProbe()
+
+
+def _dse_cli(tmp):
+    from repro_torch.launch.dse import main
+
+    main(["run", "--study", str(tmp / "study"), "--preset", "smoke"])
+
+
+def _dse_plan_cli():
+    from repro_torch.launch.dse import main
+
+    main(["plan", "--arch", "yi_6b", "--smoke"])
+
+
 ENTRY_POINTS = {
     "explore_pallas": _explore_pallas,
     "compile_mesh": _compile_mesh,
@@ -234,6 +263,10 @@ ENTRY_POINTS = {
     "train_state_init": lambda tmp: _train_state_init(),
     "trainer": _trainer,
     "train_cli": _train_cli,
+    "dse_study": _study,
+    "serve_probe": lambda tmp: _serve_probe(),
+    "dse_cli": _dse_cli,
+    "dse_plan_cli": lambda tmp: _dse_plan_cli(),
 }
 
 
