@@ -124,7 +124,15 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    against the graph-only engine's in the tie band, a packed admission
    replayed and eager (wall, device ms, busy share); and the host
    pipeline (``async_host=True``: streams bitwise the synchronous AOT
-   run's, a journaled async run stopped mid-run and resumed);
+   run's, a journaled async run stopped mid-run and resumed); then the
+   mesh phase (``mesh_phase``): a world-1 NCCL process group, the 6
+   requests through an unmeshed AOT graph engine and through
+   ``ServeEngine(mesh=make_serve_mesh(1, 1), aot_buckets=True)`` (streams,
+   caches and kernel launches bitwise; the tick graphs holding their
+   all-reduces and all-gathers; both ticks' wall ms per step and
+   tokens/s), one train step of the first 8 layers on a ``1 x 1`` mesh
+   against the unmeshed step (the loss bitwise), and the fleet's probe
+   split on the card against one program;
 9. frees Yi-6B and serves (graph and eager) full-width DeepSeekMoE-16B
    cut to 14 of its 28 layers (64 routed experts top-6 + 2 shared, a
    dense layer 0; the
@@ -3044,7 +3052,203 @@ def yi_extra_phases(params, cfg, lib, seg_lib, dev) -> dict:
             "plans": phase("plans", plan_phase, params, cfg, lib, seg_lib,
                            dev),
             "aot": phase("aot yi_6b", aot_phase, params, cfg, lib, dev,
-                         async_host=True)}
+                         async_host=True),
+            "mesh": phase("mesh", mesh_phase, params, cfg, lib, dev)}
+
+
+# the mesh phase's train step: Yi-6B cut to MESH_TRAIN_LAYERS layers of
+# the served weights, one global batch of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 8, 1024, 2
+
+
+def mesh_phase(params, cfg, lib, dev) -> dict:
+    """Distribution at world 1 on the card: one NCCL rank (a
+    file store, ``device_id`` cuda:0), every collective still issued and
+    captured in the graphs.
+
+    (a) The served full-width Yi-6B weights through an unmeshed AOT graph
+    engine and through ``ServeEngine(mesh=make_serve_mesh(1, 1),
+    aot_buckets=True)`` on the 6 serve requests: streams, caches and
+    kernel launches bitwise equal (the counts set to 0 just before each
+    run, read just after), the meshed tick graphs holding their
+    collectives (counted at capture: ``2 * n_layers + 1`` all-reduces and
+    2 all-gathers per step), then each engine's tick at 4 live slots (wall
+    ms per step, tokens/s, device ms and busy share).
+    (b) One train step of Yi-6B at ``MESH_TRAIN_LAYERS`` layers (the first
+    layers of the served weights, exact numerics) unmeshed and on a
+    ``1 x 1`` ``data x model`` mesh from the same parameters: the loss
+    bitwise equal, grad_norm within 1e-5 relative (the index backward
+    accumulates in no fixed order).
+    (c) The fleet's probe split: ``fleet_region_envelopes_device`` with
+    ``shards=2`` (capped to the one card) and with two chunks on the card
+    (``devices=[cuda:0, cuda:0]``: the sentinel pad and the concatenation)
+    bitwise ``shards=1``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import fleet
+    from repro_torch.core.funcspec import get_spec
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dspace.ops import fleet_region_envelopes_device
+    from repro_torch.launch.mesh import make_host_mesh, make_serve_mesh
+    from repro_torch.models.layers import map_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.step import (StepConfig, TrainState,
+                                        make_train_step, shard_state)
+
+    store = tempfile.mkdtemp(prefix="mesh_phase_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=300))
+    out: dict = {}
+    try:
+        mesh = make_serve_mesh(1, 1)
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in SERVE_LENGTHS]
+        kw = dict(slots=SLOTS, cache_len=CACHE_LEN, horizon=HORIZON,
+                  device=dev, library=lib, aot_buckets=True, max_pack=4)
+        per_step = {"all_reduce": 2 * cfg.n_layers + 1, "all_gather": 2}
+        ref_caches = None
+        for name, extra in (("unmeshed", {}), ("meshed", {"mesh": mesh})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            eng = ServeEngine(cfg, params, **kw, **extra)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            if not eng.stats["graph"]:
+                raise AssertionError(f"mesh {name}: "
+                                     f"{eng.stats['graph_reason']}")
+            _serve_requests(eng, prompts)
+            streams, wall, wrappers = _run_timed(eng)
+            res = dict(build_s=build_s, capture_s=eng.stats["capture_s"],
+                       captures=eng.stats["captures"], wall_s=wall,
+                       tokens_per_s=len(prompts) * MAX_NEW / wall,
+                       launches=dict(eng.stats["launches"]),
+                       wrapper_launches=wrappers,
+                       collectives=dict(eng.stats["collectives"]),
+                       aot_misses=eng.stats["aot_misses"])
+            if name == "unmeshed":
+                want = streams
+                ref_caches = [t.clone() for t in tf.cache_leaves(eng.caches)]
+                ref_launches = res["launches"]
+            else:
+                if streams != want:
+                    raise AssertionError(f"meshed streams {streams} != "
+                                         f"unmeshed {want}")
+                if res["launches"] != ref_launches:
+                    raise AssertionError(f"meshed launches "
+                                         f"{res['launches']} != unmeshed "
+                                         f"{ref_launches}")
+                if not all(torch.equal(a, b) for a, b in zip(
+                        ref_caches, tf.cache_leaves(eng.caches))):
+                    raise AssertionError("meshed caches differ")
+                for steps, (_g, _l, coll) in eng._graphs.items():
+                    if coll != {k: n * steps for k, n in per_step.items()}:
+                        raise AssertionError(f"tick graph {steps}: "
+                                             f"collectives {coll}, want "
+                                             f"{per_step} per step")
+                res["tick_graph_collectives"] = {
+                    str(k): v[2] for k, v in eng._graphs.items()}
+                if not res["collectives"]["all_reduce"]:
+                    raise AssertionError("no collective ran")
+                ref_caches = None
+            res["tick"] = tick_profile(eng, cfg, n=3, n_prof=1)
+            res["tick"].pop("profile", None)
+            out[name] = res
+            print(f"mesh phase {name}: built in {build_s:.2f} s "
+                  f"({res['captures']} graphs), 6 requests {wall:.3f} s = "
+                  f"{res['tokens_per_s']:.2f} tokens/s; tick "
+                  f"{res['tick']['wall_ms_per_step']:.3f} ms wall per step "
+                  f"({res['tick']['tokens_per_s']:.1f} tokens/s); "
+                  f"collectives {res['collectives']}")
+            eng.close()
+            del eng
+        out["streams_equal"] = True
+
+        # (b) the train step at MESH_TRAIN_LAYERS layers, bitwise loss
+        cfg8 = cfg.replace(n_layers=MESH_TRAIN_LAYERS, numerics="exact")
+        p8 = {**params, "segments": map_tree(
+            lambda _n, t: t[:MESH_TRAIN_LAYERS], params["segments"])}
+        batch = make_batch(cfg8, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH)
+        sc = StepConfig(peak_lr=1e-4, warmup=0)
+        opt = adamw_init(p8)
+        metrics = {}
+        for name in ("unmeshed", "meshed"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            m = make_host_mesh(1) if name == "meshed" else None
+            state = TrainState(p8, opt, None)  # the loss reads only p8
+            if m is not None:
+                state = shard_state(state, cfg8, m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, met = make_train_step(cfg8, sc, donate=True, mesh=m)(
+                state, batch, 0)
+            torch.cuda.synchronize()
+            metrics[name] = {"loss": met["loss"].clone(),
+                             "grad_norm": float(met["grad_norm"]),
+                             "step_s": time.perf_counter() - t0}
+            del new, met, state
+        lu, lm = metrics["unmeshed"]["loss"], metrics["meshed"]["loss"]
+        gu = metrics["unmeshed"]["grad_norm"]
+        gm = metrics["meshed"]["grad_norm"]
+        if not torch.equal(lu, lm):
+            raise AssertionError(f"meshed train loss {float(lm)!r} != "
+                                 f"unmeshed {float(lu)!r}")
+        if abs(gm - gu) > 1e-5 * abs(gu):
+            raise AssertionError(f"grad_norm {gm} vs {gu}")
+        out["train"] = {k: {**v, "loss": float(v["loss"])}
+                        for k, v in metrics.items()}
+        del opt, p8
+        print(f"mesh phase train step ({MESH_TRAIN_LAYERS} layers, "
+              f"{MESH_TRAIN_BATCH} x {MESH_TRAIN_SEQ}): loss "
+              f"{float(lu)!r} bitwise, grad_norm {gu!r} / {gm!r}; "
+              f"{metrics['unmeshed']['step_s']:.2f} / "
+              f"{metrics['meshed']['step_s']:.2f} s")
+
+        # (c) the fleet's probe split on the one card
+        pairs = [("recip", 12, 5), ("exp2", 12, 5), ("silu", 12, 5)]
+        stack = fleet.stack_bounds([get_spec(k, b).region_bounds(r)
+                                    for k, b, r in pairs])
+        before = dict(build.LAUNCHES)
+        one = fleet_region_envelopes_device(stack.L, stack.U, shards=1,
+                                            device=dev)
+        for label, kw2 in (("shards=2", {"shards": 2}),
+                           ("two chunks", {"shards": 2,
+                                           "devices": [dev, dev]})):
+            got = fleet_region_envelopes_device(stack.L, stack.U,
+                                                device=dev, **kw2)
+            if not all(np.array_equal(a, b, equal_nan=True)
+                       for a, b in zip(one, got)):
+                raise AssertionError(f"fleet split {label} differs")
+        torch.cuda.synchronize()
+        out["fleet_rows"] = int(one[0].shape[0])
+        out["fleet_launches"] = {k: n - before[k]
+                                 for k, n in build.LAUNCHES.items()}
+        if out["fleet_launches"]["envelopes_parity_fleet"] != 4:
+            raise AssertionError(f"fleet split launches "
+                                 f"{out['fleet_launches']}: want 1 + 1 + 2")
+    finally:
+        dist.destroy_process_group()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[:1]
+    u, m = out["unmeshed"]["tick"], out["meshed"]["tick"]
+    out["card"] = smi[0] if smi else None
+    print(f"mesh phase on {out['card']}: tick wall ms per step "
+          f"{u['wall_ms_per_step']:.3f} unmeshed / "
+          f"{m['wall_ms_per_step']:.3f} meshed (world-1 NCCL), "
+          f"{u['tokens_per_s']:.1f} / {m['tokens_per_s']:.1f} tokens/s; "
+          f"6 requests {out['unmeshed']['tokens_per_s']:.2f} / "
+          f"{out['meshed']['tokens_per_s']:.2f} tokens/s end to end")
+    return out
 
 
 def serial_oracle_phase(params, cfg, dev, lengths=SERVE_LENGTHS) -> dict:
@@ -4486,10 +4690,11 @@ def freed(dev, name: str) -> None:
 
 def path_launches(serves) -> dict:
     """Kernel launches of each serve run's graph engine (the main path; the
-    kernels line's ``launches`` is their sum) and of the plan and AOT
+    kernels line's ``launches`` is their sum) and of the plan, AOT and mesh
     paths' own runs, one entry per run (each engine's
     ``stats["launches"]``, read just after its run: a graph replay adds
-    its capture's launches)."""
+    its capture's launches), and the mesh phase's fleet split (the
+    wrappers' counts around its three calls)."""
     out: dict = {}
     for sv in serves:
         out[sv.get("path", f"serve {sv['model']} {sv['library']}")] = \
@@ -4497,6 +4702,11 @@ def path_launches(serves) -> dict:
         extra = sv.get("extra") or {}
         runs = {"plan three_slot": extra.get("plans", {}).get("three_slot"),
                 "frontend": extra.get("frontend")}
+        mesh = extra.get("mesh", {})
+        runs.update({f"mesh {k}": mesh.get(k) for k in ("unmeshed",
+                                                        "meshed")})
+        if mesh:
+            out[f"mesh fleet split {sv['model']}"] = mesh["fleet_launches"]
         runs.update({f"aot {k}": extra.get("aot", {}).get(k)
                      for k in ("graph", "aot")})
         for path, run in runs.items():

@@ -10,9 +10,10 @@ and the §III decision procedure runs in *lockstep* over the stacked
 (kind, region) rows, so ``Explorer.compile()`` over a manifest is a handful
 of array dispatches instead of F × R serial probes. Twin of
 ``repro/core/fleet.py``: in the reference the probe/region row axis shards
-across devices through ``shard_map``; the port runs the whole stack as one
-CUDA program on one card (``kernels/dspace``), and splitting the probe axis
-over several cards waits for the distribution slice.
+across devices through ``shard_map``; the port splits the probe axis into
+``shards`` chunks inside one process, one fleet-kernel launch per chunk on
+its own card (``kernels/dspace/ops.py`` ``fleet_region_envelopes_device``:
+by default over the visible cards, capped at their number).
 
 Layout and masking rules (DESIGN.md §11):
 
@@ -177,11 +178,12 @@ def fleet_region_spaces_stacked(stack: FleetStack) -> list[list[RegionSpace]]:
 
 
 def fleet_region_spaces_device(stack: FleetStack, shards: int | None = None,
-                               device="cuda") -> list[list[RegionSpace]]:
-    """The padded program on ``device``: one fleet envelope-kernel launch
-    with a grid over (probe, region, center tile) per real width
-    (``shards`` is capped at the visible card count; the port runs one
-    program whatever its value).
+                               device="cuda", devices=None
+                               ) -> list[list[RegionSpace]]:
+    """The padded program on ``device``: per real width, the probe axis
+    split into ``shards`` chunks (capped at the number of ``devices``,
+    by default the visible cards), one fleet envelope-kernel launch with a
+    grid over (probe, region, center tile) per chunk on its own device.
 
     Float32 envelopes (same contract as the ``pallas`` engine): a marginal
     verdict can differ from the exact engines, which per DESIGN.md §4 can
@@ -210,7 +212,7 @@ def fleet_region_spaces_device(stack: FleetStack, shards: int | None = None,
             continue
         big, small, a_lo, a_hi, feas9 = fleet_region_envelopes_device(
             stack.L[idxs][:, :, :n], stack.U[idxs][:, :, :n],
-            shards=shards, device=device)
+            shards=shards, device=device, devices=devices)
         for j, i in enumerate(idxs):
             b = stack.shapes[i][0]
             spaces = []
@@ -234,7 +236,8 @@ def _width_groups(bounds: Sequence[Bounds]) -> dict[int, list[int]]:
 
 
 def fleet_region_spaces(bounds: Sequence[Bounds], shards: int | None = None,
-                        device="cuda") -> list[list[RegionSpace]]:
+                        device="cuda", devices=None
+                        ) -> list[list[RegionSpace]]:
     """Per-probe RegionSpaces for a ragged probe fleet.
 
     Probes are grouped by row width N before stacking: identical-width
@@ -250,7 +253,8 @@ def fleet_region_spaces(bounds: Sequence[Bounds], shards: int | None = None,
         stack = stack_bounds([bounds[i] for i in idxs])
         if shards is not None and shards > 1 and stack.L.shape[2] > 2:
             spaces = fleet_region_spaces_device(stack, shards=shards,
-                                                device=device)
+                                                device=device,
+                                                devices=devices)
         else:
             spaces = fleet_region_spaces_stacked(stack)
         for i, sp in zip(idxs, spaces):

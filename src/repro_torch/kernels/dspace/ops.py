@@ -143,18 +143,23 @@ def region_envelopes_device(L: np.ndarray, U: np.ndarray, device="cuda"
 
 
 def fleet_region_envelopes_device(L3, U3, shards: int | None = None,
-                                  device="cuda") -> tuple[np.ndarray, ...]:
-    """§II front half for a stacked probe fleet ``(P, B, N)`` on
-    ``device``: one launch of the fleet kernel over every (probe, region)
-    row. Returns ``(M, m, a_lo, a_hi, feas9)`` flattened to probe-major
-    rows ``(P*B, ...)`` in the core float64 layout.
+                                  device="cuda", devices=None
+                                  ) -> tuple[np.ndarray, ...]:
+    """§II front half for a stacked probe fleet ``(P, B, N)``: the probe
+    axis split into ``shards`` chunks, one launch of the fleet kernel per
+    chunk over its (probe, region) rows, each chunk on its own entry of
+    ``devices`` (default: every visible card for a CUDA ``device``, else
+    ``device`` alone). ``shards`` is capped at the number of devices, as the
+    reference caps it at its local device count; ``None`` / 1 is one
+    program. A probe count ``shards`` does not divide is padded with
+    sentinel probes (all bounds at the pad values), as the reference pads
+    its shard axis. The chunks are launched before any result is read, so
+    chunks on several cards overlap.
 
-    ``shards`` is the reference's device count for its ``shard_map`` over
-    the probe axis, capped there at the local device count; the port runs
-    the whole stack as one program on ``device`` whatever its value
-    (every row is independent, so the results are the same), and
-    splitting the probe axis over several cards waits for the distribution
-    slice.
+    Returns ``(M, m, a_lo, a_hi, feas9)`` flattened to probe-major rows
+    ``(P*B, ...)`` in the core float64 layout: the chunks' rows
+    concatenated, the sentinel probes' rows dropped. Every row is
+    independent, so the result is the same for any ``shards``.
     """
     L3 = np.asarray(L3)
     U3 = np.asarray(U3)
@@ -165,5 +170,23 @@ def fleet_region_envelopes_device(L3, U3, shards: int | None = None,
     if shards is not None and shards < 1:
         raise ValueError(f"shards must be >= 1, got {shards}")
     dev = resolve(device)
-    parity = envelopes_parity_fleet(_rows_f32(L3, dev), _rows_f32(U3, dev))
-    return _results(*_merge_reduce(*(o.reshape(p * b, n) for o in parity)))
+    if devices is None:
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+    devices = [resolve(d) for d in devices] or [dev]
+    shards = 1 if shards is None else min(int(shards), len(devices))
+    per = -(-p // shards)
+    if per * shards > p:  # sentinel probes pad the shard axis
+        pad = ((0, per * shards - p), (0, 0), (0, 0))
+        L3 = np.pad(L3.astype(np.float64), pad, constant_values=-np.inf)
+        U3 = np.pad(U3.astype(np.float64), pad, constant_values=np.inf)
+    parts = []
+    for k in range(shards):
+        d, sl = devices[k], slice(k * per, (k + 1) * per)
+        parity = envelopes_parity_fleet(_rows_f32(L3[sl], d),
+                                        _rows_f32(U3[sl], d))
+        parts.append(_merge_reduce(*(o.reshape(per * b, n)
+                                     for o in parity)))
+    outs = [_results(*part) for part in parts]
+    return tuple(np.concatenate(col)[:p * b] for col in zip(*outs))

@@ -17,6 +17,41 @@ from repro_torch.kernels.interp.ref import (interp_eval_ref, interp_eval_wide,
                                             library_walk_ref, rom_eval_ref)
 
 
+def assert_rom_replicated(*operands: torch.Tensor, mesh) -> None:
+    """SPMD contract of every kernel in this module: the ROM-side operands
+    (coeffs / meta / walk / dp) must be **replicated** on a mesh. The fused
+    kernels read table rows by local index, so a partitioned ROM would read
+    wrong rows. Each rank's operands must have the same shape and contents:
+    one all-reduce (min and max) over the whole mesh of a per-rank vector of
+    every operand's rank, shape and checksum has to agree, else
+    ``ValueError``. The vector has four entries per operand on every rank
+    (rank, size, a shape hash, the checksum), so a rank holding a shard
+    cannot stall the reduction. Called once at placement time."""
+    if mesh is None:
+        return
+    dev = operands[0].device if operands else torch.device("cpu")
+    rows = []
+    for x in operands:
+        v = x.detach().reshape(-1).to(torch.int64)
+        w = torch.arange(1, v.numel() + 1, dtype=torch.int64,
+                         device=v.device) % 65521
+        shape = sum(int(d) * 31 ** i for i, d in enumerate(x.shape))
+        rows += [x.dim(), x.numel(), shape, int(torch.sum(v * w))]
+    if not rows:
+        return
+    lo = torch.tensor(rows, dtype=torch.int64, device=dev)
+    hi = lo.clone()
+    # one reduction of [min | -max]: both agree iff every rank is equal
+    both = mesh.all_reduce(torch.cat([lo, -hi]), None, "min")
+    if not torch.equal(both[:len(rows)], -both[len(rows):]):
+        shapes = ", ".join(str(tuple(x.shape)) for x in operands)
+        raise ValueError(
+            f"interp ROM operand {shapes} is partitioned (its shape or "
+            f"contents differ across the mesh's ranks); the fused kernels "
+            f"require a replicated ROM — place the library with a "
+            f"fully-replicated sharding")
+
+
 def table_eval(codes: torch.Tensor, design: TableDesign) -> torch.Tensor:
     """Evaluate ``design`` on int32 codes (any shape) on the codes' device.
 

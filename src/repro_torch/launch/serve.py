@@ -45,6 +45,18 @@ N`` (admission bound; overflow is rejected with ``queue_full``),
 (with ``--journal``: rebuild the engine from that journal after a crash).
 ``--eager`` is the port's own debugging switch: the fused tick runs its
 Python loop on the card instead of replaying CUDA graphs.
+
+``--mesh DxT`` (bare ``N`` means ``Nx1``) serves on a ``(data, tp)`` mesh,
+one process per rank under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``)::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch yi_6b \
+        --mesh 2x1
+
+NCCL on the cards (each rank on ``cuda:LOCAL_RANK``), gloo with
+``--device cpu``; ``--dist-url`` names another rendezvous than
+``torchrun``'s (``file:///path``). Every rank builds the same weights and
+requests; only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -117,6 +129,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--async-host", action="store_true",
                     help="detokenize/journal on a background host thread "
                          "behind a bounded queue")
+    ap.add_argument("--mesh", default=None, metavar="DxT",
+                    help="serve on a (data, tp) mesh, e.g. 2x4 (bare N "
+                         "means Nx1), one process per rank under torchrun; "
+                         "needs data*tp ranks")
+    ap.add_argument("--dist-url", default="env://",
+                    help="rendezvous of the process group with --mesh "
+                         "(default: torchrun's environment)")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -158,6 +177,32 @@ def main(argv=None) -> None:
                    tuple(int(b) for b in args.aot_buckets.split(",")))
 
     dev = resolve(args.device)
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import (init_from_env, make_serve_mesh,
+                                             parse_mesh_spec)
+
+        try:
+            data, tp = parse_mesh_spec(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+        dev = init_from_env(dev, args.dist_url)
+        mesh = make_serve_mesh(data, tp)
+    try:
+        _serve(ap, args, cfg, buckets, dev, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _serve(ap, args, cfg, buckets, dev, mesh) -> None:
+    """Build the engine, submit the requests, run; rank 0 prints."""
+    def say(*a, **k):
+        if mesh is None or (mesh.index("data"), mesh.index("tp")) == (0, 0):
+            print(*a, **k)
+
     library = (InterpLibrary.load(args.library, device=dev) if args.library
                else None)
     params = tf.init_params(cfg, seed=args.seed, device=dev)
@@ -168,7 +213,7 @@ def main(argv=None) -> None:
                           if args.deadline_ms is not None else None),
               aot_buckets=buckets, max_pack=args.max_pack,
               async_host=args.async_host,
-              graph=False if args.eager else None, device=dev)
+              graph=False if args.eager else None, mesh=mesh, device=dev)
     try:
         if args.resume:
             eng = ServeEngine.resume(args.journal, cfg, params, **kw)
@@ -179,10 +224,10 @@ def main(argv=None) -> None:
     if args.save_library and eng.library is not None:
         if isinstance(eng.library, dict):  # plan engine: one per slot
             for key, lib in sorted(eng.library.items()):
-                print(f"saved library [{key}] -> "
+                say(f"saved library [{key}] -> "
                       f"{lib.save(f'{args.save_library}.{key}')}")
         else:
-            print(f"saved library -> {eng.library.save(args.save_library)}")
+            say(f"saved library -> {eng.library.save(args.save_library)}")
     if not args.resume:
         rng = np.random.default_rng(args.seed)
         for i in range(args.requests):
@@ -191,7 +236,7 @@ def main(argv=None) -> None:
             try:
                 eng.submit(Request(i, prompt, max_new=args.max_new))
             except Rejected as e:
-                print(f"request {i} rejected ({e.reason})")
+                say(f"request {i} rejected ({e.reason})")
     t0 = time.perf_counter()
     done = eng.run()
     eng.close()  # joins the host worker of --async-host
@@ -199,12 +244,12 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     for r in sorted(done, key=lambda r: r.rid):
-        print(f"request {r.rid}: {len(r.prompt)} prompt -> {r.out}")
+        say(f"request {r.rid}: {len(r.prompt)} prompt -> {r.out}")
     for r in eng.failed:
-        print(f"request {r.rid} failed: {r.error}")
+        say(f"request {r.rid} failed: {r.error}")
     n_tok = sum(len(r.out) for r in done)
     lib = eng.library
-    print(json.dumps({"device": str(dev),
+    say(json.dumps({"device": str(dev), "mesh": args.mesh,
                       "numerics": ("plan" if eng.cfg.plan is not None
                                    else eng.cfg.numerics),
                       "tokens": n_tok, "seconds": dt,

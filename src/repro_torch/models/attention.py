@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.models.layers import apply_rope, pdtype, rope_angles, spec
+from repro_torch.models.layers import (apply_rope, pdtype, rope_angles, spec,
+                                       tp_cols)
 
 NEG = -1e30
 M_FLOOR = -1e20  # running-max clamp: exp(NEG - M_FLOOR) == 0
@@ -163,32 +164,83 @@ def gqa_shapes(cfg) -> dict:
     return out
 
 
-def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+def _replicated_kv(wk: torch.Tensor, cfg, mesh) -> bool:
+    """Whether this rank holds every KV head while its query heads are a
+    ``tp`` shard: the placement where ``tp`` does not divide
+    ``n_kv_heads`` (``launch.sharding.placement_specs``)."""
+    return (mesh is not None and mesh.tp > 1
+            and wk.shape[-1] == cfg.n_kv_heads * cfg.head_size)
+
+
+def _local_kv(t: torch.Tensor, hq: int, cfg, mesh, axis: int):
+    """The KV heads along ``axis`` of ``t`` (every KV head) that this rank's
+    ``hq`` query heads read: a narrow view where each of them serves the
+    same number of local query heads, else one KV head per query head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    ids = [(mesh.tp_rank * hq + j) // g for j in range(hq)]
+    lo, n = ids[0], ids[-1] + 1 - ids[0]
+    t = t.narrow(axis, lo, n)
+    if hq % n == 0 and all(ids.count(lo + i) == hq // n for i in range(n)):
+        return t
+    return t.index_select(axis, torch.tensor([i - lo for i in ids],
+                                             device=t.device))
+
+
+def _project_out(p: dict, o: torch.Tensor, mesh) -> torch.Tensor:
+    """(B, S, heads, Dv) -> (B, S, d) through ``wo``: row-parallel on a
+    mesh, summed over ``tp``."""
+    y = o.reshape(*o.shape[:2], -1) @ p["wo"]
+    return y if mesh is None else mesh.tp_sum(y)
+
+
+def _gqa_qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+             mesh=None):
+    """q, k, v (B, S, heads, D) with RoPE: every head without a mesh; on a
+    mesh this rank's query heads and its KV heads (every KV head under
+    :func:`_replicated_kv`, their gradient then summed over ``tp``)."""
     b, s, _ = x.shape
     hd = cfg.head_size
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    rep = _replicated_kv(p["wk"], cfg, mesh)
+    xq = x if mesh is None else mesh.tp_enter(x)
+    xk = x if rep else xq
+    q = xq @ p["wq"]
+    k = xk @ p["wk"]
+    v = xk @ p["wv"]
     if cfg.attn_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+        q = q + tp_cols(p["bq"], q.shape[-1], mesh)
+        k = k + tp_cols(p["bk"], k.shape[-1], mesh)
+        v = v + tp_cols(p["bv"], v.shape[-1], mesh)
+    if rep:
+        k, v = mesh.tp_enter(k), mesh.tp_enter(v)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.learned_pos:  # positions were added to the embeddings
         return q, k, v
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _attend_kv(q, k, v, cfg, mesh):
+    """k, v (B, S, KV, D) as this rank's query heads read them
+    (:func:`_local_kv` under the replicated-KV placement, else as they
+    are)."""
+    if not (mesh is not None and mesh.tp > 1
+            and k.shape[2] == cfg.n_kv_heads):
+        return k, v
+    hq = q.shape[2]
+    return _local_kv(k, hq, cfg, mesh, 2), _local_kv(v, hq, cfg, mesh, 2)
+
+
 def gqa_train(p: dict, x, positions, cfg, numerics,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, mesh=None) -> torch.Tensor:
     """The reference's training-shaped forward with no cache: attention of
     the sequence over itself (the encoder passes ``causal=False``)."""
-    b, s, _ = x.shape
-    q, k, v = _gqa_qkv(p, x, positions, cfg)
+    q, k, v = _gqa_qkv(p, x, positions, cfg, mesh)
+    k, v = _attend_kv(q, k, v, cfg, mesh)
     o = attention_core(q, k, v, positions, positions, numerics,
                        causal=causal, window=cfg.sliding_window)
-    return o.reshape(b, s, -1) @ p["wo"]
+    return _project_out(p, o, mesh)
 
 
 def cache_rows(cfg, cache_len: int) -> int:
@@ -198,7 +250,8 @@ def cache_rows(cfg, cache_len: int) -> int:
     return cache_len if w is None else min(cache_len, w)
 
 
-def gqa_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
+def gqa_prefill(p: dict, x, positions, cfg, numerics, cache_len: int,
+                mesh=None):
     """Prompt pass that also emits a right-padded KV cache. A windowed cache
     keeps the prompt's last ``s_eff`` rows, rotated so that row r holds the
     position p with p % s_eff == r (the slot decode writes p to); a prompt
@@ -207,11 +260,12 @@ def gqa_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
     s_eff = cache_rows(cfg, cache_len)
     if s > s_eff and cfg.sliding_window is None:
         raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
-    q, k, v = _gqa_qkv(p, x, positions, cfg)
-    o = attention_core(q, k, v, positions, positions, numerics, causal=True,
+    q, k, v = _gqa_qkv(p, x, positions, cfg, mesh)
+    o = attention_core(q, *_attend_kv(q, k, v, cfg, mesh), positions,
+                       positions, numerics, causal=True,
                        window=cfg.sliding_window)
-    y = o.reshape(b, s, -1) @ p["wo"]
-    kc = torch.zeros((b, cfg.n_kv_heads, s_eff, cfg.head_size),
+    y = _project_out(p, o, mesh)
+    kc = torch.zeros((b, k.shape[2], s_eff, cfg.head_size),
                      dtype=k.dtype, device=x.device)
     vc = torch.zeros_like(kc)
     pos_buf = torch.full((b, s_eff), -1, dtype=torch.int32, device=x.device)
@@ -300,24 +354,25 @@ def _write_slot(cfg, positions, s_max: int):
     return torch.clamp(positions[:, 0], 0, s_max - 1)
 
 
-def gqa_decode(p: dict, x, pos, cache: KVCache, cfg, numerics):
+def gqa_decode(p: dict, x, pos, cache: KVCache, cfg, numerics, mesh=None):
     """x: (B, 1, d); pos: scalar or (B,) per-slot positions; ``cache`` is
-    one layer's (B, KV, S, D) view, updated in place and returned."""
+    one layer's (B, KV, S, D) view (on a mesh this rank's KV heads),
+    updated in place and returned."""
     b = x.shape[0]
     pos, positions = _decode_positions(pos, b, x.device)
-    q, k, v = _gqa_qkv(p, x, positions, cfg)
+    q, k, v = _gqa_qkv(p, x, positions, cfg, mesh)
     s_max = cache.k.shape[2]
     slot = _write_slot(cfg, positions, s_max)
     rows = torch.arange(b, device=x.device)
     cache.k[rows, :, slot] = k[:, 0]
     cache.v[rows, :, slot] = v[:, 0]
     cache.pos[rows, slot] = positions[:, 0]
-    o = attention_core(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
-                       positions, cache.pos, numerics, causal=True,
-                       window=cfg.sliding_window,
+    kk, vv = _attend_kv(q, cache.k.transpose(1, 2), cache.v.transpose(1, 2),
+                        cfg, mesh)
+    o = attention_core(q, kk, vv, positions, cache.pos, numerics,
+                       causal=True, window=cfg.sliding_window,
                        kv_chunk=decode_kv_chunk(s_max))
-    y = o.reshape(b, 1, -1) @ p["wo"]
-    return y, cache
+    return _project_out(p, o, mesh), cache
 
 
 def mla_shapes(cfg) -> dict:
@@ -450,24 +505,33 @@ def cross_shapes(cfg) -> dict:
             "wo": spec((cfg.n_heads * hd, d), dt)}
 
 
-def cross_kv(p: dict, enc: torch.Tensor, cfg):
+def cross_kv(p: dict, enc: torch.Tensor, cfg, mesh=None):
     """One layer's cross K / V (B, S_src, KV, D) from the encoder output
-    (B, S_src, d): projected on every call, as the reference does."""
+    (B, S_src, d): projected on every call, as the reference does (on a
+    mesh this rank's KV heads, or all under :func:`_replicated_kv`)."""
     b, s, _ = enc.shape
     hd = cfg.head_size
-    k = (enc @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (enc @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    rep = _replicated_kv(p["wk"], cfg, mesh)
+    if mesh is not None and not rep:
+        enc = mesh.tp_enter(enc)
+    k = (enc @ p["wk"]).reshape(b, s, -1, hd)
+    v = (enc @ p["wv"]).reshape(b, s, -1, hd)
+    if rep:
+        k, v = mesh.tp_enter(k), mesh.tp_enter(v)
     return k, v
 
 
-def cross_apply(p: dict, x: torch.Tensor, kv, cfg, numerics) -> torch.Tensor:
+def cross_apply(p: dict, x: torch.Tensor, kv, cfg, numerics,
+                mesh=None) -> torch.Tensor:
     """Attention from the decoder rows x (B, S, d) to the encoder's K / V:
     query and key positions all 0 and non-causal, so every key is live."""
     b, s, _ = x.shape
     hd = cfg.head_size
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k, v = kv
+    if mesh is not None:
+        x = mesh.tp_enter(x)
+    q = (x @ p["wq"]).reshape(b, s, -1, hd)
+    k, v = _attend_kv(q, *kv, cfg, mesh)
     qp = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     kp = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
     o = attention_core(q, k, v, qp, kp, numerics, causal=False)
-    return o.reshape(b, s, -1) @ p["wo"]
+    return _project_out(p, o, mesh)

@@ -182,7 +182,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
-def apply_mlp(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
+def tp_cols(t: torch.Tensor, n: int, mesh) -> torch.Tensor:
+    """This rank's ``n`` last-axis columns of ``t``: ``t`` itself where it
+    already has ``n`` (no mesh, or a local shard), else the ``tp`` rank's
+    slice of a leaf the specs replicate (a QKV bias, the projector's
+    ``b1``), whose gradient is then summed over ``tp``."""
+    if t.shape[-1] == n:
+        return t
+    return mesh.tp_enter(t).narrow(-1, mesh.tp_rank * n, n)
+
+
+def apply_mlp(p: dict, x: torch.Tensor, cfg, numerics,
+              mesh=None) -> torch.Tensor:
+    """The MLP; on a mesh ``wi`` is column-parallel (this rank's gate and up
+    columns) and ``wo`` row-parallel, summed over ``tp``."""
+    if mesh is not None:
+        x = mesh.tp_enter(x)
     h = x @ p["wi"]
     if cfg.act == "silu":
         gate, up = torch.chunk(h, 2, dim=-1)  # SwiGLU
@@ -193,13 +208,31 @@ def apply_mlp(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
         h = torch.square(torch.relu(h))
     else:
         raise ValueError(cfg.act)
-    return h @ p["wo"]
+    y = h @ p["wo"]
+    return y if mesh is None else mesh.tp_sum(y)
 
 
-def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens]
+def embed_tokens(p: dict, tokens: torch.Tensor, mesh=None,
+                 vocab: int | None = None) -> torch.Tensor:
+    """The token rows. On a mesh whose ``tp`` splits the vocabulary
+    (``tok`` holds ``vocab / tp`` rows) each rank looks up the tokens in
+    its range, zeros the rest and the rows are summed over ``tp``."""
+    tok = p["tok"]
+    if mesh is None or tok.shape[0] * mesh.tp != vocab:
+        return tok[tokens]
+    n = tok.shape[0]
+    local = tokens - mesh.tp_rank * n
+    inside = (local >= 0) & (local < n)
+    rows = tok[torch.where(inside, local, 0)]
+    return mesh.tp_sum(torch.where(inside[..., None], rows, 0))
 
 
-def lm_logits(p: dict, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(p: dict, h: torch.Tensor, mesh=None,
+              vocab: int | None = None) -> torch.Tensor:
+    """``h @ head`` (``tok.T`` when tied). On a mesh whose ``tp`` splits the
+    vocabulary each rank forms its own columns and they are all-gathered
+    over ``tp``."""
     w = p["head"] if "head" in p else p["tok"].T
-    return h @ w
+    if mesh is None or w.shape[1] * mesh.tp != vocab:
+        return h @ w
+    return mesh.tp_cat(mesh.tp_enter(h) @ w, dim=-1)

@@ -65,9 +65,12 @@ def route(p: dict, x: torch.Tensor, cfg, numerics):
 
 
 def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
-              return_probs: bool = False):
+              return_probs: bool = False, mesh=None):
     """x: (B, S, d) -> (B, S, d). Token copies over an example's capacity
-    are dropped (they fall through on the residual path)."""
+    are dropped (they fall through on the residual path). On a mesh the
+    router and the dispatch run on every ``tp`` rank alike, the experts'
+    ``wi`` / ``wo`` hold this rank's ``d_expert`` columns / rows (as the
+    shared expert's), and their outputs are summed over ``tp``."""
     m = cfg.moe
     b, s, d = x.shape
     e_n, k = m.n_experts, m.top_k
@@ -91,10 +94,15 @@ def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
 
     # expert SwiGLU: batch folded into the rows, one product per expert
     rows = buf.permute(1, 0, 2, 3).reshape(e_n, b * (cap + 1), d)
+    if mesh is not None:
+        rows = mesh.tp_enter(rows)
     h = torch.bmm(rows, p["wi"])
     gate_h, up = torch.chunk(h, 2, dim=-1)
     h = (numerics.silu(gate_h) * up).to(x.dtype)
-    out_buf = torch.bmm(h, p["wo"]).reshape(e_n, b, cap + 1, d)
+    out_buf = torch.bmm(h, p["wo"])
+    if mesh is not None:
+        out_buf = mesh.tp_sum(out_buf)
+    out_buf = out_buf.reshape(e_n, b, cap + 1, d)
 
     # combine: gather each copy's expert output, weight by keep * gate
     tok_out = out_buf[flat_e, bidx, slot].to(torch.float32)  # (B, SK, d)
@@ -102,20 +110,30 @@ def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
     y = tok_out.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
 
     if m.n_shared:
-        gs, us = torch.chunk(x @ p["shared_wi"], 2, dim=-1)
-        y = y + ((numerics.silu(gs) * us) @ p["shared_wo"]).to(x.dtype)
+        xs = x if mesh is None else mesh.tp_enter(x)
+        gs, us = torch.chunk(xs @ p["shared_wi"], 2, dim=-1)
+        ys = (numerics.silu(gs) * us) @ p["shared_wo"]
+        if mesh is not None:
+            ys = mesh.tp_sum(ys)
+        y = y + ys.to(x.dtype)
     if return_probs:
         return y, probs
     return y
 
 
-def load_balance_loss_from_probs(probs: torch.Tensor, cfg) -> torch.Tensor:
+def load_balance_loss_from_probs(probs: torch.Tensor, cfg,
+                                 mesh=None) -> torch.Tensor:
     """Switch-style load-balance aux loss from the routing pass's probs (B,
     S, E): E * sum_e (mean prob of e) * (mean top-k count of e). The top-k
-    is :func:`top_k`'s stable descending sort, as the routing takes it."""
+    is :func:`top_k`'s stable descending sort, as the routing takes it. On
+    a mesh whose ``data`` axis splits the batch the counts are the global
+    batch's (averaged over ``data``; they carry no gradient), so the
+    ranks' losses and gradients average to the global batch's."""
     m = cfg.moe
     pe = probs.reshape(-1, m.n_experts)
     me = pe.mean(0)
     _, idx = top_k(pe, m.top_k)
     ce = torch.mean(F.one_hot(idx, m.n_experts).to(torch.float32).sum(1), 0)
+    if mesh is not None and "data" in mesh.shape:
+        ce = mesh.all_reduce(ce.detach(), "data") / mesh.shape["data"]
     return m.n_experts * torch.sum(me * ce)

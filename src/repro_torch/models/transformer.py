@@ -73,7 +73,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_shapes,
                                        embed_tokens, init_tree, layer_norm,
                                        lm_logits, map_tree, mlp_shapes,
-                                       norm_shapes, pdtype, spec, stack_specs)
+                                       norm_shapes, pdtype, spec, stack_specs,
+                                       tp_cols)
 from repro_torch.models.layers import init_rule  # noqa: F401  (re-export)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import (load_balance_loss_from_probs, moe_block,
@@ -271,16 +272,12 @@ def cache_specs(cfg, b: int, cache_len: int) -> attn.KVCache:
     return fn(cfg, b, cache_len, pdtype(cfg))
 
 
-def init_cache(cfg, b: int, cache_len: int,
-               device: str | torch.device = "cuda"):
-    """The empty stacked cache: zeros, positions -1, a layer axis first; a
-    :class:`MixedCache` for a config with SSM layers."""
-    dev = resolve(device)
-
-    def stack(specs, n: int) -> list:
-        return [torch.full((n, *sp.shape), -1 if sp.dtype == torch.int32
-                           else 0, dtype=sp.dtype, device=dev)
-                for sp in specs]
+def cache_shapes(cfg, b: int, cache_len: int):
+    """The stacked cache's :class:`~repro_torch.models.layers.Spec` leaves
+    (a layer axis first): a KVCache, or a :class:`MixedCache` for a config
+    with SSM layers."""
+    def stack(specs, n: int):
+        return [spec((n, *sp.shape), sp.dtype) for sp in specs]
 
     if not has_ssm(cfg):
         return attn.KVCache(*stack(cache_specs(cfg, b, cache_len),
@@ -291,6 +288,22 @@ def init_cache(cfg, b: int, cache_len: int,
           if n_kv else None)
     return MixedCache(kv, ssm_mod.SSMState(*stack(
         ssm_mod.ssm_state_specs(cfg, b, pdtype(cfg)), n_ssm)))
+
+
+def alloc_cache(shapes, device: str | torch.device = "cuda"):
+    """A cache of :func:`cache_shapes`' form (or any shapes of that form):
+    zeros, positions -1."""
+    dev = resolve(device)
+    return _map_cache(lambda sp: torch.full(
+        sp.shape, -1 if sp.dtype == torch.int32 else 0, dtype=sp.dtype,
+        device=dev), shapes)
+
+
+def init_cache(cfg, b: int, cache_len: int,
+               device: str | torch.device = "cuda"):
+    """The empty stacked cache: zeros, positions -1, a layer axis first; a
+    :class:`MixedCache` for a config with SSM layers."""
+    return alloc_cache(cache_shapes(cfg, b, cache_len), device)
 
 
 def splice_cache(cfg, pool, one, slot: int):
@@ -304,14 +317,20 @@ def splice_cache(cfg, pool, one, slot: int):
 
 def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
                 mode: str, cache=None, cache_len: int = 0, pos=None,
-                cross=None):
+                cross=None, mesh=None):
     """One layer (the reference's ``apply_block``): norm, mixer, residual;
     with ``cross`` (the encoder output) norm, cross attention, residual;
     then norm, FFN, residual where the layer has an FFN. Returns (h, x):
     in "prefill" x is the layer's new cache (a KVCache or an SSMState), in
     "decode" ``cache``, one layer's view of the pool, updated in place; in
-    "train" the layer's MoE load-balance aux (None without an MoE FFN)."""
+    "train" the layer's MoE load-balance aux (None without an MoE FFN).
+    ``mesh``: the tensor- / data-parallel mesh the layer's weights and
+    cache are this rank's shards of (``launch.mesh.Mesh``); the MLA and SSM
+    mixers serve only at ``tp == 1``, where they run whole."""
     x = apply_norm(lp["norm1"], h, cfg, numerics)
+    whole = mesh is not None and kind.mixer in ("ssm", "mla")
+    if whole:
+        x = mesh.tp_enter(x)
     if kind.mixer == "ssm":
         if mode == "train":
             y = ssm_mod.ssm_train(lp["mixer"], x, cfg, numerics)
@@ -322,30 +341,33 @@ def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
                                           numerics)
     else:
         mla = kind.mixer == "mla"
+        kw = {} if mla else {"mesh": mesh}  # GQA splits its own heads
         if mode == "train":
             y = (attn.mla_train if mla else attn.gqa_train)(
-                lp["mixer"], x, positions, cfg, numerics)
+                lp["mixer"], x, positions, cfg, numerics, **kw)
         elif mode == "prefill":
             y, cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
-                lp["mixer"], x, positions, cfg, numerics, cache_len)
+                lp["mixer"], x, positions, cfg, numerics, cache_len, **kw)
         else:
             y, cache = (attn.mla_decode if mla else attn.gqa_decode)(
-                lp["mixer"], x, pos, cache, cfg, numerics)
+                lp["mixer"], x, pos, cache, cfg, numerics, **kw)
+    if whole:
+        y = mesh.tp_sum(y)
     h = h + y
     if cross is not None:
         xc = apply_norm(lp["norm_x"], h, cfg, numerics)
-        kv = attn.cross_kv(lp["cross"], cross, cfg)
-        h = h + attn.cross_apply(lp["cross"], xc, kv, cfg, numerics)
+        kv = attn.cross_kv(lp["cross"], cross, cfg, mesh)
+        h = h + attn.cross_apply(lp["cross"], xc, kv, cfg, numerics, mesh)
     aux = None
     if kind.ffn is not None:
         x2 = apply_norm(lp["norm2"], h, cfg, numerics)
         if kind.ffn == "moe":
             y2, probs = moe_block(lp["ffn"], x2, cfg, numerics,
-                                  return_probs=True)
+                                  return_probs=True, mesh=mesh)
             if mode == "train":
-                aux = load_balance_loss_from_probs(probs, cfg)
+                aux = load_balance_loss_from_probs(probs, cfg, mesh)
         else:
-            y2 = apply_mlp(lp["ffn"], x2, cfg, numerics)
+            y2 = apply_mlp(lp["ffn"], x2, cfg, numerics, mesh)
         h = h + y2
     return h, (aux if mode == "train" else cache)
 
@@ -376,12 +398,14 @@ def _remat(fn, cfg):
 
 
 def backbone(p: dict, h, positions, cfg, numerics, mode: str,
-             caches=None, cache_len: int = 0, pos=None, cross=None):
+             caches=None, cache_len: int = 0, pos=None, cross=None,
+             mesh=None):
     """Run every layer and the final norm. ``mode``: "prefill" (returns
     (h, the new stacked cache)), "decode" (updates ``caches`` in place;
     returns (h, caches)) or "train" (returns (h, the MoE aux summed over
     the layers), each layer under ``cfg.remat``); ``cross`` is the encoder
-    output every layer's cross attention reads. ``numerics`` is one
+    output every layer's cross attention reads; ``mesh`` the mesh whose
+    shards ``p`` and ``caches`` hold (:func:`apply_layer`). ``numerics`` is one
     backend for every layer, or a plan-resolved object whose
     ``for_layer(i)`` gives layer ``i``'s (the final norm then runs under
     the object itself: the plan's ``rest``)."""
@@ -398,7 +422,7 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
         if mode == "train":
             def layer(h_in, lp=lp, kind=kind, num=num):
                 return apply_layer(lp, kind, h_in, positions, cfg, num,
-                                   "train", cross=cross)
+                                   "train", cross=cross, mesh=mesh)
             h, a = _remat(layer, cfg)(h)
             if a is not None:
                 aux = aux + a
@@ -409,7 +433,7 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
             layer = (ssm_mod.SSMState(*(t[ci] for t in caches.ssm)) if ssm
                      else attn.KVCache(*(t[ci] for t in _kv(caches))))
         h, c = apply_layer(lp, kind, h, positions, cfg, num, mode, layer,
-                           cache_len, pos, cross)
+                           cache_len, pos, cross, mesh)
         if mode == "prefill":
             (new_ssm if ssm else new_kv).append(c)
     h = apply_norm(p["final_norm"], h, cfg, numerics)
@@ -424,7 +448,7 @@ def backbone(p: dict, h, positions, cfg, numerics, mode: str,
 
 
 def encoder_forward(p: dict, frames: torch.Tensor, cfg,
-                    numerics) -> torch.Tensor:
+                    numerics, mesh=None) -> torch.Tensor:
     """The encoder over stub frame embeddings: ``p`` is the tree's
     ``encoder`` subtree, frames (B, S_src, d) (float32 from the stub, cast
     to the parameter dtype) plus the first S_src learned positions, then
@@ -440,14 +464,14 @@ def encoder_forward(p: dict, frames: torch.Tensor, cfg,
         lp = map_tree(lambda _n, t: t[i], p["layers"])
         x = apply_norm(lp["norm1"], h, cfg, numerics)
         h = h + attn.gqa_train(lp["mixer"], x, positions, cfg, numerics,
-                               causal=False)
+                               causal=False, mesh=mesh)
         x2 = apply_norm(lp["norm2"], h, cfg, numerics)
-        h = h + apply_mlp(lp["ffn"], x2, cfg, numerics)
+        h = h + apply_mlp(lp["ffn"], x2, cfg, numerics, mesh)
     return apply_norm(p["final_norm"], h, cfg, numerics)
 
 
 def _project_frontend(p: dict, emb: torch.Tensor, cfg,
-                      numerics) -> torch.Tensor:
+                      numerics, mesh=None) -> torch.Tensor:
     """The InternVL MLP projector: stub patch embeddings (B, n,
     frontend_dim) -> (B, n, d) in emb's dtype. A float32 LayerNorm, then
     ``numerics.gelu(x @ w1 + b1) @ w2 + b2``, each product in the promoted
@@ -456,19 +480,24 @@ def _project_frontend(p: dict, emb: torch.Tensor, cfg,
     pr = p["projector"]
     x = layer_norm(emb, pr["norm"]["scale"], pr["norm"]["bias"])
     dt = torch.promote_types(x.dtype, pr["w1"].dtype)
-    h = numerics.gelu(x.to(dt) @ pr["w1"].to(dt) + pr["b1"].to(dt))
-    return (h @ pr["w2"].to(dt) + pr["b2"].to(dt)).to(emb.dtype)
+    x = x.to(dt) if mesh is None else mesh.tp_enter(x.to(dt))
+    w1 = pr["w1"].to(dt)
+    h = numerics.gelu(x @ w1 + tp_cols(pr["b1"], w1.shape[-1], mesh).to(dt))
+    y = h @ pr["w2"].to(dt)
+    if mesh is not None:
+        y = mesh.tp_sum(y)
+    return (y + pr["b2"].to(dt)).to(emb.dtype)
 
 
 def _embed_inputs(p: dict, tokens, positions, cfg, numerics,
-                  frontend_emb=None) -> torch.Tensor:
+                  frontend_emb=None, mesh=None) -> torch.Tensor:
     """Token embeddings; under the vision stub the projected patches in
     place of the first n rows; under ``learned_pos`` plus the positions'
     rows of ``pos`` (clamped to the table, as the reference's gather
     clamps)."""
-    h = embed_tokens(p["embed"], tokens)
+    h = embed_tokens(p["embed"], tokens, mesh, cfg.vocab_size)
     if frontend_emb is not None and cfg.frontend == "vision_stub":
-        patches = _project_frontend(p, frontend_emb, cfg, numerics)
+        patches = _project_frontend(p, frontend_emb, cfg, numerics, mesh)
         n = patches.shape[1]
         h = torch.cat([patches.to(h.dtype), h[:, n:]], 1)
     if cfg.learned_pos:
@@ -482,7 +511,7 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def forward(p: dict, tokens: torch.Tensor, cfg, numerics, frontend_emb=None,
-            enc_frames=None) -> torch.Tensor:
+            enc_frames=None, mesh=None) -> torch.Tensor:
     """The training-shaped forward -> logits (B, S, V). An
     encoder-decoder runs its encoder over ``enc_frames`` where they are
     given (else the decoder skips cross attention, as the reference's
@@ -490,23 +519,27 @@ def forward(p: dict, tokens: torch.Tensor, cfg, numerics, frontend_emb=None,
     chunked CE never forms (B, S, V)."""
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
-    cross = (encoder_forward(p["encoder"], enc_frames, cfg, numerics)
+    cross = (encoder_forward(p["encoder"], enc_frames, cfg, numerics, mesh)
              if enc_frames is not None else None)
-    h = _embed_inputs(p, tokens, positions, cfg, numerics, frontend_emb)
-    h, _ = backbone(p, h, positions, cfg, numerics, "train", cross=cross)
-    return lm_logits(p["embed"], h)
+    h = _embed_inputs(p, tokens, positions, cfg, numerics, frontend_emb,
+                      mesh)
+    h, _ = backbone(p, h, positions, cfg, numerics, "train", cross=cross,
+                    mesh=mesh)
+    return lm_logits(p["embed"], h, mesh, cfg.vocab_size)
 
 
-def _ce_chunk(p_embed: dict, hc, lc, mc) -> torch.Tensor:
+def _ce_chunk(p_embed: dict, hc, lc, mc, mesh=None,
+              vocab: int | None = None) -> torch.Tensor:
     """Masked CE summed over one (B, chunk) slice; logits in float32."""
-    logits = lm_logits(p_embed, hc).to(torch.float32)
+    logits = lm_logits(p_embed, hc, mesh, vocab).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None].to(torch.int64))[..., 0]
     return torch.sum((lse - gold) * mc)
 
 
 def chunked_ce_loss(p_embed: dict, h: torch.Tensor, labels: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, mesh=None,
+                    vocab: int | None = None) -> torch.Tensor:
     """Mean CE over the masked tokens. The logits form ``LOSS_CHUNK``
     sequence positions at a time (the sequence padded with mask 0 to whole
     chunks), each chunk checkpointed: its (B, chunk, V) float32 logits are
@@ -523,25 +556,29 @@ def chunked_ce_loss(p_embed: dict, h: torch.Tensor, labels: torch.Tensor,
     for c in range(h.shape[1] // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
         total = total + checkpoint(_ce_chunk, p_embed, h[:, sl],
-                                   labels[:, sl], mask[:, sl],
+                                   labels[:, sl], mask[:, sl], mesh, vocab,
                                    use_reentrant=False)
     return total / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(p: dict, batch: dict, cfg, numerics):
+def loss_fn(p: dict, batch: dict, cfg, numerics, mesh=None):
     """batch: tokens (B, S) int, labels (B, S) int, mask (B, S), plus
     ``frontend_emb`` (VLM) or ``enc_frames`` (encoder-decoder), tensors on
     the parameters' device. Returns (CE + ``AUX_WEIGHT`` * aux, {"ce",
-    "aux"})."""
+    "aux"}). On a mesh ``p`` holds this rank's tensor-parallel shards and
+    the batch is this rank's rows."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
     cross = (encoder_forward(p["encoder"], batch["enc_frames"], cfg,
-                             numerics) if cfg.encoder is not None else None)
+                             numerics, mesh)
+             if cfg.encoder is not None else None)
     h = _embed_inputs(p, tokens, positions, cfg, numerics,
-                      batch.get("frontend_emb"))
-    h, aux = backbone(p, h, positions, cfg, numerics, "train", cross=cross)
-    ce = chunked_ce_loss(p["embed"], h, batch["labels"], batch["mask"])
+                      batch.get("frontend_emb"), mesh)
+    h, aux = backbone(p, h, positions, cfg, numerics, "train", cross=cross,
+                      mesh=mesh)
+    ce = chunked_ce_loss(p["embed"], h, batch["labels"], batch["mask"],
+                         mesh, cfg.vocab_size)
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
 
@@ -570,21 +607,23 @@ def _check_inputs(cfg, cross, lengths: dict, frontend_emb=None) -> None:
 
 
 def prefill(p: dict, tokens: torch.Tensor, cfg, numerics, cache_len: int,
-            frontend_emb=None, cross=None):
+            frontend_emb=None, cross=None, mesh=None):
     """Process the prompt; returns (last-position logits (B, 1, V), cache).
     ``frontend_emb`` (B, n, frontend_dim): the vision stub's patches, which
     take the first n <= S prompt rows; ``cross``: the encoder output
     (:func:`encoder_forward`), which an encoder-decoder needs and any other
-    config refuses."""
+    config refuses; ``mesh``: the mesh whose shards ``p`` holds (the
+    cache then holds this rank's KV heads)."""
     b, s = tokens.shape
     _check_inputs(cfg, cross, {"prompt length": s, "cache_len": cache_len},
                   frontend_emb)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    h = _embed_inputs(p, tokens, positions, cfg, numerics, frontend_emb)
+    h = _embed_inputs(p, tokens, positions, cfg, numerics, frontend_emb,
+                      mesh)
     h, caches = backbone(p, h, positions, cfg, numerics, "prefill",
-                         cache_len=cache_len, cross=cross)
-    return lm_logits(p["embed"], h[:, -1:]), caches
+                         cache_len=cache_len, cross=cross, mesh=mesh)
+    return lm_logits(p["embed"], h[:, -1:], mesh, cfg.vocab_size), caches
 
 
 def mask_cache_tail(caches, true_lens) -> attn.KVCache:
@@ -610,7 +649,7 @@ def mask_cache_tail(caches, true_lens) -> attn.KVCache:
 
 
 def prefill_padded(p: dict, tokens: torch.Tensor, true_lens, cfg, numerics,
-                   cache_len: int):
+                   cache_len: int, mesh=None):
     """Bucketed prefill: ``tokens`` is (B, S_bucket) with each row
     right-padded to the bucket length and ``true_lens`` (B,) the real
     prompt lengths (a tensor on the tokens' device, or a sequence).
@@ -640,13 +679,14 @@ def prefill_padded(p: dict, tokens: torch.Tensor, true_lens, cfg, numerics,
                            device=tokens.device)
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
-    h = embed_tokens(p["embed"], tokens)
+    h = embed_tokens(p["embed"], tokens, mesh, cfg.vocab_size)
     h, caches = backbone(p, h, positions, cfg, numerics, "prefill",
-                         cache_len=cache_len)
+                         cache_len=cache_len, mesh=mesh)
     idx = (lens.to(torch.int64) - 1).reshape(b, 1, 1).expand(b, 1,
                                                              h.shape[-1])
     rows = torch.gather(h, 1, idx)
-    return lm_logits(p["embed"], rows), mask_cache_tail(caches, lens)
+    return (lm_logits(p["embed"], rows, mesh, cfg.vocab_size),
+            mask_cache_tail(caches, lens))
 
 
 def extract_cache_row(cfg, pool, i):
@@ -672,14 +712,16 @@ def splice_cache_rows(cfg, pool, rows, slots: torch.Tensor):
 
 
 def decode_step(p: dict, token: torch.Tensor, pos, caches, cfg, numerics,
-                cross=None):
+                cross=None, mesh=None):
     """token: (B, 1) int; pos: scalar or (B,) per-slot positions; ``cross``
-    the encoder output of an encoder-decoder (as in :func:`prefill`).
-    Returns (logits (B, 1, V), caches updated in place)."""
+    the encoder output of an encoder-decoder (as in :func:`prefill`);
+    ``mesh`` the mesh whose shards ``p`` and ``caches`` hold (the logits
+    are whole: the vocab-parallel head all-gathers them). Returns (logits
+    (B, 1, V), caches updated in place)."""
     b = token.shape[0]
     _check_inputs(cfg, cross, {"cache_len": kv_rows(caches) or 0})
     pos, positions = attn._decode_positions(pos, b, token.device)
-    h = _embed_inputs(p, token, positions, cfg, numerics)
+    h = _embed_inputs(p, token, positions, cfg, numerics, mesh=mesh)
     h, caches = backbone(p, h, None, cfg, numerics, "decode", caches=caches,
-                         pos=pos, cross=cross)
-    return lm_logits(p["embed"], h), caches
+                         pos=pos, cross=cross, mesh=mesh)
+    return lm_logits(p["embed"], h, mesh, cfg.vocab_size), caches

@@ -56,15 +56,18 @@ def adamw_update(grads: dict, state: AdamWState, lr: torch.Tensor,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, clip_norm: float = 1.0,
                  param_dtype: torch.dtype = torch.bfloat16,
-                 donate: bool = False):
+                 donate: bool = False, gnorm: torch.Tensor | None = None):
     """Returns (new params in ``param_dtype``, new state, {"grad_norm"}).
 
     ``donate=True`` writes the new master and moments into ``state``'s own
     tensors, leaf by leaf (the reference's donated state buffer): the same
     values, with one leaf's temporaries at a time instead of a second
-    state. ``state`` must not be read afterwards."""
+    state. ``state`` must not be read afterwards. ``gnorm``: the global
+    norm the clip takes, where the caller computes it (over tensor-parallel
+    shards); by default :func:`global_norm` of ``grads``."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     stepf = step.to(_F32)
     bc1 = 1 - torch.pow(b1, stepf)

@@ -25,8 +25,12 @@ counterpart of a compiled executable is a captured CUDA graph:
     prepared at construction.
 
 :func:`pack_sizes`, :func:`tick_chunk_sizes` and :func:`compile_count` are
-the reference's. ``mesh_key`` and ``call_matched`` (sharded executables)
-wait for ``mesh=``.
+the reference's. :func:`mesh_key` is the identity of a meshed engine's
+mesh, part of every program key (a graph's collectives are bound to its
+mesh's groups); :func:`call_matched` replays a program after copying its
+inputs into the static buffers it was captured on, counting the ones that
+had to be moved (another device, or another shape of the same size), as
+the reference counts its re-placed inputs.
 """
 from __future__ import annotations
 
@@ -69,6 +73,41 @@ class BucketTable:
             if n <= b:
                 return b
         return None
+
+
+def mesh_key(mesh) -> Optional[tuple]:
+    """Hashable identity of a mesh for program keys (``None`` without
+    one): axis names, shape and the global ranks."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names), tuple(mesh.shape.values()),
+            None if mesh.ranks is None
+            else tuple(int(r) for r in mesh.ranks.reshape(-1)))
+
+
+def call_matched(replay, static: tuple, args: tuple):
+    """Copy each of ``args`` into the static buffer at the same place of
+    ``static`` (the inputs a graph baked in), then call ``replay``. An arg
+    that is its buffer is left; a host array, or a tensor on the buffer's
+    device with its shape, is the ordinary upload; a tensor on another
+    device or of another shape with the same element count is moved there
+    and counted. Returns (``replay()``'s result, the count)."""
+    import numpy as np
+    import torch
+
+    moved = 0
+    for buf, x in zip(static, args):
+        if x is buf:
+            continue
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        elif x.device != buf.device or x.shape != buf.shape:
+            if x.numel() != buf.numel():
+                raise ValueError(f"input of {tuple(x.shape)} cannot fill a "
+                                 f"static buffer of {tuple(buf.shape)}")
+            moved += 1
+        buf.copy_(x.reshape(buf.shape))
+    return replay(), moved
 
 
 def pack_sizes(max_pack: int, slots: int) -> tuple[int, ...]:

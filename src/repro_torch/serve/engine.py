@@ -78,8 +78,27 @@ tick graphs, that prefills, splices every row into its slot and writes the
 greedy first tokens into the static slot state and a static first-token
 buffer. ``async_host=`` (:mod:`repro_torch.serve.pipeline`) moves the
 token download, detokenize and journal writes to a worker thread; the
-main thread keeps the (slots,) sentinel download. ``mesh`` waits for the
-distribution slice.
+main thread keeps the (slots,) sentinel download.
+
+``mesh=`` (:func:`repro_torch.launch.mesh.make_serve_mesh`, one process
+per rank, every rank running the same host scheduler on the same
+requests): the weights are this rank's Megatron shards
+(``launch.sharding.placement_specs`` under ``SERVE_PARAM_RULES``: heads,
+MLP and expert columns / rows and the vocabulary over ``tp``, replicated
+over ``data``), the KV pool holds this rank's KV heads of the slots its
+``data`` index owns (``[d * S / data, (d + 1) * S / data)``, plus one
+scratch row an admission writes the rows of other ranks' slots to), and
+the ROM and the slot state are replicated (``assert_rom_replicated``).
+Every rank prefills each admission; the tick decodes the owned slots
+only and all-gathers their next tokens and sentinels over ``data``; the
+models issue the ``tp`` collectives. Every collective is issued whatever
+its group's size, so a world-1 mesh runs them too (captured in the graphs:
+one eager collective per group runs at construction, before any
+capture); ``stats["collectives"]`` counts those the prefills and ticks
+ran. Decisions a
+rank takes from its own state agree across the mesh: the ROM verdict is
+reduced over every rank. The MLA and SSM mixers serve under ``data`` only
+(``tp > 1`` raises ``ValueError``).
 """
 from __future__ import annotations
 
@@ -179,7 +198,9 @@ class ServeEngine:
     ``min(max_pack, slots)``); ``async_host`` with ``pipeline_depth`` (the
     bounded queue of the host worker; ``run()`` / ``close()`` drain it,
     and while running ``Request.out`` trails the card by up to that
-    depth). Both need the fused engine.
+    depth). Both need the fused engine. ``mesh``: a ``("data", "tp")``
+    serve mesh this process is one rank of (module docstring); ``params``
+    are the full weights, of which the engine keeps this rank's shards.
 
     ``stats`` holds the reference's counters (``dispatches`` counts a tick
     as one, a serial token as two; ``transfers`` the host copies;
@@ -187,7 +208,8 @@ class ServeEngine:
     port's: ``prefills`` (prefill forwards: a packed admission is one);
     ``admit_replays`` (packed admissions replayed from a graph);
     ``launches``, each kernel's launches made by this engine (per forward
-    times prefills + decode steps + resume replay steps); ``graph`` /
+    times prefills + decode steps + resume replay steps); ``collectives``
+    (a meshed engine's all-reduces and all-gathers); ``graph`` /
     ``graph_reason``; ``captures`` (tick and admission graphs) and
     ``capture_s``.
     """
@@ -203,9 +225,13 @@ class ServeEngine:
                  journal: str | ServeJournal | None = None,
                  aot_buckets=None, max_pack: int = 4,
                  async_host: bool = False, pipeline_depth: int = 4,
-                 graph: bool | None = None,
+                 graph: bool | None = None, mesh=None,
                  device: str | torch.device = "cuda"):
         self.device = resolve(device)
+        self.mesh = mesh
+        self._mesh_key = aot_mod.mesh_key(mesh)
+        if mesh is not None:
+            self._check_mesh(cfg, slots)
         if graph is None:
             graph = self.device.type == "cuda"
         if graph and self.device.type != "cuda":
@@ -252,7 +278,12 @@ class ServeEngine:
             if lib.device != self.device:
                 raise ValueError(f"library on {lib.device}, engine on "
                                  f"{self.device}")
-        self.caches = tf.init_cache(cfg, slots, cache_len, self.device)
+        self._own = (0, slots)  # the slots this rank decodes
+        if mesh is not None:
+            params = self._shard_params(params, library)
+            self.params = params
+        self._cache_pool = self._new_cache()
+        self.caches = self._view(self._cache_pool)
         dev = self.device
         # device slot state, updated in place (a graph bakes its addresses)
         self._tok = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
@@ -289,7 +320,8 @@ class ServeEngine:
                       "prefills": 0, "admit_replays": 0,
                       "graph": False, "graph_reason": None,
                       "captures": 0, "capture_s": 0.0,
-                      "launches": dict.fromkeys(build.LAUNCHES, 0)}
+                      "launches": dict.fromkeys(build.LAUNCHES, 0),
+                      "collectives": {"all_reduce": 0, "all_gather": 0}}
         self.faults: list[dict] = []  # structured fault / degradation log
         self._trips = 0  # watchdog trips since the last degradation
         self.journal = (journal if isinstance(journal, (ServeJournal,
@@ -338,6 +370,98 @@ class ServeEngine:
         if self._graph_state() is None and not self._graphs:
             self._capture(chunk_sizes(self.horizon))
 
+    # -- the mesh: placement, the owned slots, agreement --------------------
+    def _check_mesh(self, cfg, slots: int) -> None:
+        """Refuse, before any launch, what a meshed engine cannot serve: a
+        mesh whose groups cannot carry this device's tensors, other axes
+        than ``("data", "tp")``, a slot pool ``data`` does not divide, and
+        the MLA and SSM mixers under ``tp > 1``."""
+        mesh = self.mesh
+        if tuple(mesh.axis_names) != ("data", "tp"):
+            raise ValueError(f"a serve mesh has axes ('data', 'tp'), not "
+                             f"{mesh.axis_names}")
+        mesh.check_device(self.device)
+        if slots % mesh.shape["data"]:
+            raise ValueError(f"{slots} slots do not split over "
+                             f"data={mesh.shape['data']}")
+        if mesh.tp > 1 and (cfg.mla is not None or tf.has_ssm(cfg)):
+            raise ValueError(
+                f"{cfg.name}: the {'MLA' if cfg.mla is not None else 'SSM'} "
+                f"mixer has no tensor-parallel path (tp={mesh.tp}); serve it "
+                f"over data only (ROADMAP queue 1 item 5b)")
+
+    def _shard_params(self, params: dict, library) -> dict:
+        """This rank's weight shards (``placement_specs`` under
+        ``SERVE_PARAM_RULES``); the ROM checked replicated; one eager
+        collective on each of the mesh's groups, so that each group's
+        communicator exists before a graph captures its collectives."""
+        from repro_torch.kernels.interp.ops import assert_rom_replicated
+        from repro_torch.launch import sharding as shlib
+
+        mesh = self.mesh
+        d = mesh.index("data")
+        n = self.slots // mesh.shape["data"]
+        self._own = (d * n, (d + 1) * n)
+        for ax in (*mesh.axis_names, None):
+            mesh.all_reduce(torch.zeros(1, device=self.device), ax)
+        for lib in _libraries(library):
+            assert_rom_replicated(lib.coeffs, lib.meta_rows(), mesh=mesh)
+        specs = shlib.placement_specs(params, self.cfg, mesh,
+                                      shlib.SERVE_PARAM_RULES)
+        return shlib.shard_tree(params, specs, mesh,
+                                shlib.glu_leaves(params, self.cfg))
+
+    def _new_cache(self):
+        """An empty cache pool of this rank's shape: every slot without a
+        mesh; on a mesh the owned slots' rows of this rank's KV heads
+        (``cache_specs_sharding``) and one scratch row past them."""
+        full = tf.cache_shapes(self.cfg, self.slots, self.cache_len)
+        if self.mesh is None:
+            return tf.alloc_cache(full, self.device)
+        from repro_torch.launch import sharding as shlib
+        from repro_torch.models.layers import spec
+
+        specs = shlib.cache_specs_sharding(full, self.cfg, self.mesh)
+        leaves = shlib.spec_leaves(specs, len(tf.cache_leaves(full)))
+        local = [shlib.local_shape(sp.shape, e, self.mesh)
+                 for sp, e in zip(tf.cache_leaves(full), leaves)]
+        it = iter(local)
+
+        def one(sp):
+            n, b, *rest = next(it)
+            return spec((n, b + 1, *rest), sp.dtype)
+        return tf.alloc_cache(tf._map_cache(one, full), self.device)
+
+    def _view(self, pool):
+        """The rows the tick decodes: the pool without its scratch row."""
+        if self.mesh is None:
+            return pool
+        n = self._own[1] - self._own[0]
+        return tf._map_cache(lambda t: t[:, :n], pool)
+
+    def _local_slots(self, slots: torch.Tensor) -> torch.Tensor:
+        """Pool rows for global slot ids (on the device): the owned slots'
+        rows, the scratch row for the rest."""
+        lo, hi = self._own
+        own = (slots >= lo) & (slots < hi)
+        return torch.where(own, slots - lo, hi - lo)
+
+    def _gather_slots(self, nxt: torch.Tensor, fin: torch.Tensor):
+        """The owned slots' next tokens and finite flags -> every slot's,
+        all-gathered over ``data`` (one collective)."""
+        both = torch.stack([nxt, fin.to(nxt.dtype)])
+        both = self.mesh.all_gather(both, "data", dim=1)
+        return both[0], both[1].to(torch.bool)
+
+    def _agree(self, bad: list) -> list:
+        """Per-flag OR over every rank of the mesh (a verdict each rank
+        takes from its own state must be the mesh's)."""
+        if self.mesh is None or not bad:
+            return bad
+        t = torch.tensor([int(b) for b in bad], dtype=torch.int32,
+                         device=self.device)
+        return [bool(v) for v in self.mesh.all_reduce(t, None, "max").cpu()]
+
     # -- numerics binding --------------------------------------------------
     @property
     def library(self):
@@ -381,7 +505,8 @@ class ServeEngine:
                 a is not b for a, b in zip(libs, self._bound)):
             self._bind()  # a plan engine's library entry was replaced
             return self._graph_reason
-        key = (self.params, self.numerics, self._library, self.caches, *libs)
+        key = (self.params, self.numerics, self._library, self.caches,
+               self._mesh_key, *libs)
         if self._graph_key is None or len(key) != len(self._graph_key) or any(
                 a is not b for a, b in zip(key, self._graph_key)):
             self._drop_graphs()
@@ -405,12 +530,17 @@ class ServeEngine:
         sentinel steps over every slot, updating ``tok``, ``pos``, ``ok``
         and ``block[:steps]`` in place (the body a graph captures)."""
         ok.fill_(True)
+        lo, hi = self._own
         for i in range(steps):
-            logits, _ = tf.decode_step(params, tok, pos, caches, self.cfg,
-                                       self.numerics)
+            logits, _ = tf.decode_step(params, tok[lo:hi], pos[lo:hi], caches,
+                                       self.cfg, self.numerics,
+                                       mesh=self.mesh)
             last = logits[:, 0]
-            ok &= torch.isfinite(last).all(-1) | ~live
-            nxt = torch.where(live, torch.argmax(last, -1), tok[:, 0])
+            best, fin = torch.argmax(last, -1), torch.isfinite(last).all(-1)
+            if self.mesh is not None:  # the owned slots' -> every slot's
+                best, fin = self._gather_slots(best, fin)
+            ok &= fin | ~live
+            nxt = torch.where(live, best, tok[:, 0])
             block[i].copy_(nxt)
             pos.copy_(torch.where(live, pos + 1, pos))
             tok.copy_(nxt[:, None])
@@ -421,8 +551,7 @@ class ServeEngine:
         cache: builds what a capture may not create (kernel builds, cuBLAS
         handles and workspaces, the libraries' operand rows) and leaves the
         served state alone."""
-        scratch = tf.init_cache(self.cfg, self.slots, self.cache_len,
-                                self.device)
+        scratch = self._new_cache()
         state = [torch.zeros_like(t) for t in (self._tok, self._pos,
                                                self._live, self._ok,
                                                self._block)]
@@ -439,7 +568,7 @@ class ServeEngine:
         :meth:`_on_side_stream`)."""
         self._on_side_stream(
             lambda cache, tok, pos, live, ok, block: self._decode_chunk(
-                1, self.params, tok, pos, live, cache, ok, block))
+                1, self.params, tok, pos, live, self._view(cache), ok, block))
 
     def _capture(self, sizes) -> None:
         """Capture one graph per chunk size in ``sizes`` (raises on
@@ -451,12 +580,14 @@ class ServeEngine:
         for steps in sizes:
             g = torch.cuda.CUDAGraph()
             before = dict(build.LAUNCHES)
+            coll = self._collectives()
             with torch.inference_mode(), torch.cuda.graph(g, pool=self._pool):
                 self._decode_chunk(steps, self.params, self._tok, self._pos,
                                    self._live, self.caches, self._ok,
                                    self._block)
             self._graphs[steps] = (g, {k: n - before[k] for k, n
-                                       in build.LAUNCHES.items()})
+                                       in build.LAUNCHES.items()},
+                                   self._collectives(coll))
             self.stats["captures"] += 1
         torch.cuda.synchronize(self.device)
         self.stats["capture_s"] += time.perf_counter() - t0
@@ -467,7 +598,7 @@ class ServeEngine:
         degraded engine misses)."""
         if self.aot_buckets is None:
             return
-        if (key[0], self.cfg, *key[1:]) in self._aot:
+        if (key[0], self.cfg, *key[1:], self._mesh_key) in self._aot:
             self.stats["aot_hits"] += 1
         else:
             self.stats["aot_misses"] += 1
@@ -487,19 +618,34 @@ class ServeEngine:
 
     def _eager_tick(self, steps: int) -> Callable:
         def tick(params, tok, pos, live, caches):
+            coll = self._collectives()
             with torch.inference_mode():
                 self._decode_chunk(steps, params, tok, pos, live, caches,
                                    self._ok, self._block)
+            self._replayed({}, self._collectives(coll))
             return self._block[:steps], tok, pos, self._ok, caches
         return tick
 
+    def _collectives(self, before: dict | None = None) -> dict:
+        """The mesh's collective counts (their growth since ``before``)."""
+        if self.mesh is None:
+            return {}
+        now = dict(self.mesh.counts)
+        return now if before is None else {k: now[k] - before[k] for k in now}
+
+    def _replayed(self, launches: dict, coll: dict) -> None:
+        """Count what one replay of a graph ran."""
+        for name, n in launches.items():
+            self.stats["launches"][name] += n
+        for name, n in coll.items():
+            self.stats["collectives"][name] += n
+
     def _graph_tick(self, steps: int) -> Callable:
-        g, launches = self._graphs[steps]
+        g, launches, coll = self._graphs[steps]
 
         def tick(params, tok, pos, live, caches):
             g.replay()  # on the buffers it was captured on
-            for name, n in launches.items():
-                self.stats["launches"][name] += n
+            self._replayed(launches, coll)
             return self._block[:steps], tok, pos, self._ok, caches
         return tick
 
@@ -522,11 +668,11 @@ class ServeEngine:
         if graphed:
             self._capture([t for t in ticks if t not in self._graphs])
         for steps in ticks:
-            self._aot.add(("tick", self.cfg, steps))
+            self._aot.add(("tick", self.cfg, steps, self._mesh_key))
         for b, pk in admits:
             if graphed and self._admit_graphed(b):
                 self._capture_admit(b, pk)
-            self._aot.add(("admit_packed", self.cfg, b, pk))
+            self._aot.add(("admit_packed", self.cfg, b, pk, self._mesh_key))
         self.stats["aot_compiles"] += len(ticks) + len(admits)
 
     def _admit_graphed(self, bucket: int) -> bool:
@@ -542,13 +688,17 @@ class ServeEngine:
         prefill the right-padded ``prompts`` (P, bucket), splice row i's
         cache into slot ``slots[i]``, write its greedy first token into
         ``firsts[i]`` and the slot state (token, position ``lens[i]``,
-        live), all on the device and in place."""
+        live), all on the device and in place. On a mesh ``caches`` is the
+        pool with its scratch row, which takes the rows of slots this rank
+        does not own."""
         logits, rows = tf.prefill_padded(self.params, prompts, lens,
                                          self.cfg, self.numerics,
-                                         self.cache_len)
+                                         self.cache_len, mesh=self.mesh)
         first = torch.argmax(logits[:, 0], -1)
         firsts.copy_(first)
-        tf.splice_cache_rows(self.cfg, caches, rows, slots)
+        tf.splice_cache_rows(self.cfg, caches, rows,
+                             slots if self.mesh is None
+                             else self._local_slots(slots))
         tok.index_copy_(0, slots, first[:, None])
         pos.index_copy_(0, slots, lens.to(torch.int32))
         live.index_fill_(0, slots, True)
@@ -580,13 +730,15 @@ class ServeEngine:
             self._pool = torch.cuda.graph_pool_handle()
         g = torch.cuda.CUDAGraph()
         before = dict(build.LAUNCHES)
+        coll = self._collectives()
         with torch.inference_mode(), torch.cuda.graph(g, pool=self._pool):
-            self._admit_body(prompts, lens, slots, firsts, self.caches,
+            self._admit_body(prompts, lens, slots, firsts, self._cache_pool,
                              self._tok, self._pos, self._live)
         torch.cuda.synchronize(dev)
         self._admit_graphs[bucket, pk] = (
             g, inp, firsts,
-            {k: n - before[k] for k, n in build.LAUNCHES.items()})
+            {k: n - before[k] for k, n in build.LAUNCHES.items()},
+            self._collectives(coll))
         self.stats["captures"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
 
@@ -600,13 +752,12 @@ class ServeEngine:
         if self._admit_graphed(bucket):
             if (bucket, pk) not in self._admit_graphs:
                 self._capture_admit(bucket, pk)
-            g, inp, firsts, launches = self._admit_graphs[bucket, pk]
+            g, inp, firsts, launches, coll = self._admit_graphs[bucket, pk]
 
             def replay(host: np.ndarray) -> torch.Tensor:
-                inp.copy_(torch.from_numpy(host))
-                g.replay()
-                for name, n in launches.items():
-                    self.stats["launches"][name] += n
+                _, moved = aot_mod.call_matched(g.replay, (inp,), (host,))
+                self.stats["aot_reshards"] += moved
+                self._replayed(launches, coll)
                 self.stats["admit_replays"] += 1
                 return firsts
             return replay
@@ -616,10 +767,13 @@ class ServeEngine:
             prompts, lens, slots = self._admit_views(inp, bucket, pk)
             firsts = torch.empty(pk, dtype=torch.int64, device=self.device)
             before = dict(build.LAUNCHES)
+            coll = self._collectives()
             with torch.inference_mode():
-                self._admit_body(prompts, lens, slots, firsts, self.caches,
-                                 self._tok, self._pos, self._live)
+                self._admit_body(prompts, lens, slots, firsts,
+                                 self._cache_pool, self._tok, self._pos,
+                                 self._live)
             self._count(before)
+            self._replayed({}, self._collectives(coll))
             return firsts
         return eager
 
@@ -655,26 +809,28 @@ class ServeEngine:
         if self._library is None:
             return True
         self.stats["rom_verifies"] += 1
-        if isinstance(self._library, dict):
-            bad: list[tuple[str, str]] = []
-            for key in sorted(self._library):
-                try:
-                    self._library[key].verify_resident()
-                except LibraryIntegrityError as e:
-                    bad.append((key, str(e)))
-            if not bad:
-                return True
-            self.stats["rom_faults"] += len(bad)
-            self._degrade_slots([k for k, _ in bad], "rom_integrity",
-                                detail="; ".join(m for _, m in bad))
-            return False
-        try:
-            self._library.verify_resident()
+        libs = (self._library if isinstance(self._library, dict)
+                else {None: self._library})
+        keys = sorted(libs, key=str)
+        errors = {}
+        for key in keys:
+            try:
+                libs[key].verify_resident()
+            except LibraryIntegrityError as e:
+                errors[key] = str(e)
+        # a meshed engine degrades where any rank's replica is corrupt
+        bad = [k for k, b in zip(keys, self._agree([k in errors
+                                                    for k in keys])) if b]
+        if not bad:
             return True
-        except LibraryIntegrityError as e:
-            self.stats["rom_faults"] += 1
-            self._degrade("rom_integrity", to="exact", detail=str(e))
-            return False
+        detail = "; ".join(errors.get(k, "corrupt on another rank")
+                           for k in bad)
+        self.stats["rom_faults"] += len(bad)
+        if isinstance(self._library, dict):
+            self._degrade_slots(bad, "rom_integrity", detail=detail)
+        else:
+            self._degrade("rom_integrity", to="exact", detail=detail)
+        return False
 
     def _degrade_slots(self, slot_keys: list, reason: str,
                        detail: str = "") -> None:
@@ -861,9 +1017,14 @@ class ServeEngine:
         returns the last position's logits."""
         prompt = torch.as_tensor(np.asarray(r.prompt, np.int64),
                                  device=self.device)[None]
+        coll = self._collectives()
         logits, cache1 = tf.prefill(self.params, prompt, self.cfg,
-                                    self.numerics, self.cache_len)
-        tf.splice_cache(self.cfg, self.caches, cache1, s)
+                                    self.numerics, self.cache_len,
+                                    mesh=self.mesh)
+        self._replayed({}, self._collectives(coll))
+        lo, hi = self._own
+        if lo <= s < hi:  # every rank prefills; the owner keeps the rows
+            tf.splice_cache(self.cfg, self.caches, cache1, s - lo)
         self.stats["prefills"] += 1
         return logits[0, -1]
 
@@ -988,19 +1149,25 @@ class ServeEngine:
         start = len(r.prompt)
         tok = np.maximum(self.cur, 0).astype(np.int64)
         pos = self.pos.copy()
+        lo, hi = self._own  # a meshed rank forces its own slots' rows
         ssm = (tuple(self.caches.ssm)
                if isinstance(self.caches, tf.MixedCache) else ())
+        coll = self._collectives()
         for i, t in enumerate(r.out[:-1]):
             tok[s], pos[s] = t, start + i
             saved = [leaf.clone() for leaf in ssm]
             tf.decode_step(self.params,
-                           torch.as_tensor(tok[:, None], device=self.device),
-                           torch.as_tensor(pos, device=self.device),
-                           self.caches, self.cfg, self.numerics)
+                           torch.as_tensor(tok[lo:hi, None],
+                                           device=self.device),
+                           torch.as_tensor(pos[lo:hi], device=self.device),
+                           self.caches, self.cfg, self.numerics,
+                           mesh=self.mesh)
             for leaf, old in zip(ssm, saved):
-                old[:, s] = leaf[:, s]
+                if lo <= s < hi:
+                    old[:, s - lo] = leaf[:, s - lo]
                 leaf.copy_(old)
             self.stats["resume_replay_steps"] += 1
+        self._replayed({}, self._collectives(coll))
         self._set_slot(s, int(r.out[-1]), start + len(r.out) - 1)
         self._count(before)
         self.req[s] = r
@@ -1078,14 +1245,20 @@ class ServeEngine:
         self.stats["transfers"] += 2  # token + position upload
         t0 = self.clock()
         before = dict(build.LAUNCHES)
+        coll = self._collectives()
+        lo, hi = self._own
         with torch.inference_mode():
-            logits, _ = tf.decode_step(self.params, toks, pos, self.caches,
-                                       self.cfg, self.numerics)
+            logits, _ = tf.decode_step(self.params, toks[lo:hi], pos[lo:hi],
+                                       self.caches, self.cfg, self.numerics,
+                                       mesh=self.mesh)
             self.stats["dispatches"] += 1  # the decode forward
             last = logits[:, 0]
-            nxt_ok = torch.stack([torch.argmax(last, -1),
-                                  torch.isfinite(last).all(-1).long()])
+            best, fin = torch.argmax(last, -1), torch.isfinite(last).all(-1)
+            if self.mesh is not None:
+                best, fin = self._gather_slots(best, fin)
+            nxt_ok = torch.stack([best, fin.long()])
             self.stats["dispatches"] += 1  # argmax + sentinel
+        self._replayed({}, self._collectives(coll))
         host = nxt_ok.cpu().numpy()
         self._count(before)
         return self._finish_tick(host[:1], host[1].astype(bool), 1, t0)
@@ -1100,6 +1273,11 @@ class ServeEngine:
         self.stats["ticks"] += 1
         self.stats["decode_steps"] += steps
         tick_s = self.clock() - t0
+        if self.max_tick_s is not None and self.mesh is not None:
+            # the stall watchdog trips on every rank or on none
+            tick_s = float(self.mesh.all_reduce(torch.tensor(
+                [tick_s], dtype=torch.float64, device=self.device), None,
+                "max")[0])
         poisoned = [s for s, r in enumerate(self.req)
                     if r is not None and not ok[s]]
         alive = tuple((s, r) for s, r in enumerate(self.req)

@@ -15,6 +15,16 @@ segmented library) in the forward pass. A fused backend's kernels
 backward in either package: for CUDA parameters the step refuses them with
 a ``ValueError`` before any launch (on the CPU their plain versions are
 torch ops and differentiate).
+
+``mesh=`` (``launch.mesh.make_host_mesh``: ``data x model``, one process
+per rank): the state holds this rank's tensor-parallel shards
+(:func:`shard_state`, ``launch.sharding.TRAIN_PARAM_RULES``: Megatron
+column / row over ``model``, replicated over ``data``), the batch is this
+rank's rows, the models issue the ``model`` collectives through autograd
+(``Mesh.tp_*``), the gradients, loss and aux are averaged over ``data`` in
+one all-reduce, and ``grad_norm`` sums the squares of the split leaves
+over ``model`` and counts each replicated leaf once. The MLA and SSM
+mixers train at ``model == 1`` only.
 """
 from __future__ import annotations
 
@@ -101,7 +111,7 @@ def batch_to(batch: dict, device) -> dict:
 
 
 def loss_and_grads(params: dict, batch: dict, cfg, numerics,
-                   microbatches: int = 1):
+                   microbatches: int = 1, mesh=None):
     """(loss, aux, grads) of ``tf.loss_fn`` at ``params``. With n > 1
     microbatches the batch's leading axis is cut into n slices, each
     slice's gradients accumulated in float32, and loss, aux and gradients
@@ -118,7 +128,7 @@ def loss_and_grads(params: dict, batch: dict, cfg, numerics,
     def one(mb):
         leaves = [t.detach().requires_grad_(True) for _, t in named]
         loss, m = tf.loss_fn(unflatten_like(params, leaves), mb, cfg,
-                             numerics)
+                             numerics, mesh)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         gs = [torch.zeros_like(t) if g is None else g
               for g, t in zip(gs, leaves)]
@@ -143,8 +153,85 @@ def loss_and_grads(params: dict, batch: dict, cfg, numerics,
             unflatten_like(params, [g / n for g in gsum]))
 
 
+def train_specs(cfg, mesh) -> dict:
+    """The parameters' placement specs on a training mesh (from the full
+    shapes): ``ValueError`` for the MLA and SSM mixers under ``model > 1``
+    (ROADMAP queue 1 item 5b)."""
+    from repro_torch.launch import sharding as shlib
+
+    if mesh.tp > 1 and (cfg.mla is not None or tf.has_ssm(cfg)):
+        raise ValueError(
+            f"{cfg.name}: the {'MLA' if cfg.mla is not None else 'SSM'} "
+            f"mixer has no tensor-parallel path (model={mesh.tp}); train it "
+            f"over data only (ROADMAP queue 1 item 5b)")
+    return shlib.placement_specs(tf.model_shapes(cfg), cfg, mesh,
+                                 shlib.TRAIN_PARAM_RULES)
+
+
+def shard_state(state: TrainState, cfg, mesh) -> TrainState:
+    """This rank's shard of a full train state: parameters, the AdamW
+    master and moments and the compression residual by
+    :func:`train_specs`; the step replicated."""
+    from repro_torch.launch import sharding as shlib
+
+    specs = train_specs(cfg, mesh)
+    glu = shlib.glu_leaves(state.params, cfg)
+
+    def cut(tree):
+        return (None if tree is None
+                else shlib.shard_tree(tree, specs, mesh, glu))
+    return TrainState(cut(state.params),
+                      AdamWState(state.opt.step, *(cut(t) for t in (
+                          state.opt.master, state.opt.mu, state.opt.nu))),
+                      cut(state.residual))
+
+
+def gather_state(state: TrainState, cfg, mesh) -> TrainState:
+    """The full train state from every rank's shard (the inverse of
+    :func:`shard_state`; a collective over ``model``)."""
+    from repro_torch.launch import sharding as shlib
+
+    specs = train_specs(cfg, mesh)
+    glu = shlib.glu_leaves(state.params, cfg)
+
+    def whole(tree):
+        return (None if tree is None
+                else shlib.gather_tree(tree, specs, mesh, glu))
+    return TrainState(whole(state.params),
+                      AdamWState(state.opt.step, *(whole(t) for t in (
+                          state.opt.master, state.opt.mu, state.opt.nu))),
+                      whole(state.residual))
+
+
+def _data_mean(mesh, loss, aux, grads: dict):
+    """Loss, aux and gradients averaged over ``data`` in one all-reduce of
+    a float32 buffer."""
+    leaves = tree_leaves(grads)
+    flat = torch.cat([loss.reshape(1).to(_F32), aux.reshape(1).to(_F32)]
+                     + [g.reshape(-1).to(_F32) for g in leaves])
+    mesh.all_reduce(flat, "data").div_(mesh.shape["data"])
+    out, i = [], 2
+    for g in leaves:
+        out.append(flat[i:i + g.numel()].view(g.shape).to(g.dtype))
+        i += g.numel()
+    return flat[0], flat[1], unflatten_like(grads, out)
+
+
+def _mesh_grad_norm(grads: dict, split: list, mesh) -> torch.Tensor:
+    """The global norm of tensor-parallel gradients: the split leaves'
+    squares summed over ``model``, each replicated leaf counted once."""
+    leaves = tree_leaves(grads)
+    zero = torch.zeros((), dtype=_F32, device=leaves[0].device)
+    sq_split = sum((torch.sum(g.to(_F32) ** 2)
+                    for g, f in zip(leaves, split) if f), zero)
+    sq_rep = sum((torch.sum(g.to(_F32) ** 2)
+                  for g, f in zip(leaves, split) if not f), zero)
+    sq_split = mesh.all_reduce(sq_split.reshape(1).clone(), mesh.tp_axis)[0]
+    return torch.sqrt(sq_split + sq_rep)
+
+
 def make_train_step(cfg, step_cfg: StepConfig, library=None,
-                    donate: bool = False) -> Callable:
+                    donate: bool = False, mesh=None) -> Callable:
     """Returns ``step(state, batch, step_idx) -> (state, metrics)``:
     ``batch`` numpy arrays or tensors (moved to the parameters' device),
     ``metrics`` 0-dim tensors ``loss``, ``aux``, ``lr``, ``grad_norm``.
@@ -154,16 +241,30 @@ def make_train_step(cfg, step_cfg: StepConfig, library=None,
     same ``get_numerics(cfg, library)`` as the reference, whose interp
     backend is the unfused glue. ``donate=True`` updates the state's
     optimizer tensors in place (the reference's donated state: the values
-    are the same); the state handed in must not be read again."""
+    are the same); the state handed in must not be read again. ``mesh``:
+    the training mesh whose shards the state holds (:func:`shard_state`);
+    ``batch`` is then this rank's rows."""
     numerics = get_numerics(cfg, library)
     pdt = pdtype(cfg)
+    split = None
+    if mesh is not None:
+        from repro_torch.launch.sharding import axes_of, spec_leaves
+
+        specs = train_specs(cfg, mesh)
+        split = [any(mesh.tp_axis in axes_of(e) for e in sp) for sp in
+                 spec_leaves(specs)]
 
     def step(state: TrainState, batch: dict, step_idx):
         refuse_fused_on_cuda(numerics, state.params)
         dev = tree_leaves(state.params)[0].device
+        if mesh is not None:
+            mesh.check_device(dev)
         batch = batch_to(batch, dev)
         loss, aux, grads = loss_and_grads(state.params, batch, cfg, numerics,
-                                          step_cfg.microbatches)
+                                          step_cfg.microbatches, mesh)
+        gnorm = None
+        if mesh is not None:
+            loss, aux, grads = _data_mean(mesh, loss, aux, grads)
         residual = state.residual
         if step_cfg.compress_pods and residual is not None:
             payload, scales, residual = compress_grads(grads, residual)
@@ -171,10 +272,12 @@ def make_train_step(cfg, step_cfg: StepConfig, library=None,
         lr = cosine_schedule(int(step_idx), peak_lr=step_cfg.peak_lr,
                              warmup=step_cfg.warmup,
                              total=step_cfg.total_steps)
+        if mesh is not None:
+            gnorm = _mesh_grad_norm(grads, split, mesh)
         params, opt, om = adamw_update(
             grads, state.opt, lr.to(dev), clip_norm=step_cfg.clip_norm,
             weight_decay=step_cfg.weight_decay, param_dtype=pdt,
-            donate=donate)
+            donate=donate, gnorm=gnorm)
         metrics = {"loss": loss, "aux": aux, "lr": lr,
                    "grad_norm": om["grad_norm"]}
         return TrainState(params, opt, residual), metrics

@@ -17,6 +17,15 @@ table reads are deterministic but autograd's index backward (the
 embedding's, the MoE combine's) accumulates in no fixed order, so a run
 resumed from a checkpoint matches a straight run to float rounding, not
 bitwise.
+
+``mesh=`` (``launch.mesh.make_host_mesh``), as the reference's
+``Trainer(cfg, tc, mesh, shard_batch, shard_state)``: every rank builds
+the same full state, restores the same checkpoint, and keeps its shard
+(``shard_state``, by default ``train.step.shard_state``); each step takes
+this rank's rows of the global batch (``shard_batch``, by default the
+``data`` index's contiguous rows). A checkpoint holds the full state: the
+shards are all-gathered over ``model`` on every rank, rank 0 writes, and
+every rank waits for the write, so any mesh (or none) restores it.
 """
 from __future__ import annotations
 
@@ -27,8 +36,11 @@ import time
 
 import torch
 
+from repro_torch.util.tree import tree_leaves
+
 from repro_torch.checkpoint import CheckpointManager, save
 from repro_torch.data.synthetic import dataset_for
+from repro_torch.train import step as step_mod
 from repro_torch.train.step import (StepConfig, TrainState, make_train_step,
                                     train_state_init)
 
@@ -48,13 +60,30 @@ class TrainerConfig:
 
 
 class Trainer:
-    def __init__(self, cfg, tc: TrainerConfig,
-                 device: str | torch.device = "cuda"):
+    def __init__(self, cfg, tc: TrainerConfig, mesh=None, shard_batch=None,
+                 shard_state=None, device: str | torch.device = "cuda"):
         self.cfg, self.tc = cfg, tc
+        self.mesh = mesh
+        # the rank that logs and writes checkpoints
+        self._lead = mesh is None or all(v == 0 for v in mesh.coords.values())
+        if mesh is not None and shard_batch is None:
+            n = mesh.shape["data"]
+            if tc.global_batch % n:
+                raise ValueError(f"global batch {tc.global_batch} does not "
+                                 f"split over data={n}")
+            lo = mesh.index("data") * (tc.global_batch // n)
+            hi = lo + tc.global_batch // n
+
+            def shard_batch(b):
+                return {k: v[lo:hi] for k, v in b.items()}
+        if mesh is not None and shard_state is None:
+            def shard_state(st):
+                return step_mod.shard_state(st, cfg, mesh)
+        self.shard_batch = shard_batch or (lambda b: b)
         self.data = dataset_for(cfg, tc.seq_len, tc.global_batch, tc.seed)
         self.ckpt = CheckpointManager(tc.ckpt_dir, tc.ckpt_every,
                                       tc.ckpt_keep)
-        self.step_fn = make_train_step(cfg, tc.step, donate=True)
+        self.step_fn = make_train_step(cfg, tc.step, donate=True, mesh=mesh)
         self._stop = False
         self.step_times: list[float] = []
         self.stragglers: list[tuple[int, float]] = []
@@ -66,6 +95,8 @@ class Trainer:
         if got[0] is not None:
             self.start_step = got[0] + 1
             state = got[1]
+        if shard_state is not None:
+            state = shard_state(state)
         self.state: TrainState = state
 
     def request_stop(self):
@@ -76,7 +107,7 @@ class Trainer:
         for step in range(self.start_step, self.tc.steps):
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(
-                self.state, self.data.batch_at(step), step)
+                self.state, self.shard_batch(self.data.batch_at(step)), step)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             self.step_times.append(dt)
@@ -87,14 +118,33 @@ class Trainer:
             metrics["step"] = step
             metrics["wall_s"] = dt
             self.history.append(metrics)
-            if step % self.tc.log_every == 0:
+            if step % self.tc.log_every == 0 and self._lead:
                 print(f"step {step:5d} loss {metrics['loss']:.4f} "
                       f"lr {metrics['lr']:.2e} gnorm "
                       f"{metrics['grad_norm']:.2f} {dt * 1e3:.0f} ms",
                       flush=True)
-            saved = self.ckpt.maybe_save(step, self.state, {"step": step})
+            saved = self._save(step)
             if self._stop:
                 if not saved:
-                    save(self.tc.ckpt_dir, step, self.state, {"step": step})
+                    self._save(step, force=True)
                 break
         return self.history
+
+    def _save(self, step: int, force: bool = False) -> bool:
+        """Checkpoint ``step`` every ``ckpt_every`` steps (or now, with
+        ``force``); on a mesh the full state from rank 0, every rank
+        waiting for the write."""
+        if not force and step % self.ckpt.every:
+            return False
+        state = self.state
+        if self.mesh is not None:
+            state = step_mod.gather_state(state, self.cfg, self.mesh)
+        if self._lead:
+            if force:
+                save(self.tc.ckpt_dir, step, state, {"step": step})
+            else:
+                self.ckpt.maybe_save(step, state, {"step": step})
+        if self.mesh is not None:  # every rank sees the committed step
+            dev = tree_leaves(state.params)[0].device
+            self.mesh.all_reduce(torch.zeros(1, device=dev), None)
+        return True

@@ -2468,3 +2468,59 @@ def test_dse_pallas_trials_equal_batched(dev, tmp_path):
         else:
             assert not launched
     assert got["pallas"] == got["batched"]
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """A world of one rank over NCCL on cuda:0 (a file store: no port)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=120))
+    yield
+    dist.destroy_process_group()
+
+
+def test_world1_nccl_meshed_engine_equals_unmeshed(lib, dev, nccl_world):
+    """A ``1 x 1`` NCCL mesh on the smoke Yi-6B (AOT buckets: tick and
+    admission graphs): streams, caches and kernel launches bitwise the
+    unmeshed engine's; the tick graph holds its collectives (every one is
+    issued at world 1 too); a CUDA mesh on a gloo group is refused before
+    any launch."""
+    from repro_torch.launch.mesh import Mesh, make_serve_mesh
+
+    import torch.distributed as dist
+
+    cfg, params = _smoke(dev, "yi_6b", "bfloat16")
+    prompts = _prompts_for(cfg, (5, 11, 3, 8, 2, 16))
+    mesh = make_serve_mesh(1, 1)
+    engines = {}
+    for name, m in (("unmeshed", None), ("meshed", mesh)):
+        eng = ServeEngine(cfg, params, slots=4, cache_len=64, library=lib,
+                          horizon=4, aot_buckets=(8, 16), max_pack=4,
+                          mesh=m, device=dev)
+        engines[name] = (eng, _serve_on(eng, prompts))
+    (u, out_u), (g, out_g) = engines["unmeshed"], engines["meshed"]
+    assert out_g == out_u
+    assert g.stats["graph"] and g.stats["aot_misses"] == 0
+    assert g.stats["launches"] == u.stats["launches"]
+    for a, b in zip(u.caches, g.caches):
+        assert torch.equal(a, b)
+    tick = g._graphs[4][2]  # the collectives one replay of it runs
+    per_step = cfg.n_layers * 2 + 1  # wo, the MLP's wo, the embedding
+    assert tick == {"all_reduce": 4 * per_step, "all_gather": 4 * 2}
+    assert g.stats["collectives"]["all_reduce"] > 0
+    assert u.stats["collectives"] == {"all_reduce": 0, "all_gather": 0}
+    gloo = Mesh(("data", "tp"), (1, 1), ranks=np.zeros((1, 1), np.int64),
+                coords={"data": 0, "tp": 0},
+                groups={ax: dist.new_group([0], backend="gloo")
+                        for ax in ("data", "tp")}, backend="gloo")
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="nccl"):
+        ServeEngine(cfg, params, slots=4, cache_len=64, library=lib,
+                    mesh=gloo, device=dev)
+    assert build.LAUNCHES == before

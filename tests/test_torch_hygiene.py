@@ -66,7 +66,10 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.dse.trial", "repro_torch.dse.space",
             "repro_torch.dse.store", "repro_torch.dse.frontier",
             "repro_torch.dse.study", "repro_torch.launch.dse",
-            "repro_torch.core.generate", "repro_torch.core.remez")
+            "repro_torch.core.generate", "repro_torch.core.remez",
+            # the distribution slice's
+            "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.elastic", "repro_torch.launch.pipeline")
 
 
 @pytest.fixture
@@ -241,6 +244,27 @@ def _dse_plan_cli():
     main(["plan", "--arch", "yi_6b", "--smoke"])
 
 
+def _serve_cli_mesh():
+    from repro_torch.launch.serve import main
+
+    main(["--arch", "yi_6b", "--smoke", "--requests", "1", "--mesh", "1x1"])
+
+
+def _init_from_env():
+    from repro_torch.launch.mesh import init_from_env
+
+    init_from_env()
+
+
+def _fleet_split():
+    from repro_torch.core import fleet
+    from repro_torch.core.funcspec import get_spec
+    from repro_torch.kernels.dspace.ops import fleet_region_envelopes_device
+
+    stack = fleet.stack_bounds([get_spec("recip", 8).region_bounds(3)])
+    fleet_region_envelopes_device(stack.L, stack.U, shards=2)
+
+
 ENTRY_POINTS = {
     "explore_pallas": _explore_pallas,
     "compile_mesh": _compile_mesh,
@@ -267,6 +291,9 @@ ENTRY_POINTS = {
     "serve_probe": lambda tmp: _serve_probe(),
     "dse_cli": _dse_cli,
     "dse_plan_cli": lambda tmp: _dse_plan_cli(),
+    "serve_cli_mesh": lambda tmp: _serve_cli_mesh(),
+    "init_from_env": lambda tmp: _init_from_env(),
+    "fleet_split": lambda tmp: _fleet_split(),
 }
 
 
