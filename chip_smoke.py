@@ -104,7 +104,13 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    launch and the graph engine's prefills), and that each request's first
    token matches a plain-version prefill on the card (tie-aware); times
    both engines' ticks at 4 live slots (wall ms per decode step, the
-   busy share from torch.profiler); then, on the same weights, the serial
+   busy share from torch.profiler); then, on the same weights, the
+   roofline phase (``roofline_phase``: the graph tick's decode step
+   profiled on fake tensors on the host by the dry run's profiler,
+   ``launch.xprof``, its bytes at least the weights and cache it reads,
+   its launches the tick's, the measured device ms at least 0.95 x its
+   bound, its argument bytes what the engine holds; temp bytes beside
+   ``max_memory_allocated``; one production cell traced), the serial
    oracle (exact numerics, one decode and a host argmax per token) against
    the graph tick, bitwise, and the fault phase: a ROM bit flip at
    construction serving exact numerics' tokens, NaN ticks retiring slots
@@ -3043,10 +3049,156 @@ def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
                 streams=streams["graph"])
 
 
-def yi_extra_phases(params, cfg, lib, seg_lib, dev) -> dict:
-    """On the loaded Yi-6B weights: the serial oracle, the card fault
-    phase, the plan phase, and the AOT phase with the async host run."""
-    return {"serial_oracle": phase("serial oracle", serial_oracle_phase,
+def decode_roofline(cfg, lib, slots: int, cache_len: int) -> dict:
+    """The served decode step of ``cfg`` (``slots`` rows at ``cache_len``,
+    the library-bound fused numerics, one rank) profiled on fake CPU
+    tensors (``launch.xprof.profile_step``; ``lib`` a CPU library): its
+    FLOPs, HBM bytes, kernel launches, argument and temp bytes, and the
+    compute and memory terms of its roofline on the card's datasheet
+    rates (ms)."""
+    import torch
+
+    from repro_torch.launch.xprof import profile_step, tensor_bytes
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import spec
+    from repro_torch.numerics.ops import FusedInterpNumerics
+
+    num = FusedInterpNumerics(lib)
+    args = (tf.param_shapes(cfg), spec((slots, 1), torch.int64),
+            spec((slots,), torch.int32), tf.cache_shapes(cfg, slots,
+                                                         cache_len))
+    t0 = time.perf_counter()
+    prof, _ = profile_step(lambda p, t, pos, c: tf.decode_step(
+        p, t, pos, c, cfg, num), *args)
+    compute_ms = prof.flops / BF16_FLOPS * 1e3
+    memory_ms = prof.hbm_bytes / HBM_BPS * 1e3
+    return dict(trace_s=time.perf_counter() - t0, flops=prof.flops,
+                hbm_bytes=prof.hbm_bytes, compute_ms=compute_ms,
+                memory_ms=memory_ms, bound_ms=max(compute_ms, memory_ms),
+                bound_by="bytes" if memory_ms >= compute_ms else "operations",
+                kernel_launches=dict(prof.kernel_launches),
+                trip_counts=prof.trip_counts,
+                argument_bytes=tensor_bytes(args),
+                temp_bytes=prof.peak_live_bytes,
+                cache_bytes=tensor_bytes(args[3]),
+                top=prof.breakdown(8))
+
+
+def roofline_phase(params, cfg, lib, dev, served: dict) -> dict:
+    """The dry run's profiler held against the card. The served full-width
+    Yi-6B decode step at the tick's shape (``SLOTS`` slots, cache
+    ``CACHE_LEN``, interp-fused, one rank) profiled on fake tensors on the
+    host (:func:`decode_roofline`, over a CPU copy of the library) beside
+    the device ms a step that ``tick_profile`` measured on the graph
+    engine. Fails unless the
+    profile's HBM bytes cover the weights and the cache the step reads,
+    its kernel launches per step equal the tick's counted launches per
+    decode forward, the measured step is at least 0.95 x the roofline
+    bound, and its argument bytes equal the parameters and cache the
+    engine holds on the card. Then ``temp_bytes`` beside
+    ``max_memory_allocated`` around one eager step, and one production
+    cell (``yi_6b decode_32k pod16x16``) traced on the host."""
+    import torch
+
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.xprof import tensor_bytes
+    from repro_torch.models import transformer as tf
+
+    from repro_torch.api.library import InterpLibrary
+
+    # the profile runs on fake CPU tensors: the ROM it reads is a CPU copy
+    with tempfile.TemporaryDirectory() as tmp:
+        cpu_lib = InterpLibrary.load(lib.save(pathlib.Path(tmp) / "lib"),
+                                     device="cpu")
+    rl = decode_roofline(cfg, cpu_lib, SLOTS, CACHE_LEN)
+    measured = served["ticks"]["graph"]["device_ms_per_step"]
+    weights = served["n_bytes"]
+    print(f"roofline of the served decode step ({SLOTS} slots, cache "
+          f"{CACHE_LEN}; traced in {rl['trace_s']:.2f} s): "
+          f"{rl['flops'] / 1e9:.3f} GFLOP, {rl['hbm_bytes'] / 1e9:.3f} GB "
+          f"-> compute {rl['compute_ms']:.4f} ms, memory "
+          f"{rl['memory_ms']:.4f} ms (bound by {rl['bound_by']}); measured "
+          f"device {_ms(measured)} per step (tick_profile), weight bound "
+          f"{served['weight_bound_ms']:.3f} ms; launches per step "
+          f"{rl['kernel_launches']}")
+    for row in rl["top"]:
+        print(f"  {row['op']:>16s} {row['where'][:40]:40s} "
+              f"{row['bytes'] / 1e9:8.4f} GB x{row['calls']}")
+    # the weights the step reads: every leaf but the token table, of which
+    # the embedding gathers one row per slot (Yi-6B's head is its own)
+    tab = params["embed"]["tok"]
+    read_w = (weights - tab.numel() * tab.element_size()
+              + SLOTS * cfg.d_model * tab.element_size())
+    if rl["hbm_bytes"] < read_w + rl["cache_bytes"]:
+        raise AssertionError(f"profiled bytes {rl['hbm_bytes']} below the "
+                             f"weights {read_w} + cache "
+                             f"{rl['cache_bytes']} the step reads")
+    want = {k: v for k, v in served["per_forward"].items() if v}
+    if rl["kernel_launches"] != want:
+        raise AssertionError(f"profiled launches {rl['kernel_launches']} != "
+                             f"the tick's {want} per decode step")
+    if measured is None:
+        raise AssertionError("tick_profile measured no device time")
+    if measured < 0.95 * rl["bound_ms"]:
+        raise AssertionError(f"measured {measured} ms per step is below "
+                             f"0.95 x the roofline bound {rl['bound_ms']} "
+                             f"ms: the count is wrong")
+    # what the engine holds on the card: its parameters, a cache of the
+    # tick's shape and the slot tokens and positions the step reads
+    caches = tf.init_cache(cfg, SLOTS, CACHE_LEN, dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.int64, device=dev)
+    pos = torch.tensor(TICK_PROMPTS, dtype=torch.int32, device=dev)
+    held = tensor_bytes((params, tok, pos, caches))
+    print(f"argument bytes {rl['argument_bytes']} (traced) vs {held} "
+          f"held on the card (parameters {weights}, cache "
+          f"{tensor_bytes(caches)})")
+    if held != rl["argument_bytes"]:
+        raise AssertionError("traced argument bytes differ from the "
+                             "parameters and cache on the card")
+    from repro_torch.numerics.ops import FusedInterpNumerics
+
+    num = FusedInterpNumerics(lib)
+    with torch.inference_mode():
+        tf.decode_step(params, tok, pos, caches, cfg, num)  # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tf.decode_step(params, tok, pos, caches, cfg, num)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated(dev) - base
+    print(f"temp bytes {rl['temp_bytes']} (traced peak of live "
+          f"intermediates) vs {eager_peak} (max_memory_allocated above "
+          f"the resident bytes around one eager step)")
+    del caches
+    t0 = time.perf_counter()
+    cell = run_cell("yi_6b", "decode_32k")
+    cell_s = time.perf_counter() - t0
+    if cell["status"] != "ok":
+        raise AssertionError(f"production cell: {cell}")
+    prof = cell["profile"]
+    print(f"production cell yi_6b decode_32k pod16x16 traced on the host in "
+          f"{cell_s:.2f} s: {prof['flops'] / 1e9:.2f} GFLOP, "
+          f"{prof['hbm_bytes'] / 1e9:.3f} GB, collectives "
+          f"{prof['total_collective_bytes'] / 1e6:.2f} MB per rank; "
+          f"argument bytes {cell['memory']['argument_bytes']}")
+    return dict(rl, top=None, measured_device_ms=measured,
+                weights_read_bytes=read_w,
+                weight_bound_ms=served["weight_bound_ms"],
+                ratio=measured / rl["bound_ms"], held_bytes=held,
+                eager_peak_bytes=eager_peak, production_cell=dict(
+                    trace_s=cell_s, flops=prof["flops"],
+                    hbm_bytes=prof["hbm_bytes"],
+                    collective_bytes=prof["total_collective_bytes"],
+                    memory=cell["memory"]))
+
+
+def yi_extra_phases(params, cfg, lib, seg_lib, dev, served=None) -> dict:
+    """On the loaded Yi-6B weights: the roofline check of the dry run's
+    profiler, the serial oracle, the card fault phase, the plan phase, and
+    the AOT phase with the async host run."""
+    return {"roofline": phase("roofline", roofline_phase, params, cfg, lib,
+                              dev, served),
+            "serial_oracle": phase("serial oracle", serial_oracle_phase,
                                    params, cfg, dev),
             "faults": phase("faults", fault_phase, params, cfg, lib, dev),
             "plans": phase("plans", plan_phase, params, cfg, lib, seg_lib,
@@ -3113,7 +3265,8 @@ def mesh_phase(params, cfg, lib, dev) -> dict:
                    for n in SERVE_LENGTHS]
         kw = dict(slots=SLOTS, cache_len=CACHE_LEN, horizon=HORIZON,
                   device=dev, library=lib, aot_buckets=True, max_pack=4)
-        per_step = {"all_reduce": 2 * cfg.n_layers + 1, "all_gather": 2}
+        per_step = {"all_reduce": 2 * cfg.n_layers + 1, "all_gather": 2,
+                    "reduce_scatter": 0}
         ref_caches = None
         for name, extra in (("unmeshed", {}), ("meshed", {"mesh": mesh})):
             gc.collect()
@@ -4400,8 +4553,8 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
                                      mixtral_8x22b, qwen1_5_110b, yi_6b)
 
     serves = phase("serve yi_6b", serve_phase, [("uniform", lib)], dev,
-                   yi_6b.CONFIG, extra=lambda params, cfg, _r:
-                   yi_extra_phases(params, cfg, lib, seg_lib, dev))
+                   yi_6b.CONFIG, extra=lambda params, cfg, r:
+                   yi_extra_phases(params, cfg, lib, seg_lib, dev, r))
     freed(dev, "yi_6b")
     serves += phase("serve deepseek_moe_16b", serve_phase,
                     [("uniform", lib), ("segmented", seg_lib)], dev,

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core.funcspec import ACT_HI, ACT_KINDS, ACT_LO, act_out_span
 from repro_torch.core.table import TableDesign
-from repro_torch.device import resolve
+from repro_torch.device import real_tensors, resolve
 
 DEFAULT_LIBRARY_KINDS = ("exp2neg", "gelu", "recip", "rsqrt", "sigmoid",
                          "silu", "softplus", "tanh")
@@ -248,9 +248,10 @@ class InterpLibrary:
     def meta_rows(self) -> torch.Tensor:
         """(F, 5) int32 datapath rows on the ROM's device (kernel operand)."""
         if self._meta_rows is None:
-            self._meta_rows = torch.tensor(
-                [m.datapath_row() for m in self.metas], dtype=torch.int32,
-                device=self.device)
+            with real_tensors():
+                self._meta_rows = torch.tensor(
+                    [m.datapath_row() for m in self.metas],
+                    dtype=torch.int32, device=self.device)
         return self._meta_rows
 
     def walk_table(self) -> tuple[tuple[tuple[int, ...], ...],
@@ -280,9 +281,10 @@ class InterpLibrary:
         one ``(eval_bits, k, sq_trunc, lin_trunc, degree)`` row per uniform
         function and one per segmented leaf (``leaf_base`` indexes it)."""
         if self._walk_rows is None:
-            self._walk_rows = tuple(
-                torch.tensor(rows, dtype=torch.int32, device=self.device)
-                for rows in self.walk_table())
+            with real_tensors():
+                self._walk_rows = tuple(
+                    torch.tensor(rows, dtype=torch.int32, device=self.device)
+                    for rows in self.walk_table())
         return self._walk_rows
 
     # -- integrity ---------------------------------------------------------

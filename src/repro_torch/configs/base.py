@@ -4,8 +4,8 @@ MoE, SwiGLU / GELU / squared-ReLU MLPs, tied embeddings), the Mamba2 mixer
 and the hybrid period (``SSMConfig``, ``ssm``, ``attn_period``), the
 encoder-decoder and VLM fields (``EncoderConfig``, ``encoder``, the
 frontend stub, LayerNorm, learned positions) and the per-layer numerics
-plan, and the train path's ``remat``. ``ShapeConfig`` and
-``cell_is_runnable`` belong to the dry run and port with it."""
+plan, and the train path's ``remat``; the dry run's input shapes
+(``ShapeConfig``, ``SHAPES``) and ``cell_is_runnable``."""
 from __future__ import annotations
 
 import dataclasses
@@ -105,6 +105,21 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 ARCH_IDS = ["mixtral_8x22b", "deepseek_moe_16b", "qwen1_5_110b",
             "minicpm3_4b", "minitron_8b", "yi_6b", "mamba2_130m",
             "jamba_v0_1_52b", "whisper_tiny", "internvl2_2b"]
@@ -118,3 +133,11 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     return importlib.import_module(
         f"repro_torch.configs.{arch.replace('-', '_')}").smoke_config()
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Which (arch x shape) cells run; the rest are recorded as skipped."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full quadratic attention at 512k KV is the "
+                       "marked-skip case")
+    return True, ""

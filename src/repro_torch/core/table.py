@@ -186,12 +186,13 @@ class TableDesign:
     def _cached_tensor(self, kind: str, device, host_fn):
         import torch
 
-        from repro_torch.device import resolve
+        from repro_torch.device import real_tensors, resolve
 
         dev = resolve(device)
         key = (kind, str(dev))
         t = self._device_cache.get(key)
         if t is None:
-            t = torch.from_numpy(np.ascontiguousarray(host_fn())).to(dev)
+            with real_tensors():
+                t = torch.from_numpy(np.ascontiguousarray(host_fn())).to(dev)
             self._device_cache[key] = t
         return t

@@ -25,3 +25,13 @@ def resolve(device: str | torch.device | None = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def real_tensors():
+    """A context in which new tensors are real even inside a fake-tensor
+    trace (``launch.xprof.profile_step``): a lazily built cache (a
+    library's datapath rows, a table's device coefficients) must hold real
+    tensors whoever first asks for it."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    return unset_fake_temporarily()

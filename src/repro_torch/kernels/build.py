@@ -37,6 +37,23 @@ LAUNCHES: dict[str, int] = {
     "dd_max_rows": 0, "library_walk": 0, "rom_eval": 0, "softmax_tab": 0,
     "rmsnorm_tab": 0, "flash_attn_tab": 0, "act_lib": 0}
 
+# Set by ``launch.xprof.profile_step`` while it traces a step on fake
+# tensors: the served kernels' wrappers hand it their plain version, the
+# tensors they read and the products they compute, and it counts one op.
+TRACER = None
+
+
+def tracer_for(x):
+    """The profiler tracing ``x`` (:data:`TRACER`), only where ``x`` is a
+    fake tensor: a real tensor always takes its kernel (CUDA) or its
+    plain version (CPU), whatever the profiler does elsewhere."""
+    if TRACER is None:
+        return None
+    from torch._subclasses.fake_tensor import is_fake
+
+    return TRACER if is_fake(x) else None
+
+
 # the served kernels' launches by the ROM each read, (kernel, ROM address):
 # which slot library a per-layer numerics plan sent each launch to
 LAUNCHES_BY_ROM: dict[tuple[str, int], int] = {}

@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.table import TableDesign
+from repro_torch.kernels import build
 from repro_torch.kernels.flashattn.kernel import (flash_attn_lib_cuda,
                                                   flash_attn_tab_cuda)
 from repro_torch.kernels.flashattn.ref import (attention_fused_library_ref,
@@ -21,9 +22,22 @@ def attention_fused_library(q, k, v, library, *, causal: bool = True,
     """(B, Sq, H, D) attention with the library's exp2neg and recip tables
     read in-kernel. ``q_pos`` / ``kv_pos``: (B, S*) absolute positions
     (-1 = dead KV slot / padded query row); ``None`` = ``arange``. Grouped
-    K/V (B, Sk, KVH, D*) pass unexpanded."""
+    K/V (B, Sk, KVH, D*) pass unexpanded. One op where a profiler traces
+    a fake q (``build.tracer_for``): 2 (D + Dv) products per query-key
+    pair and head, the causal triangle where Sq == Sk."""
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads over {k.shape[2]} KV")
+    tracer = build.tracer_for(q)
+    if tracer is not None:
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        pairs = sq * (sq + 1) // 2 if causal and sq == sk else sq * sk
+        return tracer.kernel(
+            "flash_attn_lib", lambda: attention_fused_library_ref(
+                q, k, v, library, causal=causal, scale=scale, window=window,
+                q_pos=q_pos, kv_pos=kv_pos),
+            (q, k, v, q_pos, kv_pos),
+            flops=2.0 * (d + v.shape[-1]) * pairs * h * b)
     if not q.is_cuda:
         return attention_fused_library_ref(q, k, v, library, causal=causal,
                                            scale=scale, window=window,

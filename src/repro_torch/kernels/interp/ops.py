@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.table import TableDesign
+from repro_torch.kernels import build
 from repro_torch.kernels.interp.kernel import (act_library_cuda,
                                                interp_eval_cuda,
                                                library_eval_cuda,
@@ -106,11 +107,17 @@ def act_library(x: torch.Tensor, library, kind: str) -> torch.Tensor:
     """The served activation ``kind`` (silu, sigmoid, softplus, gelu, tanh)
     of ``library`` on x of any shape, in x's dtype: one ``act_lib`` launch
     for a CUDA x (bfloat16 or float32), the float glue around the plain
-    table read (``PlainFusedNumerics._act``) for a CPU x."""
-    if x.is_cuda:
+    table read (``PlainFusedNumerics._act``) for a CPU x; one op where a
+    profiler traces a fake x (``build.tracer_for``)."""
+    tracer = build.tracer_for(x)
+    if tracer is None and x.is_cuda:
         return act_library_cuda(x, library, kind)
     from repro_torch.numerics.ops import PlainFusedNumerics
 
+    if tracer is not None:
+        return tracer.kernel(
+            "act_lib", lambda: PlainFusedNumerics(library)._act(kind, x),
+            (x,))
     return PlainFusedNumerics(library)._act(kind, x)
 
 

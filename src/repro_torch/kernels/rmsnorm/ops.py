@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.table import TableDesign
+from repro_torch.kernels import build
 from repro_torch.kernels.rmsnorm.kernel import (rmsnorm_lib_cuda,
                                                 rmsnorm_tab_cuda)
 from repro_torch.kernels.rmsnorm.ref import (approx_rmsnorm_library_ref,
@@ -18,7 +19,14 @@ from repro_torch.numerics.registry import get_table
 def approx_rmsnorm_library(x: torch.Tensor, gamma: torch.Tensor, library,
                            eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis with the rsqrt table read in-kernel from
-    the library ROM; any leading shape."""
+    the library ROM; any leading shape; one op where a profiler traces a
+    fake x (``build.tracer_for``)."""
+    tracer = build.tracer_for(x)
+    if tracer is not None:
+        return tracer.kernel(
+            "rmsnorm_lib",
+            lambda: approx_rmsnorm_library_ref(x, gamma, library, eps),
+            (x, gamma))
     if not x.is_cuda:
         return approx_rmsnorm_library_ref(x, gamma, library, eps)
     d = x.shape[-1]

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.table import TableDesign
+from repro_torch.kernels import build
 from repro_torch.kernels.interp.ops import lib_meta  # noqa: F401 (twin path)
 from repro_torch.kernels.softmax.kernel import (softmax_lib_cuda,
                                                 softmax_tab_cuda)
@@ -36,7 +37,13 @@ def _meta(design: TableDesign) -> dict:
 def approx_softmax_library(x: torch.Tensor, library) -> torch.Tensor:
     """Softmax over the last axis with the exp2neg and recip tables read
     in-kernel from the library ROM; any leading shape, output in x's
-    dtype."""
+    dtype; one op where a profiler traces a fake x
+    (``build.tracer_for``)."""
+    tracer = build.tracer_for(x)
+    if tracer is not None:
+        return tracer.kernel(
+            "softmax_lib", lambda: approx_softmax_library_ref(x, library),
+            (x,))
     if not x.is_cuda:
         return approx_softmax_library_ref(x, library)
     d = x.shape[-1]

@@ -17,18 +17,27 @@ Axes, as the reference's:
 * ``stage`` — pipeline stages (``launch.pipeline``).
 
 The collectives the models and the engine issue are methods here, each
-counted in ``Mesh.counts`` where it is issued (a CUDA graph's are counted
+counted in ``Mesh.log`` (by kind and axis; ``Mesh.counts`` by kind) where
+it is issued, on a real mesh or a traced one (a CUDA graph's are counted
 once at capture, as ``build.LAUNCHES`` counts its launches). The ``tp_*``
 methods are the Megatron pairs: under autograd ``tp_enter`` is identity
 forward and a sum over ``tp`` backward, ``tp_sum`` the reverse, ``tp_cat``
 an all-gather forward and this rank's slice backward.
 
 ``make_production_mesh`` returns an abstract mesh (shape and names, no
-process group) for the specs and the dry run. The reference's TPU v5e
-constants do not carry over: the H100 datasheet's stand in their place.
+process group) for the specs; with ``trace=True`` (and :func:`trace_mesh`
+for any shape) a traced mesh for the dry run: this rank is the mesh's
+first coordinate, there is no process group, and every collective records
+its kind, payload bytes and group size (the profiler's hook
+:data:`COLLECTIVE_HOOK`) and returns a tensor of the right shape without
+moving data. The port is SPMD (every rank runs the same ops on its own
+shard), so one traced rank's step is the per-rank program. The
+reference's TPU v5e constants do not carry over: the H100 datasheet's
+stand in their place.
 """
 from __future__ import annotations
 
+import collections
 import math
 
 import numpy as np
@@ -46,7 +55,8 @@ class Mesh:
     subgroup of every rank in the mesh."""
 
     def __init__(self, axis_names, sizes, ranks=None, coords=None,
-                 groups=None, group_all=None, backend=None):
+                 groups=None, group_all=None, backend=None,
+                 traced: bool = False):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
         self.ranks = ranks
@@ -54,7 +64,17 @@ class Mesh:
         self.groups = groups or {}
         self.group_all = group_all
         self.backend = backend
-        self.counts = {"all_reduce": 0, "all_gather": 0}
+        self.traced = traced
+        self.log: collections.Counter = collections.Counter()
+
+    @property
+    def counts(self) -> dict:
+        """The collectives issued so far, by kind."""
+        out = dict.fromkeys(("all_reduce", "all_gather", "reduce_scatter"),
+                            0)
+        for (kind, _axis), n in self.log.items():
+            out[kind] += n
+        return out
 
     def __repr__(self) -> str:
         dims = "x".join(f"{k}={v}" for k, v in self.shape.items())
@@ -89,11 +109,13 @@ class Mesh:
         """``ValueError`` unless this mesh's groups can carry tensors on
         ``device``: NCCL for a CUDA device, gloo for the CPU. There is no
         silent gloo on the card."""
-        if self.ranks is None:
+        if self.ranks is None and not self.traced:
             raise ValueError("an abstract mesh (make_production_mesh) has no "
                              "process group to run on")
         if self.coords is None:
             raise ValueError(f"this rank is not in {self!r}")
+        if self.traced:
+            return
         want = "nccl" if device.type == "cuda" else "gloo"
         if want not in str(self.backend):
             raise ValueError(f"a {device.type} mesh needs the {want} "
@@ -104,35 +126,71 @@ class Mesh:
     def _group(self, axis: str | None):
         return self.group_all if axis is None else self.groups[axis]
 
+    def group_size(self, axis: str | None) -> int:
+        return (math.prod(self.shape.values()) if axis is None
+                else self.shape[axis])
+
+    def _issued(self, kind: str, axis: str | None, out: torch.Tensor) -> None:
+        """Count one collective of ``kind`` over ``axis`` whose result
+        buffer is ``out`` (``log``, the profiler's hook)."""
+        self.log[(kind, axis or "all")] += 1
+        if COLLECTIVE_HOOK is not None and self.traced:
+            COLLECTIVE_HOOK(kind, out, self.group_size(axis))
+
     def all_reduce(self, x: torch.Tensor, axis: str | None,
                    op: str = "sum") -> torch.Tensor:
         """Reduce ``x`` in place over ``axis`` (None: the whole mesh) and
         return it; issued whatever the group's size."""
-        import torch.distributed as dist
+        if not self.traced:
+            import torch.distributed as dist
 
-        ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
-               "max": dist.ReduceOp.MAX}
-        dist.all_reduce(x, op=ops[op], group=self._group(axis))
-        self.counts["all_reduce"] += 1
+            ops = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
+                   "max": dist.ReduceOp.MAX}
+            dist.all_reduce(x, op=ops[op], group=self._group(axis))
+        self._issued("all_reduce", axis, x)
         return x
 
     def all_gather(self, x: torch.Tensor, axis: str | None,
                    dim: int = 0) -> torch.Tensor:
         """``x`` of every rank of ``axis``, concatenated along ``dim`` in
         the axis's order."""
-        import torch.distributed as dist
-
-        group = self._group(axis)
-        n = dist.get_world_size(group)
+        n = self.group_size(axis)
         x = x.contiguous()
         flat = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
-        gather = (getattr(dist, "all_gather_single", None)
-                  or dist.all_gather_into_tensor)
-        gather(flat, x.reshape(-1), group=group)
-        self.counts["all_gather"] += 1
+        if not self.traced:
+            import torch.distributed as dist
+
+            gather = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
+            gather(flat, x.reshape(-1), group=self._group(axis))
+        self._issued("all_gather", axis, flat)
         d = dim % x.dim()
         out = flat.view(n, *x.shape).movedim(0, d)
         return out.reshape(*x.shape[:d], n * x.shape[d], *x.shape[d + 1:])
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str | None,
+                       dim: int = 0) -> torch.Tensor:
+        """The sum of ``x`` over ``axis``, cut into the group's size along
+        ``dim``: this rank's chunk (the inverse of :meth:`all_gather`'s
+        layout)."""
+        n = self.group_size(axis)
+        d = dim % x.dim()
+        if x.shape[d] % n:
+            raise ValueError(f"axis of {x.shape[d]} does not split into "
+                             f"{n} chunks")
+        # the chunks laid out one after another, as all_gather reads them
+        src = x.reshape(*x.shape[:d], n, x.shape[d] // n,
+                        *x.shape[d + 1:]).movedim(d, 0).contiguous()
+        out = torch.empty(src.shape[1:], dtype=x.dtype, device=x.device)
+        if not self.traced:
+            import torch.distributed as dist
+
+            scatter = (getattr(dist, "reduce_scatter_single", None)
+                       or dist.reduce_scatter_tensor)
+            scatter(out.reshape(-1), src.reshape(-1),
+                    group=self._group(axis))
+        self._issued("reduce_scatter", axis, out)
+        return out
 
     # -- the Megatron pairs (autograd-aware; plain collectives otherwise) ----
     def tp_enter(self, x: torch.Tensor) -> torch.Tensor:
@@ -231,13 +289,24 @@ def make_mesh(sizes, axis_names, *, devices=None) -> Mesh:
                 dist.get_backend())
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production mesh as an abstract shape, ``(16, 16)``
-    ``data x model`` or ``(2, 16, 16)`` ``pod x data x model``: no process
-    group, for the specs and the dry run."""
+def trace_mesh(sizes, axis_names) -> Mesh:
+    """A traced mesh of ``sizes`` named ``axis_names``: no process group,
+    this rank at coordinate 0 of every axis, every collective recorded and
+    shaped, never run (module docstring)."""
+    axis_names = tuple(axis_names)
+    return Mesh(axis_names, sizes, coords={ax: 0 for ax in axis_names},
+                traced=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         trace: bool = False) -> Mesh:
+    """The reference's production mesh, ``(16, 16)`` ``data x model`` or
+    ``(2, 16, 16)`` ``pod x data x model``: an abstract shape for the
+    specs, or with ``trace=True`` the dry run's traced mesh
+    (:func:`trace_mesh`)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(axes, shape)
+    return trace_mesh(shape, axes) if trace else Mesh(axes, shape)
 
 
 def make_host_mesh(model: int = 1) -> Mesh:
@@ -327,10 +396,20 @@ def init_from_env(device: str | torch.device = "cuda",
     return dev
 
 
+# Set by ``launch.xprof.profile_step`` while it traces: called with (kind,
+# the result buffer, the group size) for every collective a traced mesh
+# issues.
+COLLECTIVE_HOOK = None
+
 # H100 SXM5 80 GB datasheet values used by the roofline, beside the card
 # they were checked against (nvidia-smi --query-gpu=name,power.limit):
 # NVIDIA H100 80GB HBM3, 700 W
 PEAK_FLOPS_BF16 = 989e12  # dense bf16 tensor-core FLOP/s per card
 HBM_BW = 3.35e12  # bytes/s per card
 NVLINK_BW = 450e9  # bytes/s per card per direction (NVLink 4, 18 links)
+# Every 16-way axis of a production mesh spans more than one 8-card HGX
+# node, so its collectives cross the per-card network port: one 400 Gb/s
+# NDR InfiniBand link per card (NVIDIA DGX H100 datasheet: 8 x ConnectX-7
+# for 8 cards), 50 GB/s per direction.
+NET_BW = 50e9  # bytes/s per card per direction
 

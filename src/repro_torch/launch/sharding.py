@@ -12,8 +12,9 @@ The reference hands these specs to GSPMD, which inserts the collectives.
 The port has no GSPMD: :func:`shard_tree` slices each full leaf into this
 rank's shard by its spec, :func:`gather_tree` is the inverse (all-gathers
 over the axes a leaf is split on), and the models issue the Megatron
-collectives themselves (``launch.mesh.Mesh.tp_*``). Two placements differ
-from the specs, both in :func:`placement_specs`:
+collectives themselves (``launch.mesh.Mesh.tp_*``). Where the placement
+differs from the specs, :func:`placement_specs`, :func:`split_leaves` and
+:func:`cache_placement_specs` say so:
 
 * a SwiGLU ``wi`` (``[gate | up]`` along its last axis) is split half by
   half (:func:`glu_leaves`), so each rank holds matching gate and up
@@ -22,7 +23,17 @@ from the specs, both in :func:`placement_specs`:
   ``n_kv_heads * head_dim``, the spec would split one KV head: ``wk`` /
   ``wv`` are replicated over ``tp`` instead and every rank computes all
   KV heads (the reference's cache spec already replicates the KV pool
-  there: ``kv_seq`` has no ``tp`` candidate).
+  there: ``kv_seq`` has no ``tp`` candidate);
+* a Mamba2 mixer split by heads (:func:`ssm_head_parallel`) cuts its
+  ``in_proj`` segment by segment (``[z | x | B | C | dt]``: each rank
+  holds its heads' z, x and dt and a ``1 / tp`` slice of B and C) and its
+  ``conv_w`` / ``conv_b`` likewise (``[x | B | C]``);
+* a mixer whose heads ``tp`` does not divide (:func:`whole_mixer`: GQA,
+  MLA or Mamba2) is replicated over ``tp`` and runs whole on every rank,
+  with its cache;
+* the decode cache's sequence axis is never split (``kv_seq``'s
+  ``model`` candidate is the reference's sequence parallelism, which the
+  port does not run).
 """
 from __future__ import annotations
 
@@ -137,11 +148,10 @@ SERVE_PARAM_RULES: dict[str, tuple[tuple[str, ...], ...]] = {
     "vocab": (("tp",), ("model",)),
 }
 
-# The port's training placement: PARAM_RULES without the ZeRO-3 axis. Its
-# parameters and optimizer state are tensor-parallel over "model" and
-# replicated over "data" (ZeRO-3 over "fsdp" is ROADMAP queue 1 item 5b).
-TRAIN_PARAM_RULES: dict[str, tuple[tuple[str, ...], ...]] = {
-    **PARAM_RULES, "fsdp": ()}
+# The port's training placement is the reference's: Megatron over "model"
+# and ZeRO-3 over "fsdp" (pod x data, or data) for the parameters, the
+# AdamW master and moments and the compression residual.
+TRAIN_PARAM_RULES: dict[str, tuple[tuple[str, ...], ...]] = PARAM_RULES
 
 # leaf-name suffix -> logical axes for the *trailing* dims (stacked layer
 # dims are padded with None on the left automatically)
@@ -288,40 +298,66 @@ def glu_leaves(tree, cfg) -> frozenset:
     return frozenset(out)
 
 
+def _segments(split, path: str, size: int):
+    """The full sizes of the last-axis segments of the leaf at ``path``
+    (``split``: :func:`glu_leaves`' set, two halves each, or
+    :func:`split_leaves`' dict), or None."""
+    if isinstance(split, dict):
+        return split.get(path)
+    return (size // 2, size - size // 2) if path in split else None
+
+
 def _slice(t: torch.Tensor, dim: int, i: int, n: int,
-           glu: bool) -> torch.Tensor:
+           segs=None) -> torch.Tensor:
     size = t.shape[dim]
     if n == 1:
         return t
-    if glu and dim == t.dim() - 1:
-        half = size // 2
-        if size % 2 or half % n:
-            raise ValueError(f"a [gate | up] axis of {size} does not split "
-                             f"into {n} matching halves")
-        w = half // n
-        return torch.cat([t.narrow(dim, i * w, w),
-                          t.narrow(dim, half + i * w, w)], dim)
+    if segs is not None and dim == t.dim() - 1:
+        if sum(segs) != size or any(g % n for g in segs):
+            raise ValueError(f"segments {segs} of an axis of {size} do "
+                             f"not split into {n} matching chunks")
+        parts, off = [], 0
+        for g in segs:
+            w = g // n
+            parts.append(t.narrow(dim, off + i * w, w))
+            off += g
+        return torch.cat(parts, dim)
     if size % n:
         raise ValueError(f"axis of {size} does not split into {n} shards")
     return t.narrow(dim, i * (size // n), size // n)
 
 
+def _unsegment(g: torch.Tensor, widths: list, n: int,
+               dim: int) -> torch.Tensor:
+    """``n`` gathered blocks of ``[seg 0 | seg 1 | ...]`` (local widths
+    ``widths``) along ``dim`` -> each segment's blocks side by side."""
+    block = sum(widths)
+    parts = []
+    off = 0
+    for w in widths:
+        parts += [g.narrow(dim, j * block + off, w) for j in range(n)]
+        off += w
+    return torch.cat(parts, dim)
+
+
 def shard_tree(full_tree, specs, mesh, glu=frozenset()):
     """This rank's shard of every leaf of ``full_tree`` by its spec in
     ``specs`` (a tree of the same structure): contiguous chunks along each
-    split dimension, ``[gate | up]`` halves chunked separately for the
-    paths in ``glu``. Plain tensor ops; a leaf split no way (a 1-way axis,
-    or none) is handed back as it is, every other shard is a new
-    contiguous tensor."""
+    split dimension; along the last axis of the paths in ``glu`` (a set:
+    ``[gate | up]`` halves; a dict: :func:`split_leaves`' segments) each
+    segment chunked separately. Plain tensor ops; a leaf split no way (a
+    1-way axis, or none) is handed back as it is, every other shard is a
+    new contiguous tensor."""
     named = leaves_with_paths(full_tree)
     specs_ = spec_leaves(specs, len(named))
     out = []
     for (path, leaf), spec in zip(named, specs_):
         t = leaf
+        segs = _segments(glu, path, leaf.shape[-1]) if leaf.dim() else None
         for dim, entry in enumerate(spec):
             if axes_of(entry):
                 i, n = shard_index(entry, mesh)
-                t = _slice(t, dim, i, n, path in glu)
+                t = _slice(t, dim, i, n, segs)
         if t is not leaf:  # a proper shard owns its memory
             t = t.clone(memory_format=torch.contiguous_format)
         out.append(t)
@@ -337,14 +373,20 @@ def gather_tree(local_tree, specs, mesh, glu=frozenset()):
     out = []
     for (path, t), spec in zip(named, specs_):
         for dim, entry in enumerate(spec):
-            for ax in reversed(axes_of(entry)):
-                if path in glu and dim == t.dim() - 1:
-                    half = t.shape[dim] // 2
-                    parts = [mesh.all_gather(t.narrow(dim, k * half, half),
-                                             ax, dim) for k in (0, 1)]
-                    t = torch.cat(parts, dim)
-                else:
-                    t = mesh.all_gather(t, ax, dim)
+            axes = axes_of(entry)
+            segs = (_segments(glu, path, 0) if dim == t.dim() - 1 and axes
+                    else None)
+            if not isinstance(glu, dict) and segs is not None:
+                segs = (t.shape[dim] * math.prod(
+                    mesh.shape[ax] for ax in axes) // 2,) * 2
+            n_left = math.prod(mesh.shape[ax] for ax in axes)
+            for ax in reversed(axes):
+                g = mesh.all_gather(t, ax, dim)
+                if segs is not None:
+                    g = _unsegment(g, [w // n_left for w in segs],
+                                   mesh.shape[ax], dim)
+                    n_left //= mesh.shape[ax]
+                t = g
         out.append(t)
     return unflatten_like(local_tree, out)
 
@@ -374,12 +416,49 @@ def spec_leaves(specs, n: int | None = None) -> list:
     return out
 
 
+def ssm_head_parallel(cfg, tp: int) -> bool:
+    """Whether the Mamba2 mixer of ``cfg`` splits by heads over ``tp``
+    ranks: ``tp`` divides its heads and ``n_groups * d_state`` (each rank
+    a slice of B and C), with one group."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    heads = d_inner // s.head_dim
+    return (s.n_groups == 1 and heads % tp == 0
+            and (s.n_groups * s.d_state) % tp == 0)
+
+
+def whole_mixer(cfg, mesh, mixer: str) -> bool:
+    """Whether a ``mixer`` ("attn", "mla", "ssm", "cross") of ``cfg`` runs
+    whole on every rank of ``mesh``'s ``tp`` (replicated weights, no
+    collective) because ``tp`` does not divide its heads."""
+    tp = mesh.tp if mesh is not None else 1
+    if tp == 1:
+        return False
+    if mixer == "ssm":
+        return cfg.ssm is not None and not ssm_head_parallel(cfg, tp)
+    return cfg.n_heads % tp != 0
+
+
+def _mixer_of(path: str, cfg) -> str | None:
+    """The mixer kind a leaf at ``path`` belongs to (None: not a mixer's
+    leaf)."""
+    if "/cross/" in path or path.startswith("cross/"):
+        return "cross"
+    if "mixer/" not in path:
+        return None
+    leaf = path.rsplit("/", 1)[-1]
+    if leaf in ("in_proj", "conv_w", "conv_b", "a_log", "dt_bias",
+                "d_skip", "out_proj") or "mixer/norm/" in path:
+        return "ssm"
+    return "mla" if cfg.mla is not None else "attn"
+
+
 def placement_specs(shapes, cfg, mesh, rules: dict | None = None):
-    """:func:`param_specs` as the port places them: ``ValueError`` where
-    the tensor-parallel axis would split a query head; ``wk`` / ``wv``
-    replicated over it where it would split a KV head (module docstring).
-    Biases follow the specs (replicated); the models read their own
-    columns of them."""
+    """:func:`param_specs` as the port places them: ``wk`` / ``wv``
+    replicated over ``tp`` where it would split a KV head, and every leaf
+    of a mixer :func:`whole_mixer` runs whole replicated over ``tp``
+    (module docstring). Biases follow the specs (replicated); the models read
+    their own columns of them."""
     specs = param_specs(shapes, mesh, rules)
     tp_ax = mesh.tp_axis
     if tp_ax is None:
@@ -387,16 +466,72 @@ def placement_specs(shapes, cfg, mesh, rules: dict | None = None):
     tp = mesh.shape[tp_ax]
     named = leaves_with_paths(shapes)
     specs_ = spec_leaves(specs, len(named))
+    whole = {m: whole_mixer(cfg, mesh, m)
+             for m in ("attn", "mla", "ssm", "cross")}
     out = []
     for (path, _), spec in zip(named, specs_):
         split = any(tp_ax in axes_of(e) for e in spec)
-        if split and tp > 1 and path.endswith(("mixer/wq", "cross/wq")) \
-                and cfg.n_heads % tp:
-            raise ValueError(f"{tp}-way tensor parallelism would split a "
-                             f"query head of {cfg.name} ({cfg.n_heads} "
-                             f"heads)")
-        if split and tp > 1 and cfg.n_kv_heads % tp and path.endswith(
+        mixer = _mixer_of(path, cfg)
+
+        def drop(sp):
+            return tuple(None if tp_ax in axes_of(e) else e for e in sp)
+        if split and mixer is not None and whole[mixer]:
+            spec = drop(spec)
+        elif split and tp > 1 and cfg.n_kv_heads % tp and path.endswith(
                 ("mixer/wk", "mixer/wv", "cross/wk", "cross/wv")):
-            spec = tuple(None if tp_ax in axes_of(e) else e for e in spec)
+            spec = drop(spec)
         out.append(spec)
     return unflatten_like(shapes, out)
+
+
+def split_leaves(tree, cfg, mesh) -> dict:
+    """Path -> the full sizes of the last-axis segments each segment of
+    which is chunked on its own (:func:`shard_tree`): the ``[gate | up]``
+    halves of :func:`glu_leaves` and, where the Mamba2 mixer splits by
+    heads (:func:`ssm_head_parallel`), ``in_proj``'s ``[z | x | B | C |
+    dt]`` and ``conv_w`` / ``conv_b``'s ``[x | B | C]``."""
+    leaves = dict(leaves_with_paths(tree))
+    out = {}
+    for path in glu_leaves(tree, cfg):
+        n = leaves[path].shape[-1]
+        out[path] = (n // 2, n // 2)
+    tp = mesh.tp if mesh is not None else 1
+    if cfg.ssm is not None and tp > 1 and ssm_head_parallel(cfg, tp):
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        gn = s.n_groups * s.d_state
+        heads = d_inner // s.head_dim
+        for path in leaves:
+            if path.endswith("mixer/in_proj"):
+                out[path] = (d_inner, d_inner, gn, gn, heads)
+            elif path.endswith(("mixer/conv_w", "mixer/conv_b")):
+                out[path] = (d_inner, gn, gn)
+    return out
+
+
+def cache_placement_specs(cache_shapes, cfg, mesh):
+    """:func:`cache_specs_sharding` as the port places the cache: the
+    sequence axis never split, and the SSM state and conv window
+    replicated over ``tp`` where the Mamba2 mixer runs whole
+    (:func:`whole_mixer`)."""
+    tp_ax = mesh.tp_axis
+    specs = cache_specs_sharding(cache_shapes, cfg, mesh)
+    if tp_ax is None:
+        return specs
+    whole_ssm = cfg.ssm is not None and whole_mixer(cfg, mesh, "ssm")
+    kv_base = 3 if cfg.mla is not None else 4
+    out = []
+    for (path, leaf), spec in zip(leaves_with_paths(cache_shapes),
+                                  spec_leaves(specs)):
+        field = path.rsplit("/", 1)[-1]
+        lead = len(leaf.shape) - {"k": kv_base, "v": kv_base, "pos": 2,
+                                  "conv": 3, "ssm": 4}[field]
+        spec = list(spec)
+        seq = {"k": 2 if kv_base == 4 else 1, "v": 2 if kv_base == 4 else 1,
+               "pos": 1}.get(field)
+        if seq is not None and tp_ax in axes_of(spec[lead + seq]):
+            spec[lead + seq] = None
+        if field in ("conv", "ssm") and whole_ssm:
+            spec = [None if tp_ax in axes_of(e) else e for e in spec]
+        out.append(tuple(spec))
+    return unflatten_like(cache_shapes, out)

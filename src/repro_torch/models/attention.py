@@ -26,6 +26,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.models.layers import (apply_rope, pdtype, rope_angles, spec,
                                        tp_cols)
@@ -103,7 +104,9 @@ def attention_core(q, k, v, q_pos, kv_pos, numerics, causal: bool = True,
         return o.reshape(b, sq, h, dv).to(v.dtype)
 
     imax = torch.iinfo(torch.int32).max
-    use_skip = nk >= SKIP_CHUNKS
+    # a traced step (``launch.xprof``: fake tensors, no values) has no
+    # positions to read: every chunk counts, masked
+    use_skip = nk >= SKIP_CHUNKS and not is_fake(k)
 
     def q_block(qb, qpb):
         tq = qb.shape[1]
@@ -391,25 +394,40 @@ def mla_shapes(cfg) -> dict:
     }
 
 
-def _mla_q(p, x, positions, cfg, numerics):
-    """Queries (B, S, H, nope + rope): the low-rank path through
+def _col_whole(x, w, n: int, mesh):
+    """``x @ w`` whole (``n`` columns) on every rank: the product itself
+    where ``w`` holds every column, else this rank's columns all-gathered
+    over ``tp`` (``x``'s gradient then summed over ``tp``)."""
+    if mesh is None or w.shape[-1] == n:
+        return x @ w
+    return mesh.tp_cat(mesh.tp_enter(x) @ w, dim=-1)
+
+
+def _mla_q(p, x, positions, cfg, numerics, mesh=None):
+    """Queries (B, S, heads, nope + rope): the low-rank path through
     ``q_norm`` (the layer's rmsnorm, its scale as stored, as
-    ``layers.apply_norm``), RoPE on the rope part."""
+    ``layers.apply_norm``), RoPE on the rope part. On a mesh the latent is
+    whole on every rank (:func:`_col_whole`) and ``wq_b`` gives this
+    rank's heads."""
     m = cfg.mla
     b, s, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    ql = numerics.rmsnorm(x @ p["wq_a"], p["q_norm"]["scale"]).to(x.dtype)
-    q = (ql @ p["wq_b"]).reshape(b, s, cfg.n_heads, qk)
+    ql = numerics.rmsnorm(_col_whole(x, p["wq_a"], m.q_lora_rank, mesh),
+                          p["q_norm"]["scale"]).to(x.dtype)
+    if mesh is not None:
+        ql = mesh.tp_enter(ql)
+    q = (ql @ p["wq_b"]).reshape(b, s, -1, qk)
     qn, qr = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
     return torch.cat([qn, apply_rope(qr, cos, sin)], -1)
 
 
-def _mla_kv_latent(p, x, positions, cfg, numerics):
+def _mla_kv_latent(p, x, positions, cfg, numerics, mesh=None):
     """The cached latents: (B, S, kv_lora) through ``kv_norm`` and the
-    shared rope key (B, S, rope)."""
+    shared rope key (B, S, rope); whole on every rank of a mesh."""
     m = cfg.mla
-    kv = x @ p["wkv_a"]
+    kv = _col_whole(x, p["wkv_a"], m.kv_lora_rank + m.qk_rope_head_dim,
+                    mesh)
     ckv, kr = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     ckv = numerics.rmsnorm(ckv, p["kv_norm"]["scale"]).to(x.dtype)
     cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
@@ -417,37 +435,44 @@ def _mla_kv_latent(p, x, positions, cfg, numerics):
     return ckv, kr
 
 
-def _mla_expand(p, ckv, kr, cfg):
+def _mla_expand(p, ckv, kr, cfg, mesh=None):
     """Latents -> per-head K (nope + rope) and V, V a view of the
-    expansion."""
+    expansion (on a mesh this rank's heads of ``wkv_b``)."""
     m = cfg.mla
     b, s, _ = ckv.shape
-    kvb = (ckv @ p["wkv_b"]).reshape(b, s, cfg.n_heads,
+    if mesh is not None:
+        ckv, kr = mesh.tp_enter(ckv), mesh.tp_enter(kr)
+    kvb = (ckv @ p["wkv_b"]).reshape(b, s, -1,
                                      m.qk_nope_head_dim + m.v_head_dim)
+    h = kvb.shape[2]
     kn, v = kvb[..., :m.qk_nope_head_dim], kvb[..., m.qk_nope_head_dim:]
-    kr_b = kr[:, :, None, :].expand(b, s, cfg.n_heads, m.qk_rope_head_dim)
+    kr_b = kr[:, :, None, :].expand(b, s, h, m.qk_rope_head_dim)
     return torch.cat([kn, kr_b], -1), v
 
 
-def _mla_forward(p: dict, x, positions, cfg, numerics, causal: bool):
+def _mla_forward(p: dict, x, positions, cfg, numerics, causal: bool,
+                 mesh=None):
     """Queries, latents expanded, attention over the sequence: (y, the
-    latents (B, S, kv_lora), the rope keys (B, S, rope))."""
-    b, s, _ = x.shape
-    q = _mla_q(p, x, positions, cfg, numerics)
-    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics)
-    k, v = _mla_expand(p, ckv, kr, cfg)
+    latents (B, S, kv_lora), the rope keys (B, S, rope)). ``mesh``: a
+    ``tp > 1`` mesh whose heads ``wq_b`` / ``wkv_b`` / ``wo`` hold (``wo``
+    row-parallel, summed over ``tp``); the latents are whole on every
+    rank, as the replicated latent cache."""
+    q = _mla_q(p, x, positions, cfg, numerics, mesh)
+    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics, mesh)
+    k, v = _mla_expand(p, ckv, kr, cfg, mesh)
     o = attention_core(q, k, v, positions, positions, numerics,
                        causal=causal)
-    return o.reshape(b, s, -1) @ p["wo"], ckv, kr
+    return _project_out(p, o, mesh), ckv, kr
 
 
 def mla_train(p: dict, x, positions, cfg, numerics,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, mesh=None) -> torch.Tensor:
     """The training-shaped MLA forward with no cache."""
-    return _mla_forward(p, x, positions, cfg, numerics, causal)[0]
+    return _mla_forward(p, x, positions, cfg, numerics, causal, mesh)[0]
 
 
-def mla_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
+def mla_prefill(p: dict, x, positions, cfg, numerics, cache_len: int,
+                mesh=None):
     """:func:`mla_train`'s forward (latents expanded, causal attention over
     the prompt), and the latent cache right-padded to ``cache_len`` rows.
     The reference computes the latents twice (once inside ``mla_train``);
@@ -456,7 +481,8 @@ def mla_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
     b, s, _ = x.shape
     if s > cache_len:
         raise ValueError(f"prompt length {s} exceeds cache_len {cache_len}")
-    y, ckv, kr = _mla_forward(p, x, positions, cfg, numerics, causal=True)
+    y, ckv, kr = _mla_forward(p, x, positions, cfg, numerics, causal=True,
+                              mesh=mesh)
     ck = torch.zeros((b, cache_len, m.kv_lora_rank), dtype=ckv.dtype,
                      device=x.device)
     krb = torch.zeros((b, cache_len, m.qk_rope_head_dim), dtype=kr.dtype,
@@ -469,25 +495,25 @@ def mla_prefill(p: dict, x, positions, cfg, numerics, cache_len: int):
     return y, KVCache(ck, krb, pos_buf)
 
 
-def mla_decode(p: dict, x, pos, cache: KVCache, cfg, numerics):
+def mla_decode(p: dict, x, pos, cache: KVCache, cfg, numerics, mesh=None):
     """x: (B, 1, d); pos: scalar or (B,) per-slot positions; ``cache`` is
     one layer's latent view (k (B, S, kv_lora), v (B, S, rope), pos (B,
-    S)), updated in place and returned."""
+    S)), updated in place and returned (whole on every rank of a
+    mesh)."""
     b = x.shape[0]
     pos, positions = _decode_positions(pos, b, x.device)
-    q = _mla_q(p, x, positions, cfg, numerics)
-    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics)
+    q = _mla_q(p, x, positions, cfg, numerics, mesh)
+    ckv, kr = _mla_kv_latent(p, x, positions, cfg, numerics, mesh)
     s_max = cache.k.shape[1]
     slot = _write_slot(cfg, positions, s_max)
     rows = torch.arange(b, device=x.device)
     cache.k[rows, slot] = ckv[:, 0]
     cache.v[rows, slot] = kr[:, 0]
     cache.pos[rows, slot] = positions[:, 0]
-    k, v = _mla_expand(p, cache.k, cache.v, cfg)
+    k, v = _mla_expand(p, cache.k, cache.v, cfg, mesh)
     o = attention_core(q, k, v, positions, cache.pos, numerics, causal=True,
                        kv_chunk=decode_kv_chunk(s_max))
-    y = o.reshape(b, 1, -1) @ p["wo"]
-    return y, cache
+    return _project_out(p, o, mesh), cache
 
 
 def mla_cache_specs(cfg, b: int, s: int, dtype) -> KVCache:

@@ -13,6 +13,15 @@ recurrence (the reference's ``lax.scan``) is a Python loop over chunks.
 from fresh tensors: what a captured decode graph replays. ``ssm_train`` is
 the train path's forward: the prefill's body without its state, every
 tensor autograd saves left as it was written.
+
+``mesh=`` (a ``tp > 1`` mesh, ``launch.sharding.ssm_head_parallel``): the
+mixer's weights are this rank's heads, segment by segment (``in_proj``'s
+z, x and dt of its heads and a ``1 / tp`` slice of B and C; ``conv_w`` /
+``conv_b`` the matching channels; ``out_proj`` its heads' rows). B and C
+are all-gathered after the conv (every head reads them), the gated norm
+reads the whole ``d_inner`` row (all-gathered, then this rank's slice
+kept), ``out_proj`` is row-parallel and summed over ``tp``; the conv
+window and the recurrent state hold this rank's channels and heads.
 """
 from __future__ import annotations
 
@@ -21,7 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import pdtype, spec
+from repro_torch.models.layers import pdtype, spec, tp_cols
 
 _F32 = torch.float32
 
@@ -56,13 +65,39 @@ def ssm_shapes(cfg) -> dict:
     }
 
 
-def _split_proj(p: dict, x: torch.Tensor, cfg):
-    d_inner, _, conv_dim = _dims(cfg)
+def _local_dims(cfg, mesh):
+    """(d_inner, heads, n_groups * d_state, conv channels) of this rank:
+    the whole mixer's without a mesh, a ``1 / tp`` share of each on
+    one."""
+    s = cfg.ssm
+    d_inner, n_heads, _ = _dims(cfg)
+    gn = s.n_groups * s.d_state
+    tp = 1 if mesh is None else mesh.tp
+    di, hl, gl = d_inner // tp, n_heads // tp, gn // tp
+    return di, hl, gl, di + 2 * gl
+
+
+def _split_proj(p: dict, x: torch.Tensor, cfg, mesh=None):
+    di, _, _, conv_l = _local_dims(cfg, mesh)
     zxbcdt = x @ p["in_proj"]
-    z = zxbcdt[..., :d_inner]
-    xbc = zxbcdt[..., d_inner:d_inner + conv_dim]
-    dt = zxbcdt[..., d_inner + conv_dim:]
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + conv_l]
+    dt = zxbcdt[..., di + conv_l:]
     return z, xbc, dt
+
+
+def _gather_bc(bc: torch.Tensor, cfg, mesh):
+    """B and C (..., G, N) each from this rank's ``[B | C]`` slice of the
+    conv output: whole on every rank (all-gathered over ``tp``, gradient
+    summed over it) on a mesh."""
+    s = cfg.ssm
+    gn = s.n_groups * s.d_state
+    lead = bc.shape[:-1]
+    if mesh is not None:
+        bc = bc.reshape(*lead, 2, bc.shape[-1] // 2)
+        bc = mesh.tp_enter(mesh.tp_cat(bc, dim=-1)).reshape(*lead, 2 * gn)
+    return (bc[..., :gn].reshape(*lead, s.n_groups, s.d_state),
+            bc[..., gn:].reshape(*lead, s.n_groups, s.d_state))
 
 
 def _conv_scan(p: dict, xbc: torch.Tensor, cfg, numerics) -> torch.Tensor:
@@ -75,9 +110,15 @@ def _conv_scan(p: dict, xbc: torch.Tensor, cfg, numerics) -> torch.Tensor:
 
 
 def _gated_norm(p: dict, y: torch.Tensor, z: torch.Tensor,
-                numerics) -> torch.Tensor:
+                numerics, mesh=None) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over the whole ``d_inner`` row: on a
+    mesh this rank's columns are all-gathered first and its slice of the
+    result kept."""
     g = y * numerics.silu(z)
-    return numerics.rmsnorm(g, p["norm"]["scale"].to(_F32)).to(y.dtype)
+    if mesh is not None:
+        g = mesh.tp_cat(g, dim=-1)
+    out = numerics.rmsnorm(g, p["norm"]["scale"].to(_F32)).to(y.dtype)
+    return out if mesh is None else tp_cols(out, y.shape[-1], mesh)
 
 
 def ssd_chunked(x, dt, a, b_mat, c_mat, d_skip, cfg, numerics, h0=None):
@@ -144,38 +185,41 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, d_skip, cfg, numerics, h0=None):
     return y.to(x.dtype), h_cur.reshape(bsz, h, p_dim, n)
 
 
-def _ssm_forward(p: dict, x: torch.Tensor, cfg, numerics, h0=None):
+def _ssm_forward(p: dict, x: torch.Tensor, cfg, numerics, h0=None,
+                 mesh=None):
     """(output, final state h, the pre-conv ``xbc`` projection)."""
     s = cfg.ssm
-    d_inner, n_heads, _ = _dims(cfg)
-    z, xbc_in, dt = _split_proj(p, x, cfg)
+    di, hl, gl, _ = _local_dims(cfg, mesh)
+    if mesh is not None:
+        x = mesh.tp_enter(x)
+    z, xbc_in, dt = _split_proj(p, x, cfg, mesh)
     xbc = _conv_scan(p, xbc_in, cfg, numerics)
-    gn = s.n_groups * s.d_state
     bsz, seq, _ = x.shape
-    x_ssm = xbc[..., :d_inner].reshape(bsz, seq, n_heads, s.head_dim)
-    b_mat = xbc[..., d_inner:d_inner + gn].reshape(bsz, seq, s.n_groups,
-                                                   s.d_state)
-    c_mat = xbc[..., d_inner + gn:].reshape(bsz, seq, s.n_groups, s.d_state)
-    dt_f = numerics.softplus(dt.to(_F32) + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
-    y, h_last = ssd_chunked(x_ssm, dt_f, a, b_mat, c_mat, p["d_skip"], cfg,
-                            numerics, h0)
-    y = _gated_norm(p, y.reshape(bsz, seq, d_inner), z, numerics)
-    return y @ p["out_proj"], h_last, xbc_in
+    x_ssm = xbc[..., :di].reshape(bsz, seq, hl, s.head_dim)
+    b_mat, c_mat = _gather_bc(xbc[..., di:], cfg, mesh)
+    dt_f = numerics.softplus(dt.to(_F32) + tp_cols(p["dt_bias"], hl, mesh))
+    a = -torch.exp(tp_cols(p["a_log"], hl, mesh))
+    y, h_last = ssd_chunked(x_ssm, dt_f, a, b_mat, c_mat,
+                            tp_cols(p["d_skip"], hl, mesh), cfg, numerics,
+                            h0)
+    y = _gated_norm(p, y.reshape(bsz, seq, di), z, numerics, mesh)
+    y = y @ p["out_proj"]
+    return (y if mesh is None else mesh.tp_sum(y)), h_last, xbc_in
 
 
-def ssm_train(p: dict, x: torch.Tensor, cfg, numerics) -> torch.Tensor:
+def ssm_train(p: dict, x: torch.Tensor, cfg, numerics,
+              mesh=None) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d), no state kept; S longer than one chunk
     must be whole chunks, as in prefill."""
-    return _ssm_forward(p, x, cfg, numerics)[0]
+    return _ssm_forward(p, x, cfg, numerics, mesh=mesh)[0]
 
 
-def ssm_prefill(p: dict, x: torch.Tensor, cfg, numerics):
+def ssm_prefill(p: dict, x: torch.Tensor, cfg, numerics, mesh=None):
     """x: (B, S, d). Returns (y, SSMState): the conv state is the last
     ``d_conv - 1`` rows of the pre-conv projection, left-padded with zeros
     for a shorter prompt."""
     k = cfg.ssm.d_conv
-    y, h_last, xbc = _ssm_forward(p, x, cfg, numerics)
+    y, h_last, xbc = _ssm_forward(p, x, cfg, numerics, mesh=mesh)
     tail = xbc[:, -(k - 1):, :]
     pad = k - 1 - tail.shape[1]
     if pad > 0:
@@ -183,24 +227,27 @@ def ssm_prefill(p: dict, x: torch.Tensor, cfg, numerics):
     return y, SSMState(conv=tail.contiguous(), ssm=h_last)
 
 
-def ssm_decode(p: dict, x: torch.Tensor, state: SSMState, cfg, numerics):
+def ssm_decode(p: dict, x: torch.Tensor, state: SSMState, cfg, numerics,
+               mesh=None):
     """x: (B, 1, d); ``state`` is one layer's (B, ...) view of the pool,
     updated in place and returned."""
     s = cfg.ssm
-    d_inner, n_heads, _ = _dims(cfg)
+    di, hl, gl, _ = _local_dims(cfg, mesh)
     bsz = x.shape[0]
-    g, hg, n = s.n_groups, n_heads // s.n_groups, s.d_state
-    z, xbc, dt = _split_proj(p, x, cfg)  # (B,1,*)
+    g, n = s.n_groups, s.d_state
+    hg = hl // g
+    z, xbc, dt = _split_proj(p, x, cfg, mesh)  # (B,1,*)
     window = torch.cat([state.conv, xbc], dim=1)  # (B, d_conv, conv_dim)
     # the reference's dot over the window, accumulated in float32
     conv_out = ((window.to(_F32) * p["conv_w"].to(_F32)).sum(1)
                 .to(window.dtype) + p["conv_b"])
     xbc1 = numerics.silu(conv_out)
-    x_ssm = xbc1[:, :d_inner].reshape(bsz, n_heads, s.head_dim)
-    b_mat = xbc1[:, d_inner:d_inner + g * n].reshape(bsz, g, n).to(_F32)
-    c_mat = xbc1[:, d_inner + g * n:].reshape(bsz, g, n).to(_F32)
-    dt_f = numerics.softplus(dt[:, 0].to(_F32) + p["dt_bias"])  # (B,H)
-    a = -torch.exp(p["a_log"])
+    x_ssm = xbc1[:, :di].reshape(bsz, hl, s.head_dim)
+    b_mat, c_mat = _gather_bc(xbc1[:, di:], cfg, mesh)
+    b_mat, c_mat = b_mat.to(_F32), c_mat.to(_F32)
+    dt_f = numerics.softplus(dt[:, 0].to(_F32)
+                             + tp_cols(p["dt_bias"], hl, mesh))  # (B,H)
+    a = -torch.exp(tp_cols(p["a_log"], hl, mesh))
     decay = numerics.exp_neg(dt_f * a)  # exp(dt*A), arg <= 0
     xg = x_ssm.reshape(bsz, g, hg, s.head_dim).to(_F32)
     dtg = dt_f.reshape(bsz, g, hg)
@@ -209,12 +256,13 @@ def ssm_decode(p: dict, x: torch.Tensor, state: SSMState, cfg, numerics):
     h = state.ssm.reshape(bsz, g, hg, s.head_dim, n)
     h_new = h * decay.reshape(bsz, g, hg)[..., None, None] + upd
     y = torch.einsum("bgn,bgmpn->bgmp", c_mat, h_new)
-    y = y.reshape(bsz, n_heads, s.head_dim) + x_ssm * p["d_skip"][None, :,
-                                                                  None]
-    y = _gated_norm(p, y.reshape(bsz, 1, d_inner).to(x.dtype), z, numerics)
+    y = y.reshape(bsz, hl, s.head_dim) + x_ssm * tp_cols(
+        p["d_skip"], hl, mesh)[None, :, None]
+    y = _gated_norm(p, y.reshape(bsz, 1, di).to(x.dtype), z, numerics, mesh)
     state.conv.copy_(window[:, 1:])
-    state.ssm.copy_(h_new.reshape(bsz, n_heads, s.head_dim, n))
-    return y @ p["out_proj"], state
+    state.ssm.copy_(h_new.reshape(bsz, hl, s.head_dim, n))
+    y = y @ p["out_proj"]
+    return (y if mesh is None else mesh.tp_sum(y)), state
 
 
 def ssm_state_specs(cfg, b: int, dtype) -> SSMState:

@@ -65,6 +65,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -79,9 +80,15 @@ from repro_torch.models.layers import init_rule  # noqa: F401  (re-export)
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import (load_balance_loss_from_probs, moe_block,
                                     moe_shapes)
+from repro_torch.util.tree import tree_leaves
 
 LOSS_CHUNK = 512
 AUX_WEIGHT = 0.01
+
+# Set by ``launch.xprof.profile_step`` while it traces a step: counts a
+# repeating segment's first step once per repeat (:func:`backbone`, on
+# fake tensors only).
+TRACER = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,6 +322,25 @@ def splice_cache(cfg, pool, one, slot: int):
     return pool
 
 
+def _mixer_mesh(lp: dict, kind: LayerKind, cfg, mesh):
+    """The mesh a layer's mixer splits its heads over (every head at ``tp
+    == 1``), or None where it runs whole: no mesh, or a mixer the
+    placement replicates over ``tp > 1`` (``launch.sharding.whole_mixer``:
+    its weights hold every head)."""
+    if mesh is None or mesh.tp == 1:
+        return mesh
+    w = lp["mixer"]
+    if kind.mixer == "ssm":
+        whole = w["out_proj"].shape[0] == cfg.ssm.expand * cfg.d_model
+    elif kind.mixer == "mla":
+        m = cfg.mla
+        whole = w["wq_b"].shape[-1] == cfg.n_heads * (
+            m.qk_nope_head_dim + m.qk_rope_head_dim)
+    else:
+        whole = w["wq"].shape[-1] == cfg.n_heads * cfg.head_size
+    return None if whole else mesh
+
+
 def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
                 mode: str, cache=None, cache_len: int = 0, pos=None,
                 cross=None, mesh=None):
@@ -325,39 +351,40 @@ def apply_layer(lp: dict, kind: LayerKind, h, positions, cfg, numerics,
     "decode" ``cache``, one layer's view of the pool, updated in place; in
     "train" the layer's MoE load-balance aux (None without an MoE FFN).
     ``mesh``: the tensor- / data-parallel mesh the layer's weights and
-    cache are this rank's shards of (``launch.mesh.Mesh``); the MLA and SSM
-    mixers serve only at ``tp == 1``, where they run whole."""
+    cache are this rank's shards of (``launch.mesh.Mesh``). Each mixer
+    splits its own heads over ``tp``, or runs whole on every rank where
+    the placement replicates it (:func:`_mixer_mesh`)."""
     x = apply_norm(lp["norm1"], h, cfg, numerics)
-    whole = mesh is not None and kind.mixer in ("ssm", "mla")
-    if whole:
-        x = mesh.tp_enter(x)
+    mm = _mixer_mesh(lp, kind, cfg, mesh)
     if kind.mixer == "ssm":
         if mode == "train":
-            y = ssm_mod.ssm_train(lp["mixer"], x, cfg, numerics)
+            y = ssm_mod.ssm_train(lp["mixer"], x, cfg, numerics, mesh=mm)
         elif mode == "prefill":
-            y, cache = ssm_mod.ssm_prefill(lp["mixer"], x, cfg, numerics)
+            y, cache = ssm_mod.ssm_prefill(lp["mixer"], x, cfg, numerics,
+                                           mesh=mm)
         else:
             y, cache = ssm_mod.ssm_decode(lp["mixer"], x, cache, cfg,
-                                          numerics)
+                                          numerics, mesh=mm)
     else:
         mla = kind.mixer == "mla"
-        kw = {} if mla else {"mesh": mesh}  # GQA splits its own heads
         if mode == "train":
             y = (attn.mla_train if mla else attn.gqa_train)(
-                lp["mixer"], x, positions, cfg, numerics, **kw)
+                lp["mixer"], x, positions, cfg, numerics, mesh=mm)
         elif mode == "prefill":
             y, cache = (attn.mla_prefill if mla else attn.gqa_prefill)(
-                lp["mixer"], x, positions, cfg, numerics, cache_len, **kw)
+                lp["mixer"], x, positions, cfg, numerics, cache_len, mesh=mm)
         else:
             y, cache = (attn.mla_decode if mla else attn.gqa_decode)(
-                lp["mixer"], x, pos, cache, cfg, numerics, **kw)
-    if whole:
-        y = mesh.tp_sum(y)
+                lp["mixer"], x, pos, cache, cfg, numerics, mesh=mm)
     h = h + y
     if cross is not None:
+        cm = mesh
+        if mesh is not None and mesh.tp > 1 and lp["cross"]["wq"].shape[
+                -1] == cfg.n_heads * cfg.head_size:
+            cm = None  # replicated over tp: whole on every rank
         xc = apply_norm(lp["norm_x"], h, cfg, numerics)
-        kv = attn.cross_kv(lp["cross"], cross, cfg, mesh)
-        h = h + attn.cross_apply(lp["cross"], xc, kv, cfg, numerics, mesh)
+        kv = attn.cross_kv(lp["cross"], cross, cfg, cm)
+        h = h + attn.cross_apply(lp["cross"], xc, kv, cfg, numerics, cm)
     aux = None
     if kind.ffn is not None:
         x2 = apply_norm(lp["norm2"], h, cfg, numerics)
@@ -399,43 +426,91 @@ def _remat(fn, cfg):
 
 def backbone(p: dict, h, positions, cfg, numerics, mode: str,
              caches=None, cache_len: int = 0, pos=None, cross=None,
-             mesh=None):
+             mesh=None, gather=None):
     """Run every layer and the final norm. ``mode``: "prefill" (returns
     (h, the new stacked cache)), "decode" (updates ``caches`` in place;
     returns (h, caches)) or "train" (returns (h, the MoE aux summed over
     the layers), each layer under ``cfg.remat``); ``cross`` is the encoder
     output every layer's cross attention reads; ``mesh`` the mesh whose
-    shards ``p`` and ``caches`` hold (:func:`apply_layer`). ``numerics`` is one
-    backend for every layer, or a plan-resolved object whose
-    ``for_layer(i)`` gives layer ``i``'s (the final norm then runs under
-    the object itself: the plan's ``rest``)."""
+    shards ``p`` and ``caches`` hold (:func:`apply_layer`); ``gather``
+    (ZeRO-3, ``train.step``) maps a layer's parameter subtree and its path
+    to the tree it computes with, inside the layer's checkpointed
+    function. ``numerics`` is one backend for every layer, or a
+    plan-resolved object whose ``for_layer(i)`` gives layer ``i``'s (the
+    final norm then runs under the object itself: the plan's ``rest``).
+
+    Where :data:`TRACER` is set (``launch.xprof.profile_step``) a
+    repeating segment runs its first step only, between the tracer's
+    ``loop_enter`` / ``loop_exit`` marks, which count it once per repeat
+    (the reference's scanned layers); a prefill's later steps reuse the
+    first step's cache for their own, and in training each later layer's
+    parameters (and ``cross``) pass through the tracer's ``skip_layer``,
+    which gives them their gradients' storage in the backward pass; the
+    first step reads ``cross`` through the loop mark, so that its
+    gradient joins the others' outside the counted region."""
     if mode not in ("prefill", "decode", "train"):
         raise ValueError(f"unknown mode {mode!r}")
     per_layer = hasattr(numerics, "for_layer")
     slots = layer_slots(cfg)
-    new_kv, new_ssm = [], []
+    plan = layer_plan(cfg)
+    tracer = TRACER if TRACER is not None and is_fake(h) else None
+    new_kv, new_ssm, first, unbound = [], [], {}, {}
+    seg_cross = None
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        num = numerics.for_layer(i) if per_layer else numerics
-        kind, lp = layer_params(p, cfg, i)
+        seg, j, r, ci, kind = slots[i]
         ssm = kind.mixer == "ssm"
+        seg_plan = plan[int(seg[3:])]
+        if tracer is not None and r:  # counted by the segment's first step
+            if mode == "prefill":
+                (new_ssm if ssm else new_kv).append(first[j])
+            elif mode == "train":  # its parameters still take gradients
+                h = tracer.skip_layer(h, j, tree_leaves(
+                    map_tree(lambda _n, ts: ts[r], unbound[seg][j])), cross)
+            continue
+        if mode == "train" and r is not None and seg not in unbound:
+            # one unbind per stacked leaf: its backward stacks the layers'
+            # gradients once (a select per layer would add a whole-stack
+            # zero-padded gradient per layer); ahead of the tracer's loop
+            # mark, so that the stack counts once
+            unbound[seg] = map_tree(lambda _n, t: t.unbind(0),
+                                    p["segments"][seg])
+        looped = tracer is not None and r == 0
+        if looped and j == "0":
+            h, seg_cross = tracer.loop_enter(h, seg_plan.repeat, cross)
+        xc = seg_cross if looped else cross
+        num = numerics.for_layer(i) if per_layer else numerics
         if mode == "train":
-            def layer(h_in, lp=lp, kind=kind, num=num):
+
+            def layer(h_in, kind=kind, num=num, seg=seg, j=j, r=r, i=i,
+                      xc=xc):
+                lp = (layer_params(p, cfg, i)[1] if r is None else
+                      map_tree(lambda _n, ts: ts[r], unbound[seg][j]))
+                if gather is not None:
+                    lp = gather(lp, f"segments/{seg}/{j}")
                 return apply_layer(lp, kind, h_in, positions, cfg, num,
-                                   "train", cross=cross, mesh=mesh)
+                                   "train", cross=xc, mesh=mesh)
             h, a = _remat(layer, cfg)(h)
             if a is not None:
                 aux = aux + a
-            continue
-        layer = None
-        if mode == "decode":
-            ci = slots[i][3]
-            layer = (ssm_mod.SSMState(*(t[ci] for t in caches.ssm)) if ssm
-                     else attn.KVCache(*(t[ci] for t in _kv(caches))))
-        h, c = apply_layer(lp, kind, h, positions, cfg, num, mode, layer,
-                           cache_len, pos, cross, mesh)
-        if mode == "prefill":
-            (new_ssm if ssm else new_kv).append(c)
+        else:
+            lp = layer_params(p, cfg, i)[1]
+            if gather is not None:
+                lp = gather(lp, f"segments/{seg}/{j}")
+            layer = None
+            if mode == "decode":
+                layer = (ssm_mod.SSMState(*(t[ci] for t in caches.ssm))
+                         if ssm
+                         else attn.KVCache(*(t[ci] for t in _kv(caches))))
+            h, c = apply_layer(lp, kind, h, positions, cfg, num, mode,
+                               layer, cache_len, pos, xc, mesh)
+            if mode == "prefill":
+                (new_ssm if ssm else new_kv).append(c)
+                first[j] = c
+        if looped:
+            tracer.layer_done(j)
+        if looped and j == str(len(seg_plan.pattern) - 1):
+            h, aux = tracer.loop_exit(h, aux, seg_plan.repeat)
     h = apply_norm(p["final_norm"], h, cfg, numerics)
     if mode == "train":
         return h, aux
@@ -561,12 +636,16 @@ def chunked_ce_loss(p_embed: dict, h: torch.Tensor, labels: torch.Tensor,
     return total / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(p: dict, batch: dict, cfg, numerics, mesh=None):
+def loss_fn(p: dict, batch: dict, cfg, numerics, mesh=None, gather=None):
     """batch: tokens (B, S) int, labels (B, S) int, mask (B, S), plus
     ``frontend_emb`` (VLM) or ``enc_frames`` (encoder-decoder), tensors on
     the parameters' device. Returns (CE + ``AUX_WEIGHT`` * aux, {"ce",
     "aux"}). On a mesh ``p`` holds this rank's tensor-parallel shards and
-    the batch is this rank's rows."""
+    the batch is this rank's rows; ``gather`` (ZeRO-3: a subtree and its
+    path -> the tree computed with) runs on every top-level subtree here
+    and on each layer's inside :func:`backbone`."""
+    if gather is not None:
+        p = {k: v if k == "segments" else gather(v, k) for k, v in p.items()}
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = _positions(b, s, tokens.device)
@@ -576,7 +655,7 @@ def loss_fn(p: dict, batch: dict, cfg, numerics, mesh=None):
     h = _embed_inputs(p, tokens, positions, cfg, numerics,
                       batch.get("frontend_emb"), mesh)
     h, aux = backbone(p, h, positions, cfg, numerics, "train", cross=cross,
-                      mesh=mesh)
+                      mesh=mesh, gather=gather)
     ce = chunked_ce_loss(p["embed"], h, batch["labels"], batch["mask"],
                          mesh, cfg.vocab_size)
     return ce + AUX_WEIGHT * aux, {"ce": ce, "aux": aux}

@@ -27,13 +27,17 @@ def compress_init(params: dict) -> dict:
                                           device=x.device), params)
 
 
-def compress_grads(grads: dict, residual: dict):
+def compress_grads(grads: dict, residual: dict, amax=None):
     """Returns (int8 payload, float32 scales, new residual), each a tree
-    shaped as ``grads``."""
+    shaped as ``grads``. ``amax``: per leaf the absolute maximum the scale
+    is taken from (a sharded leaf's whole-leaf maximum); by default each
+    tensor's own."""
     qs, scales, rs = [], [], []
-    for g, r in zip(tree_leaves(grads), tree_leaves(residual)):
+    leaves = list(zip(tree_leaves(grads), tree_leaves(residual)))
+    for i, (g, r) in enumerate(leaves):
         gf = g.to(_F32) + r
-        scale = torch.amax(torch.abs(gf)) / 127.0 + 1e-12
+        top = torch.amax(torch.abs(gf)) if amax is None else amax[i]
+        scale = top / 127.0 + 1e-12
         # round half to even, as jnp.round
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         qs.append(q)

@@ -97,8 +97,10 @@ one eager collective per group runs at construction, before any
 capture); ``stats["collectives"]`` counts those the prefills and ticks
 ran. Decisions a
 rank takes from its own state agree across the mesh: the ROM verdict is
-reduced over every rank. The MLA and SSM mixers serve under ``data`` only
-(``tp > 1`` raises ``ValueError``).
+reduced over every rank. Under ``tp > 1`` the MLA and Mamba2 mixers
+split their heads as the GQA mixer does (``models.attention`` /
+``models.ssm``); a mixer whose heads ``tp`` does not divide runs whole on
+every rank (``launch.sharding.whole_mixer``).
 """
 from __future__ import annotations
 
@@ -141,6 +143,43 @@ def _libraries(library) -> tuple:
 
 # the tick's chunk sizes: the powers of two up to ``horizon``
 chunk_sizes = aot_mod.tick_chunk_sizes
+
+
+def make_serve_step(cfg, fused: bool = False, mesh=None) -> Callable:
+    """``step(params, token (B, 1), pos () or (B,), caches, cross=None,
+    library=None) -> (logits, caches)``: one decode step (the reference's
+    ``make_serve_step``); ``pos`` a scalar (uniform batch) or each slot's
+    own next position. ``library`` binds the interp numerics; ``fused=True``
+    lowers them through the library-bound fused kernels. ``mesh``: the
+    mesh whose shards ``params`` and ``caches`` hold."""
+
+    def step(params, token, pos, caches, cross=None, library=None):
+        numerics = get_numerics(cfg, library, fused=fused)
+        return tf.decode_step(params, token, pos, caches, cfg, numerics,
+                              cross=cross, mesh=mesh)
+
+    return step
+
+
+def make_prefill(cfg, cache_len: int, fused: bool = False,
+                 mesh=None) -> Callable:
+    """``pf(params, tokens, frontend_emb=None, enc_frames=None,
+    library=None) -> (logits, caches)`` (the reference's ``make_prefill``).
+    An encoder-decoder's ``enc_frames`` run through ``encoder_forward``
+    and the decoder takes its output as ``cross=`` (the reference's
+    prefill also returns that output; this one returns the two values of
+    ``models.transformer.prefill``)."""
+
+    def pf(params, tokens, frontend_emb=None, enc_frames=None,
+           library=None):
+        numerics = get_numerics(cfg, library, fused=fused)
+        cross = (tf.encoder_forward(params["encoder"], enc_frames, cfg,
+                                    numerics, mesh)
+                 if enc_frames is not None else None)
+        return tf.prefill(params, tokens, cfg, numerics, cache_len,
+                          frontend_emb=frontend_emb, cross=cross, mesh=mesh)
+
+    return pf
 
 
 class Rejected(ValueError):
@@ -321,7 +360,8 @@ class ServeEngine:
                       "graph": False, "graph_reason": None,
                       "captures": 0, "capture_s": 0.0,
                       "launches": dict.fromkeys(build.LAUNCHES, 0),
-                      "collectives": {"all_reduce": 0, "all_gather": 0}}
+                      "collectives": {"all_reduce": 0, "all_gather": 0,
+                                      "reduce_scatter": 0}}
         self.faults: list[dict] = []  # structured fault / degradation log
         self._trips = 0  # watchdog trips since the last degradation
         self.journal = (journal if isinstance(journal, (ServeJournal,
@@ -374,8 +414,8 @@ class ServeEngine:
     def _check_mesh(self, cfg, slots: int) -> None:
         """Refuse, before any launch, what a meshed engine cannot serve: a
         mesh whose groups cannot carry this device's tensors, other axes
-        than ``("data", "tp")``, a slot pool ``data`` does not divide, and
-        the MLA and SSM mixers under ``tp > 1``."""
+        than ``("data", "tp")`` and a slot pool ``data`` does not
+        divide."""
         mesh = self.mesh
         if tuple(mesh.axis_names) != ("data", "tp"):
             raise ValueError(f"a serve mesh has axes ('data', 'tp'), not "
@@ -384,11 +424,6 @@ class ServeEngine:
         if slots % mesh.shape["data"]:
             raise ValueError(f"{slots} slots do not split over "
                              f"data={mesh.shape['data']}")
-        if mesh.tp > 1 and (cfg.mla is not None or tf.has_ssm(cfg)):
-            raise ValueError(
-                f"{cfg.name}: the {'MLA' if cfg.mla is not None else 'SSM'} "
-                f"mixer has no tensor-parallel path (tp={mesh.tp}); serve it "
-                f"over data only (ROADMAP queue 1 item 5b)")
 
     def _shard_params(self, params: dict, library) -> dict:
         """This rank's weight shards (``placement_specs`` under
@@ -409,19 +444,20 @@ class ServeEngine:
         specs = shlib.placement_specs(params, self.cfg, mesh,
                                       shlib.SERVE_PARAM_RULES)
         return shlib.shard_tree(params, specs, mesh,
-                                shlib.glu_leaves(params, self.cfg))
+                                shlib.split_leaves(params, self.cfg, mesh))
 
     def _new_cache(self):
         """An empty cache pool of this rank's shape: every slot without a
-        mesh; on a mesh the owned slots' rows of this rank's KV heads
-        (``cache_specs_sharding``) and one scratch row past them."""
+        mesh; on a mesh the owned slots' rows of this rank's KV heads and
+        SSM channels and heads (``cache_placement_specs``) and one scratch
+        row past them."""
         full = tf.cache_shapes(self.cfg, self.slots, self.cache_len)
         if self.mesh is None:
             return tf.alloc_cache(full, self.device)
         from repro_torch.launch import sharding as shlib
         from repro_torch.models.layers import spec
 
-        specs = shlib.cache_specs_sharding(full, self.cfg, self.mesh)
+        specs = shlib.cache_placement_specs(full, self.cfg, self.mesh)
         leaves = shlib.spec_leaves(specs, len(tf.cache_leaves(full)))
         local = [shlib.local_shape(sp.shape, e, self.mesh)
                  for sp, e in zip(tf.cache_leaves(full), leaves)]

@@ -17,18 +17,30 @@ a ``ValueError`` before any launch (on the CPU their plain versions are
 torch ops and differentiate).
 
 ``mesh=`` (``launch.mesh.make_host_mesh``: ``data x model``, one process
-per rank): the state holds this rank's tensor-parallel shards
-(:func:`shard_state`, ``launch.sharding.TRAIN_PARAM_RULES``: Megatron
-column / row over ``model``, replicated over ``data``), the batch is this
-rank's rows, the models issue the ``model`` collectives through autograd
-(``Mesh.tp_*``), the gradients, loss and aux are averaged over ``data`` in
-one all-reduce, and ``grad_norm`` sums the squares of the split leaves
-over ``model`` and counts each replicated leaf once. The MLA and SSM
-mixers train at ``model == 1`` only.
+per rank; or a traced production mesh, ``pod x data x model``): the
+state holds this rank's shards (:func:`shard_state`,
+``launch.sharding.TRAIN_PARAM_RULES``, the reference's ``PARAM_RULES``:
+Megatron column / row over ``model``, ZeRO-3 over ``fsdp``, i.e. ``pod x
+data`` or ``data``), the parameters, the AdamW master and moments and the
+compression residual alike. The batch is this rank's rows. The step
+all-gathers each layer's ZeRO-3 leaves over their ``fsdp`` axes inside
+the layer's checkpointed function (so remat gathers them again in the
+backward pass rather than keeping them) and the backward pass
+reduce-scatters their gradients over the same axes; the models issue the
+``model`` collectives through autograd (``Mesh.tp_*``). Each gradient is
+then summed over the data-parallel axes (``pod``, ``data``) it is not
+split over, in one all-reduce per axis and group of leaves, and divided
+by the data-parallel size, as are loss and aux. ``grad_norm`` sums each
+leaf's squares over the axes it is split over. AdamW updates this rank's
+shard. Under ``compress_pods`` each gradient shard takes the int8
+error-feedback round trip with its whole leaf's scale (the amax reduced
+over the leaf's shards), so the sharded step is the unsharded one; as in
+the reference, the reduction itself carries the dequantized floats.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple
 
 import torch
@@ -111,7 +123,7 @@ def batch_to(batch: dict, device) -> dict:
 
 
 def loss_and_grads(params: dict, batch: dict, cfg, numerics,
-                   microbatches: int = 1, mesh=None):
+                   microbatches: int = 1, mesh=None, gather=None):
     """(loss, aux, grads) of ``tf.loss_fn`` at ``params``. With n > 1
     microbatches the batch's leading axis is cut into n slices, each
     slice's gradients accumulated in float32, and loss, aux and gradients
@@ -128,7 +140,7 @@ def loss_and_grads(params: dict, batch: dict, cfg, numerics,
     def one(mb):
         leaves = [t.detach().requires_grad_(True) for _, t in named]
         loss, m = tf.loss_fn(unflatten_like(params, leaves), mb, cfg,
-                             numerics, mesh)
+                             numerics, mesh, gather)
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
         gs = [torch.zeros_like(t) if g is None else g
               for g, t in zip(gs, leaves)]
@@ -155,15 +167,10 @@ def loss_and_grads(params: dict, batch: dict, cfg, numerics,
 
 def train_specs(cfg, mesh) -> dict:
     """The parameters' placement specs on a training mesh (from the full
-    shapes): ``ValueError`` for the MLA and SSM mixers under ``model > 1``
-    (ROADMAP queue 1 item 5b)."""
+    shapes): ``TRAIN_PARAM_RULES``, a mixer whose heads ``model`` does not
+    divide replicated over it (``launch.sharding.whole_mixer``)."""
     from repro_torch.launch import sharding as shlib
 
-    if mesh.tp > 1 and (cfg.mla is not None or tf.has_ssm(cfg)):
-        raise ValueError(
-            f"{cfg.name}: the {'MLA' if cfg.mla is not None else 'SSM'} "
-            f"mixer has no tensor-parallel path (model={mesh.tp}); train it "
-            f"over data only (ROADMAP queue 1 item 5b)")
     return shlib.placement_specs(tf.model_shapes(cfg), cfg, mesh,
                                  shlib.TRAIN_PARAM_RULES)
 
@@ -175,11 +182,11 @@ def shard_state(state: TrainState, cfg, mesh) -> TrainState:
     from repro_torch.launch import sharding as shlib
 
     specs = train_specs(cfg, mesh)
-    glu = shlib.glu_leaves(state.params, cfg)
+    split = shlib.split_leaves(state.params, cfg, mesh)
 
     def cut(tree):
         return (None if tree is None
-                else shlib.shard_tree(tree, specs, mesh, glu))
+                else shlib.shard_tree(tree, specs, mesh, split))
     return TrainState(cut(state.params),
                       AdamWState(state.opt.step, *(cut(t) for t in (
                           state.opt.master, state.opt.mu, state.opt.nu))),
@@ -188,46 +195,160 @@ def shard_state(state: TrainState, cfg, mesh) -> TrainState:
 
 def gather_state(state: TrainState, cfg, mesh) -> TrainState:
     """The full train state from every rank's shard (the inverse of
-    :func:`shard_state`; a collective over ``model``)."""
+    :func:`shard_state`; a collective over every axis a leaf is split
+    over)."""
     from repro_torch.launch import sharding as shlib
 
     specs = train_specs(cfg, mesh)
-    glu = shlib.glu_leaves(state.params, cfg)
+    split = shlib.split_leaves(tf.model_shapes(cfg), cfg, mesh)
 
     def whole(tree):
         return (None if tree is None
-                else shlib.gather_tree(tree, specs, mesh, glu))
+                else shlib.gather_tree(tree, specs, mesh, split))
     return TrainState(whole(state.params),
                       AdamWState(state.opt.step, *(whole(t) for t in (
                           state.opt.master, state.opt.mu, state.opt.nu))),
                       whole(state.residual))
 
 
-def _data_mean(mesh, loss, aux, grads: dict):
-    """Loss, aux and gradients averaged over ``data`` in one all-reduce of
-    a float32 buffer."""
+_DP = ("pod", "data")
+
+
+class _FSDPGather(torch.autograd.Function):
+    """All-gather a ZeRO-3 shard over ``axes`` along ``dim`` (the inner
+    axis first, as ``shard_tree`` cuts); the gradient is reduce-scattered
+    back over the same axes."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        for ax in reversed(axes):
+            t = mesh.all_gather(t, ax, dim)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        for ax in ctx.axes:
+            g = ctx.mesh.reduce_scatter(g, ax, ctx.dim)
+        return g, None, None, None
+
+
+def fsdp_gather_fn(cfg, specs, mesh):
+    """``gather(subtree, path)`` for ``tf.loss_fn``: every leaf of the
+    subtree at ``path`` whole over its ``fsdp`` axes (:class:`_FSDPGather`);
+    a layer's slice of a stacked leaf takes the stacked spec without its
+    layer axis. None where no leaf is split over a data-parallel axis."""
+    from repro_torch.launch.sharding import axes_of, spec_leaves
+
+    by_path = dict(zip((p for p, _ in leaves_with_paths(
+        tf.model_shapes(cfg))), spec_leaves(specs)))
+    if not any(ax in _DP for sp in by_path.values() for e in sp
+               for ax in axes_of(e)):
+        return None
+
+    def gather(tree, prefix: str):
+        out = []
+        for path, t in leaves_with_paths(tree):
+            spec = by_path[f"{prefix}/{path}" if path else prefix]
+            spec = spec[len(spec) - t.dim():]
+            for dim, e in enumerate(spec):
+                axes = tuple(ax for ax in axes_of(e) if ax in _DP)
+                if axes:
+                    t = _FSDPGather.apply(t, mesh, dim, axes)
+            out.append(t)
+        return unflatten_like(tree, out)
+    return gather
+
+
+def _split_axes(specs) -> list:
+    """Per leaf (flattening order) the sorted mesh axes it is split over."""
+    from repro_torch.launch.sharding import axes_of, spec_leaves
+
+    return [tuple(sorted({ax for e in sp for ax in axes_of(e)}))
+            for sp in spec_leaves(specs)]
+
+
+def _groups(keys: list) -> dict:
+    out: dict = {}
+    for i, k in enumerate(keys):
+        out.setdefault(k, []).append(i)
+    return out
+
+
+def _dp_reduce(mesh, loss, aux, grads: dict, split: list):
+    """Loss, aux and gradients summed over the data-parallel axes each is
+    not split over (one float32 buffer per group of leaves, one all-reduce
+    per axis) and divided by the data-parallel size."""
+    dp = [ax for ax in _DP if ax in mesh.shape]
+    n = math.prod(mesh.shape[ax] for ax in dp)
     leaves = tree_leaves(grads)
-    flat = torch.cat([loss.reshape(1).to(_F32), aux.reshape(1).to(_F32)]
-                     + [g.reshape(-1).to(_F32) for g in leaves])
-    mesh.all_reduce(flat, "data").div_(mesh.shape["data"])
-    out, i = [], 2
-    for g in leaves:
-        out.append(flat[i:i + g.numel()].view(g.shape).to(g.dtype))
-        i += g.numel()
-    return flat[0], flat[1], unflatten_like(grads, out)
+    need = [tuple(ax for ax in dp if ax not in sp) for sp in split]
+    full = tuple(dp)
+    groups = _groups(need)
+    groups.setdefault(full, [])
+    out = list(leaves)
+    for axes, idx in groups.items():
+        extra = ([loss.reshape(1).to(_F32), aux.reshape(1).to(_F32)]
+                 if axes == full else [])
+        flat = torch.cat(extra + [leaves[i].reshape(-1).to(_F32)
+                                  for i in idx])
+        for ax in axes:
+            mesh.all_reduce(flat, ax)
+        flat = flat / n
+        at = len(extra)
+        if extra:
+            loss, aux = flat[0], flat[1]
+        for i in idx:
+            g = leaves[i]
+            out[i] = flat[at:at + g.numel()].view(g.shape).to(g.dtype)
+            at += g.numel()
+    return loss, aux, unflatten_like(grads, out)
+
+
+def _reduce_groups(mesh, vals: list, split: list, op: str) -> list:
+    """Each of the 0-dim float32 ``vals`` reduced (``op``) over the axes
+    its leaf is split over: one all-reduce per axis and group."""
+    out = list(vals)
+    for axes, idx in _groups(split).items():
+        if not axes:
+            continue
+        flat = torch.stack([vals[i].reshape(()) for i in idx])
+        for ax in axes:
+            mesh.all_reduce(flat, ax, op)
+        for k, i in enumerate(idx):
+            out[i] = flat[k]
+    return out
 
 
 def _mesh_grad_norm(grads: dict, split: list, mesh) -> torch.Tensor:
-    """The global norm of tensor-parallel gradients: the split leaves'
-    squares summed over ``model``, each replicated leaf counted once."""
+    """The global norm of sharded gradients: each leaf's squares summed
+    over the axes it is split over, each replicated leaf counted once."""
     leaves = tree_leaves(grads)
-    zero = torch.zeros((), dtype=_F32, device=leaves[0].device)
-    sq_split = sum((torch.sum(g.to(_F32) ** 2)
-                    for g, f in zip(leaves, split) if f), zero)
-    sq_rep = sum((torch.sum(g.to(_F32) ** 2)
-                  for g, f in zip(leaves, split) if not f), zero)
-    sq_split = mesh.all_reduce(sq_split.reshape(1).clone(), mesh.tp_axis)[0]
-    return torch.sqrt(sq_split + sq_rep)
+    sq = [torch.sum(g.to(_F32) ** 2) for g in leaves]
+    groups = _groups(split)
+    total = torch.zeros((), dtype=_F32, device=leaves[0].device)
+    for axes in sorted(groups, key=len):
+        part = sum((sq[i] for i in groups[axes]), torch.zeros(
+            (), dtype=_F32, device=total.device))
+        if axes:
+            part = part.reshape(1).clone()
+            for ax in axes:
+                mesh.all_reduce(part, ax)
+            part = part[0]
+        total = total + part
+    return torch.sqrt(total)
+
+
+def _compress(grads: dict, residual: dict, split: list, mesh):
+    """``compress_grads`` on this rank's gradient shards with each whole
+    leaf's scale (its amax reduced over the leaf's shards)."""
+    if mesh is None:
+        return compress_grads(grads, residual)
+    amax = [torch.amax(torch.abs(g.to(_F32) + r)) for g, r in
+            zip(tree_leaves(grads), tree_leaves(residual))]
+    amax = _reduce_groups(mesh, amax, split, "max")
+    return compress_grads(grads, residual, amax=amax)
 
 
 def make_train_step(cfg, step_cfg: StepConfig, library=None,
@@ -246,13 +367,11 @@ def make_train_step(cfg, step_cfg: StepConfig, library=None,
     ``batch`` is then this rank's rows."""
     numerics = get_numerics(cfg, library)
     pdt = pdtype(cfg)
-    split = None
+    split = gather = None
     if mesh is not None:
-        from repro_torch.launch.sharding import axes_of, spec_leaves
-
         specs = train_specs(cfg, mesh)
-        split = [any(mesh.tp_axis in axes_of(e) for e in sp) for sp in
-                 spec_leaves(specs)]
+        split = _split_axes(specs)
+        gather = fsdp_gather_fn(cfg, specs, mesh)
 
     def step(state: TrainState, batch: dict, step_idx):
         refuse_fused_on_cuda(numerics, state.params)
@@ -261,13 +380,14 @@ def make_train_step(cfg, step_cfg: StepConfig, library=None,
             mesh.check_device(dev)
         batch = batch_to(batch, dev)
         loss, aux, grads = loss_and_grads(state.params, batch, cfg, numerics,
-                                          step_cfg.microbatches, mesh)
+                                          step_cfg.microbatches, mesh, gather)
         gnorm = None
         if mesh is not None:
-            loss, aux, grads = _data_mean(mesh, loss, aux, grads)
+            loss, aux, grads = _dp_reduce(mesh, loss, aux, grads, split)
         residual = state.residual
         if step_cfg.compress_pods and residual is not None:
-            payload, scales, residual = compress_grads(grads, residual)
+            payload, scales, residual = _compress(grads, residual, split,
+                                                  mesh)
             grads = decompress_grads(payload, scales)
         lr = cosine_schedule(int(step_idx), peak_lr=step_cfg.peak_lr,
                              warmup=step_cfg.warmup,

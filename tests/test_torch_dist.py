@@ -303,24 +303,48 @@ def family_run(tmp_path_factory):
         got, _ = serve(cfg, params, prompts, mesh=m)
         RES["moe_equal"] = got == ref
 
-    # mamba2 (SSM) and minicpm3 (MLA): data only
-    for arch, lens in (("mamba2_130m", (5, 11, 3, 16, 9, 2)),
-                       ("minicpm3_4b", (5, 11, 3, 16, 9, 2))):
-        cfg = get_smoke_config(arch)
+    # mamba2 (SSM), minicpm3 (MLA), jamba (hybrid): over data and over tp
+    # (heads split), and a variant of each mixer whose heads tp = 2 does
+    # not divide (replicated over tp, run whole on every rank)
+    variants = (("mamba2_130m", get_smoke_config("mamba2_130m")),
+                ("minicpm3_4b", get_smoke_config("minicpm3_4b")),
+                ("jamba_v0_1_52b", get_smoke_config("jamba_v0_1_52b")),
+                ("gqa_whole", get_smoke_config("yi_6b").replace(
+                    n_heads=3, n_kv_heads=1)),
+                ("mla_whole", get_smoke_config("minicpm3_4b").replace(
+                    n_heads=3, n_kv_heads=3)),
+                ("ssm_whole", get_smoke_config("mamba2_130m").replace(
+                    ssm=get_smoke_config("mamba2_130m").ssm.__class__(
+                        d_state=15, d_conv=4, expand=2, head_dim=16,
+                        n_groups=1, chunk=32))))
+    num = get_numerics("exact")
+    for arch, cfg in variants:
         params = tf.init_params(cfg, 0, "cpu")
-        prompts = prompts_for(cfg, lens)
+        prompts = prompts_for(cfg)
         ref, _ = serve(cfg, params, prompts)
-        m = make_serve_mesh(2, 1)
-        if m.coords is not None:
-            got, _ = serve(cfg, params, prompts, mesh=m)
-            RES[f"{arch}_2x1"] = got == ref
+        for d, t in ((2, 1), (1, 2)):
+            m = make_serve_mesh(d, t)
+            if m.coords is not None:
+                got, _ = serve(cfg, params, prompts, mesh=m)
+                RES[f"{arch}_{d}x{t}"] = got == ref
+        # decode logits at (1, 2) against one process
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 32)))
+        logits, caches = tf.prefill(params, toks, cfg, num, 48)
+        tok = torch.argmax(logits, -1)
+        single, _ = tf.decode_step(params, tok, 32, caches, cfg, num)
         m = make_serve_mesh(1, 2)
         if m.coords is not None:
-            try:
-                serve(cfg, params, prompts, mesh=m)
-                RES[f"{arch}_1x2"] = "served"
-            except ValueError as e:
-                RES[f"{arch}_1x2"] = str(e)
+            specs = shlib.placement_specs(params, cfg, m,
+                                          shlib.SERVE_PARAM_RULES)
+            local = shlib.shard_tree(params, specs, m,
+                                     shlib.split_leaves(params, cfg, m))
+            _, lc = tf.prefill(local, toks, cfg, num, 48, mesh=m)
+            out, _ = tf.decode_step(local, tok, 32, lc, cfg, num, mesh=m)
+            RES[f"{arch}_max_abs"] = float((out - single).abs().max())
+            RES[f"{arch}_whole"] = shlib.whole_mixer(
+                cfg, m, "ssm" if cfg.ssm is not None else
+                "mla" if cfg.mla is not None else "attn")
     done()
     """))
 
@@ -338,11 +362,19 @@ def test_meshed_moe_engine_streams_equal_single(family_run):
     assert family_run["moe_equal"]
 
 
-@pytest.mark.parametrize("arch", ["mamba2_130m", "minicpm3_4b"])
-def test_ssm_and_mla_serve_over_data_refuse_tp(family_run, arch):
+@pytest.mark.parametrize("arch", ["mamba2_130m", "minicpm3_4b",
+                                  "jamba_v0_1_52b", "gqa_whole", "mla_whole",
+                                  "ssm_whole"])
+def test_ssm_and_mla_serve_over_data_and_tp(family_run, arch):
+    """The MLA and SSM mixers (and the Jamba hybrid) at (2, 1) and (1, 2):
+    token streams equal to the single engine, decode logits within the
+    reference's 5e-3 (measured: about 1e-6, float32); the three variants
+    whose heads tp = 2 does not divide (GQA, MLA, SSM) run the mixer whole
+    on every rank."""
     assert family_run[f"{arch}_2x1"] is True
-    msg = family_run[f"{arch}_1x2"]
-    assert "item 5b" in msg and "tensor-parallel" in msg
+    assert family_run[f"{arch}_1x2"] is True
+    assert family_run[f"{arch}_max_abs"] < 5e-3
+    assert family_run[f"{arch}_whole"] == arch.endswith("_whole")
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +390,13 @@ def train_run(tmp_path_factory):
     from repro_torch.launch.elastic import remesh_state, reshard_checkpoint
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.pipeline import pipeline_apply
-    from repro_torch.train.step import (StepConfig, make_train_step,
-                                        shard_state, train_state_init)
+    import math, pathlib
+    from repro_torch.launch.mesh import trace_mesh
+    from repro_torch.launch.xprof import profile_step
+    from repro_torch.train.step import (StepConfig, gather_state,
+                                        make_train_step, shard_state,
+                                        train_specs, train_state_init)
+    from repro_torch.util.tree import leaves_with_paths, tree_leaves
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     # the train step at data 2 x model 2 against one process
@@ -375,11 +412,78 @@ def train_run(tmp_path_factory):
         state, {k: v[2 * d:2 * d + 2] for k, v in batch.items()}, 0)
     RES["step"] = {k: [float(m1[k]), float(m2[k])]
                    for k in ("loss", "grad_norm")}
+    # ZeRO-3: the state after one step at data 2 x model 2, gathered, leaf
+    # by leaf against the single step's (with and without compression):
+    # per leaf [max |sharded - single|, max |single|]
+    local = {k: v[2 * d:2 * d + 2] for k, v in batch.items()}
+    for name, zc in (("plain", sc), ("compress", StepConfig(
+            peak_lr=1e-3, warmup=0, compress_pods=True))):
+        s1, _ = make_train_step(cfg, zc)(train_state_init(cfg, zc, 0, "cpu"),
+                                         batch, 0)
+        s2, _ = make_train_step(cfg, zc, mesh=mesh)(shard_state(
+            train_state_init(cfg, zc, 0, "cpu"), cfg, mesh), local, 0)
+        g2 = gather_state(s2, cfg, mesh)
+        parts = {}
+        for part, a, b in (("params", s1.params, g2.params),
+                           ("master", s1.opt.master, g2.opt.master),
+                           ("mu", s1.opt.mu, g2.opt.mu),
+                           ("nu", s1.opt.nu, g2.opt.nu),
+                           ("residual", s1.residual, g2.residual)):
+            if a is None:
+                continue
+            parts[part] = {
+                p: [float((x.float() - y.float()).abs().max())
+                    if x.shape == y.shape else float("inf"),
+                    float(x.float().abs().max())]
+                for (p, x), (_, y) in zip(leaves_with_paths(a),
+                                          leaves_with_paths(b))}
+        RES[f"zero3_{name}"] = parts
+    # ZeRO-3: every leaf split over data holds 1/data of it on this rank
+    full = train_state_init(cfg, sc, 0, "cpu")
+    specs = train_specs(cfg, mesh)
+    sizes = []
+    for (path, t), sp, loc in zip(
+            leaves_with_paths(full.opt.mu), shlib.spec_leaves(specs),
+            tree_leaves(state.opt.mu)):
+        axes = {a for e in sp for a in shlib.axes_of(e)}
+        sizes.append(["data" in axes, loc.numel() * math.prod(
+            mesh.shape[a] for a in axes) == t.numel()])
+    RES["zero3"] = {"over_data": sum(d for d, _ in sizes),
+                    "leaves": len(sizes), "ok": all(k for _, k in sizes)}
+    # a checkpoint of the gathered shards is the unsharded layout, bytes
+    whole = gather_state(shard_state(full, cfg, mesh), cfg, mesh)
+    if RANK == 0:
+        save(f"{TMP}/ck_full", 0, full)
+        save(f"{TMP}/ck_sharded", 0, whole)
+        a = sorted(pathlib.Path(f"{TMP}/ck_full").rglob("*.npy"))
+        b = sorted(pathlib.Path(f"{TMP}/ck_sharded").rglob("*.npy"))
+        RES["ckpt_bytes_equal"] = (
+            [p.relative_to(f"{TMP}/ck_full") for p in a]
+            == [p.relative_to(f"{TMP}/ck_sharded") for p in b]
+            and all(x.read_bytes() == y.read_bytes() for x, y in zip(a, b))
+            and len(a) > 0)
+    dist.barrier()
+
+    # the collectives one step issues on (1, 2) gloo ranks, by kind and
+    # axis, against the traced (1, 2) mesh's record of the same step
+    m12 = make_mesh((1, 2), ("data", "model"))
+    if m12.coords is not None:
+        st = shard_state(train_state_init(cfg, sc, 0, "cpu"), cfg, m12)
+        m12.log.clear()
+        make_train_step(cfg, sc, mesh=m12)(st, batch, 0)
+        tm = trace_mesh((1, 2), ("data", "model"))
+        prof, _ = profile_step(lambda s, b: make_train_step(
+            cfg, sc, mesh=tm)(s, b, 0), st, batch, loops=False)
+        RES["coll"] = {"gloo": sorted([*k, n] for k, n in m12.log.items()),
+                       "traced": sorted([*k, n] for k, n in tm.log.items()),
+                       "profile": prof.collective_count}
+
     # the other families' tensor-parallel sites: cross attention and the
     # encoder (whisper), the projector (internvl), QKV bias, MoE experts,
-    # the window, squared ReLU; MLA and SSM refused at model 2
+    # the window, squared ReLU, MLA, the SSM mixer and the hybrid
     for arch in ("whisper_tiny", "internvl2_2b", "qwen1_5_110b",
-                 "deepseek_moe_16b", "mixtral_8x22b", "minitron_8b"):
+                 "deepseek_moe_16b", "mixtral_8x22b", "minitron_8b",
+                 "minicpm3_4b", "mamba2_130m", "jamba_v0_1_52b"):
         fc = get_smoke_config(arch)
         fb = make_batch(fc, 16, 4)
         _, f1 = make_train_step(fc, sc)(train_state_init(fc, sc, 0, "cpu"),
@@ -389,13 +493,6 @@ def train_run(tmp_path_factory):
             fs, {k: v[2 * d:2 * d + 2] for k, v in fb.items()}, 0)
         RES[arch] = {k: [float(f1[k]), float(f2[k])]
                      for k in ("loss", "grad_norm")}
-    for arch in ("minicpm3_4b", "mamba2_130m"):
-        fc = get_smoke_config(arch)
-        try:
-            shard_state(train_state_init(fc, sc, 0, "cpu"), fc, mesh)
-            RES[f"refused_{arch}"] = "trained"
-        except ValueError as e:
-            RES[f"refused_{arch}"] = str(e)
 
     # the Trainer on the mesh, cut and resumed, against a straight run
     def tc(path, steps):
@@ -403,11 +500,13 @@ def train_run(tmp_path_factory):
                              ckpt_every=2, log_every=100, seq_len=16,
                              global_batch=4, step=StepConfig(warmup=0))
     straight = Trainer(cfg, tc("a", 5), mesh=mesh, device="cpu").run()
+    single = Trainer(cfg, tc(f"s{RANK}", 5), device="cpu").run()
     Trainer(cfg, tc("b", 3), mesh=mesh, device="cpu").run()
     t3 = Trainer(cfg, tc("b", 5), mesh=mesh, device="cpu")
     resumed = t3.run()
     RES["trainer"] = {"start": t3.start_step,
                       "straight": [h["loss"] for h in straight],
+                      "single": [h["loss"] for h in single],
                       "resumed": [h["loss"] for h in resumed]}
 
     # elastic: place on (2, 2), save, restore on (1, 2), remesh back
@@ -470,16 +569,75 @@ def test_sharded_train_step_families_match_single(train_run, arch):
     np.testing.assert_allclose(g2, g1, rtol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3_4b", "mamba2_130m"])
-def test_mla_and_ssm_refuse_model_parallel_training(train_run, arch):
-    msg = train_run[f"refused_{arch}"]
-    assert "item 5b" in msg and "model=2" in msg
+@pytest.mark.parametrize("arch", ["minicpm3_4b", "mamba2_130m",
+                                  "jamba_v0_1_52b"])
+def test_mla_and_ssm_train_model_parallel(train_run, arch):
+    """The MLA and SSM mixers (and the hybrid) at data 2 x model 2 under
+    ZeRO-3: loss at rtol 2e-4, grad_norm at rtol 2e-3."""
+    (l1, l2), (g1, g2) = train_run[arch]["loss"], train_run[arch]["grad_norm"]
+    np.testing.assert_allclose(l2, l1, rtol=2e-4)
+    np.testing.assert_allclose(g2, g1, rtol=2e-3)
+
+
+def test_zero3_state_is_split_over_data(train_run):
+    """Every leaf of the AdamW moments split over ``data`` (ZeRO-3) or
+    ``model`` holds 1 / (product of its split axes) of it on this rank;
+    the big leaves are split over data."""
+    z = train_run["zero3"]
+    assert z["ok"] and z["over_data"] >= 5, z
+
+
+@pytest.mark.parametrize("variant", ["plain", "compress"])
+def test_zero3_step_state_matches_single(train_run, variant):
+    """One step at data 2 x model 2 under ZeRO-3, its state gathered,
+    against the unsharded step's, every leaf: the parameters and the
+    AdamW master within 2e-4 of the leaf's largest magnitude, the moments
+    (and under ``compress_pods`` the error-feedback residual, whose int8
+    scale takes its amax over the leaf's shards) within 2e-3 (measured on
+    the CPU: 3.6e-5, 1.8e-6 and 3.8e-4). An update on the wrong shard
+    moves a parameter by about the learning rate (1e-3), far past 2e-4 of
+    the smoke leaves' magnitudes."""
+    parts = train_run[f"zero3_{variant}"]
+    want = {"params", "master", "mu", "nu"} | (
+        {"residual"} if variant == "compress" else set())
+    assert set(parts) == want
+    for part, leaves in parts.items():
+        tol = 2e-4 if part in ("params", "master") else 2e-3
+        assert leaves
+        for path, (err, mag) in leaves.items():
+            assert err <= tol * mag, (part, path, err, mag)
+
+
+def test_zero3_checkpoint_is_the_unsharded_layout(train_run):
+    """The state sharded over data 2 x model 2, gathered and saved, is
+    byte for byte the checkpoint of the unsharded state (file by file)."""
+    assert train_run["ckpt_bytes_equal"] is True
+
+
+def test_collectives_of_a_step_equal_the_traced_mesh(train_run):
+    """One train step on (1, 2) gloo ranks issues the collectives, by kind
+    and axis, that the traced (1, 2) mesh records for the same step under
+    ``profile_step`` (every layer traced: ``loops=False``); the profile
+    counts those over groups larger than one, as the reference's
+    ``analyze_hlo`` does."""
+    c = train_run["coll"]
+    assert c["gloo"] == c["traced"] and c["gloo"]
+    want = {}
+    for kind, axis, n in c["gloo"]:
+        if axis == "model":
+            want[kind] = want.get(kind, 0) + n
+    assert c["profile"] == want
 
 
 def test_meshed_trainer_resumes(train_run):
+    """The Trainer at data 2 x model 2 (ZeRO-3), cut after 3 steps and
+    resumed, repeats its straight run; its 5 losses are the unsharded
+    Trainer's at the loss tolerance 2e-4 (measured on the CPU: 1e-7)."""
     t = train_run["trainer"]
     assert t["start"] == 3
     np.testing.assert_allclose(t["resumed"], t["straight"][3:], rtol=1e-5)
+    assert len(t["straight"]) == len(t["single"]) == 5
+    np.testing.assert_allclose(t["straight"], t["single"], rtol=2e-4)
 
 
 def test_elastic_reshard_roundtrip(train_run):

@@ -2512,9 +2512,11 @@ def test_world1_nccl_meshed_engine_equals_unmeshed(lib, dev, nccl_world):
         assert torch.equal(a, b)
     tick = g._graphs[4][2]  # the collectives one replay of it runs
     per_step = cfg.n_layers * 2 + 1  # wo, the MLP's wo, the embedding
-    assert tick == {"all_reduce": 4 * per_step, "all_gather": 4 * 2}
+    assert tick == {"all_reduce": 4 * per_step, "all_gather": 4 * 2,
+                    "reduce_scatter": 0}
     assert g.stats["collectives"]["all_reduce"] > 0
-    assert u.stats["collectives"] == {"all_reduce": 0, "all_gather": 0}
+    assert u.stats["collectives"] == {"all_reduce": 0, "all_gather": 0,
+                                    "reduce_scatter": 0}
     gloo = Mesh(("data", "tp"), (1, 1), ranks=np.zeros((1, 1), np.int64),
                 coords={"data": 0, "tp": 0},
                 groups={ax: dist.new_group([0], backend="gloo")

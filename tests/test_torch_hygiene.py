@@ -69,7 +69,10 @@ REQUIRED = ("repro_torch.configs.deepseek_moe_16b", "repro_torch.models.moe",
             "repro_torch.core.generate", "repro_torch.core.remez",
             # the distribution slice's
             "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-            "repro_torch.launch.elastic", "repro_torch.launch.pipeline")
+            "repro_torch.launch.elastic", "repro_torch.launch.pipeline",
+            # the dry run's
+            "repro_torch.launch.inputs", "repro_torch.launch.xprof",
+            "repro_torch.launch.dryrun", "repro_torch.launch.roofline")
 
 
 @pytest.fixture
@@ -334,3 +337,73 @@ def test_serve_cli_smoke_on_cpu(arch, capsys):
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["device"] == "cpu" and report["tokens"] == 12
     assert set(report["stats"]["launches"].values()) == {0}
+
+
+def test_dry_run_imports_neither_jax_nor_repro(tmp_path):
+    """One dry-run cell and its roofline, run in a fresh interpreter,
+    load neither jax nor any repro module."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import dryrun, roofline\n"
+        f"rec = dryrun.run_cell('mamba2_130m', 'decode_32k', "
+        f"out_dir=__import__('pathlib').Path({str(tmp_path)!r}))\n"
+        f"roofline.main(['--dir', {str(tmp_path)!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "print(rec['status'], bad)\n"
+        "sys.exit(1 if bad or rec['status'] != 'ok' else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def _example(name: str):
+    import importlib.util
+
+    path = SRC.parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"ex_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_example_modules_import_neither_jax_nor_repro():
+    """The four ``examples/torch_*.py`` read only the port, and default to
+    the card."""
+    for name in ("torch_quickstart", "torch_retarget_hardware",
+                 "torch_serve_interp", "torch_train_lm"):
+        text = (SRC.parent / "examples" / f"{name}.py").read_text()
+        assert "import jax" not in text and "from repro." not in text
+        assert "from repro import" not in text
+        assert 'ap.add_argument("--device", default="cuda")' in text
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart",
+                                  "torch_retarget_hardware",
+                                  "torch_serve_interp", "torch_train_lm"])
+def test_torch_examples_run_on_the_cpu(name, tmp_path, capsys):
+    """Each example at smoke size with ``--device cpu`` (the kernels' plain
+    versions), end to end."""
+    mod = _example(name)
+    if name == "torch_quickstart":
+        ok = mod.main(["--bits", "8", "--device", "cpu", "--cache-dir",
+                       str(tmp_path)])
+        assert ok
+        assert "output within bounds: True" in capsys.readouterr().out
+    elif name == "torch_retarget_hardware":
+        stats = mod.main(["--bits", "8", "--custom", "--device", "cpu",
+                          "--cache-dir", str(tmp_path)])
+        assert stats["computed"] >= 1
+        assert "low-power" in capsys.readouterr().out
+    elif name == "torch_serve_interp":
+        InterpLibrary.default_library("cpu").save(tmp_path / "library")
+        outs = mod.main(["--requests", "2", "--slots", "2", "--max-new", "4",
+                         "--prompt-len", "6", "--device", "cpu",
+                         "--library", str(tmp_path)])
+        assert all(len(o) == 4 for v in outs.values() for o in v)
+    else:
+        hist = mod.main(["--smoke", "--steps", "3", "--seq-len", "32",
+                         "--global-batch", "2", "--device", "cpu",
+                         "--ckpt-dir", str(tmp_path / "ckpt")])
+        assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)

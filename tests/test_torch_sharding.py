@@ -251,9 +251,19 @@ def test_shard_tree_shards_put_back_give_the_leaf(arch, data, tp):
 
 
 def test_placement_refuses_a_split_query_head():
+    """Where ``tp`` does not divide the query heads the placement splits
+    none: every leaf of the attention mixer is replicated over ``tp`` (it
+    runs whole on every rank), while the MLP stays split."""
     cfg = get_smoke_config("yi_6b").replace(n_heads=6, n_kv_heads=2,
                                             head_dim=16)
     shapes = tf.model_shapes(cfg)
-    with pytest.raises(ValueError, match="query head"):
-        tsh.placement_specs(shapes, cfg, tmesh.Mesh(("data", "tp"), (1, 4)),
-                            tsh.SERVE_PARAM_RULES)
+    mesh = tmesh.Mesh(("data", "tp"), (1, 4))
+    assert tsh.whole_mixer(cfg, mesh, "attn")
+    specs = tsh.placement_specs(shapes, cfg, mesh, tsh.SERVE_PARAM_RULES)
+    named = [p for p, _ in leaves_with_paths(shapes)]
+    leaves = dict(zip(named, tsh.spec_leaves(specs, len(named))))
+    mixer = [p for p in named if "/mixer/" in p]
+    assert mixer and all("tp" not in tsh.axes_of(e)
+                         for p in mixer for e in leaves[p])
+    assert any("tp" in tsh.axes_of(e)
+               for p in named if "/ffn/" in p for e in leaves[p])
