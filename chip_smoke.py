@@ -135,8 +135,11 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    requests through an unmeshed AOT graph engine and through
    ``ServeEngine(mesh=make_serve_mesh(1, 1), aot_buckets=True)`` (streams,
    caches and kernel launches bitwise; the tick graphs holding their
-   all-reduces and all-gathers; both ticks' wall ms per step and
-   tokens/s), one train step of the first 8 layers on a ``1 x 1`` mesh
+   all-reduces and all-gathers; the requests again with deadlines on a
+   fault clock that expires one live and one queued request and a
+   journal, outcomes, streams and journal bytes equal between the two;
+   both ticks' wall ms per step and tokens/s, without and with
+   deadlines), one train step of the first 8 layers on a ``1 x 1`` mesh
    against the unmeshed step (the loss bitwise), and the fleet's probe
    split on the card against one program;
 9. frees Yi-6B and serves (graph and eager) full-width DeepSeekMoE-16B
@@ -3213,6 +3216,60 @@ def yi_extra_phases(params, cfg, lib, seg_lib, dev, served=None) -> dict:
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ, MESH_TRAIN_BATCH = 8, 1024, 2
 
 
+def deadline_journal_run(eng, prompts, path: pathlib.Path) -> dict:
+    """The serve requests ``prompts`` through ``eng`` with deadlines
+    (``deadline_s`` 100 s) on a ``FaultClock`` and a journal at ``path``:
+    request 1 (live after the first admission) and request 5 (queued
+    behind the four slots) carry an absolute deadline of 0.5 s, the clock
+    advances 1 s after the first tick, and one more request past its
+    deadline is rejected at submit. Returns every request's
+    ``(rid, outcome, tick)`` in the order seen, the streams (the expired
+    one's prefix included) and the journal's bytes; the engine's clock,
+    TTL and journal are restored after."""
+    from repro_torch.faults import FaultClock
+    from repro_torch.serve.engine import Rejected, Request
+    from repro_torch.serve.journal import ServeJournal
+
+    saved = eng.clock, eng.deadline_s, eng.journal
+    n_fin, n_fail = len(eng.finished), len(eng.failed)
+    clock = FaultClock()
+    eng.clock, eng.deadline_s, eng.journal = clock, 100.0, ServeJournal(path)
+    events, seen = [], set()
+    try:
+        for i, p in enumerate(prompts):
+            eng.submit(Request(2000 + i, p, max_new=MAX_NEW,
+                               deadline=0.5 if i in (1, 5) else None))
+        try:
+            eng.submit(Request(2000 + len(prompts), prompts[0],
+                               max_new=MAX_NEW, deadline=-1.0))
+        except Rejected as e:
+            events.append([2000 + len(prompts), e.reason, 0])
+        for t in range(1000):
+            if not (eng.queue or any(r is not None for r in eng.req)):
+                break
+            if t == 1:
+                clock.advance(1.0)
+            eng.step(HORIZON)
+            for r in eng.failed[n_fail:] + eng.finished[n_fin:]:
+                if r.rid not in seen:
+                    seen.add(r.rid)
+                    events.append([r.rid, r.error or "done",
+                                   eng.stats["ticks"]])
+        eng.journal.close()
+    finally:
+        eng.clock, eng.deadline_s, eng.journal = saved
+    streams = {r.rid: list(r.out)
+               for r in eng.finished[n_fin:] + eng.failed[n_fail:]}
+    outcomes = {(rid, what) for rid, what, _t in events}
+    want = {(2000 + len(prompts), "deadline"), (2001, "deadline_exceeded"),
+            (2005, "deadline_exceeded")}
+    if not want <= outcomes or len(events) != len(prompts) + 1:
+        raise AssertionError(f"deadline run: outcomes {events}, want "
+                             f"{sorted(want)} among them")
+    return dict(events=events, streams=streams, journal=path.read_bytes(),
+                agreements=eng.stats["agreements"])
+
+
 def mesh_phase(params, cfg, lib, dev) -> dict:
     """Distribution at world 1 on the card: one NCCL rank (a
     file store, ``device_id`` cuda:0), every collective still issued and
@@ -3224,8 +3281,14 @@ def mesh_phase(params, cfg, lib, dev) -> dict:
     kernel launches bitwise equal (the counts set to 0 just before each
     run, read just after), the meshed tick graphs holding their
     collectives (counted at capture: ``2 * n_layers + 1`` all-reduces and
-    2 all-gathers per step), then each engine's tick at 4 live slots (wall
-    ms per step, tokens/s, device ms and busy share).
+    2 all-gathers per step); the 6 requests again with deadlines on a
+    ``FaultClock`` that expires one live and one queued request, and a
+    journal (:func:`deadline_journal_run`): outcomes with their ticks,
+    streams and journal bytes equal between the two engines, the meshed
+    one agreeing on its clock; then each engine's tick at 4 live slots
+    (wall ms per step, tokens/s, device ms and busy share), without and
+    with deadlines on the host clock (the meshed one's retire pass then
+    agrees on its clock once a tick).
     (b) One train step of Yi-6B at ``MESH_TRAIN_LAYERS`` layers (the first
     layers of the served weights, exact numerics) unmeshed and on a
     ``1 x 1`` ``data x model`` mesh from the same parameters: the loss
@@ -3254,6 +3317,7 @@ def mesh_phase(params, cfg, lib, dev) -> dict:
                                         make_train_step, shard_state)
 
     store = tempfile.mkdtemp(prefix="mesh_phase_")
+    jdir = pathlib.Path(store)
     dist.init_process_group("nccl", init_method=f"file://{store}/store",
                             rank=0, world_size=1, device_id=dev,
                             timeout=datetime.timedelta(seconds=300))
@@ -3312,14 +3376,45 @@ def mesh_phase(params, cfg, lib, dev) -> dict:
                 if not res["collectives"]["all_reduce"]:
                     raise AssertionError("no collective ran")
                 ref_caches = None
+            dl = deadline_journal_run(eng, prompts, jdir / f"{name}.jsonl")
+            if name == "unmeshed":
+                want_dl = dl
+                if dl["agreements"]:
+                    raise AssertionError("an unmeshed engine agreed")
+            else:
+                for key in ("events", "streams", "journal"):
+                    if dl[key] != want_dl[key]:
+                        raise AssertionError(
+                            f"deadline run: meshed {key} differ from the "
+                            f"unmeshed engine's")
+                if not dl["agreements"]:
+                    raise AssertionError("the meshed engine never agreed "
+                                         "on its clock")
+            res["deadlines"] = dict(events=dl["events"],
+                                    journal_bytes=len(dl["journal"]),
+                                    agreements=dl["agreements"])
+            print(f"mesh phase {name} deadlines: outcomes {dl['events']}; "
+                  f"journal {len(dl['journal'])} bytes; agreements "
+                  f"{dl['agreements']}")
             res["tick"] = tick_profile(eng, cfg, n=3, n_prof=1)
             res["tick"].pop("profile", None)
+            eng.run()  # the tick profile's requests run out
+            eng.deadline_s = 3600.0  # on the host clock: none expires
+            agreed = eng.stats["agreements"]
+            res["tick_deadlines"] = tick_profile(eng, cfg, n=3, n_prof=1)
+            res["tick_deadlines"].pop("profile", None)
+            res["tick_deadlines"]["agreements"] = (eng.stats["agreements"]
+                                                   - agreed)
+            eng.run()
+            eng.deadline_s = None
             out[name] = res
             print(f"mesh phase {name}: built in {build_s:.2f} s "
                   f"({res['captures']} graphs), 6 requests {wall:.3f} s = "
                   f"{res['tokens_per_s']:.2f} tokens/s; tick "
                   f"{res['tick']['wall_ms_per_step']:.3f} ms wall per step "
-                  f"({res['tick']['tokens_per_s']:.1f} tokens/s); "
+                  f"({res['tick']['tokens_per_s']:.1f} tokens/s), with "
+                  f"deadlines {res['tick_deadlines']['wall_ms_per_step']:.3f}"
+                  f" ms ({res['tick_deadlines']['agreements']} agreements); "
                   f"collectives {res['collectives']}")
             eng.close()
             del eng
@@ -3395,6 +3490,12 @@ def mesh_phase(params, cfg, lib, dev) -> dict:
                          text=True).stdout.strip().splitlines()[:1]
     u, m = out["unmeshed"]["tick"], out["meshed"]["tick"]
     out["card"] = smi[0] if smi else None
+    ud, md = out["unmeshed"]["tick_deadlines"], out["meshed"]["tick_deadlines"]
+    print(f"mesh phase on {out['card']}: tick wall ms per step with "
+          f"deadlines {ud['wall_ms_per_step']:.3f} unmeshed / "
+          f"{md['wall_ms_per_step']:.3f} meshed, device "
+          f"{_ms(ud['device_ms_per_step'])} / "
+          f"{_ms(md['device_ms_per_step'])}")
     print(f"mesh phase on {out['card']}: tick wall ms per step "
           f"{u['wall_ms_per_step']:.3f} unmeshed / "
           f"{m['wall_ms_per_step']:.3f} meshed (world-1 NCCL), "

@@ -26,11 +26,16 @@ A record keeps the reference's keys: ``lower_s`` is the trace time,
 ``memory.argument_bytes`` is this rank's shards of state, inputs and
 caches, ``output_bytes`` what the step returns, ``temp_bytes`` the
 profile's ``peak_live_bytes``, and ``profile`` the profile's
-``to_dict()``.
+``to_dict()``. Every file written carries ``"package": "repro_torch"``
+(:data:`PACKAGE`), and the default directory is the port's own,
+``artifacts/dryrun_torch``: the reference's records (in
+``artifacts/dryrun``, its HBM bytes counted another way) never enter the
+port's roofline (``launch.roofline.load_records`` reads stamped records
+only).
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k [--multi-pod]
-    python -m repro_torch.launch.dryrun --all [--out artifacts/dryrun]
+    python -m repro_torch.launch.dryrun --all [--out artifacts/dryrun_torch]
 """
 from __future__ import annotations
 
@@ -54,7 +59,9 @@ from repro_torch.train.step import (StepConfig, TrainState, make_train_step,
 from repro_torch.util.tree import leaves_with_paths, unflatten_like
 
 DEFAULT_OUT = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
-               / "dryrun")
+               / "dryrun_torch")
+# the stamp of every record this package writes
+PACKAGE = "repro_torch"
 
 
 def _local(shapes, specs, mesh):
@@ -140,7 +147,7 @@ def _write(out_dir, name: str, rec: dict) -> None:
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / f"{name}.json").write_text(
-            json.dumps(rec, indent=1, default=str))
+            json.dumps({**rec, "package": PACKAGE}, indent=1, default=str))
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False,

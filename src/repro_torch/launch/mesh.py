@@ -19,7 +19,11 @@ Axes, as the reference's:
 The collectives the models and the engine issue are methods here, each
 counted in ``Mesh.log`` (by kind and axis; ``Mesh.counts`` by kind) where
 it is issued, on a real mesh or a traced one (a CUDA graph's are counted
-once at capture, as ``build.LAUNCHES`` counts its launches). The ``tp_*``
+once at capture, as ``build.LAUNCHES`` counts its launches). The host's
+decisions go through :meth:`Mesh.agree` (a ``max`` or ``or`` of a short
+vector over every rank) and :meth:`Mesh.share` (the lead rank's object on
+every rank): outside any graph, counted apart in ``Mesh.agreements``, so
+that a step's collective counts do not move with them. The ``tp_*``
 methods are the Megatron pairs: under autograd ``tp_enter`` is identity
 forward and a sum over ``tp`` backward, ``tp_sum`` the reverse, ``tp_cat``
 an all-gather forward and this rank's slice backward.
@@ -66,6 +70,7 @@ class Mesh:
         self.backend = backend
         self.traced = traced
         self.log: collections.Counter = collections.Counter()
+        self.agreements = 0  # agree() and share() calls
 
     @property
     def counts(self) -> dict:
@@ -85,6 +90,13 @@ class Mesh:
         if self.coords is None:
             raise ValueError(f"this rank is not in {self!r}")
         return self.coords[axis]
+
+    @property
+    def lead(self) -> bool:
+        """Is this rank the mesh's lead (every coordinate 0): the one that
+        writes what the mesh writes once (a journal, a checkpoint, a
+        library)?"""
+        return self.coords is not None and not any(self.coords.values())
 
     @property
     def tp_axis(self) -> str | None:
@@ -191,6 +203,48 @@ class Mesh:
                     group=self._group(axis))
         self._issued("reduce_scatter", axis, out)
         return out
+
+    # -- host-side agreement ------------------------------------------------
+    def _host_group(self, device) -> torch.device:
+        """Check that this mesh has a process group; the device its
+        host-side collectives run on (default: this rank's card for NCCL,
+        the CPU for gloo)."""
+        if self.ranks is None:
+            raise ValueError(f"{self!r} has no process group to agree over")
+        if device is not None:
+            return torch.device(device)
+        if "nccl" in str(self.backend):
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+
+    def agree(self, values, op: str = "max", device=None) -> list:
+        """``values`` (numbers; bools with ``op="or"``) reduced elementwise
+        over every rank of the mesh: the same list on every rank, floats
+        for ``"max"``, bools for ``"or"``. One all-reduce of a float64
+        vector on ``device``, read back on the host; it raises where the
+        reduction fails, and no rank goes on with its own reading. Counted
+        in ``agreements``, not in ``log``."""
+        import torch.distributed as dist
+
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=self._host_group(device))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group_all)
+        self.agreements += 1
+        vals = t.cpu().tolist()
+        return [v != 0 for v in vals] if op == "or" else vals
+
+    def share(self, obj, device=None):
+        """The lead rank's ``obj`` (any picklable value) on every rank of
+        the mesh; the other ranks' ``obj`` is ignored. Counted in
+        ``agreements``."""
+        import torch.distributed as dist
+
+        box = [obj if self.lead else None]
+        dist.broadcast_object_list(box, src=int(self.ranks.reshape(-1)[0]),
+                                   group=self.group_all,
+                                   device=self._host_group(device))
+        self.agreements += 1
+        return box[0]
 
     # -- the Megatron pairs (autograd-aware; plain collectives otherwise) ----
     def tp_enter(self, x: torch.Tensor) -> torch.Tensor:

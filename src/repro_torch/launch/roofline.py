@@ -17,19 +17,23 @@ network port (``NET_BW``, one 400 Gb/s NDR link: 50 GB/s), since every
 16-way axis of the production mesh spans more than one 8-card NVLink
 node. These are analytic bounds from datasheet figures, not measurements.
 
-Usage: python -m repro_torch.launch.roofline [--dir artifacts/dryrun] [--md]
+Only the port's own records are read (``"package": "repro_torch"``, as
+``launch.dryrun`` stamps them): a reference record in the directory is
+skipped and counted on stderr.
+
+Usage: python -m repro_torch.launch.roofline [--dir artifacts/dryrun_torch] [--md]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import pathlib
+import sys
 
 from repro_torch.configs.base import SHAPES, get_config
+from repro_torch.launch.dryrun import DEFAULT_OUT as DEFAULT_DIR
+from repro_torch.launch.dryrun import PACKAGE
 from repro_torch.launch.mesh import HBM_BW, NET_BW, PEAK_FLOPS_BF16
-
-DEFAULT_DIR = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
-               / "dryrun")
 
 
 # ---------------------------------------------------------------------------
@@ -107,13 +111,21 @@ def cell_roofline(rec: dict) -> dict | None:
 
 
 def load_records(d: pathlib.Path, tag: str = "") -> list[dict]:
-    out = []
+    """The port's dry-run records of ``tag`` in ``d``; records another
+    package wrote (no ``"package": "repro_torch"``) are skipped, and their
+    count printed on stderr."""
+    out, other = [], 0
     for f in sorted(d.glob("*.json")):
         if f.name.endswith(".ops.json"):
             continue
         rec = json.loads(f.read_text())
-        if rec.get("tag", "") == tag:
+        if rec.get("package") != PACKAGE:
+            other += 1
+        elif rec.get("tag", "") == tag:
             out.append(rec)
+    if other:
+        print(f"roofline: skipped {other} record(s) in {d} not written by "
+              f"{PACKAGE}", file=sys.stderr)
     return out
 
 

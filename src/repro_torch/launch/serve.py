@@ -56,7 +56,10 @@ one process per rank under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 NCCL on the cards (each rank on ``cuda:LOCAL_RANK``), gloo with
 ``--device cpu``; ``--dist-url`` names another rendezvous than
 ``torchrun``'s (``file:///path``). Every rank builds the same weights and
-requests; only rank 0 prints.
+requests; only rank 0 prints. What the mesh writes once, rank 0 (the lead,
+every coordinate 0) writes alone: ``--journal`` (only it binds the
+journal; ``--resume`` reads it there and shares the replay states with the
+other ranks, which need not see the file) and ``--save-library``.
 """
 from __future__ import annotations
 
@@ -199,8 +202,10 @@ def main(argv=None) -> None:
 
 def _serve(ap, args, cfg, buckets, dev, mesh) -> None:
     """Build the engine, submit the requests, run; rank 0 prints."""
+    lead = mesh is None or mesh.lead
+
     def say(*a, **k):
-        if mesh is None or (mesh.index("data"), mesh.index("tp")) == (0, 0):
+        if lead:
             print(*a, **k)
 
     library = (InterpLibrary.load(args.library, device=dev) if args.library
@@ -221,7 +226,7 @@ def _serve(ap, args, cfg, buckets, dev, mesh) -> None:
             eng = ServeEngine(cfg, params, journal=args.journal, **kw)
     except ValueError as e:  # a config or flags the engine refuses
         ap.exit(2, f"{ap.prog}: error: {e}\n")
-    if args.save_library and eng.library is not None:
+    if args.save_library and eng.library is not None and lead:
         if isinstance(eng.library, dict):  # plan engine: one per slot
             for key, lib in sorted(eng.library.items()):
                 say(f"saved library [{key}] -> "

@@ -6,8 +6,9 @@ positions) and the VLM frontend (InternVL: stub patch embeddings through
 an MLP projector in place of the first prompt rows).
 
 ``layer_plan`` groups the layers into segments of one layer kind, as the
-reference does: one segment of dense-MLP layers for the dense family and
-for the decoders of the encoder-decoder and VLM families; a dense layer
+reference does: one segment of dense-MLP layers for the dense family,
+for the decoders of the encoder-decoder and VLM families and for any
+family outside the known ones (the reference's fall-through); a dense layer
 0 (``first_dense_ff``) and then the MoE layers for DeepSeekMoE; one
 segment of FFN-less SSM layers for Mamba2; for the hybrid one segment
 whose step is the ``attn_period``-layer period (attention at the middle
@@ -128,9 +129,9 @@ def layer_plan(cfg) -> list[Segment]:
             n -= 1
         segs.append(Segment((LayerKind(mixer, "moe"),), n))
         return segs
-    if cfg.family in ("dense", "vlm", "encdec"):  # the last two: decoders
-        return [Segment((LayerKind(mixer, "mlp", cfg.d_ff),), cfg.n_layers)]
-    raise NotImplementedError(f"model family {cfg.family!r} is not ported")
+    # dense, vlm and encdec (decoders), and any other family, as the
+    # reference's plan falls through
+    return [Segment((LayerKind(mixer, "mlp", cfg.d_ff),), cfg.n_layers)]
 
 
 def block_shapes(kind: LayerKind, cfg, cross: bool = False) -> dict:

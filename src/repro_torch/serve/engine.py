@@ -96,8 +96,31 @@ its group's size, so a world-1 mesh runs them too (captured in the graphs:
 one eager collective per group runs at construction, before any
 capture); ``stats["collectives"]`` counts those the prefills and ticks
 ran. Decisions a
-rank takes from its own state agree across the mesh: the ROM verdict is
-reduced over every rank. Under ``tp > 1`` the MLA and Mamba2 mixers
+rank takes from its own state or clock agree across the mesh, each through
+``Mesh.agree`` (a host-side reduction over every rank, outside any graph,
+counted in ``stats["agreements"]`` and in none of the counts above):
+
+* the ROM verdict: a slot is corrupt if it is on any rank (``or``);
+* the stall watchdog's tick time: the max over ranks;
+* the clock. Every deadline decision reads the agreed reading, the max
+  over ranks of each rank's ``clock()``, taken once per decision point:
+  once in ``submit`` (the stamp ``now + deadline_s``, which the journal's
+  ``submit`` record carries, and the ``"deadline"`` rejection), once per
+  admission pass (queued expiry; only while a slot is free and a queued
+  request has a deadline) and once per retire pass (``deadline_exceeded``;
+  only while a live request has a deadline), folded into the watchdog's
+  reduction where both are on. No reduction is issued without a mesh, or
+  when no request has a deadline and the watchdog is off. Without a mesh
+  the raw reading decides, once per decision point too.
+
+The journal has one writer: only the lead rank (every coordinate 0,
+``Mesh.lead``) binds a :class:`ServeJournal`, sync or through the host
+pipeline, so the engine's crash points fire on the lead alone.
+:meth:`resume` on a mesh reads and folds the journal on the lead and
+shares the replay states with every rank (``Mesh.share``): no other rank
+needs the file, and every rank re-admits the same requests.
+
+Under ``tp > 1`` the MLA and Mamba2 mixers
 split their heads as the GQA mixer does (``models.attention`` /
 ``models.ssm``); a mixer whose heads ``tp`` does not divide runs whole on
 every rank (``launch.sharding.whole_mixer``).
@@ -248,7 +271,8 @@ class ServeEngine:
     ``admit_replays`` (packed admissions replayed from a graph);
     ``launches``, each kernel's launches made by this engine (per forward
     times prefills + decode steps + resume replay steps); ``collectives``
-    (a meshed engine's all-reduces and all-gathers); ``graph`` /
+    (a meshed engine's all-reduces and all-gathers); ``agreements`` (its
+    host-side agreements: ROM verdicts, watchdog and clock); ``graph`` /
     ``graph_reason``; ``captures`` (tick and admission graphs) and
     ``capture_s``.
     """
@@ -361,12 +385,16 @@ class ServeEngine:
                       "captures": 0, "capture_s": 0.0,
                       "launches": dict.fromkeys(build.LAUNCHES, 0),
                       "collectives": {"all_reduce": 0, "all_gather": 0,
-                                      "reduce_scatter": 0}}
+                                      "reduce_scatter": 0},
+                      "agreements": 0}
         self.faults: list[dict] = []  # structured fault / degradation log
         self._trips = 0  # watchdog trips since the last degradation
-        self.journal = (journal if isinstance(journal, (ServeJournal,
-                                                        type(None)))
-                        else ServeJournal(journal))
+        # one journal writer: the lead rank of a mesh (module docstring)
+        if journal is None or (mesh is not None and not mesh.lead):
+            self.journal = None
+        else:
+            self.journal = (journal if isinstance(journal, ServeJournal)
+                            else ServeJournal(journal))
         # bucketed (padded) prefill packing is only sound for pure
         # attention-cache decoders (prefill_padded refuses the rest)
         self._packable = (
@@ -489,14 +517,21 @@ class ServeEngine:
         both = self.mesh.all_gather(both, "data", dim=1)
         return both[0], both[1].to(torch.bool)
 
-    def _agree(self, bad: list) -> list:
-        """Per-flag OR over every rank of the mesh (a verdict each rank
-        takes from its own state must be the mesh's)."""
-        if self.mesh is None or not bad:
-            return bad
-        t = torch.tensor([int(b) for b in bad], dtype=torch.int32,
-                         device=self.device)
-        return [bool(v) for v in self.mesh.all_reduce(t, None, "max").cpu()]
+    def _agree(self, values: list, op: str = "max") -> list:
+        """``values`` agreed over the mesh (``Mesh.agree``: per-flag OR
+        with ``op="or"``, else the max; counted in ``stats["agreements"]``)
+        or, without a mesh, as they are: a decision each rank takes from
+        its own state or clock must be the mesh's."""
+        if self.mesh is None or not values:
+            return values
+        self.stats["agreements"] += 1
+        return self.mesh.agree(values, op, self.device)
+
+    def _now(self, need: bool) -> float | None:
+        """One reading of the engine's clock for a decision point (None
+        where ``need`` is false): on a mesh the agreed reading, the max over
+        ranks of each rank's ``clock()``."""
+        return self._agree([self.clock()])[0] if need else None
 
     # -- numerics binding --------------------------------------------------
     @property
@@ -856,7 +891,8 @@ class ServeEngine:
                 errors[key] = str(e)
         # a meshed engine degrades where any rank's replica is corrupt
         bad = [k for k, b in zip(keys, self._agree([k in errors
-                                                    for k in keys])) if b]
+                                                    for k in keys], "or"))
+               if b]
         if not bad:
             return True
         detail = "; ".join(errors.get(k, "corrupt on another rank")
@@ -1005,17 +1041,20 @@ class ServeEngine:
                 self._reject("decode_overflow", f"request {req.rid}: prompt "
                              f"({len(req.prompt)}) + max_new ({req.max_new}) "
                              f"overflows cache_len {self.cache_len}")
+        now = self._now(req.deadline is not None
+                        or self.deadline_s is not None)
         if req.deadline is None and self.deadline_s is not None:
-            req.deadline = self.clock() + self.deadline_s
-        if req.deadline is not None and self.clock() > req.deadline:
+            req.deadline = now + self.deadline_s
+        if req.deadline is not None and now > req.deadline:
             self._reject("deadline", f"request {req.rid}: already past its "
                          f"deadline")
         self._journal("submit", req.rid, req.prompt, req.max_new,
                       req.deadline, crash="serve.submit.journaled")
         self.queue.append(req)
 
-    def _expired(self, r: Request) -> bool:
-        return r.deadline is not None and self.clock() > r.deadline
+    @staticmethod
+    def _expired(r: Request, now: float | None) -> bool:
+        return r.deadline is not None and now > r.deadline
 
     def _fail_expired_queued(self, r: Request) -> None:
         """Expired while queued: fail without burning a prefill."""
@@ -1025,17 +1064,20 @@ class ServeEngine:
         self._journal("fail", r.rid, r.error)
 
     def _admit(self) -> None:
+        # the admission pass's one clock reading: it decides queued expiry
+        now = self._now(any(r is None for r in self.req)
+                        and any(r.deadline is not None for r in self.queue))
         if (self.aot_buckets is not None and self.fused
                 and self._packable):
-            self._admit_bucketed()
+            self._admit_bucketed(now)
         else:
-            self._admit_legacy()
+            self._admit_legacy(now)
 
-    def _admit_legacy(self) -> None:
+    def _admit_legacy(self, now: float | None) -> None:
         for s in range(self.slots):
             while self.req[s] is None and self.queue:
                 r = self.queue.popleft()
-                if self._expired(r):
+                if self._expired(r, now):
                     self._fail_expired_queued(r)  # keep draining into s
                     continue
                 if r.out:  # resumed mid-stream: rebuild, emit nothing
@@ -1096,7 +1138,7 @@ class ServeEngine:
             self.journal.emit(r.rid, [tok])
             crashpoint("serve.admit.emitted")
 
-    def _admit_bucketed(self) -> None:
+    def _admit_bucketed(self, now: float | None) -> None:
         """Bucketed admission: drain the queue front into free slots in
         ascending order exactly as the legacy loop does (the (request,
         slot) mapping is fixed before grouping, so packing never reorders
@@ -1106,7 +1148,7 @@ class ServeEngine:
         packed: list[tuple[Request, int, int]] = []
         while free and self.queue:
             r = self.queue.popleft()
-            if self._expired(r):
+            if self._expired(r, now):
                 self._fail_expired_queued(r)
                 continue
             s = free.pop(0)
@@ -1212,7 +1254,9 @@ class ServeEngine:
         self._emitted[s] = len(r.out)
         self.stats["resumed"] += 1
 
-    def _retire(self) -> None:
+    def _retire(self, now: float | None) -> None:
+        """Retire the finished slots and, by the retire pass's clock
+        reading ``now``, the expired ones."""
         for s, r in enumerate(self.req):
             if r is None:
                 continue
@@ -1223,7 +1267,7 @@ class ServeEngine:
                 self.finished.append(r)
                 self._free_slot(s)
                 self._journal("done", r.rid, crash="serve.retire.journaled")
-            elif self._expired(r):
+            elif self._expired(r, now):
                 self.stats["expired"] += 1
                 self._fail_slot(s, "deadline_exceeded")
 
@@ -1308,12 +1352,19 @@ class ServeEngine:
         self.stats["transfers"] += 1
         self.stats["ticks"] += 1
         self.stats["decode_steps"] += steps
-        tick_s = self.clock() - t0
-        if self.max_tick_s is not None and self.mesh is not None:
-            # the stall watchdog trips on every rank or on none
-            tick_s = float(self.mesh.all_reduce(torch.tensor(
-                [tick_s], dtype=torch.float64, device=self.device), None,
-                "max")[0])
+        # one clock reading for the stall watchdog and the retire pass,
+        # agreed in one reduction on a mesh: the watchdog trips on every
+        # rank or on none, and every rank expires the same requests
+        now = self.clock()
+        tick_s = now - t0
+        watch = self.max_tick_s is not None
+        dated = any(r is not None and r.deadline is not None
+                    for r in self.req)
+        got = self._agree(([tick_s] if watch else [])
+                          + ([now] if dated else []))
+        if watch:
+            tick_s = got[0]
+        now = got[-1] if dated else None
         poisoned = [s for s, r in enumerate(self.req)
                     if r is not None and not ok[s]]
         alive = tuple((s, r) for s, r in enumerate(self.req)
@@ -1343,7 +1394,7 @@ class ServeEngine:
         if self.max_tick_s is not None and tick_s > self.max_tick_s:
             self._watchdog_trip("stalled_tick",
                                 detail=f"{tick_s:.3f}s > {self.max_tick_s}s")
-        self._retire()
+        self._retire(now)
         return True
 
     def run(self, max_ticks: int = 10_000) -> list[Request]:
@@ -1407,8 +1458,23 @@ class ServeEngine:
         through the teacher-forced rebuild (:meth:`_admit_replay`):
         nothing already journaled is re-emitted, and the continued greedy
         decode produces bitwise the token suffix an uninterrupted run
-        would have. The journal stays attached."""
-        states = load_requests(journal)
+        would have. The journal stays attached.
+
+        On a mesh (``mesh=`` in ``kw``) the lead rank reads and folds the
+        journal and shares the replay states with every rank (or its
+        error, which every rank then raises); no other rank reads the
+        file."""
+        mesh = kw.get("mesh")
+        states = None
+        if mesh is None or mesh.lead:
+            try:
+                states = load_requests(journal)
+            except Exception as e:  # raised below, on every rank
+                states = e
+        if mesh is not None:
+            states = mesh.share(states, resolve(kw.get("device", "cuda")))
+        if isinstance(states, Exception):
+            raise states
         eng = cls(cfg, params, slots=slots, cache_len=cache_len,
                   journal=journal, **kw)
         for st in states.values():

@@ -9,7 +9,10 @@
   after start or resume is left out); a step slower than
   ``straggler_factor`` times the EMA is recorded with its index.
 * **Preemption**: ``request_stop()`` (SIGTERM in ``launch/train.py``)
-  lets the step in flight finish, saves it, and stops.
+  lets the step in flight finish, saves it, and stops. On a mesh the flag
+  is agreed across the ranks after every step (``Mesh.agree``, the max
+  over ranks, outside the train step): a stop requested on any rank stops
+  every rank after the same step, and they save it together.
 
 The step runs eagerly on ``device`` and donates the state (its optimizer
 tensors are updated in place). On a card, ``library_eval``'s scatter-free
@@ -65,7 +68,7 @@ class Trainer:
         self.cfg, self.tc = cfg, tc
         self.mesh = mesh
         # the rank that logs and writes checkpoints
-        self._lead = mesh is None or all(v == 0 for v in mesh.coords.values())
+        self._lead = mesh is None or mesh.lead
         if mesh is not None and shard_batch is None:
             n = mesh.shape["data"]
             if tc.global_batch % n:
@@ -124,7 +127,10 @@ class Trainer:
                       f"{metrics['grad_norm']:.2f} {dt * 1e3:.0f} ms",
                       flush=True)
             saved = self._save(step)
-            if self._stop:
+            stop = self._stop
+            if self.mesh is not None:  # one stop for every rank
+                stop = self.mesh.agree([stop], "or")[0]
+            if stop:
                 if not saved:
                     self._save(step, force=True)
                 break

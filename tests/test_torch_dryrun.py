@@ -187,3 +187,73 @@ def test_main_and_roofline_report(tmp_path, capsys):
     r = troof.cell_roofline(rec)
     np.testing.assert_allclose(r["memory_s"],
                                rec["profile"]["hbm_bytes"] / 3.35e12)
+
+
+# ---------------------------------------------------------------------------
+# the port's own records
+# ---------------------------------------------------------------------------
+
+def _reference_record() -> dict:
+    """A record in the reference dry run's schema (its keys, no package
+    stamp), its profile from the reference's ``analyze_hlo`` of a small
+    compiled step on the CPU (the reference's own dry run does not lower
+    on the installed jax)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.launch.xprof import analyze_hlo
+
+    hlo = jax.jit(lambda x: jnp.tanh(x @ x)).lower(
+        jnp.ones((64, 64), jnp.float32)).compile().as_text()
+    return {"arch": "yi_6b", "shape": "decode_32k", "mesh": "pod16x16",
+            "tag": "", "status": "ok", "lower_s": 0.1, "compile_s": 0.2,
+            "memory": {"argument_bytes": 16384, "output_bytes": 16384,
+                       "temp_bytes": 0, "generated_code_bytes": 0},
+            "xla_cost_flops": 0.0, "xla_cost_bytes": 0.0,
+            "profile": analyze_hlo(hlo).to_dict()}
+
+
+@pytest.fixture(scope="module")
+def own_records(tmp_path_factory):
+    d = tmp_path_factory.mktemp("dryrun_torch")
+    rec = dryrun.run_cell("mamba2_130m", "decode_32k", out_dir=d)
+    return d, rec
+
+
+def test_dry_run_directory_is_the_ports_own():
+    """The port's dry run and roofline default to ``artifacts/dryrun_torch``,
+    not the reference's ``artifacts/dryrun``."""
+    from repro.launch import dryrun as jdryrun
+
+    assert dryrun.DEFAULT_OUT != jdryrun.DEFAULT_OUT
+    assert dryrun.DEFAULT_OUT.parent == jdryrun.DEFAULT_OUT.parent
+    assert dryrun.DEFAULT_OUT.name == "dryrun_torch"
+    assert troof.DEFAULT_DIR == dryrun.DEFAULT_OUT
+
+
+def test_own_records_round_trip(own_records):
+    """What ``run_cell`` returns, stamped ``"package": "repro_torch"``, is
+    what ``load_records`` reads back."""
+    d, rec = own_records
+    want = json.loads(json.dumps({**rec, "package": "repro_torch"},
+                                 default=str))
+    assert rec["status"] == "ok"
+    assert troof.load_records(d) == [want]
+
+
+def test_roofline_skips_a_reference_record(own_records, tmp_path, capsys):
+    """A reference record placed in the port's directory is skipped (and
+    counted on stderr): the roofline reads the port's cell alone."""
+    d, _rec = own_records
+    for f in d.glob("*.json"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    (tmp_path / "yi_6b_decode_32k_pod16x16.json").write_text(
+        json.dumps(_reference_record(), indent=1))
+    capsys.readouterr()
+    got = troof.load_records(tmp_path)
+    assert [(r["arch"], r["package"]) for r in got] == [
+        ("mamba2_130m", "repro_torch")]
+    assert "skipped 1 record(s)" in capsys.readouterr().err
+    troof.main(["--dir", str(tmp_path)])
+    rows = capsys.readouterr().out.splitlines()
+    assert len(rows) == 1 and rows[0].startswith("mamba2_130m")

@@ -375,3 +375,31 @@ def test_plain_oracle_slices_reads_and_routes_large_attention(monkeypatch):
                                 pos[:, :64], pos[:, :64], causal=True,
                                 window=None, scale=None)
     assert small is not None and small.shape == (1, 64, 1, 8)
+
+
+def test_other_family_is_planned_dense_as_the_reference():
+    """A family outside the known ones (the Yi-6B smoke config with
+    ``family="custom"``) falls through to the dense segment in both
+    packages' ``layer_plan``."""
+    jcfg = jbase.get_smoke_config("yi_6b").replace(family="custom")
+    cfg = base.get_smoke_config("yi_6b").replace(family="custom")
+
+    def plan(segs):
+        return [([(k.mixer, k.ffn, k.mlp_ff) for k in s.pattern], s.repeat)
+                for s in segs]
+    assert plan(tf.layer_plan(cfg)) == plan(jtf.layer_plan(jcfg))
+    assert plan(tf.layer_plan(cfg)) == plan(tf.layer_plan(
+        cfg.replace(family="dense")))
+
+
+@pytest.mark.parametrize("name", ["exact", "interp-fused"])
+def test_other_family_logits_match_reference(name):
+    """The ``family="custom"`` Yi-6B smoke model, reference parameters
+    carried over: prefill and decode logits and caches within
+    ``test_torch_model.py``'s bounds, both numerics."""
+    jcfg = jbase.get_smoke_config("yi_6b").replace(family="custom")
+    cfg = base.get_smoke_config("yi_6b").replace(family="custom")
+    jparams, params = _pair(jcfg, cfg)
+    toks = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    _run_both(jcfg, cfg, jparams, params, name, toks)
