@@ -16,8 +16,10 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    wide) through all three envelope entry points, and times them;
 3. runs the generator through its entry points: Table I's 16-bit
    reciprocal under ``engine="pallas"`` on the card against the exact numpy
-   engine (same minimum region count, a design that verifies over all
-   65536 codes and evaluates on the card bit-exact), then compiles the
+   engine, which needs no card and runs the three Table I rows in worker
+   processes beside step 2 (same minimum region count, a design that
+   verifies over all 65536 codes and evaluates on the card bit-exact),
+   then compiles the
    default 12-bit library twice on the card (the fleet device path,
    ``mesh=2``, and ``engine="pallas"``), each to the vendored library's
    ``rom_sha``, and evaluates every generated table through the
@@ -104,7 +106,8 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    launch and the graph engine's prefills), and that each request's first
    token matches a plain-version prefill on the card (tie-aware); times
    both engines' ticks at 4 live slots (wall ms per decode step, the
-   busy share from torch.profiler); then, on the same weights, the
+   busy share from torch.profiler: the eager tick's on Yi-6B alone); then,
+   on the same weights, the
    roofline phase (``roofline_phase``: the graph tick's decode step
    profiled on fake tensors on the host by the dry run's profiler,
    ``launch.xprof``, its bytes at least the weights and cache it reads,
@@ -213,10 +216,12 @@ Any failure raises (non-zero exit) before the last line. Details go to
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import gc
 import json
+import multiprocessing
 import pathlib
 import re
 import subprocess
@@ -304,7 +309,7 @@ SERVE_KERNELS = ("act_lib", "rmsnorm_lib", "flash_attn_lib", "softmax_lib")
 
 def device_ms(fn, iters: int = 10, label: str = "",
               kernel: str | None = None, symbol: str | None = None,
-              own: bool = False) -> float:
+              own: bool = False, warm: bool = True) -> float:
     """Mean device milliseconds of the CUDA kernels one ``fn()`` launches,
     from torch.profiler (CUPTI): the kernels' own execution time, without
     the host's launch gaps. The profiler on this card loses events from a
@@ -318,7 +323,9 @@ def device_ms(fn, iters: int = 10, label: str = "",
     ``EVENT_TIMED``. ``symbol`` overrides the kernel's symbol (a kernel
     counted under another's name; without ``kernel``, a library kernel
     ``fn`` launches once); ``own`` leaves out the device time of the other
-    kernels ``fn`` launches (an L2 flush before the call)."""
+    kernels ``fn`` launches (an L2 flush before the call). ``warm=False``
+    skips the warm-up call where the caller has just run ``fn()`` (a
+    plain version whose output the check compared)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -327,7 +334,8 @@ def device_ms(fn, iters: int = 10, label: str = "",
 
     sym = symbol or (KERNEL_SYMBOLS[kernel] if kernel else None)
     before = build.LAUNCHES[kernel] if kernel else 0
-    fn()
+    if warm or kernel:
+        fn()
     torch.cuda.synchronize()
     per_call = build.LAUNCHES[kernel] - before if kernel else int(bool(sym))
     if kernel and not per_call:
@@ -413,6 +421,7 @@ def graph_ms(fn, n: int = 50, reps: int = 3) -> tuple[float | None,
 
 
 PHASE_S: dict[str, float] = {}
+T0 = time.perf_counter()  # the script's start: the report's total_s
 
 
 def phase(name: str, fn, *args, **kw):
@@ -506,6 +515,13 @@ def act_shapes() -> tuple[tuple[int, ...], ...]:
     return tuple(out)
 
 
+# the longest rows on which the one-sided dd_max_rows launch is also held
+# and timed on its own against its plain version (a host loop over t
+# deltas): the generator's R = 8 and 12-bit manifest rows; its R = 5 rows
+# (t = 4093) hold it through the two-sided launch
+DD_ONE_SIDED_MAX_T = 512
+
+
 def dspace_kernel_phase(dev):
     """The envelope kernels and dd_max_rows against their plain versions,
     bitwise, at the generator's shapes; returns rows for the kernels line
@@ -586,7 +602,7 @@ def dspace_kernel_phase(dev):
                    call_ms=timed(lambda: cuda[name](L, U)),
                    plain_ms=device_ms(lambda: ref.envelopes_parity_ref(
                        L.reshape(n_rows, n), U.reshape(n_rows, n)), iters=1,
-                       label=f"plain {label}"),
+                       label=f"plain {label}", warm=False),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
                    pairs=n_rows * (even + odd),
                    **graph_cols(lambda: cuda[name](L, U)))
@@ -621,7 +637,7 @@ def dspace_kernel_phase(dev):
                                 kernel="dd_max_rows"),
                    call_ms=timed(lambda: dk.dd_max_rows2_cuda(mt, st)),
                    plain_ms=device_ms(lambda: ref.dd_max_rows2_ref(mt, st),
-                                      iters=1,
+                                      iters=1, warm=False,
                                       label=f"plain dd {label} both sides"),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
                    pairs=pairs,
@@ -629,6 +645,11 @@ def dspace_kernel_phase(dev):
         details.append(row)
         # the kernels line reads the launch the generator makes
         rows.setdefault("dd_max_rows", row)
+        if t > DD_ONE_SIDED_MAX_T:
+            # the one-sided launches are held above: equal to the two-sided
+            # launch, which equals its plain version; the one-sided plain
+            # loop is not run again at this length
+            continue
         for side, (g, h) in (("a_lo", (mt, st)), ("a_hi", (-st, -mt))):
             got = dk.dd_max_rows_cuda(g, h)
             want = ref.dd_max_rows_ref(g, h)
@@ -650,7 +671,7 @@ def dspace_kernel_phase(dev):
                                     kernel="dd_max_rows"),
                        call_ms=timed(lambda: dk.dd_max_rows_cuda(g, h)),
                        plain_ms=device_ms(lambda: ref.dd_max_rows_ref(g, h),
-                                          iters=1,
+                                          iters=1, warm=False,
                                           label=f"plain dd {label} {side}"),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
                        pairs=pairs,
@@ -668,9 +689,29 @@ def dspace_kernel_phase(dev):
     return rows, details
 
 
-def generator_phase(dev) -> dict:
+def exact_explore(kind: str, kw: dict):
+    """Table I's 16-bit ``kind`` through the exact numpy engine, which
+    needs no card: ``(DesignSpaceResult, wall s)``. ``main`` runs the three
+    in worker processes beside the dspace phase; the generator phase
+    compares the card's engine with them."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.api import Explorer, ExploreConfig, get_spec
+
+    torch.set_num_threads(1)
+    spec = get_spec(kind, 16, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        ex = Explorer(ExploreConfig(cache_dir=d, device="cpu"))
+        t0 = time.perf_counter()
+        res = ex.explore(spec)
+        return res, time.perf_counter() - t0
+
+
+def generator_phase(dev, exact: dict) -> dict:
     """The generator through its entry points on the card (the main path
-    of this slice); launch counts are read right after it."""
+    of this slice); launch counts are read right after it. ``exact`` maps
+    each Table I kind to the future of its ``exact_explore``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -698,9 +739,9 @@ def generator_phase(dev) -> dict:
     t_phase = time.perf_counter()
     for kind, kw in TABLE1_16:
         spec = get_spec(kind, 16, **kw)
-        exact, t_exact = explore(spec)
         dev_res, t_dev = explore(spec, engine="pallas")
-        best, best_x = dev_res.best.design, exact.best.design
+        exact_res, t_exact = exact[kind].result()
+        best, best_x = dev_res.best.design, exact_res.best.design
         ok, worst = best.verify(spec)
         codes = torch.arange(1 << spec.in_bits, dtype=torch.int32,
                              device=dev)
@@ -711,10 +752,10 @@ def generator_phase(dev) -> dict:
         diff = None
         if not same:  # which R and verdict moved
             diff = {"exact": [(e.design.lookup_bits, e.design.k)
-                              for e in exact.entries],
+                              for e in exact_res.entries],
                     "pallas": [(e.design.lookup_bits, e.design.k)
                                for e in dev_res.entries]}
-        rec = dict(spec=spec.name, min_regions_exact=exact.min_regions_r,
+        rec = dict(spec=spec.name, min_regions_exact=exact_res.min_regions_r,
                    min_regions_pallas=dev_res.min_regions_r,
                    wall_s_exact=t_exact, wall_s_pallas=t_dev,
                    best=best.name, lookup_bits=best.lookup_bits,
@@ -722,13 +763,14 @@ def generator_phase(dev) -> dict:
                    verify=ok, worst=worst, table_eval_bit_exact=eval_ok,
                    identical_to_exact=same, difference=diff)
         print(f"{spec.name}: min_regions pallas {dev_res.min_regions_r} / "
-              f"exact {exact.min_regions_r}; best {best.name} (R "
+              f"exact {exact_res.min_regions_r}; best {best.name} (R "
               f"{best.lookup_bits}, degree {best.degree}, k {best.k}, "
               f"fits_int32 {best.fits_int32}); verify over {1 << 16} codes "
               f"{ok}; table_eval on the card == eval_int {eval_ok}; "
               f"identical to the exact engine's design {same}; wall "
-              f"{t_dev:.2f} s pallas engine / {t_exact:.2f} s exact engine")
-        if (dev_res.min_regions_r != exact.min_regions_r or not ok
+              f"{t_dev:.2f} s pallas engine / {t_exact:.2f} s exact engine "
+              f"(in a worker process)")
+        if (dev_res.min_regions_r != exact_res.min_regions_r or not ok
                 or not eval_ok):
             raise AssertionError(f"{spec.name}: the pallas engine on the "
                                  f"card disagrees: {rec}")
@@ -2809,6 +2851,9 @@ def _run_timed(eng) -> tuple[dict, float, dict]:
 
 
 TICK_PROMPTS = (300, 400, 500, 600)
+# the models whose eager tick is profiled too (the others' eager ticks are
+# timed on the host clock alone; device ms "not measured")
+EAGER_PROFILED = ("yi_6b",)
 
 
 def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2,
@@ -2817,8 +2862,9 @@ def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2,
     tokens): wall ms per decode step over ``n`` ticks of
     ``HORIZON`` steps on the host clock (each tick ends in its download),
     then device ms per step and the busy share from torch.profiler over
-    ``n_prof`` more ticks (after one warm tick); ``busy_share`` is the
-    profiler's device time over the unprofiled wall time."""
+    ``n_prof`` more ticks (after one warm tick; none, and no device ms,
+    with ``n_prof=0``); ``busy_share`` is the profiler's device time over
+    the unprofiled wall time."""
     import torch
 
     rng = np.random.default_rng(1)
@@ -2835,7 +2881,7 @@ def tick_profile(eng, cfg, n: int = 3, n_prof: int = 2,
         eng.step(HORIZON)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / (n * HORIZON)
-    prof = profile_steps(lambda: eng.step(HORIZON), n=n_prof)
+    prof = profile_steps(lambda: eng.step(HORIZON), n=n_prof) if n_prof else {}
     dev_ms = prof.get("device_ms")
     dev_ms = None if dev_ms is None else dev_ms / HORIZON
     return dict(wall_ms_per_step=wall_ms, device_ms_per_step=dev_ms,
@@ -2963,10 +3009,12 @@ def serve_one(params, cfg, lib, label, dev, lengths=SERVE_LENGTHS,
     ticks = {}
     for mode, eng in engines.items():
         # an eager tick's trace holds ~27k device ops a tick and its wall
-        # is the host's: one tick is timed and one read
+        # is the host's: one tick is timed, and one is profiled on the
+        # models of EAGER_PROFILED (its device time is the graph tick's)
         graph = mode == "graph"
+        n_prof = 2 if graph else int(cfg.name in EAGER_PROFILED)
         ticks[mode] = phase(f"tick profile ({mode})", tick_profile, eng, cfg,
-                            n=3 if graph else 1, n_prof=2 if graph else 1,
+                            n=3 if graph else 1, n_prof=n_prof,
                             lengths=tick_lengths)
         t = ticks[mode]
         print(f"{mode} tick at {SLOTS} live slots: {n_tok / walls[mode]:.2f} "
@@ -4375,7 +4423,7 @@ def long_prefill_phase(params, cfg, lib, cache_len: int, dev) -> dict:
             gap = float(want.max() - want[tok])
             band = 2.0 ** -5 * float(want.abs().max())
             row = dict(tokens=n, ms=timed(run, iters=2, warmup=0),
-                       device_ms=device_ms(run, iters=1,
+                       device_ms=device_ms(run, iters=1, warm=False,
                                            label=f"prefill {n}"),
                        token_gap=gap, band=band)
             print(f"{cfg.name} {n}-token prefill on the kernels: {row}")
@@ -5002,9 +5050,18 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    dspace_rows, dspace_details = phase("dspace kernels", dspace_kernel_phase,
-                                        dev)
-    gen = phase("generator", generator_phase, dev)
+    # the exact engine's Table I rows need no card: they run in worker
+    # processes beside the dspace phase, and the generator phase reads them
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(TABLE1_16), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        exact = {kind: pool.submit(exact_explore, kind, kw)
+                 for kind, kw in TABLE1_16}
+        dspace_rows, dspace_details = phase("dspace kernels",
+                                            dspace_kernel_phase, dev)
+        gen = phase("generator", generator_phase, dev, exact)
+    finally:
+        pool.shutdown(cancel_futures=True)
     lib = gen.pop("library")  # compiled on the card in this run
     print(f"library {lib.rom_sha()} {tuple(lib.coeffs.shape)} (compiled on "
           f"the card)")
@@ -5132,7 +5189,8 @@ def main() -> int:
               "train": train, "dse": dse,
               "launches_by_path": by_path,
               "event_timed": EVENT_TIMED, "short_traces": SHORT_TRACES,
-              "phase_s": PHASE_S}
+              "phase_s": PHASE_S,
+              "total_s": time.perf_counter() - T0}
     if EVENT_TIMED:
         print(f"timed with CUDA events (no profiler device time): "
               f"{EVENT_TIMED}")
@@ -5141,6 +5199,8 @@ def main() -> int:
               f"{SHORT_TRACES}")
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                     default=str))
+    print(json.dumps({"phase_s": {k: round(v, 1) for k, v in PHASE_S.items()},
+                      "total_s": round(time.perf_counter() - T0, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

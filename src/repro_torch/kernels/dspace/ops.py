@@ -98,17 +98,33 @@ def _to_core(big: torch.Tensor, m: torch.Tensor):
     return big, m
 
 
-def envelopes_pallas(L: np.ndarray, U: np.ndarray, device="cuda"
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """Drop-in for ``core.designspace.envelopes`` through the one-row
-    kernel (``envelopes_parity``) on ``device``; any n."""
+def _one_row(L: np.ndarray, U: np.ndarray, device, parity
+             ) -> tuple[np.ndarray, np.ndarray]:
+    """``parity`` of one row of bounds on ``device``, as M(t), m(t) in the
+    core layout; any n."""
     n = len(L)
     if n < 2:
         return np.full(1, -np.inf), np.full(1, np.inf)
     dev = resolve(device)
-    parity = envelopes_parity(_rows_f32(L, dev), _rows_f32(U, dev))
-    big, m = _to_core(*_interleave(*(o[None] for o in parity)))
+    out = parity(_rows_f32(L, dev), _rows_f32(U, dev))
+    big, m = _to_core(*_interleave(*(o[None] for o in out)))
     return big[0], m[0]
+
+
+def envelopes_pallas(L: np.ndarray, U: np.ndarray, device="cuda"
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Drop-in for ``core.designspace.envelopes`` through the one-row
+    kernel (``envelopes_parity``) on ``device``; any n."""
+    return _one_row(L, U, device, envelopes_parity)
+
+
+def envelopes_ref_jnp(L: np.ndarray, U: np.ndarray, device="cpu"
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """``envelopes_pallas`` through the plain version on ``device``,
+    whatever tensor it holds; the reference's name for the same
+    baseline."""
+    return _one_row(L, U, device, lambda l_row, u_row: tuple(
+        o[0] for o in envelopes_parity_ref(l_row[None], u_row[None])))
 
 
 def _merge_reduce(me, mo, be, bo):

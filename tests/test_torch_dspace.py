@@ -95,6 +95,24 @@ def test_envelopes_pallas_drop_in_bitwise(n):
     np.testing.assert_allclose(got[1][1:], m[1:], rtol=1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 2, 128, 200])
+def test_envelopes_ref_jnp_bitwise(n):
+    """The plain baseline under the reference's name: the reference's
+    ``envelopes_ref_jnp`` and the port's drop-in, bitwise, on random rows
+    and on the first n codes of recip-12's first region at R = 4."""
+    L, U = _rand_bounds(np.random.default_rng(11 + n), (n,))
+    cases = [(L, U)]
+    if n >= 128:
+        lo, hi = get_spec("recip", 12).region_bounds(4)  # 256 codes each
+        cases.append((lo[0][:n], hi[0][:n]))
+    for L, U in cases:
+        got = tops.envelopes_ref_jnp(L, U)
+        for g, w, d in zip(got, jops.envelopes_ref_jnp(L, U),
+                           tops.envelopes_pallas(L, U, device="cpu")):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, d)
+
+
 @pytest.mark.parametrize("b,n", [(4, 128), (3, 200), (2, 64)])
 def test_envelopes_parity_batched_bitwise(b, n):
     L, U = _rand_bounds(np.random.default_rng(11), (b, n))

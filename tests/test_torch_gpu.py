@@ -50,6 +50,7 @@ Tolerances:
 from __future__ import annotations
 
 import json
+import pathlib
 import tempfile
 
 import numpy as np
@@ -923,6 +924,77 @@ def test_pallas_engine_on_card_matches_exact(dev):
             lib = Explorer(ExploreConfig(cache_dir=d, device="cuda",
                                          **kw)).compile()
         assert lib.rom_sha() == "12aa483ae8456c2f" and lib.coeffs.is_cuda
+
+
+# The card counterparts of tests/test_torch_explorer.py's device cases.
+
+@pytest.mark.parametrize("engine", ["pooled", "batched", "pallas"])
+def test_explorer_engines_identical_designs_on_card(engine, dev):
+    """recip-8 at R = 3: every engine on the card, ``pallas`` through the
+    envelope kernel, gives the batched engine's design."""
+    spec = get_spec("recip", 8)
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        want = Explorer(ExploreConfig(cache_dir=d1)).explore_r(spec, 3)
+        n0 = build.LAUNCHES["envelopes_parity_batched"]
+        got = Explorer(ExploreConfig(engine=engine, device="cuda",
+                                     cache_dir=d2)).explore_r(spec, 3)
+        assert (build.LAUNCHES["envelopes_parity_batched"] > n0) == (
+            engine == "pallas")
+    assert got.design.to_dict() == want.design.to_dict()
+
+
+def test_fleet_compile_on_card_bitwise_serial(dev):
+    """The default manifest through the fleet's device front half
+    (``mesh=2``, the fleet kernel) equals the serial per-kind path:
+    metadata, ROM and table files."""
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        n0 = build.LAUNCHES["envelopes_parity_fleet"]
+        fleet = Explorer(ExploreConfig(cache_dir=d1, device="cuda",
+                                       mesh=2)).compile()
+        assert build.LAUNCHES["envelopes_parity_fleet"] > n0
+        serial = Explorer(ExploreConfig(cache_dir=d2, device="cuda",
+                                        fleet=False)).compile()
+        files = [{p.name: p.read_bytes() for p in
+                  pathlib.Path(d).glob("*.json")}
+                 for d in (d1, d2)]
+    assert fleet.metas == serial.metas
+    assert torch.equal(fleet.coeffs, serial.coeffs) and fleet.coeffs.is_cuda
+    assert fleet.rom_sha() == "12aa483ae8456c2f"
+    assert files[0] == files[1] and files[0]
+
+
+def test_fleet_warm_cache_short_circuits_on_card(dev):
+    """A second device-fleet compile loads every table from the cache: no
+    envelope launch, no disk write, the same ROM."""
+    with tempfile.TemporaryDirectory() as d:
+        ex = Explorer(ExploreConfig(cache_dir=d, device="cuda", mesh=2))
+        lib1 = ex.compile(["recip", "exp2neg"])
+        stamp = {p.name: p.stat().st_mtime_ns
+                 for p in pathlib.Path(d).glob("*.json")}
+        n0 = dict(build.LAUNCHES)
+        lib2 = ex.compile(["recip", "exp2neg"])
+        assert dict(build.LAUNCHES) == n0
+        assert {p.name: p.stat().st_mtime_ns for p in
+                pathlib.Path(d).glob("*.json")} == stamp
+    assert torch.equal(lib1.coeffs, lib2.coeffs)
+
+
+def test_mesh_device_spaces_never_poison_exact_cache_on_card(dev):
+    """``mesh=2`` on the card: the fleet kernel's float32 spaces stay out
+    of the exact engine's cache and agree with its verdicts."""
+    spec = get_spec("recip", 8)
+    with tempfile.TemporaryDirectory() as d:
+        ex = Explorer(ExploreConfig(cache_dir=d, device="cuda", mesh=2))
+        n0 = build.LAUNCHES["envelopes_parity_fleet"]
+        spaces = ex._envelopes_fleet([(spec, 3)])
+        assert build.LAUNCHES["envelopes_parity_fleet"] > n0
+        assert len(spaces[0]) == 8
+        assert ex.envelope_stats["computed"] == 0 and not ex._spaces
+        exact = Explorer(ExploreConfig(cache_dir=d)).envelopes(spec, 3)
+        assert [s.feasible for s in spaces[0]] == [s.feasible for s in exact]
+        assert ex.feasible(spec, 3) == ex.feasible(spec, 3)
 
 
 # ------------------------------------------------------- segmented (ROM v2)
