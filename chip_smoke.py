@@ -4287,6 +4287,8 @@ MIXTRAL_LAYERS, QWEN_LAYERS = 8, 4
 # DeepSeekMoE's dense layer 0 and 13 of its 27 MoE layers (full width): a
 # depth cut that keeps the whole run inside half its time limit
 DEEPSEEK_LAYERS = 14
+# tokens per row of the MoE expert check (4 rows: a prefill's dispatch)
+EXPERT_ROWS = 256
 # the SSM runs: a prompt longer than the 256-token SSD chunk must be a
 # whole number of chunks (the reference's contract), so 512 stands for
 # SERVE_LENGTHS' 511 and the tick's prompts are 256 / 512
@@ -4680,6 +4682,101 @@ def whisper_phase(lib, dev) -> dict:
                 cross_kv_flops=cross_flops, tokens=toks.T.tolist())
 
 
+def moe_expert_phase(params, cfg, lib, dev, train: bool = False) -> dict:
+    """The served weights' first MoE layer at full width in bf16, on 4
+    rows of ``EXPERT_ROWS`` tokens: its peak memory (``max_memory_allocated``
+    around the call, over what was held before) below one float32 copy of
+    the layer's expert weights; both expert products float32 from bf16
+    operands, within twice the float32 summation bound (K * 2^-24 *
+    (|a| @ |b|)) of the float32 product of the upcast operands on the
+    card. With ``train``, one bf16 DeepSeekMoE smoke train step on the
+    card (interp numerics through ``library_eval``; the products through
+    ``expert_mm``'s backward): finite loss and gradient norm."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.numerics.ops import FusedInterpNumerics
+
+    i = next(i for i, (*_, kind) in enumerate(tf.layer_slots(cfg))
+             if kind.ffn == "moe")
+    p = tf.layer_params(params, cfg, i)[1]["ffn"]
+    f32_copy = 4 * (p["wi"].numel() + p["wo"].numel())
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(4, EXPERT_ROWS, cfg.d_model, device=dev,
+                    generator=g).to(torch.bfloat16)
+    num = FusedInterpNumerics(lib)
+    seen, real = [], moe._mm_f32
+
+    def spy(a, b):
+        seen.append((a, b, real(a, b)))
+        return seen[-1][2]
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        y = moe.moe_block(p, x, cfg, num)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        moe._mm_f32 = spy
+        try:
+            again = moe.moe_block(p, x, cfg, num)
+        finally:
+            moe._mm_f32 = real
+        products = []
+        for a, b, out in seen:
+            err = ratio = 0.0
+            for e in range(a.shape[0]):  # one expert's float32 copy at once
+                a32, b32 = a[e].float(), b[e].float()
+                diff = (out[e] - a32 @ b32).abs()
+                slack = a.shape[-1] * 2.0 ** -24 * (a32.abs() @ b32.abs())
+                # an all-zero row (an unfilled capacity slot) has no slack
+                over = torch.where(slack > 0, diff / (2 * slack),
+                                   diff * float("inf"))
+                err = max(err, float(diff.max()))
+                ratio = max(ratio, float(over.nan_to_num(0.0).max()))
+            products.append(dict(
+                dtypes=[str(t.dtype) for t in (a, b, out)],
+                shape=[list(a.shape), list(b.shape)],
+                max_abs_err=err, max_err_over_bound=ratio))
+    out = dict(layer=i, rows=[4, EXPERT_ROWS], peak_bytes=peak,
+               f32_expert_copy_bytes=f32_copy, products=products)
+    print(f"{cfg.name} layer {i} MoE experts on (4, {EXPERT_ROWS}) bf16: "
+          f"peak {peak / 1e9:.3f} GB (a float32 copy of its experts "
+          f"{f32_copy / 1e9:.3f} GB); products {products}")
+    if not (torch.equal(again, y) and torch.isfinite(y).all()):
+        raise AssertionError(f"{cfg.name}: the MoE layer is not repeatable")
+    if peak >= f32_copy:
+        raise AssertionError(f"{cfg.name}: the MoE layer's peak memory "
+                             f"{peak} reaches a float32 copy of its experts")
+    if len(products) != 2 or any(
+            q["dtypes"] != ["torch.bfloat16"] * 2 + ["torch.float32"]
+            or q["max_err_over_bound"] > 1 for q in products):
+        raise AssertionError(f"{cfg.name}: expert products {products}")
+    if train:
+        from repro_torch.configs.base import get_smoke_config
+        from repro_torch.data import make_batch
+        from repro_torch.optim import adamw_init
+        from repro_torch.train import StepConfig, TrainState, make_train_step
+
+        scfg = get_smoke_config(cfg.name).replace(numerics="interp",
+                                                  param_dtype="bfloat16")
+        sp = tf.init_params(scfg, 0, dev)
+        step = make_train_step(scfg, StepConfig(peak_lr=1e-3, warmup=0),
+                               lib)
+        _, m = step(TrainState(sp, adamw_init(sp), None),
+                    make_batch(scfg, 32, 2), 0)
+        out["train_step"] = {k: float(v) for k, v in m.items()}
+        print(f"{scfg.name} smoke bf16 train step on the card: "
+              f"{out['train_step']}")
+        if not (np.isfinite([out["train_step"]["loss"],
+                             out["train_step"]["grad_norm"]]).all()
+                and out["train_step"]["grad_norm"] > 0):
+            raise AssertionError(f"bf16 MoE train step: {m}")
+    return out
+
+
 def serve_phases(lib, seg_lib, dev) -> list[dict]:
     """Full-width Yi-6B (with the serial oracle, the fault, plan and AOT /
     async phases on its weights), DeepSeekMoE-16B at ``DEEPSEEK_LAYERS``
@@ -4708,9 +4805,12 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
     serves += phase("serve deepseek_moe_16b", serve_phase,
                     [("uniform", lib), ("segmented", seg_lib)], dev,
                     deepseek_moe_16b.CONFIG.replace(n_layers=DEEPSEEK_LAYERS),
-                    extra=lambda params, cfg, _r: {"aot": phase(
-                        "aot deepseek_moe_16b", aot_phase, params, cfg, lib,
-                        dev)})
+                    extra=lambda params, cfg, _r: {
+                        "aot": phase("aot deepseek_moe_16b", aot_phase,
+                                     params, cfg, lib, dev),
+                        "experts": phase("experts deepseek_moe_16b",
+                                         moe_expert_phase, params, cfg, lib,
+                                         dev, train=True)})
     freed(dev, "deepseek_moe_16b")
     serves += phase("serve minicpm3_4b", serve_phase, [("uniform", lib)],
                     dev, minicpm3_4b.CONFIG, extra=lambda params, cfg, _r: {
@@ -4726,7 +4826,9 @@ def serve_phases(lib, seg_lib, dev) -> list[dict]:
                           params, cfg, lib, r, dev),
             "long_prefill": phase("mixtral prime-length prefill",
                                   long_prefill_phase, params, cfg, lib,
-                                  r["cache_len"], dev)},
+                                  r["cache_len"], dev),
+            "experts": phase("experts mixtral_8x22b", moe_expert_phase,
+                             params, cfg, lib, dev)},
         lengths=MIXTRAL_LENGTHS, cache_len=mixtral.sliding_window,
         tick_lengths=MIXTRAL_TICK)
     freed(dev, "mixtral_8x22b")

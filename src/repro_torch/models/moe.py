@@ -8,9 +8,12 @@ Each example dispatches its S * k token copies into a (B, E, C + 1, d)
 buffer at their position in the expert (a cumsum over the example's own
 assignments); row C is the overflow scratch row, zeroed at the combine by
 ``keep``. The expert products fold the batch into the rows, so each expert's
-weights are read once per call. On the CPU in float32 this computes what the
-reference computes; in bf16 on the card the expert products round their
-outputs to bf16 where the reference keeps float32.
+weights are read once per call. Both expert products give float32, as the
+reference's ``preferred_element_type=float32`` einsums (:func:`expert_mm`):
+the silu reads the float32 gate, the combine stays float32 and casts once,
+and on a mesh the ``tp`` partials are summed in float32 after the combine,
+on (B, S, d) rather than the (E, B, C + 1, d) expert buffer. bf16 operands stay bf16 on the card (cuBLAS
+accumulates and writes float32; no float32 copy of the expert weights).
 
 ``load_balance_loss_from_probs`` is the training path's Switch-style aux
 loss from the same routing pass's probabilities.
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import build
 from repro_torch.models.layers import pdtype, spec
 
 
@@ -52,6 +56,46 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` batched, float32 out. bf16 operands on the card (or traced
+    as the card's by ``launch.xprof``) go to cuBLAS as they are
+    (``aten::bmm.dtype``, which raises where it is refused); on the CPU
+    they are upcast: a bf16 x bf16 product is exact in float32, so this is
+    the float32 product of the bf16 values."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda or build.tracer_for(a) is not None:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+class _ExpertMM(torch.autograd.Function):
+    """:func:`_mm_f32` with a backward (``aten::bmm.dtype`` has none): the
+    float32 cotangent times the other operand in float32, each gradient
+    cast to its operand's dtype, as the reference's transposed dots."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.to(g.dtype).transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(g.dtype).transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
+def expert_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The experts' batched product (E, R, K) x (E, K, N) -> float32 (E, R,
+    N), the reference's ``einsum(..., preferred_element_type=float32)``."""
+    return _ExpertMM.apply(a, b)
+
+
 def route(p: dict, x: torch.Tensor, cfg, numerics):
     """Router probabilities (B, S, E) float32, and the top-k expert ids and
     renormalized gates (B, S, K)."""
@@ -70,7 +114,7 @@ def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
     are dropped (they fall through on the residual path). On a mesh the
     router and the dispatch run on every ``tp`` rank alike, the experts'
     ``wi`` / ``wo`` hold this rank's ``d_expert`` columns / rows (as the
-    shared expert's), and their outputs are summed over ``tp``."""
+    shared expert's), and the combined outputs are summed over ``tp``."""
     m = cfg.moe
     b, s, d = x.shape
     e_n, k = m.n_experts, m.top_k
@@ -96,18 +140,24 @@ def moe_block(p: dict, x: torch.Tensor, cfg, numerics,
     rows = buf.permute(1, 0, 2, 3).reshape(e_n, b * (cap + 1), d)
     if mesh is not None:
         rows = mesh.tp_enter(rows)
-    h = torch.bmm(rows, p["wi"])
+    h = expert_mm(rows, p["wi"])  # float32
     gate_h, up = torch.chunk(h, 2, dim=-1)
     h = (numerics.silu(gate_h) * up).to(x.dtype)
-    out_buf = torch.bmm(h, p["wo"])
-    if mesh is not None:
-        out_buf = mesh.tp_sum(out_buf)
-    out_buf = out_buf.reshape(e_n, b, cap + 1, d)
+    out_buf = expert_mm(h, p["wo"]).reshape(e_n, b, cap + 1, d)  # float32
 
-    # combine: gather each copy's expert output, weight by keep * gate
-    tok_out = out_buf[flat_e, bidx, slot].to(torch.float32)  # (B, SK, d)
-    tok_out = tok_out * (keep * gate.reshape(b, s * k))[..., None]
-    y = tok_out.reshape(b, s, k, d).sum(dim=2).to(x.dtype)
+    # combine in float32: gather each copy's expert output, weight by
+    # keep * gate, sum the k copies; on a mesh the tp partials are summed
+    # here (the gather is linear, so it commutes with the row-parallel
+    # sum: the reference's one all-reduce lands on y), then one cast. The
+    # weights meet a partial, so their gradient is summed over tp too.
+    weight = keep * gate.reshape(b, s * k)
+    if mesh is not None:
+        weight = mesh.tp_enter(weight)
+    tok_out = out_buf[flat_e, bidx, slot] * weight[..., None]  # (B, SK, d)
+    y = tok_out.reshape(b, s, k, d).sum(dim=2)
+    if mesh is not None:
+        y = mesh.tp_sum(y)
+    y = y.to(x.dtype)
 
     if m.n_shared:
         xs = x if mesh is None else mesh.tp_enter(x)

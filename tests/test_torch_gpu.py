@@ -42,6 +42,11 @@ Tolerances:
   and the unchunked oracle (its unfused glue one more table ulp, inside the
   (n_tiles + 2) bound). On the R6 designs each equals its library twin
   bitwise.
+* The MoE experts' products (bf16 x bf16 -> float32 from cuBLAS, at full
+  width) against the float32 product of the upcast operands on the card:
+  within twice the float32 summation bound K * 2^-24 * (|a| @ |b|),
+  elementwise (each result lies within it of the exact product, in any
+  order of summation).
 * The smoke models through the kernels against the plain versions:
   4 * 2^-12 * max|logit| (a few table-code flips). The MoE routing is the
   same on both paths: a recip flip scales a whole row of router
@@ -2598,3 +2603,113 @@ def test_world1_nccl_meshed_engine_equals_unmeshed(lib, dev, nccl_world):
         ServeEngine(cfg, params, slots=4, cache_len=64, library=lib,
                     mesh=gloo, device=dev)
     assert build.LAUNCHES == before
+
+
+# ------------------------------------------- the MoE experts' float32 products
+def expert_products(monkeypatch) -> list:
+    """Each expert product ``moe_block`` takes from here on: (a, b, out)."""
+    seen, real = [], moe._mm_f32
+
+    def spy(a, b):
+        out = real(a, b)
+        seen.append((a, b, out))
+        return out
+
+    monkeypatch.setattr(moe, "_mm_f32", spy)
+    return seen
+
+
+def summation_bound(a, b) -> torch.Tensor:
+    """K * 2^-24 * (|a| @ |b|): how far a float32 sum of the K exact
+    products of a bf16 x bf16 product may land from the exact value, in
+    any order; two such sums differ by at most twice that."""
+    return a.shape[-1] * 2.0 ** -24 * (a.float().abs() @ b.float().abs())
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "mixtral_8x22b"])
+@pytest.mark.parametrize("s", [1, 256])
+def test_moe_expert_products_are_float32_at_full_width(arch, s, lib, dev,
+                                                       monkeypatch):
+    """One full-width bf16 MoE layer (4 rows of ``s`` tokens): its peak
+    memory stays below one float32 copy of the layer's expert weights
+    (cuBLAS reads them as bf16 and writes float32), both expert products
+    come out float32 and agree with the float32 product of the upcast
+    operands on the card within twice the float32 summation bound."""
+    from repro_torch.models.layers import init_tree
+
+    cfg = get_config(arch)
+    assert cfg.param_dtype == "bfloat16"
+    p = init_tree(moe.moe_shapes(cfg), 3, dev)
+    f32_copy = 4 * (p["wi"].numel() + p["wo"].numel())
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(4, s, cfg.d_model, device=dev, generator=g).to(
+        torch.bfloat16)
+    num = FusedInterpNumerics(lib)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        y = moe.moe_block(p, x, cfg, num)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+        assert peak < f32_copy, (peak, f32_copy)
+        seen = expert_products(monkeypatch)
+        assert torch.equal(moe.moe_block(p, x, cfg, num), y)
+        assert len(seen) == 2
+        for a, b, out in seen:
+            assert a.dtype == b.dtype == torch.bfloat16
+            assert out.dtype == torch.float32
+            for e in range(a.shape[0]):  # one expert's float32 copy at once
+                err = (out[e] - a[e].float() @ b[e].float()).abs()
+                assert torch.all(err <= 2 * summation_bound(a[e], b[e]))
+
+
+def test_moe_expert_products_captured_bf16_to_float32(lib, dev, monkeypatch):
+    """The served bf16 DeepSeekMoE, Mixtral and Jamba smoke models: the
+    graph engines capture their ticks and admissions with the float32
+    expert products of bf16 operands (each tick replays them), and the
+    streams equal the eager engines'."""
+    for arch in ("deepseek_moe_16b", "mixtral_8x22b", "jamba_v0_1_52b"):
+        cfg, params = _smoke(dev, arch, "bfloat16")
+        prompts = _prompts_for(cfg, (5, 11, 3))
+        out = {}
+        for graph in (True, False):
+            seen = expert_products(monkeypatch)
+            eng = ServeEngine(cfg, params, slots=2, cache_len=64,
+                              library=lib, horizon=4, graph=graph,
+                              device=dev)
+            if graph:
+                assert eng.stats["graph"] and seen
+            out[graph] = _serve_on(eng, prompts)
+            assert seen and all(
+                a.dtype == torch.bfloat16 and o.dtype == torch.float32
+                for a, _b, o in seen)
+        assert out[True] == out[False], arch
+
+
+def test_bf16_moe_train_step_on_cuda(dev):
+    """One bf16 DeepSeekMoE smoke train step on the card (interp numerics
+    through ``library_eval``; the experts' products through
+    ``expert_mm``'s backward): finite loss and gradient norm, the expert
+    weights bf16 and moved."""
+    from repro_torch.data import make_batch
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import StepConfig, TrainState, make_train_step
+    from repro_torch.util.tree import leaves_with_paths
+
+    cfg = get_smoke_config("deepseek_moe_16b").replace(
+        numerics="interp", param_dtype="bfloat16")
+    params = tf.init_params(cfg, 0, dev)
+    wi0 = params["segments"]["seg1"]["0"]["ffn"]["wi"].clone()
+    step = make_train_step(cfg, StepConfig(peak_lr=1e-3, warmup=0),
+                           InterpLibrary.default_library(dev))
+    state, m = step(TrainState(params, adamw_init(params), None),
+                    make_batch(cfg, 32, 2), 0)
+    assert np.isfinite([float(m["loss"]), float(m["grad_norm"])]).all()
+    assert float(m["grad_norm"]) > 0
+    wi = dict(leaves_with_paths(state.params))
+    moved = [t for n, t in wi.items() if n.endswith("ffn/wi")]
+    assert moved and all(t.dtype == torch.bfloat16 for t in moved)
+    assert not torch.equal(state.params["segments"]["seg1"]["0"]["ffn"][
+        "wi"], wi0)

@@ -246,10 +246,11 @@ def test_bf16_params_logits_match_reference():
     """The same bfloat16 parameters on the dense decoder against the
     reference, as ``test_prefill_and_decode_logits_match_reference`` holds
     float32 ones (its tolerance, tie-aware greedy tokens, decode
-    teacher-forced with the reference's tokens). The MoE config is held by
-    the test above and the float32 reference test only: the reference's CPU
-    backend has no bf16 x bf16 -> f32 dot for its expert layer (XLA's CPU
-    DotThunk)."""
+    teacher-forced with the reference's tokens). The other nine families,
+    the MoE ones among them, are held in bf16 by
+    ``tests/test_torch_bf16_*.py``, with a test-side shim for the
+    reference's float32-preferred einsums, which XLA's CPU backend cannot
+    run on bf16 operands (its DotThunk has no bf16 x bf16 -> f32 dot)."""
     jcfg, cfg, jparams, params = _bf16_params("yi_6b")
     jnum = jax_get_numerics("interp-fused", default_explorer().compile())
     tnum = get_numerics("interp-fused", InterpLibrary.default_library("cpu"))
