@@ -205,7 +205,14 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a). It
    the plain evaluator's (``library_eval_ref``) on the same card; then
    Mamba2-130M whole through the ``Trainer`` (8 x 512 tokens, a
    checkpoint every 2 steps), a run cut after step 3 and resumed from
-   its checkpoint within rtol 1e-5 of the straight run;
+   its checkpoint within rtol 1e-5 of the straight run; then
+   (``train_parity_phase``, ``tools/train_parity.py``) the ten smoke
+   families' bf16 ``loss_and_grads`` on the card against the port on the
+   CPU: every flipped MoE route a near tie, then the loss, aux loss and
+   every gradient leaf within twice the CPU's own bf16 error (its
+   distance from its float32 run), printed as a ``{"train_parity":
+   {...}}`` line (per family the largest ratio to that bound) before the
+   kernels line;
 12. prints the throughput, a ``{"kernels": [...]}`` JSON line (each
    serving kernel's row with its ``family_shapes``; ``library_eval``'s
    launches include the interp train run's) and, last,
@@ -5079,6 +5086,46 @@ def train_phase(lib, dev) -> dict:
     return out
 
 
+def train_parity_phase(dev) -> dict:
+    """The bf16 train path of the ten smoke families on the card against
+    the port on the CPU (``tools/train_parity.py`` ``family_parity``):
+    exact numerics, ``loss_and_grads`` on 2 x 32 tokens at bf16 on the
+    card, at bf16 and at float32 (the same bf16-valued weights) on the
+    CPU. Every MoE route the card flips must be a near tie (the CPU's gap
+    between the k-th and (k+1)-th probability within the layer's max
+    |card - CPU| probability, the earlier layers forced to the CPU's
+    routes); then, routed as the CPU routes, the card's loss, aux loss
+    and every gradient leaf within twice the CPU's own bf16 error. Per
+    family the largest ratio of the card's distance to that bound (<= 1),
+    beside the card's name and power limit."""
+    import torch
+
+    from repro_torch.configs.base import ARCH_IDS
+
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_parity", ROOT / "tools" / "train_parity.py")
+    train_parity = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(train_parity)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    out = {"card": smi, "families": {}}
+    for arch in ARCH_IDS:
+        r = train_parity.family_parity(arch, dev)
+        out["families"][arch] = r
+        print(f"train parity {arch} [{smi}]: ratio {r['ratio']:.4f} at "
+              f"{r['at']}; flips {[f['flipped'] for f in r['flips']]} "
+              f"({r['s']:.1f} s)")
+        if not r["ok"]:
+            raise AssertionError(f"train parity {arch}: {r}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def freed(dev, name: str) -> None:
     """Free what the last serve run left (its weights and cache go before
     the next init) and print what stays allocated."""
@@ -5195,6 +5242,7 @@ def main() -> int:
     tab_rows, pertable = phase("per-table", pertable_phase, lib, dev)
     serves = serve_phases(lib, seg_lib, dev)
     train = phase("train", train_phase, lib, dev)
+    train["parity"] = phase("train parity", train_parity_phase, dev)
     train_launches = train["yi_6b_interp"]["launches"]
     launches = {name: sum(sv["launches"][name] for sv in serves)
                 + train_launches[name] for name in build.LAUNCHES}
@@ -5301,6 +5349,10 @@ def main() -> int:
               f"{SHORT_TRACES}")
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1,
                                                     default=str))
+    parity = train["parity"]
+    print(json.dumps({"train_parity": {
+        a: r["ratio"] for a, r in parity["families"].items()},
+        "card": parity["card"]}))
     print(json.dumps({"phase_s": {k: round(v, 1) for k, v in PHASE_S.items()},
                       "total_s": round(time.perf_counter() - T0, 1)}))
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,10 @@ InternVL's ``projector``), and returns the port's
 parameter dict, so that both packages compute the same function. The SSM
 mixer's ``a_log``, ``dt_bias`` and ``d_skip`` are float32 in both trees,
 its other leaves in the parameter dtype. Every
-leaf must have the port's shape and dtype for ``cfg``; nothing is cast. A
+leaf must have the port's shape and dtype for ``cfg``, or the parameter
+dtype: an optimizer step writes every leaf back in it, in both packages
+(``adamw_update``), so a trained state's router and SSM leaves are bf16
+in a bf16 model. Nothing is cast. A
 reference leaf that the port's tree does not name is refused too: a
 dropped leaf (a QKV bias, say) would otherwise show only as a logit
 difference.
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve
-from repro_torch.models.layers import Spec, map_tree
+from repro_torch.models.layers import Spec, map_tree, pdtype
 from repro_torch.models.transformer import param_shapes
 from repro_torch.util.tree import tree_map
 
@@ -46,13 +49,16 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
 
 def params_from_jax(tree: dict, cfg, device: str | torch.device = "cuda"
                     ) -> dict:
-    return _from_tree(tree, param_shapes(cfg), resolve(device), cfg.name)
+    return _from_tree(tree, param_shapes(cfg), resolve(device), cfg.name,
+                      pdtype(cfg))
 
 
 def _from_tree(tree: dict, shapes: dict, dev: torch.device,
-               arch: str) -> dict:
+               arch: str, written: torch.dtype | None = None) -> dict:
     """``tree``'s numpy leaves as tensors on ``dev`` in the structure of
-    the :class:`Spec` tree ``shapes``, each checked against its spec."""
+    the :class:`Spec` tree ``shapes``, each checked against its spec: its
+    shape, and its dtype or ``written`` (the dtype an optimizer step
+    writes every parameter back in)."""
 
     def walk(shapes: dict, src: dict, path: str) -> dict:
         extra = sorted(set(src) - set(shapes))
@@ -71,7 +77,7 @@ def _from_tree(tree: dict, shapes: dict, dev: torch.device,
             if tuple(t.shape) != sp.shape:
                 raise ValueError(f"{path}{name}: shape {tuple(t.shape)} != "
                                  f"{sp.shape}")
-            if t.dtype != sp.dtype:
+            if t.dtype not in (sp.dtype, written):
                 raise TypeError(f"{path}{name}: dtype {t.dtype} != "
                                 f"{sp.dtype}")
             out[name] = t.to(dev)

@@ -98,9 +98,12 @@ def expert_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def route(p: dict, x: torch.Tensor, cfg, numerics):
     """Router probabilities (B, S, E) float32, and the top-k expert ids and
-    renormalized gates (B, S, K)."""
+    renormalized gates (B, S, K). The router is float32 at init and in
+    the parameter dtype after an optimizer step (``adamw_update`` casts
+    every leaf): the logits are a float32 product either way, as the
+    reference's promotes a bf16 router."""
     m = cfg.moe
-    logits = x.to(torch.float32) @ p["router"]
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     probs = (numerics.softmax(logits, axis=-1) if m.router_numerics
              else torch.softmax(logits, dim=-1))
     gate, idx = top_k(probs, m.top_k)

@@ -51,9 +51,23 @@ Tolerances:
   4 * 2^-12 * max|logit| (a few table-code flips). The MoE routing is the
   same on both paths: a recip flip scales a whole row of router
   probabilities, so the top-k order does not change.
+* The bf16 train path (``loss_and_grads``, one train step, a full-width
+  Yi-6B block and DeepSeekMoE MoE layer forward and backward) against the
+  port on the CPU: the card's float32 sums run in cuBLAS's order and its
+  transcendentals are CUDA's, and the bf16 roundings between the products
+  carry those differences on as they carry the CPU's own rounding. So the
+  bound is the CPU's own bf16 error: the card's loss, aux loss, output and
+  every gradient within twice max |CPU bf16 - CPU float32| on the same
+  bf16-valued weights (``tools/train_parity.py``), MoE routes forced to
+  the CPU's after every flip is shown to be a near tie. Under interp,
+  ``library_eval`` inside autograd against the plain evaluator on the
+  card: the loss bitwise, every gradient within one bf16 ulp of its
+  leaf's largest magnitude (autograd's index backward adds in no fixed
+  order on the card).
 """
 from __future__ import annotations
 
+import functools
 import json
 import pathlib
 import tempfile
@@ -64,7 +78,7 @@ import torch
 
 from repro_torch.api import Explorer, ExploreConfig
 from repro_torch.api.library import InterpLibrary
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.funcspec import get_spec
 from repro_torch.core.table import CoeffMeta, TableDesign
 from repro_torch.kernels import build
@@ -2713,3 +2727,168 @@ def test_bf16_moe_train_step_on_cuda(dev):
     assert moved and all(t.dtype == torch.bfloat16 for t in moved)
     assert not torch.equal(state.params["segments"]["seg1"]["0"]["ffn"][
         "wi"], wi0)
+
+
+@functools.lru_cache(maxsize=None)
+def _train_parity():
+    """``tools/train_parity.py``, loaded by path."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
+        "train_parity.py"
+    spec = importlib.util.spec_from_file_location("train_parity", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_bf16_train_family_on_card_matches_cpu(arch, dev, record_property):
+    """The smoke family's bf16 ``loss_and_grads`` under exact numerics on
+    the card against the port on the CPU (``tools/train_parity.py``): every
+    flipped MoE route a near tie, then the loss, aux loss and every
+    gradient leaf within twice the CPU's own bf16 error; one train step
+    from the same state, routed as the CPU's (``step_parity``): the loss
+    and aux as above, the learning rate equal, the gradient norm, the
+    moments and the float32 master within what that gradient bound
+    allows (2 lr only where the gradient's sign is a tie), the bf16
+    parameters the master cast and at most 1% of them apart."""
+    tp = _train_parity()
+    fam = tp.family_parity(arch, dev)
+    assert fam["ok"], fam
+    step = tp.step_parity(arch, dev)
+    record_property("family", fam)
+    record_property("step", step)
+    assert step["ok"], step
+
+
+def _interp_grads(arch, dev, numerics):
+    from repro_torch.data import make_batch
+    from repro_torch.train.step import batch_to, loss_and_grads
+    from repro_torch.util.tree import leaves_with_paths, tree_map
+
+    cfg, params = _train_parity().smoke_model(arch)
+    cfg = cfg.replace(numerics="interp")
+    p = tree_map(lambda t: t.to(dev), params)
+    build.reset_launches()
+    loss, _aux, grads = loss_and_grads(p, batch_to(make_batch(cfg, 32, 2),
+                                                   dev), cfg, numerics)
+    return float(loss), dict(build.LAUNCHES), {
+        n: g.float() for n, g in leaves_with_paths(grads)}
+
+
+@pytest.mark.parametrize("arch", ["yi_6b", "deepseek_moe_16b",
+                                  "mamba2_130m"])
+def test_bf16_interp_train_through_library_eval(arch, lib, dev):
+    """Under interp numerics the train path reads every table through
+    ``library_eval`` inside autograd (the table reads pass no gradient):
+    its bf16 loss bitwise the same path's with the plain evaluator on the
+    card, every gradient within one bf16 ulp of its leaf's largest
+    magnitude (autograd's index backward adds in no fixed order)."""
+    from repro_torch.numerics.ops import InterpNumerics
+
+    class PlainInterp(InterpNumerics):
+        _eval = PlainFusedNumerics._eval
+
+    loss, launches, grads = _interp_grads(arch, dev, InterpNumerics(lib))
+    p_loss, p_launches, p_grads = _interp_grads(arch, dev, PlainInterp(lib))
+    assert launches["library_eval"] > 0 and not any(p_launches.values())
+    assert loss == p_loss
+    for name, g in grads.items():
+        top = float(p_grads[name].abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top else 0.0
+        assert float((g - p_grads[name]).abs().max()) <= ulp, name
+
+
+def _layer_error(fn, params, x, dev):
+    """max |card bf16 - CPU float32| over twice max |CPU bf16 - CPU
+    float32| for ``fn(params, x)``'s output, the input's gradient and
+    every parameter's (a seeded float32 weight on the output), the same
+    bf16-valued tensors at both dtypes."""
+    from repro_torch.util.tree import leaves_with_paths, tree_map
+
+    w = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    runs = {}
+    for name, d, dt in (("card", dev, torch.bfloat16),
+                        ("cpu", torch.device("cpu"), torch.bfloat16),
+                        ("cpu32", torch.device("cpu"), torch.float32)):
+        p = tree_map(lambda t: t.to(d, torch.float32 if dt == torch.float32
+                                    else t.dtype).requires_grad_(), params)
+        xi = x.to(d, dt).requires_grad_()
+        y = fn(p, xi, dt)
+        leaves = [xi] + [t for _, t in leaves_with_paths(p)]
+        gs = torch.autograd.grad((y.float() * w.to(d)).sum(), leaves,
+                                 allow_unused=True)
+        runs[name] = [y.detach().float().cpu()] + [
+            torch.zeros(t.shape) if g is None else g.float().cpu()
+            for g, t in zip(gs, leaves)]
+    worst = 0.0
+    for a, b, c in zip(runs["card"], runs["cpu"], runs["cpu32"]):
+        own = float((b - c).abs().max())
+        err = float((a - c).abs().max())
+        worst = max(worst, 0.0 if err == 0 else err / (2 * own))
+    return worst
+
+
+def test_full_width_yi_block_bf16_fwd_bwd_on_card(dev):
+    """One full-width Yi-6B block (d 4096, 32 / 4 heads, d_ff 11008) at bf16
+    on the card, forward and backward over 64 tokens under exact
+    numerics: its output, the input's and every weight's gradient within
+    twice the CPU's own bf16 error."""
+    from repro_torch.numerics.ops import get_numerics
+
+    cfg = get_config("yi_6b").replace(n_layers=1)
+    seg, j, r, _ci, kind = tf.layer_slots(cfg)[0]
+    lp = tf.init_params(cfg, seed=0, device="cpu")["segments"][seg][j]
+    if r is not None:
+        lp = {k: v[r] for k, v in lp.items()}
+    x = torch.randn(1, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(3)).bfloat16()
+    pos = torch.arange(64, dtype=torch.int32)[None]
+
+    def block(p, xi, dt):
+        c = cfg.replace(param_dtype="float32" if dt == torch.float32
+                        else "bfloat16")
+        return tf.apply_layer(p, kind, xi, pos.to(xi.device), c,
+                              get_numerics("exact"), "train")[0]
+
+    assert _layer_error(block, lp, x, dev) <= 1
+
+
+def test_full_width_deepseek_moe_layer_bf16_fwd_bwd_on_card(dev):
+    """One full-width DeepSeekMoE-16B MoE block (64 experts of d_expert
+    1408 over d 2048, top 6, two shared) at bf16 on the card, forward and
+    backward over 64 tokens under exact numerics: every token whose
+    expert set differs from the CPU's bf16 block's at a near tie (gap
+    within the max |card - CPU| router probability), then, routed as the
+    CPU routes, the output, the input's and every weight's gradient within
+    twice the CPU's own bf16 error."""
+    from repro_torch.numerics.ops import get_numerics
+
+    cfg = get_config("deepseek_moe_16b").replace(n_layers=2)
+    seg, j, r, _ci, kind = tf.layer_slots(cfg)[1]
+    assert kind.ffn == "moe"
+    lp = tf.init_params(cfg, seed=0, device="cpu")["segments"][seg][j]
+    if r is not None:
+        lp = {k: v[r] for k, v in lp.items()}
+    x = torch.randn(1, 64, cfg.d_model,
+                    generator=torch.Generator().manual_seed(3)).bfloat16()
+    tp = _train_parity()
+    cpu, card = tp.ForcedRoutes(), tp.ForcedRoutes()
+    with torch.no_grad():
+        with cpu:
+            moe.moe_block(lp["ffn"], x, cfg, get_numerics("exact"))
+        with card:
+            moe.moe_block({k: v.to(dev) for k, v in lp["ffn"].items()},
+                          x.to(dev), cfg, get_numerics("exact"))
+    f = tp.flips_at(cpu.probs[0], cpu.ids_seen[0], card.probs[0],
+                    card.ids_seen[0], cfg.moe.top_k)
+    assert (f["gaps"] <= f["dprob"]).all(), f
+
+    def block(p, xi, dt):
+        c = cfg.replace(param_dtype="float32" if dt == torch.float32
+                        else "bfloat16")
+        with tp.ForcedRoutes([cpu.ids_seen[0]], upto=1):
+            return moe.moe_block(p, xi, c, get_numerics("exact"))
+
+    assert _layer_error(block, lp["ffn"], x, dev) <= 1

@@ -129,7 +129,9 @@ def test_params_from_jax_layout(setup):
                 cfg.d_model, 2 * seg.pattern[0].mlp_ff)
     np.testing.assert_array_equal(
         p["embed"]["head"].numpy(), np.asarray(jp["embed"]["head"]))
-    # every leaf keeps the reference's dtype; a cast leaf is refused
+    # every leaf keeps the reference's dtype; a leaf cast to another dtype
+    # than its own or the parameter dtype (which an optimizer step writes
+    # every leaf back in: a trained state's router is bf16) is refused
     if cfg.family == "moe":
         bf = cfg.replace(param_dtype="bfloat16")
         jbf = jtf.init_params(jax.random.key(1),
@@ -141,9 +143,17 @@ def test_params_from_jax_layout(setup):
         assert got["segments"]["seg1"]["0"]["ffn"]["wi"].dtype == \
             torch.bfloat16
         router = tree["segments"]["seg1"]["0"]["ffn"]
-        router["router"] = np.asarray(jnp.asarray(router["router"]).astype(
-            jnp.bfloat16))
+        f32 = router["router"]
+        router["router"] = np.asarray(jnp.asarray(f32).astype(jnp.bfloat16))
+        got = params_from_jax(tree, bf, "cpu")
+        assert got["segments"]["seg1"]["0"]["ffn"]["router"].dtype == \
+            torch.bfloat16
+        router["router"] = f32.astype(np.float16)
         with pytest.raises(TypeError, match="router"):
+            params_from_jax(tree, bf, "cpu")
+        router["router"] = f32
+        router["wi"] = np.asarray(router["wi"]).astype(np.float32)
+        with pytest.raises(TypeError, match="wi"):
             params_from_jax(tree, bf, "cpu")
 
 

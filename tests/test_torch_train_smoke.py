@@ -6,10 +6,9 @@ rtol 2e-4 of the reference's), the forward's logits of shape (B, S, V)
 and finite, and prefill's last logits within 2e-2 of the forward's with
 three finite decode steps after it. Gradients are held leaf by leaf
 against ``jax.grad`` of the reference's (within 2e-3 of each leaf's
-largest magnitude) for the families whose train path differs most from
-the dense one: the MoE aux loss (``deepseek_moe_16b``), the SSD mixer
-(``mamba2_130m``), MLA (``minicpm3_4b``) and the encoder's non-causal
-attention with cross attention (``whisper_tiny``).
+largest magnitude) for all ten families, the aux loss at rtol 2e-4 (the
+MoE families'; zero elsewhere). The bfloat16 train path is held in
+``tests/test_torch_bf16_train_*.py``.
 """
 from __future__ import annotations
 
@@ -35,8 +34,7 @@ from repro_torch.train.step import batch_to, loss_and_grads
 from repro_torch.util.tree import leaves_with_paths
 
 SEQ, BATCH = 64, 2
-GRAD_ARCHS = ("deepseek_moe_16b", "mamba2_130m", "minicpm3_4b",
-              "whisper_tiny")
+GRAD_ARCHS = tuple(ARCH_IDS)
 
 
 @pytest.fixture(autouse=True, scope="module")
